@@ -1,0 +1,483 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (``nf4_tpu_torch``) on one NVIDIA GPU.
+
+Run from the repository root on a machine with an H100 and the CUDA
+toolkit:
+
+    python3 chip_smoke.py [--out results.json] [--profile]
+
+Phases, each of which fails the run on any error:
+
+1. the card's name and power limit; build the CUDA kernels from
+   ``nf4_tpu_torch/csrc`` (one nvcc per source, in parallel);
+2. kernel A (exact dequant) against its plain version at the Llama-3-8B
+   shapes, bit for bit, NF4 and FP4, bf16 and fp16;
+3. kernel B (fused 4-bit matmul) against its plain version at the four
+   projection shapes, decode B=4 and prefill B=1024, max rel err < 2e-2;
+4. kernel C (prefill flash attention) against its plain version at
+   B=1, H=32, KV=8, D=128, S=1024, T=8192, with and without a window;
+5. the two main paths with every launch count set to 0 just before and
+   read just after: the dequant API on Llama-3-8B-shaped weights, then
+   greedy serving of Llama-3-8B at full width and depth (synthetic packed
+   weights from a seed) answering 6 requests of 32 new tokens, one prompt
+   of 1024 tokens; plus a small model on the card against the same model
+   on the CPU.  With ``--profile``, phase 5 also prints a ``torch.profiler``
+   breakdown of a decode chunk and a 1024-token prefill: wall time, the
+   device's busy share and the device kernels by time.
+
+Kernel and library times are device times: many calls captured in one
+CUDA graph, replayed, and timed with CUDA events (an eager loop of small
+calls would time the host's launch rate instead).  Plain versions are
+timed eagerly with CUDA events.  Inputs rotate through copies larger than
+the 50 MB L2 cache where one call's inputs fit in it.  ``bound_ms`` is the larger of bytes / 3.35 TB/s and operations /
+peak rate (989 TFLOP/s bf16 tensor, 67 TFLOP/s fp32), the H100 SXM data
+sheet's figures.  The line before the last holds the card's name and power
+limit; the last line is the JSON result.  Without a CUDA device the script
+exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import math
+import subprocess
+import sys
+import time
+import types
+
+PEAK_BYTES_S = 3.35e12
+PEAK_BF16_S = 989e12
+PEAK_FP32_S = 67e12
+L2_BYTES = 50 * 2**20
+
+
+def check(cond, msg):
+    if not cond:
+        raise RuntimeError(msg)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(calls, iters=None, graph=True):
+    """Mean ms of one call, cycling through ``calls`` (closures over input
+    copies, so a weight is not served from L2 by the previous launch).
+    ``graph``: capture the ``iters`` calls in one CUDA graph and time its
+    replay (device time); else time an eager loop."""
+    import torch
+
+    for c in calls:  # warm up: builds, caches, allocator pools
+        c()
+    if iters is None:
+        iters = max(10, len(calls))
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for i in range(iters):
+                calls[i % len(calls)]()
+        g.replay()
+        torch.cuda.synchronize()
+        start.record()
+        g.replay()
+    else:
+        start.record()
+        for i in range(iters):
+            calls[i % len(calls)]()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def copies_for(nbytes: int) -> int:
+    """Input copies whose total is at least twice the L2 cache."""
+    return max(1, min(16, math.ceil(2 * L2_BYTES / max(nbytes, 1))))
+
+
+def bound_ms(nbytes, flops, peak):
+    return 1e3 * max(nbytes / PEAK_BYTES_S, flops / peak)
+
+
+def _device_us(e) -> float:
+    return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
+
+
+def profile_breakdown(label: str, fn, rows: int = 15) -> None:
+    """Run ``fn`` once under ``torch.profiler`` and print the wall time, the
+    device's busy share of it and the device kernels and copies by time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # warm up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # CPU ops also carry the device time of the kernels they launched; keep
+    # only what ran on the card, so nothing counts twice.
+    events = [e for e in prof.key_averages() if e.device_type != DeviceType.CPU and _device_us(e) > 0]
+    busy = sum(_device_us(e) for e in events) / 1e6
+    print(f"profile {label}: wall {wall * 1e3:.2f} ms under the profiler; device busy {busy * 1e3:.2f} ms "
+          f"= {busy / wall:.1%}; device kernels and copies by time:")
+    for e in sorted(events, key=_device_us, reverse=True)[:rows]:
+        print(f"  {_device_us(e) / 1e3:9.3f} ms  {e.count:6d} calls  {e.key[:90]}")
+
+
+def random_packed(gen, m, n, dev, quant_type="nf4"):
+    import torch
+
+    from nf4_tpu_torch.nf4.format import PackedNF4, pad_to
+
+    m_pad, n_pad = pad_to(m, 128), pad_to(n, 1024)
+    return PackedNF4(
+        packed=torch.randint(0, 256, (n_pad // 2, m_pad), generator=gen, device=dev, dtype=torch.uint8),
+        scales=torch.empty((n_pad // 64, m_pad), device=dev).uniform_(0.001, 0.02, generator=gen),
+        shape=(m, n), padded_shape=(m_pad, n_pad), dtype=torch.bfloat16, quant_type=quant_type,
+    )
+
+
+LLAMA3_8B_PROJ = {  # name: (out m, in n, output dtype name)
+    "wqkv": (6144, 4096, "bf16"),
+    "wo": (4096, 4096, "fp32"),
+    "w_gateup": (28672, 4096, "bf16"),
+    "w_down": (4096, 14336, "fp32"),
+}
+
+
+def phase_dequant(gen, dev):
+    import torch
+
+    from nf4_tpu_torch.ops.dequant import _dequant_t_kernel, _dequant_t_plain
+
+    res = {"max_abs_err": 0.0}
+    for name in ("wqkv", "w_down"):
+        m, n, _ = LLAMA3_8B_PROJ[name]
+        for qt in ("nf4", "fp4"):
+            pw = random_packed(gen, m, n, dev, qt)
+            for dt in (torch.bfloat16, torch.float16):
+                got = _dequant_t_kernel(pw.packed, pw.scales, dt, qt)
+                want = _dequant_t_plain(pw.packed, pw.scales, dt, qt)
+                torch.cuda.synchronize()
+                check(torch.equal(got.view(torch.int16), want.view(torch.int16)),
+                      f"kernel A differs from its plain version at {name} {qt} {dt}")
+                err = (got.float() - want.float()).abs().max().item()
+                res["max_abs_err"] = max(res["max_abs_err"], err)
+        pw = random_packed(gen, m, n, dev)
+        in_bytes = pw.packed.numel() + pw.scales.numel() * 4
+        out_bytes = pw.packed.numel() * 2 * 2
+        ws = [pw] + [random_packed(gen, m, n, dev) for _ in range(copies_for(in_bytes) - 1)]
+        ms = time_ms([lambda w=w: _dequant_t_kernel(w.packed, w.scales, torch.bfloat16) for w in ws])
+        plain = time_ms([lambda w=w: _dequant_t_plain(w.packed, w.scales, torch.bfloat16) for w in ws], iters=5, graph=False)
+        bnd = bound_ms(in_bytes + out_bytes, pw.packed.numel() * 2, PEAK_FP32_S)
+        res[name] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, gbs=(in_bytes + out_bytes) / ms / 1e6)
+        print(f"phase 2 kernel A {name} m={m} n={n} bf16: bit-exact; {ms:.4f} ms "
+              f"({res[name]['gbs']:.0f} GB/s), plain {plain:.4f} ms, bound {bnd:.4f} ms")
+    return res
+
+
+def phase_matmul(gen, dev):
+    import torch
+
+    from nf4_tpu_torch.ops.matmul import _bf16_weight_t, _matmul_bf16_kernel, _matmul_bf16_plain
+
+    dts = {"bf16": torch.bfloat16, "fp32": torch.float32}
+    res = {}
+    for b in (4, 1024):
+        b_pad = 16 if b <= 16 else b
+        for name, (m, n, od) in LLAMA3_8B_PROJ.items():
+            pw = random_packed(gen, m, n, dev)
+            x = torch.zeros((b_pad, n), device=dev, dtype=torch.bfloat16)
+            x[:b] = torch.randn((b, n), generator=gen, device=dev).to(torch.bfloat16)
+            got = _matmul_bf16_kernel(x, pw.packed, pw.scales, dts[od]).float()
+            want = _matmul_bf16_plain(x, pw.packed, pw.scales, dts[od]).float()
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            rel = err / want.abs().max().item()
+            check(rel < 2e-2, f"kernel B max rel err {rel:.3g} at {name} B={b}")
+            w_bytes = pw.packed.numel() + pw.scales.numel() * 4
+            ws = [pw] + [random_packed(gen, m, n, dev) for _ in range(copies_for(w_bytes) - 1)]
+            ms = time_ms([lambda w=w: _matmul_bf16_kernel(x, w.packed, w.scales, dts[od]) for w in ws])
+            plain = time_ms([lambda w=w: _matmul_bf16_plain(x, w.packed, w.scales, dts[od]) for w in ws], iters=3, graph=False)
+            # Yardstick only (the port never calls it): torch.matmul on the
+            # weight dequantized to bf16 ahead of time.
+            wts = [_bf16_weight_t(w.packed, w.scales, "nf4") for w in ws[:max(1, copies_for(2 * m * n))]]
+            lib = time_ms([lambda wt=wt: torch.matmul(x, wt) for wt in wts])
+            del wts
+            io = x.numel() * 2 + b_pad * pw.packed.shape[1] * (2 if od == "bf16" else 4)
+            bnd = bound_ms(w_bytes + io, 2 * b_pad * pw.padded_shape[1] * pw.padded_shape[0], PEAK_BF16_S)
+            res[(name, b)] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd, max_abs_err=err, rel=rel)
+            print(f"phase 3 kernel B {name} B={b} m={m} n={n} out={od}: rel err {rel:.2e}; {ms:.4f} ms, "
+                  f"plain {plain:.4f} ms, torch.matmul on bf16 weight {lib:.4f} ms, bound {bnd:.4f} ms")
+    return res
+
+
+def phase_flash(gen, dev):
+    import torch
+    import torch.nn.functional as F
+
+    from nf4_tpu_torch.ops.attention import _flash_kernel, _flash_plain
+
+    b, h, kv, d, s, t = 1, 32, 8, 128, 1024, 8192
+    g = h // kv
+    q = torch.randn((b, h, s, d), generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn((b, kv, t, d), generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn((b, kv, t, d), generator=gen, device=dev).to(torch.bfloat16)
+    k_rep, v_rep = k.repeat_interleave(g, dim=1), v.repeat_interleave(g, dim=1)
+    res = {}
+    # (a) a fresh 1024-token prompt at positions 0..1023 (the serving
+    # prefill); (b) the last 1024 positions of a full 8192 cache under a
+    # 4096-slot window.
+    for case, pos0, lens, window in (("causal", 0, s, None), ("window", t - s, t, 4096)):
+        pos = torch.full((b,), pos0, device=dev, dtype=torch.int32)
+        seq = torch.full((b,), lens, device=dev, dtype=torch.int32)
+        got = _flash_kernel(q, k, v, pos, seq, d**-0.5, window).float()
+        want = _flash_plain(q, k, v, pos, seq, d**-0.5, window).float()
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        # Under the window each output averages ~1500 values of v, so |out|
+        # is ~0.02 there: the limit also scales with the reference's size.
+        limit = 2e-2 * want.abs().max().item()
+        check(err <= limit and torch.allclose(got, want, rtol=2e-2, atol=2e-2),
+              f"kernel C differs from plain ({case}): max abs err {err}, limit {limit}")
+        if window is not None:
+            # The check is sharp enough to see a window off by one key tile.
+            for w in (window - 64, window + 64):
+                off = (_flash_plain(q, k, v, pos, seq, d**-0.5, w).float() - got).abs().max().item()
+                check(off > limit, f"a window of {w} passes the check of window {window}: {off} <= {limit}")
+                print(f"phase 4 kernel C against a plain window of {w}: max abs diff {off:.2e} "
+                      f"> limit {limit:.2e} (fails, as it must)")
+        ms = time_ms([lambda: _flash_kernel(q, k, v, pos, seq, d**-0.5, window)])
+        plain = time_ms([lambda: _flash_plain(q, k, v, pos, seq, d**-0.5, window)], iters=3, graph=False)
+        qpos = pos0 + torch.arange(s, device=dev)[:, None]
+        tk = torch.arange(t, device=dev)[None, :]
+        vis = (tk <= qpos) & (tk < lens)
+        if window is not None:
+            vis &= tk > qpos - window
+        if case == "causal":  # the same function over the live slots
+            kl, vl = k_rep[:, :, :s], v_rep[:, :, :s]
+            lib = time_ms([lambda: F.scaled_dot_product_attention(q, kl, vl, is_causal=True)])
+        else:
+            lib = time_ms([lambda: F.scaled_dot_product_attention(q, k_rep, v_rep, attn_mask=vis)])
+        pairs = int(vis.sum().item()) * h  # visible (query, key) pairs over all heads
+        keys = int(vis.any(dim=0).sum().item())  # key slots any query reads
+        nbytes = 2 * q.numel() * 2 + 2 * b * kv * keys * d * 2
+        bnd = bound_ms(nbytes, 4 * pairs * d, PEAK_BF16_S)
+        res[case] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd, max_abs_err=err,
+                         tflops=4 * pairs * d / ms / 1e9)
+        print(f"phase 4 kernel C {case} pos0={pos0} seq_len={lens} window={window}: max abs err {err:.2e} "
+              f"(limit {limit:.2e}); "
+              f"{ms:.4f} ms ({res[case]['tflops']:.1f} TFLOP/s), plain {plain:.4f} ms, "
+              f"SDPA {lib:.4f} ms, bound {bnd:.4f} ms")
+    return res
+
+
+def bnb_module(rng, m, n):
+    """A duck-typed bitsandbytes Linear4bit with random contents."""
+    import numpy as np
+
+    from nf4_tpu_torch.nf4.lut import dynamic_code
+
+    nblocks = m * n // 64
+    qs = types.SimpleNamespace(
+        absmax=rng.integers(0, 256, nblocks, dtype=np.uint8),
+        state2=types.SimpleNamespace(
+            absmax=rng.uniform(0.01, 0.1, -(-nblocks // 256)).astype(np.float32),
+            code=dynamic_code(),
+        ),
+        offset=0.02, dtype="torch.bfloat16", quant_type="nf4",
+    )
+    weight = types.SimpleNamespace(data=rng.integers(0, 256, m * n // 2, dtype=np.uint8), quant_state=qs)
+    return types.SimpleNamespace(weight=weight, out_features=m, in_features=n)
+
+
+def params_to(params, device):
+    """A copy of the port's params on ``device``."""
+    from nf4_tpu_torch.nf4.format import PackedNF4
+
+    def mv(w):
+        if isinstance(w, PackedNF4):
+            return dataclasses.replace(w, packed=w.packed.to(device), scales=w.scales.to(device))
+        return w.to(device)
+
+    layers = [type(lp)(**{f.name: mv(getattr(lp, f.name)) for f in dataclasses.fields(lp)}) for lp in params.layers]
+    return dataclasses.replace(params, embed=mv(params.embed), layers=layers,
+                               final_norm=mv(params.final_norm), lm_head=mv(params.lm_head))
+
+
+def phase_main_paths(dev, profile=False):
+    import numpy as np
+    import torch
+
+    import nf4_tpu_torch
+    from nf4_tpu_torch.models import configs
+    from nf4_tpu_torch.models.llama import LlamaConfig, init_kv_cache, prefill
+    from nf4_tpu_torch.models.synthetic import synthetic_params
+    from nf4_tpu_torch.ops import _cuda
+    from nf4_tpu_torch.serve.engine import Engine
+
+    rng = np.random.default_rng(0)
+    # Main path 1: the dequant API on a Llama-3-8B wqkv-shaped bnb module.
+    module = bnb_module(rng, 6144, 4096)
+    _cuda.reset_launch_counts()
+    w = nf4_tpu_torch.dequantize_nf4_module(module)
+    torch.cuda.synchronize()
+    dequant_counts = _cuda.launch_counts()
+    check(w.shape == (6144, 4096) and w.dtype == torch.bfloat16 and w.is_cuda, "dequant API output")
+    ref = nf4_tpu_torch.dequantize_nf4_module(module, device="cpu")
+    check(torch.equal(w.cpu().view(torch.int16), ref.view(torch.int16)), "dequant API differs from the CPU path")
+    print(f"phase 5a dequant API (6144x4096 module): bit-exact vs the CPU path; launches {dequant_counts}")
+    check(dequant_counts["dequant_t"] > 0, "the dequant API did not launch kernel A")
+    del w, ref
+
+    # Main path 2: greedy serving of Llama-3-8B, full width and depth.
+    cfg = configs.LLAMA3_8B
+    t0 = time.perf_counter()
+    params = synthetic_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    packed_gb = sum(
+        w.nbytes for lp in params.layers for w in (lp.wqkv, lp.wo, lp.w_gateup, lp.w_down)
+    ) / 1e9
+    print(f"phase 5b Llama-3-8B synthetic params: {packed_gb:.3f} GB packed+scales, built in {build_s:.1f} s")
+    eng = Engine(params, cfg, batch_size=4, eos_token=-1, decode_chunk=8)
+    lengths = (1024, 37, 300, 64, 700, 9)
+    prompts = [list(map(int, rng.integers(0, cfg.vocab_size, n))) for n in lengths]
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    results = eng.generate(prompts, max_new_tokens=32)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    serve_counts = _cuda.launch_counts()
+    check(len(results) == len(prompts), "every request answered")
+    for r, p in zip(results, prompts):
+        check(r.prompt == p and len(r.tokens) == 32, "32 new tokens per request")
+        check(all(0 <= t < cfg.vocab_size for t in r.tokens), "tokens in the vocabulary")
+    check(serve_counts["matmul_bf16"] > 0 and serve_counts["flash_attention"] > 0,
+          f"serving did not launch kernels B and C: {serve_counts}")
+    print(f"phase 5b generate: 6 requests x 32 tokens in {gen_s:.2f} s; launches {serve_counts}; "
+          f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+
+    # Throughput of the engine's two steps, timed alone.
+    cache = init_kv_cache(cfg, 4)
+    toks = np.asarray([prompts[0]], np.int32)
+    step = lambda: eng.prefill_group(cache, toks, np.asarray([1024], np.int32), np.asarray([0]))
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = step()
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    check(bool(torch.isfinite(logits).all()) and logits.shape == (1, cfg.vocab_size), "finite prefill logits")
+    pos = np.full(4, 1024, np.int64)
+    act = np.ones(4, bool)
+    cur = np.zeros(4, np.int32)
+    eng.decode_steps(cache, cur, pos, act, 8)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        eng.decode_steps(cache, cur, pos, act, 8)
+    decode_s = (time.perf_counter() - t0) / 24
+    print(f"phase 5b prefill 1024 tokens: {prefill_s * 1e3:.1f} ms = {1024 / prefill_s:.0f} tokens/s; "
+          f"decode B=4 at position 1024: {decode_s * 1e3:.2f} ms/step = {4 / decode_s:.1f} tokens/s "
+          f"(weight-stream bound ~1.5 ms/step) on {card_line()}")
+    if profile:
+        profile_breakdown("decode chunk of 8 steps, batch 4, position 1024",
+                          lambda: eng.decode_steps(cache, cur, np.full(4, 1024, np.int64), act, 8))
+        profile_breakdown("prefill 1024 tokens", step)
+    serving = dict(generate_s=gen_s, prefill_tok_s=1024 / prefill_s, decode_ms_step=decode_s * 1e3,
+                   decode_tok_s=4 / decode_s, packed_gb=packed_gb)
+    del eng, params, cache
+
+    # A small model on the card against the same weights on the CPU.
+    small = dataclasses.replace(
+        LlamaConfig(), vocab_size=512, hidden_size=256, intermediate_size=512, num_layers=2,
+        num_heads=4, num_kv_heads=2, head_dim=128, max_seq_len=256,
+    )
+    p_gpu = synthetic_params(small, seed=1)
+    p_cpu = params_to(p_gpu, "cpu")
+    tk = torch.as_tensor(rng.integers(0, 512, (2, 100)), dtype=torch.int32)
+    lg, _ = prefill(p_gpu, small, tk.to(dev))
+    lc, _ = prefill(p_cpu, small, tk)
+    diff = (lg.cpu() - lc).abs().max().item()
+    scale = lc.abs().max().item()
+    check(bool(torch.isfinite(lg).all()) and diff <= 2e-2 * scale, f"small model: card vs CPU {diff} at scale {scale}")
+    print(f"phase 5c small model logits, card vs CPU plain path: max abs diff {diff:.2e} (max |logit| {scale:.2f})")
+    return dequant_counts, serve_counts, serving
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out", help="also write the results as JSON to this file")
+    ap.add_argument("--profile", action="store_true",
+                    help="also print a torch.profiler breakdown of a decode chunk and a prefill")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 1
+    import nf4_tpu_torch  # noqa: F401  (fails outside the repository)
+    from nf4_tpu_torch.ops import _cuda
+
+    card = card_line()
+    print(f"phase 1 card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    t0 = time.perf_counter()
+    reports = _cuda.build()
+    print(f"phase 1 built {sorted(reports) or 'nothing (cached)'} in {time.perf_counter() - t0:.1f} s")
+    for name, rep in sorted(reports.items()):
+        for line in rep.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {name}: {line.strip()}")
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    deq = phase_dequant(gen, dev)
+    mm = phase_matmul(gen, dev)
+    fl = phase_flash(gen, dev)
+    dequant_counts, serve_counts, serving = phase_main_paths(dev, args.profile)
+
+    decode = [mm[(name, 4)] for name in LLAMA3_8B_PROJ]
+    kernels = [
+        dict(name="dequant_t", route="cuda", source="nf4_tpu_torch/csrc/dequant.cu",
+             replaces="nf4_tpu/ops/dequant.py:86", launches=dequant_counts["dequant_t"],
+             max_abs_err=deq["max_abs_err"], ms=deq["w_down"]["ms"], plain_ms=deq["w_down"]["plain_ms"],
+             bound_ms=deq["w_down"]["bound_ms"], bound_by="bytes", library_ms=None),
+        # One decode layer's four projections at B=4 (sums of the four shapes).
+        dict(name="matmul_bf16", route="cuda", source="nf4_tpu_torch/csrc/matmul.cu",
+             replaces="nf4_tpu/ops/matmul.py:148", launches=serve_counts["matmul_bf16"],
+             max_abs_err=max(r["max_abs_err"] for r in mm.values()),
+             ms=sum(r["ms"] for r in decode), plain_ms=sum(r["plain_ms"] for r in decode),
+             bound_ms=sum(r["bound_ms"] for r in decode), bound_by="bytes",
+             library_ms=sum(r["library_ms"] for r in decode)),
+        dict(name="flash_attention", route="cuda", source="nf4_tpu_torch/csrc/flash_attn.cu",
+             replaces="nf4_tpu/ops/attention.py:371", launches=serve_counts["flash_attention"],
+             max_abs_err=max(r["max_abs_err"] for r in fl.values()), ms=fl["causal"]["ms"],
+             plain_ms=fl["causal"]["plain_ms"], bound_ms=fl["causal"]["bound_ms"],
+             bound_by="operations", library_ms=fl["causal"]["library_ms"]),
+    ]
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(dict(card=card, dequant=deq, matmul={f"{k[0]} B={k[1]}": v for k, v in mm.items()},
+                           flash=fl, serving=serving, kernels=kernels), f, indent=1)
+    print(json.dumps({"kernels": kernels}))
+    print(card_line())
+    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}
+    print(json.dumps({"ok": True, "device": device}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,61 @@
+"""nf4_tpu_torch -- the NF4 engine in PyTorch, with hand-written CUDA kernels
+for NVIDIA Hopper (sm_90a).
+
+A port of the JAX package ``nf4_tpu`` that keeps its packed weight layout
+byte for byte and its public names.  Entry points run on CUDA unless the
+caller passes ``device="cpu"``; on the CPU every kernel is replaced by its
+plain PyTorch version (the tests' path), and without a card they raise
+rather than fall back.
+
+* :func:`dequantize_nf4_module` -- dequantize a bitsandbytes-style
+  ``Linear4bit`` module (duck-typed), bit-exact.
+* :class:`PackedNF4`, :func:`pack_for_tpu` -- the packed layout (the name
+  is the JAX package's; the layout is the same here).
+* :func:`dequantize` / :func:`dequantize_t` -- exact dequant (kernel
+  ``csrc/dequant.cu``).
+* :func:`nf4_matmul` -- fused dequant-matmul for bf16 activations (kernel
+  ``csrc/matmul.cu``).
+"""
+
+from .nf4.format import PackedNF4, pack_for_tpu
+from .nf4.lut import FP4_CODE, NF4_CODE, dynamic_code, get_code
+from .nf4.reference import QuantState
+from .ops.dequant import dequantize, dequantize_t
+from .ops.matmul import nf4_matmul
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "NF4_CODE",
+    "FP4_CODE",
+    "get_code",
+    "dynamic_code",
+    "QuantState",
+    "PackedNF4",
+    "pack_for_tpu",
+    "dequantize",
+    "dequantize_t",
+    "nf4_matmul",
+    "dequantize_nf4_module",
+    "reset_dequantize_state",
+]
+
+
+def dequantize_nf4_module(module, device=None):
+    """Dequantize a bitsandbytes-style ``Linear4bit`` module to its [m, n]
+    weight on ``device`` (default ``cuda``): fp16 when the module's
+    quant_state says fp16, else bf16 (the JAX package's rule)."""
+    import torch
+
+    from .nf4.adapters import quant_state_from_module
+
+    state = quant_state_from_module(module)
+    dtype = torch.float16 if state.dtype == torch.float16 else torch.bfloat16
+    return dequantize(pack_for_tpu(state, dtype=dtype, device=device))
+
+
+def reset_dequantize_state():
+    """A no-op kept for API parity: the port caches nothing that needs
+    clearing (its kernels build once per source into ``_build/`` and load
+    once per process; PyTorch runs eagerly, so there are no traced
+    programs to drop)."""

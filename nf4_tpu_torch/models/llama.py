@@ -1,0 +1,286 @@
+"""Llama inference over packed 4-bit weights (dense Llama, single device).
+
+The counterpart of the inference half of the JAX package's
+``models/llama.py``: RMSNorm, rotary embeddings, GQA attention over a KV
+cache, SwiGLU MLP.  Every projection goes through one call site,
+:func:`_matmul`, which runs the fused 4-bit matmul.
+
+PyTorch idiom in place of the JAX one: layers are a Python list iterated by
+a loop (the JAX package scans stacked layers), and :func:`forward` writes
+the new keys and values into the cache IN PLACE (the JAX package returns a
+new cache); it returns the same cache object for a like-for-like signature.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+
+from ..nf4.format import PackedNF4
+from ..ops.attention import attention
+from ..ops.matmul import nf4_matmul
+from ..utils.device import resolve_device
+
+__all__ = [
+    "LlamaConfig",
+    "LayerParams",
+    "LlamaParams",
+    "KVCache",
+    "init_kv_cache",
+    "rms_norm",
+    "rope_tables",
+    "apply_rope",
+    "split_fused",
+    "forward",
+    "prefill",
+    "decode_step",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class LlamaConfig:
+    """The JAX package's configuration fields, so its configuration dicts
+    load unchanged; :func:`forward` raises for the ones this port does not
+    serve yet (see :func:`check_supported`)."""
+
+    vocab_size: int = 32000
+    hidden_size: int = 2048
+    intermediate_size: int = 5632
+    num_layers: int = 22
+    num_heads: int = 32
+    num_kv_heads: int = 4
+    head_dim: int = 64
+    rope_theta: float = 10000.0
+    rope_scaling: Optional[tuple] = None
+    rms_norm_eps: float = 1e-5
+    max_seq_len: int = 2048
+    sliding_window: Optional[int] = None
+    attn_bias: bool = False
+    qk_norm: bool = False
+    activation: str = "silu"
+    rmsnorm_one_plus: bool = False
+    scale_embeddings: bool = False
+    quantize_lm_head: bool = False
+    dtype: torch.dtype = torch.bfloat16
+    quantize: bool = True
+    quant_type: str = "nf4"
+    kv_quant: bool = False
+    tp_shards: int = 1
+    num_experts: int = 1
+    experts_per_token: int = 2
+    moe_norm_topk: bool = True
+    moe_shard: str = "tensor"
+    attn_logit_softcapping: Optional[float] = None
+    final_logit_softcapping: Optional[float] = None
+    query_pre_attn_scalar: Optional[float] = None
+    sliding_window_pattern: int = 1
+    rope_local_theta: Optional[float] = None
+
+    @property
+    def attn_scale(self) -> float:
+        base = self.query_pre_attn_scalar if self.query_pre_attn_scalar is not None else self.head_dim
+        return float(base) ** -0.5
+
+    @property
+    def q_dim(self) -> int:
+        return self.num_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.num_kv_heads * self.head_dim
+
+
+def check_supported(cfg: LlamaConfig) -> None:
+    """Raise for configuration features this port does not serve yet."""
+    missing = {
+        "quantize=False (dense projections)": not cfg.quantize,
+        "kv_quant": cfg.kv_quant,
+        "num_experts > 1": cfg.num_experts > 1,
+        "attn_bias": cfg.attn_bias,
+        "qk_norm": cfg.qk_norm,
+        "attn_logit_softcapping": cfg.attn_logit_softcapping is not None,
+        "final_logit_softcapping": cfg.final_logit_softcapping is not None,
+        "rope_scaling": cfg.rope_scaling is not None,
+        "rope_local_theta": cfg.rope_local_theta is not None,
+        "tp_shards > 1": cfg.tp_shards > 1,
+        "rmsnorm_one_plus": cfg.rmsnorm_one_plus,
+        "scale_embeddings": cfg.scale_embeddings,
+        "sliding_window_pattern > 1": cfg.sliding_window_pattern > 1,
+        f"activation={cfg.activation!r}": cfg.activation != "silu",
+    }
+    bad = [name for name, on in missing.items() if on]
+    if bad:
+        raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
+
+
+@dataclasses.dataclass
+class LayerParams:
+    """One decoder layer.  q+k+v and gate+up are fused, one matmul each."""
+
+    wqkv: PackedNF4  # [q_dim + 2*kv_dim, hidden]
+    wo: PackedNF4  # [hidden, q_dim]
+    w_gateup: PackedNF4  # [2*intermediate, hidden]
+    w_down: PackedNF4  # [hidden, intermediate]
+    input_norm: torch.Tensor  # fp32 [hidden]
+    post_attn_norm: torch.Tensor  # fp32 [hidden]
+
+
+@dataclasses.dataclass
+class LlamaParams:
+    embed: torch.Tensor  # [vocab, hidden], cfg.dtype
+    layers: List[LayerParams]
+    final_norm: torch.Tensor  # fp32 [hidden]
+    lm_head: Union[PackedNF4, torch.Tensor]  # dense [vocab, hidden] cfg.dtype, or packed
+
+
+@dataclasses.dataclass
+class KVCache:
+    k: torch.Tensor  # [L, B, KV, S_max, D]
+    v: torch.Tensor
+
+
+def init_kv_cache(cfg: LlamaConfig, batch_size: int, device=None) -> KVCache:
+    """A zeroed cfg.dtype (bf16) cache on ``device`` (default ``cuda``)."""
+    if cfg.kv_quant:
+        raise NotImplementedError("not ported yet: kv_quant")
+    dev = resolve_device(device)
+    shape = (cfg.num_layers, batch_size, cfg.num_kv_heads, cfg.max_seq_len, cfg.head_dim)
+    return KVCache(
+        k=torch.zeros(shape, dtype=cfg.dtype, device=dev),
+        v=torch.zeros(shape, dtype=cfg.dtype, device=dev),
+    )
+
+
+def _dense_logits(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w.T`` of bf16 operands with an fp32 result (no bf16 rounding of
+    the sums: greedy argmax over a large vocabulary needs the fp32 values)."""
+    x2 = x.reshape(-1, x.shape[-1])
+    if x2.is_cuda:
+        y = torch.mm(x2, w.t(), out_dtype=torch.float32)
+    else:
+        y = x2.float() @ w.float().t()
+    return y.reshape(*x.shape[:-1], w.shape[0])
+
+
+def _matmul(x: torch.Tensor, w: PackedNF4, out_dtype=None) -> torch.Tensor:
+    """The one call site of every projection (int8-recoded weights join
+    here when their kernel is ported)."""
+    return nf4_matmul(x, w, out_dtype=out_dtype or x.dtype)
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * weight).to(x.dtype)
+
+
+def rope_tables(cfg: LlamaConfig, positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin [..., D] for the HF 'rotate_half' convention (default rope)."""
+    half = cfg.head_dim // 2
+    exps = torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
+    inv_freq = 1.0 / (cfg.rope_theta ** exps)
+    angles = positions.float()[..., None] * inv_freq
+    emb = torch.cat([angles, angles], dim=-1)
+    return torch.cos(emb), torch.sin(emb)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x [B, H, S, D]; cos/sin [B, S, D] (broadcast over heads)."""
+    half = x.shape[-1] // 2
+    rotated = torch.cat([-x[..., half:], x[..., :half]], dim=-1)
+    return (x.float() * cos[:, None] + rotated.float() * sin[:, None]).to(x.dtype)
+
+
+def split_fused(y: torch.Tensor, sizes) -> List[torch.Tensor]:
+    """Split the output features of a fused matmul: y [..., sum(sizes)]."""
+    return list(torch.split(y, list(sizes), dim=-1))
+
+
+def _write_kv(layer_cache: torch.Tensor, new: torch.Tensor, positions: torch.Tensor) -> None:
+    """In place: layer_cache [B, KV, T, D][b, :, positions[b, s]] = new[b, :, s].
+    Every position must be < T."""
+    b, s = positions.shape
+    rows = torch.arange(b, device=positions.device)[:, None].expand(b, s)
+    layer_cache.transpose(1, 2)[rows, positions.long()] = new.transpose(1, 2).to(layer_cache.dtype)
+
+
+def _layer_forward(cfg, x, lp: LayerParams, layer_k, layer_v, positions, seq_lens, cos, sin, kv_len):
+    """One decoder layer; x [B, S, hidden]; writes this call's K/V in place."""
+    b, s, _ = x.shape
+    attn_in = rms_norm(x, lp.input_norm, cfg.rms_norm_eps)
+    qkv = _matmul(attn_in, lp.wqkv)  # one kernel for q+k+v
+    q, k, v = split_fused(qkv, (cfg.q_dim, cfg.kv_dim, cfg.kv_dim))
+    q = q.reshape(b, s, cfg.num_heads, cfg.head_dim).transpose(1, 2)
+    k = k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2)
+    v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    _write_kv(layer_k, k, positions)
+    _write_kv(layer_v, v, positions)
+    attn = attention(
+        q, layer_k, layer_v, positions, seq_lens,
+        scale=cfg.attn_scale,
+        sliding_window=cfg.sliding_window,
+        kv_len=kv_len,
+    )
+    attn = attn.transpose(1, 2).reshape(b, s, cfg.q_dim)
+    x = x + _matmul(attn, lp.wo, out_dtype=torch.float32).to(x.dtype)
+
+    mlp_in = rms_norm(x, lp.post_attn_norm, cfg.rms_norm_eps)
+    gateup = _matmul(mlp_in, lp.w_gateup)  # one kernel for gate+up
+    gate, up = split_fused(gateup, (cfg.intermediate_size, cfg.intermediate_size))
+    h = F.silu(gate.float()).to(up.dtype) * up
+    return x + _matmul(h, lp.w_down, out_dtype=torch.float32).to(x.dtype)
+
+
+def forward(
+    params: LlamaParams,
+    cfg: LlamaConfig,
+    tokens: torch.Tensor,  # [B, S] int
+    cache: KVCache,
+    positions: torch.Tensor,  # [B, S] absolute positions of `tokens`, < cache length
+    seq_lens: torch.Tensor,  # [B] visible length AFTER this step
+    last_only: bool = False,
+    kv_len: Optional[int] = None,
+) -> Tuple[torch.Tensor, KVCache]:
+    """Embed, run every layer, return fp32 logits ([B, S, V], or [B, V] for
+    each row's last valid token with ``last_only``) and the cache, written
+    in place.  ``kv_len`` (host int) bounds the slots any query can see."""
+    check_supported(cfg)
+    b, s = tokens.shape
+    x = params.embed[tokens.long()]
+    cos, sin = rope_tables(cfg, positions)
+    for i, lp in enumerate(params.layers):
+        x = _layer_forward(cfg, x, lp, cache.k[i], cache.v[i], positions, seq_lens, cos, sin, kv_len)
+    if last_only:
+        last_idx = torch.clamp(seq_lens - 1 - positions[:, 0], 0, s - 1).long()
+        x = x[torch.arange(b, device=x.device), last_idx]
+    x = rms_norm(x, params.final_norm, cfg.rms_norm_eps)
+    if isinstance(params.lm_head, PackedNF4):
+        logits = _matmul(x, params.lm_head, out_dtype=torch.float32)
+    else:
+        logits = _dense_logits(x, params.lm_head.to(x.dtype))
+    return logits, cache
+
+
+def prefill(params, cfg: LlamaConfig, tokens: torch.Tensor, cache: Optional[KVCache] = None):
+    """Process full prompts [B, S] from position 0; returns (logits
+    [B, S, V], cache).  Runs on the tokens' device."""
+    b, s = tokens.shape
+    if cache is None:
+        cache = init_kv_cache(cfg, b, device=tokens.device)
+    positions = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
+    seq_lens = torch.full((b,), s, dtype=torch.int32, device=tokens.device)
+    return forward(params, cfg, tokens, cache, positions, seq_lens, kv_len=s)
+
+
+def decode_step(params, cfg: LlamaConfig, token, cache: KVCache, positions, kv_len: Optional[int] = None):
+    """One token per sequence: token [B], positions [B] (the slot being
+    written).  Returns (logits [B, V], cache)."""
+    logits, cache = forward(
+        params, cfg, token[:, None], cache, positions[:, None], positions + 1, kv_len=kv_len
+    )
+    return logits[:, 0], cache

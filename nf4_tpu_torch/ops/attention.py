@@ -1,0 +1,207 @@
+"""Attention: naive and chunked plain PyTorch, and prefill flash (kernel C).
+
+One math contract for every path (the JAX package's ``ops/attention.py``):
+a key slot t is visible to a query at position p iff ``t <= p`` (causal),
+``t < seq_len`` and, with a static window w, ``t > p - w``.  Softmax and
+accumulation are fp32; q, k, v and the output are the working dtype (bf16
+in serving), and probabilities round to it before the P.V product.
+
+* ``naive_attention`` materializes the [B, KV, G, S, T] fp32 scores.  It
+  serves decode and short prefills; decode attention is plain tensor code
+  in the JAX package too.
+* ``chunked_attention`` streams the softmax over query and key chunks and
+  skips key chunks a query chunk cannot see (bounded memory for long
+  prefills where the kernel does not apply).
+* ``flash_attention`` runs the hand-written kernel ``csrc/flash_attn.cu``
+  on CUDA tensors and its plain version :func:`_flash_plain` on CPU ones.
+
+Every caller passes per-row contiguous positions (``pos0 + arange(S)``),
+which the flash kernel needs.
+
+The int8-KV branch, segment ids and logit softcapping are not ported yet.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from ._cuda import Kernel
+
+__all__ = ["attention", "naive_attention", "chunked_attention", "flash_attention"]
+
+_NEG = -1e30
+# Query rows per kernel block: the GQA-packed [G, sc] rows, sc = 64 / G.
+_FLASH_ROWS = 64
+_FLASH_TILE = 64
+
+_KERNEL = Kernel(
+    "flash_attention", "flash_attn", "flash_attention_bf16",
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 4
+    + [ctypes.c_int] * 2 + [ctypes.c_float],
+)
+
+
+def _visibility(t_ids, positions, seq_lens, sliding_window):
+    """Bool [B, S, C]: key slots ``t_ids`` [C] visible to ``positions`` [B, S]."""
+    t = t_ids[None, None, :]
+    p = positions[:, :, None]
+    vis = (t <= p) & (t < seq_lens[:, None, None])
+    if sliding_window is not None:
+        vis = vis & (t > p - sliding_window)
+    return vis
+
+
+def naive_attention(q, k, v, positions, seq_lens, *, scale: float, sliding_window: Optional[int] = None):
+    """q [B, H, S, D], k/v [B, KV, T, D], positions [B, S], seq_lens [B]."""
+    b, nh, s, d = q.shape
+    nkv, t_max = k.shape[1], k.shape[2]
+    qg = q.reshape(b, nkv, nh // nkv, s, d).float()
+    scores = torch.matmul(qg, k.float()[:, :, None].transpose(-1, -2)) * scale
+    t_ids = torch.arange(t_max, device=q.device)
+    vis = _visibility(t_ids, positions, seq_lens, sliding_window)
+    scores = torch.where(vis[:, None, None], scores, torch.full_like(scores, _NEG))
+    probs = torch.softmax(scores, dim=-1).to(q.dtype).float()
+    out = torch.matmul(probs, v.float()[:, :, None])
+    return out.reshape(b, nh, s, d).to(q.dtype)
+
+
+def chunked_attention(
+    q, k, v, positions, seq_lens, *, scale: float, sliding_window: Optional[int] = None,
+    q_chunk: int = 512, kv_chunk: int = 512,
+):
+    """Streaming softmax over (query chunk, key chunk) pairs; key chunks a
+    query chunk cannot see are skipped (one host read of the chunk's
+    position range per query chunk)."""
+    b, nh, s, d = q.shape
+    nkv, t_max = k.shape[1], k.shape[2]
+    g = nh // nkv
+    qg = q.reshape(b, nkv, g, s, d)
+    outs = []
+    for s0 in range(0, s, q_chunk):
+        qt = qg[:, :, :, s0 : s0 + q_chunk].float()
+        pos_t = positions[:, s0 : s0 + q_chunk]
+        max_pos, min_pos = int(pos_t.max()), int(pos_t.min())
+        sc = qt.shape[3]
+        m = torch.full((b, nkv, g, sc), _NEG, device=q.device)
+        l = torch.zeros((b, nkv, g, sc), device=q.device)
+        o = torch.zeros((b, nkv, g, sc, d), device=q.device)
+        for t0 in range(0, t_max, kv_chunk):
+            if t0 > max_pos or (
+                sliding_window is not None and t0 + kv_chunk - 1 <= min_pos - sliding_window
+            ):
+                continue  # wholly invisible: contributes nothing
+            kc = k[:, :, t0 : t0 + kv_chunk].float()
+            vc = v[:, :, t0 : t0 + kv_chunk]
+            sct = torch.matmul(qt, kc[:, :, None].transpose(-1, -2)) * scale
+            t_ids = torch.arange(t0, t0 + kc.shape[2], device=q.device)
+            vis = _visibility(t_ids, pos_t, seq_lens, sliding_window)
+            sct = torch.where(vis[:, None, None], sct, torch.full_like(sct, _NEG))
+            m_new = torch.maximum(m, sct.amax(dim=-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(sct - m_new[..., None])
+            l = l * alpha + p.sum(dim=-1)
+            o = o * alpha[..., None] + torch.matmul(p.to(q.dtype).float(), vc.float()[:, :, None])
+            m = m_new
+        outs.append((o / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype))
+    return torch.cat(outs, dim=3).reshape(b, nh, s, d)
+
+
+def _flash_plain(q, k, v, pos0, seq_lens, scale, sliding_window=None):
+    """The plain version of kernel C: the same online softmax over key
+    tiles of the kernel's 64 slots, for all query rows at once.  pos0 [B]."""
+    s = q.shape[2]
+    positions = pos0[:, None] + torch.arange(s, device=q.device)[None, :]
+    return chunked_attention(q, k, v, positions, seq_lens, scale=scale, sliding_window=sliding_window,
+                             q_chunk=s, kv_chunk=_FLASH_TILE)
+
+
+def _flash_kernel(q, k, v, pos0, seq_lens, scale, sliding_window=None):
+    """Launch kernel C: q bf16 [B, H, S, D] contiguous; k/v bf16
+    [B, KV, T, D] with contiguous rows (a view of the cache is read in
+    place); pos0, seq_lens [B]."""
+    b, nh, s, d = q.shape
+    nkv, t_max = k.shape[1], k.shape[2]
+    if q.dtype != torch.bfloat16 or k.dtype != torch.bfloat16 or v.dtype != torch.bfloat16:
+        raise TypeError("kernel C takes bf16 q, k and v")
+    if d not in (64, 128) or nh % nkv or _FLASH_ROWS % (nh // nkv):
+        raise ValueError(f"kernel C needs D in (64, 128) and 64 % (H/KV) == 0; got D={d}, H={nh}, KV={nkv}")
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"bad k/v shapes {tuple(k.shape)} / {tuple(v.shape)}")
+    if k.stride(3) != 1 or k.stride(2) != d or v.stride(3) != 1 or v.stride(2) != d:
+        raise ValueError("k and v need contiguous [T, D] rows")
+    if not (q.device == k.device == v.device):
+        raise ValueError("q, k, v on different devices")
+    q = q.contiguous()
+    pos0 = pos0.to(device=q.device, dtype=torch.int32).contiguous()
+    lens = seq_lens.to(device=q.device, dtype=torch.int32).contiguous()
+    out = torch.empty_like(q)
+    _KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), pos0.data_ptr(), lens.data_ptr(),
+            b, nh, nkv, s, t_max, d, k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+            _FLASH_ROWS // (nh // nkv), int(sliding_window or 0), float(scale))
+    return out
+
+
+def flash_attention(
+    q, k, v, positions, seq_lens, *, scale: float, sliding_window: Optional[int] = None,
+    k_scale=None, v_scale=None,
+):
+    """Prefill flash attention; ``positions[b]`` MUST be ``pos0_b + arange(S)``."""
+    if k_scale is not None or v_scale is not None:
+        raise NotImplementedError("kernel not ported yet: the int8-KV branch of flash attention")
+    pos0 = positions[:, 0]
+    if q.is_cuda:
+        return _flash_kernel(q, k, v, pos0, seq_lens, scale, sliding_window)
+    return _flash_plain(q, k, v, pos0, seq_lens, scale, sliding_window)
+
+
+# Take the chunked or flash path once the naive score tensor (B*H*S*T fp32)
+# would reach 512 MB.  The threshold is the JAX package's, not re-derived
+# for the H100.
+_CHUNKED_MIN_SCORE_ELEMS = 1 << 27
+
+
+def _flash_eligible(q, k, s: int, d: int) -> bool:
+    """Kernel C applies: a CUDA bf16 tensor, a head size the kernel has,
+    GQA groups that pack into its 64-row blocks, and enough rows."""
+    g = q.shape[1] // k.shape[1]
+    return (
+        q.is_cuda
+        and q.dtype == torch.bfloat16
+        and d in (64, 128)
+        and _FLASH_ROWS % g == 0
+        and s >= 256
+    )
+
+
+def attention(
+    q, k, v, positions, seq_lens, *, scale, sliding_window=None,
+    kv_len: Optional[int] = None,
+):
+    """Dispatching entry point; see the module docstring for the contract
+    (``positions[b]`` must be ``pos0_b + arange(S)``).  ``kv_len`` is an optional host-side
+    bound: no query sees a slot at or past it, so the plain paths read only
+    ``k[:, :, :kv_len]`` (the JAX package's chunk-skipping decode path reads
+    only the live prefix the same way; here the caller knows its length).
+    The dispatch thresholds use the full cache length, as the JAX package's
+    do."""
+    b, nh, s, d = q.shape
+    t_max = k.shape[2]
+    if kv_len is not None and kv_len < t_max:
+        k_live, v_live = k[:, :, :kv_len], v[:, :, :kv_len]
+    else:
+        k_live, v_live = k, v
+    if s > 1 and b * nh * s * t_max >= _CHUNKED_MIN_SCORE_ELEMS:
+        if _flash_eligible(q, k, s, d):
+            return flash_attention(
+                q, k, v, positions, seq_lens, scale=scale, sliding_window=sliding_window
+            )
+        return chunked_attention(
+            q, k_live, v_live, positions, seq_lens, scale=scale, sliding_window=sliding_window,
+            q_chunk=min(512, s),
+        )
+    return naive_attention(
+        q, k_live, v_live, positions, seq_lens, scale=scale, sliding_window=sliding_window
+    )

@@ -1,0 +1,82 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Marked ``cuda``: without a CUDA device every test here skips.  Run them on
+a machine with an H100 (sm_90a) and the CUDA toolkit:
+
+    python -m pytest tests/test_torch_cuda.py -q -m cuda
+
+Kernel A must be bit-exact; kernels B and C within 2e-2 (bf16 products
+summed in another order than the plain version's).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _packed(gen, m, n, dev):
+    from nf4_tpu_torch.nf4.format import PackedNF4, pad_to
+
+    m_pad, n_pad = pad_to(m, 128), pad_to(n, 1024)
+    return PackedNF4(
+        packed=torch.randint(0, 256, (n_pad // 2, m_pad), generator=gen, device=dev, dtype=torch.uint8),
+        scales=torch.rand((n_pad // 64, m_pad), generator=gen, device=dev) * 0.02,
+        shape=(m, n), padded_shape=(m_pad, n_pad), dtype=torch.bfloat16,
+    )
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("quant_type", ["nf4", "fp4"])
+def test_dequant_kernel_bit_exact(dev, dtype, quant_type):
+    from nf4_tpu_torch.ops.dequant import _dequant_t_kernel, _dequant_t_plain
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    pw = _packed(gen, 384, 2048, dev)
+    got = _dequant_t_kernel(pw.packed, pw.scales, dtype, quant_type)
+    want = _dequant_t_plain(pw.packed, pw.scales, dtype, quant_type)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+
+
+@pytest.mark.parametrize("b", [1, 4, 37, 200])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32, torch.float16])
+def test_matmul_kernel_close(dev, b, out_dtype):
+    from nf4_tpu_torch.ops.matmul import _matmul_bf16_kernel, _matmul_bf16_plain, _pick_bm
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    pw = _packed(gen, 640, 3072, dev)
+    b_pad = -(-b // _pick_bm(b)) * _pick_bm(b)
+    x = torch.zeros((b_pad, 3072), device=dev, dtype=torch.bfloat16)
+    x[:b] = torch.randn((b, 3072), generator=gen, device=dev).to(torch.bfloat16)
+    got = _matmul_bf16_kernel(x, pw.packed, pw.scales, out_dtype).float()
+    want = _matmul_bf16_plain(x, pw.packed, pw.scales, out_dtype).float()
+    torch.cuda.synchronize()
+    assert ((got - want).abs().max() / want.abs().max()).item() < 2e-2
+
+
+@pytest.mark.parametrize("window,pos0,g", [(None, 0, 4), (96, 300, 4), (None, 17, 1), (None, 0, 8)])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_kernel_close(dev, window, pos0, g, d):
+    from nf4_tpu_torch.ops.attention import _flash_kernel, _flash_plain
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    b, kv, s, t = 2, 2, 300, 700
+    q = torch.randn((b, kv * g, s, d), generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn((b, kv, t, d), generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn((b, kv, t, d), generator=gen, device=dev).to(torch.bfloat16)
+    pos = torch.full((b,), pos0, device=dev, dtype=torch.int32)
+    lens = torch.tensor([pos0 + s, pos0 + s - 50], device=dev, dtype=torch.int32)
+    got = _flash_kernel(q, k, v, pos, lens, d**-0.5, window).float()
+    want = _flash_plain(q, k, v, pos, lens, d**-0.5, window).float()
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got[0].cpu().numpy(), want[0].cpu().numpy(), rtol=2e-2, atol=2e-2)
+    np.testing.assert_allclose(got[1, :, : s - 50].cpu().numpy(), want[1, :, : s - 50].cpu().numpy(), rtol=2e-2, atol=2e-2)

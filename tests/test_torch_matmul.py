@@ -1,0 +1,80 @@
+"""``nf4_matmul`` (the plain version of kernel B) against nf4_tpu.
+
+On the CPU the JAX package takes its exact path (fp32 weights); the port's
+bf16 path rounds each weight value to bf16 as the kernel does, so the two
+agree within the bf16 contract: max relative error < 2e-2 (max abs
+difference over max abs value).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import nf4_tpu
+import nf4_tpu_torch
+from nf4_tpu.nf4.reference import quantize_nf4
+
+REL_TOL = 2e-2
+
+
+def _pair(rng, shape, shards=1, quant_type="nf4"):
+    w = rng.standard_normal(shape).astype(np.float32) * 0.05
+    state = quantize_nf4(w, quant_type=quant_type)
+    return (
+        nf4_tpu.pack_for_tpu(state, dtype=jnp.bfloat16, shards=shards),
+        nf4_tpu_torch.pack_for_tpu(state, dtype=torch.bfloat16, shards=shards, device="cpu"),
+    )
+
+
+def _rel_err(got, want):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    return np.abs(got - want).max() / np.abs(want).max()
+
+
+@pytest.mark.parametrize(
+    "bshape,shape,shards,out",
+    [
+        ((1,), (256, 1024), 1, "bf16"),  # decode GEMV
+        ((37,), (256, 1024), 1, "bf16"),
+        ((2, 3), (256, 1024), 1, "bf16"),  # leading batch dims
+        ((37,), (100, 320), 1, "bf16"),  # padded shape
+        ((5,), (100, 384), 2, "bf16"),  # K-chunked (row-parallel) layout
+        ((37,), (256, 1024), 1, "fp32"),
+    ],
+)
+@pytest.mark.parametrize("quant_type", ["nf4", "fp4"])
+def test_bf16_matmul_matches(rng, bshape, shape, shards, out, quant_type):
+    pj, pt = _pair(rng, shape, shards, quant_type)
+    x = rng.standard_normal((*bshape, shape[1])).astype(np.float32)
+    jdt, tdt = (jnp.bfloat16, torch.bfloat16) if out == "bf16" else (jnp.float32, torch.float32)
+    want = nf4_tpu.nf4_matmul(jnp.asarray(x, jnp.bfloat16), pj, out_dtype=jdt)
+    got = nf4_tpu_torch.nf4_matmul(torch.from_numpy(x).to(torch.bfloat16), pt, out_dtype=tdt)
+    assert got.shape == (*bshape, shape[0]) and got.dtype == tdt
+    assert _rel_err(got.float().numpy(), want) < REL_TOL
+
+
+@pytest.mark.parametrize("xdt", ["fp32", "fp16"])
+def test_exact_path_for_fp32_fp16_activations(rng, xdt):
+    """fp32/fp16 activations take the exact path on the CPU (kernel E, their
+    CUDA kernel, is not ported yet)."""
+    pj, pt = _pair(rng, (100, 320))
+    x = rng.standard_normal((7, 320)).astype(np.float32)
+    jdt, tdt = (jnp.float32, torch.float32) if xdt == "fp32" else (jnp.float16, torch.float16)
+    want = np.asarray(nf4_tpu.nf4_matmul(jnp.asarray(x, jdt), pj), np.float32)
+    got = nf4_tpu_torch.nf4_matmul(torch.from_numpy(x).to(tdt), pt)
+    assert got.dtype == tdt
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=1e-3, atol=1e-3)
+
+
+def test_byte_table_matches_jax(rng):
+    """The 256-entry byte -> bf16-pair table kernel B receives is the JAX
+    package's table, bit for bit."""
+    from nf4_tpu.ops.matmul import _byte_word_tables
+
+    from nf4_tpu_torch.ops.lut_eval import byte_word_table
+
+    for qt in ("nf4", "fp4"):
+        lo, hi = _byte_word_tables(qt)
+        want = np.concatenate([lo.ravel(), hi.ravel()])
+        np.testing.assert_array_equal(byte_word_table(qt, "cpu").numpy(), want)
