@@ -10,20 +10,28 @@ Phases, each of which fails the run on any error:
 
 1. the card's name and power limit; build the CUDA kernels from
    ``nf4_tpu_torch/csrc`` (one nvcc per source, in parallel);
-2. kernel A (exact dequant) against its plain version at the Llama-3-8B
-   shapes, bit for bit, NF4 and FP4, bf16 and fp16;
-3. kernel B (fused 4-bit matmul) against its plain version at the four
-   projection shapes, decode B=4 and prefill B=1024, max rel err < 2e-2;
-4. kernel C (prefill flash attention) against its plain version at
-   B=1, H=32, KV=8, D=128, S=1024, T=8192, with and without a window;
-5. the two main paths with every launch count set to 0 just before and
-   read just after: the dequant API on Llama-3-8B-shaped weights, then
-   greedy serving of Llama-3-8B at full width and depth (synthetic packed
-   weights from a seed) answering 6 requests of 32 new tokens, one prompt
-   of 1024 tokens; plus a small model on the card against the same model
-   on the CPU.  With ``--profile``, phase 5 also prints a ``torch.profiler``
-   breakdown of a decode chunk and a 1024-token prefill: wall time, the
-   device's busy share and the device kernels by time.
+2. kernels A (exact dequant) and F (fast bf16 dequant) against their plain
+   versions at the Llama-3-8B shapes, bit for bit, NF4 and FP4 (A also
+   bf16 and fp16 out);
+3. kernels B (fused 4-bit matmul) and D (int8 matmul) against their plain
+   versions at the four projection shapes, decode B=4 and prefill B=1024,
+   max rel err < 2e-2;
+4. kernel C (prefill flash attention), bf16 and int8 KV, against its plain
+   version at B=1, H=32, KV=8, D=128, S=1024, T=8192, with and without a
+   window; the int8 branch also against the bf16 branch on the dequantized
+   cache;
+5. the main paths, each with every launch count set to 0 just before and
+   read just after: (a) the dequant API on Llama-3-8B-shaped weights, exact
+   and fast; (b) greedy serving of Llama-3-8B at full width and depth
+   (synthetic packed weights from a seed) answering 6 requests of 32 new
+   tokens, one prompt of 1024 tokens; (c) a small model on the card against
+   the same model on the CPU; (d) the same serving in the int8 mode:
+   weights recoded to int8 and an int8 KV cache; (e) a packed checkpoint
+   saved by the port, loaded on the card with an int8 KV cache and recoded,
+   against the same checkpoint served on the CPU.  With ``--profile``,
+   phases 5b and 5d also print a ``torch.profiler`` breakdown of a decode
+   chunk and a 1024-token prefill: wall time, the device's busy share and
+   the device kernels by time.
 
 Kernel and library times are device times: many calls captured in one
 CUDA graph, replayed, and timed with CUDA events (an eager loop of small
@@ -147,6 +155,12 @@ def random_packed(gen, m, n, dev, quant_type="nf4"):
     )
 
 
+def random_int8(gen, m, n, dev):
+    from nf4_tpu_torch.ops.int8_serve import recode_int8_weight
+
+    return recode_int8_weight(random_packed(gen, m, n, dev))
+
+
 LLAMA3_8B_PROJ = {  # name: (out m, in n, output dtype name)
     "wqkv": (6144, 4096, "bf16"),
     "wo": (4096, 4096, "fp32"),
@@ -155,110 +169,169 @@ LLAMA3_8B_PROJ = {  # name: (out m, in n, output dtype name)
 }
 
 
-def phase_dequant(gen, dev):
+def phase_dequant(gen, dev, fast=False):
+    """Kernel A (exact dequant, bf16 and fp16 out) or, with ``fast``, kernel
+    F (byte-table bf16 dequant) against its plain version, bit for bit."""
     import torch
 
-    from nf4_tpu_torch.ops.dequant import _dequant_t_kernel, _dequant_t_plain
+    from nf4_tpu_torch.ops.dequant import (
+        _bf16_weight_t, _dequant_t_fast_kernel, _dequant_t_kernel, _dequant_t_plain,
+    )
 
+    if fast:
+        label, dts = "kernel F", (torch.bfloat16,)
+        kern = lambda w, dt=None, qt="nf4": _dequant_t_fast_kernel(w.packed, w.scales, qt)
+        plain = lambda w, dt=None, qt="nf4": _bf16_weight_t(w.packed, w.scales, qt)
+    else:
+        label, dts = "kernel A", (torch.bfloat16, torch.float16)
+        kern = lambda w, dt=torch.bfloat16, qt="nf4": _dequant_t_kernel(w.packed, w.scales, dt, qt)
+        plain = lambda w, dt=torch.bfloat16, qt="nf4": _dequant_t_plain(w.packed, w.scales, dt, qt)
     res = {"max_abs_err": 0.0}
     for name in ("wqkv", "w_down"):
         m, n, _ = LLAMA3_8B_PROJ[name]
         for qt in ("nf4", "fp4"):
             pw = random_packed(gen, m, n, dev, qt)
-            for dt in (torch.bfloat16, torch.float16):
-                got = _dequant_t_kernel(pw.packed, pw.scales, dt, qt)
-                want = _dequant_t_plain(pw.packed, pw.scales, dt, qt)
+            for dt in dts:
+                got = kern(pw, dt, qt)
+                want = plain(pw, dt, qt)
                 torch.cuda.synchronize()
                 check(torch.equal(got.view(torch.int16), want.view(torch.int16)),
-                      f"kernel A differs from its plain version at {name} {qt} {dt}")
+                      f"{label} differs from its plain version at {name} {qt} {dt}")
                 err = (got.float() - want.float()).abs().max().item()
                 res["max_abs_err"] = max(res["max_abs_err"], err)
         pw = random_packed(gen, m, n, dev)
         in_bytes = pw.packed.numel() + pw.scales.numel() * 4
         out_bytes = pw.packed.numel() * 2 * 2
         ws = [pw] + [random_packed(gen, m, n, dev) for _ in range(copies_for(in_bytes) - 1)]
-        ms = time_ms([lambda w=w: _dequant_t_kernel(w.packed, w.scales, torch.bfloat16) for w in ws])
-        plain = time_ms([lambda w=w: _dequant_t_plain(w.packed, w.scales, torch.bfloat16) for w in ws], iters=5, graph=False)
+        ms = time_ms([lambda w=w: kern(w) for w in ws])
+        plain_ms = time_ms([lambda w=w: plain(w) for w in ws], iters=5, graph=False)
         bnd = bound_ms(in_bytes + out_bytes, pw.packed.numel() * 2, PEAK_FP32_S)
-        res[name] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, gbs=(in_bytes + out_bytes) / ms / 1e6)
-        print(f"phase 2 kernel A {name} m={m} n={n} bf16: bit-exact; {ms:.4f} ms "
-              f"({res[name]['gbs']:.0f} GB/s), plain {plain:.4f} ms, bound {bnd:.4f} ms")
+        res[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd, gbs=(in_bytes + out_bytes) / ms / 1e6)
+        print(f"phase 2 {label} {name} m={m} n={n} bf16: bit-exact; {ms:.4f} ms "
+              f"({res[name]['gbs']:.0f} GB/s), plain {plain_ms:.4f} ms, bound {bnd:.4f} ms")
     return res
 
 
-def phase_matmul(gen, dev):
+def phase_matmul(gen, dev, int8=False):
+    """Kernel B (fused 4-bit matmul) or, with ``int8``, kernel D (int8
+    matmul on the same weights recoded) against its plain version."""
     import torch
 
+    from nf4_tpu_torch.ops.int8_serve import _int8_matmul_kernel, _int8_matmul_plain, _int8_weight_t
     from nf4_tpu_torch.ops.matmul import _bf16_weight_t, _matmul_bf16_kernel, _matmul_bf16_plain
 
+    if int8:
+        label, make = "kernel D", random_int8
+        kern = lambda x, w, od: _int8_matmul_kernel(x, w.values, w.scales, od)
+        plain = lambda x, w, od: _int8_matmul_plain(x, w.values, w.scales, od)
+        weight_t = lambda w: _int8_weight_t(w.values, w.scales)
+    else:
+        label, make = "kernel B", random_packed
+        kern = lambda x, w, od: _matmul_bf16_kernel(x, w.packed, w.scales, od)
+        plain = lambda x, w, od: _matmul_bf16_plain(x, w.packed, w.scales, od)
+        weight_t = lambda w: _bf16_weight_t(w.packed, w.scales, "nf4")
     dts = {"bf16": torch.bfloat16, "fp32": torch.float32}
     res = {}
     for b in (4, 1024):
         b_pad = 16 if b <= 16 else b
         for name, (m, n, od) in LLAMA3_8B_PROJ.items():
-            pw = random_packed(gen, m, n, dev)
+            pw = make(gen, m, n, dev)
             x = torch.zeros((b_pad, n), device=dev, dtype=torch.bfloat16)
             x[:b] = torch.randn((b, n), generator=gen, device=dev).to(torch.bfloat16)
-            got = _matmul_bf16_kernel(x, pw.packed, pw.scales, dts[od]).float()
-            want = _matmul_bf16_plain(x, pw.packed, pw.scales, dts[od]).float()
+            got = kern(x, pw, dts[od]).float()
+            want = plain(x, pw, dts[od]).float()
             torch.cuda.synchronize()
             err = (got - want).abs().max().item()
             rel = err / want.abs().max().item()
-            check(rel < 2e-2, f"kernel B max rel err {rel:.3g} at {name} B={b}")
-            w_bytes = pw.packed.numel() + pw.scales.numel() * 4
-            ws = [pw] + [random_packed(gen, m, n, dev) for _ in range(copies_for(w_bytes) - 1)]
-            ms = time_ms([lambda w=w: _matmul_bf16_kernel(x, w.packed, w.scales, dts[od]) for w in ws])
-            plain = time_ms([lambda w=w: _matmul_bf16_plain(x, w.packed, w.scales, dts[od]) for w in ws], iters=3, graph=False)
+            check(rel < 2e-2, f"{label} max rel err {rel:.3g} at {name} B={b}")
+            ws = [pw] + [make(gen, m, n, dev) for _ in range(copies_for(pw.nbytes) - 1)]
+            ms = time_ms([lambda w=w: kern(x, w, dts[od]) for w in ws])
+            plain_ms = time_ms([lambda w=w: plain(x, w, dts[od]) for w in ws], iters=3, graph=False)
             # Yardstick only (the port never calls it): torch.matmul on the
             # weight dequantized to bf16 ahead of time.
-            wts = [_bf16_weight_t(w.packed, w.scales, "nf4") for w in ws[:max(1, copies_for(2 * m * n))]]
+            wts = [weight_t(w) for w in ws[:max(1, copies_for(2 * m * n))]]
             lib = time_ms([lambda wt=wt: torch.matmul(x, wt) for wt in wts])
             del wts
-            io = x.numel() * 2 + b_pad * pw.packed.shape[1] * (2 if od == "bf16" else 4)
-            bnd = bound_ms(w_bytes + io, 2 * b_pad * pw.padded_shape[1] * pw.padded_shape[0], PEAK_BF16_S)
-            res[(name, b)] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd, max_abs_err=err, rel=rel)
-            print(f"phase 3 kernel B {name} B={b} m={m} n={n} out={od}: rel err {rel:.2e}; {ms:.4f} ms, "
-                  f"plain {plain:.4f} ms, torch.matmul on bf16 weight {lib:.4f} ms, bound {bnd:.4f} ms")
+            io = x.numel() * 2 + b_pad * pw.padded_shape[0] * (2 if od == "bf16" else 4)
+            bnd = bound_ms(pw.nbytes + io, 2 * b_pad * pw.padded_shape[1] * pw.padded_shape[0], PEAK_BF16_S)
+            res[(name, b)] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib, bound_ms=bnd, max_abs_err=err, rel=rel)
+            print(f"phase 3 {label} {name} B={b} m={m} n={n} out={od}: rel err {rel:.2e}; {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, torch.matmul on bf16 weight {lib:.4f} ms, bound {bnd:.4f} ms")
     return res
 
 
-def phase_flash(gen, dev):
+# Phase 4's attention: B, H, KV, D, S (queries), T (cache slots); the
+# window case reads the last S positions of a full cache under a T/2 window.
+FLASH_SHAPE = (1, 32, 8, 128, 1024, 8192)
+
+
+def phase_flash(gen, dev, int8=False):
+    """Kernel C against its plain version; ``int8``: the int8-KV branch on
+    the cache quantized as the model quantizes it (per-slot absmax)."""
     import torch
     import torch.nn.functional as F
 
+    from nf4_tpu_torch.models.llama import _quantize_kv
     from nf4_tpu_torch.ops.attention import _flash_kernel, _flash_plain
 
-    b, h, kv, d, s, t = 1, 32, 8, 128, 1024, 8192
+    b, h, kv, d, s, t = FLASH_SHAPE
     g = h // kv
+    label = "kernel C int8 KV" if int8 else "kernel C"
     q = torch.randn((b, h, s, d), generator=gen, device=dev).to(torch.bfloat16)
     k = torch.randn((b, kv, t, d), generator=gen, device=dev).to(torch.bfloat16)
     v = torch.randn((b, kv, t, d), generator=gen, device=dev).to(torch.bfloat16)
+    if int8:
+        (k8, ks), (v8, vs) = _quantize_kv(k), _quantize_kv(v)
+        cache = (k8, v8, ks, vs)
+        # The same cache dequantized to bf16: the bf16 branch's input and SDPA's.
+        k = (k8.float() * (ks / 127)[..., None]).to(torch.bfloat16)
+        v = (v8.float() * (vs / 127)[..., None]).to(torch.bfloat16)
+        slot_bytes = d + 4  # int8 values and one fp32 scale per slot and head
+    else:
+        cache = (k, v)
+        slot_bytes = 2 * d
+
+    def kern(pos, seq, window, kvs=cache):
+        return _flash_kernel(q, kvs[0], kvs[1], pos, seq, d**-0.5, window, *kvs[2:])
+
+    def plain(pos, seq, window):
+        return _flash_plain(q, cache[0], cache[1], pos, seq, d**-0.5, window, *cache[2:])
+
     k_rep, v_rep = k.repeat_interleave(g, dim=1), v.repeat_interleave(g, dim=1)
     res = {}
     # (a) a fresh 1024-token prompt at positions 0..1023 (the serving
     # prefill); (b) the last 1024 positions of a full 8192 cache under a
     # 4096-slot window.
-    for case, pos0, lens, window in (("causal", 0, s, None), ("window", t - s, t, 4096)):
+    for case, pos0, lens, window in (("causal", 0, s, None), ("window", t - s, t, t // 2)):
         pos = torch.full((b,), pos0, device=dev, dtype=torch.int32)
         seq = torch.full((b,), lens, device=dev, dtype=torch.int32)
-        got = _flash_kernel(q, k, v, pos, seq, d**-0.5, window).float()
-        want = _flash_plain(q, k, v, pos, seq, d**-0.5, window).float()
+        got = kern(pos, seq, window).float()
+        want = plain(pos, seq, window).float()
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         # Under the window each output averages ~1500 values of v, so |out|
         # is ~0.02 there: the limit also scales with the reference's size.
         limit = 2e-2 * want.abs().max().item()
         check(err <= limit and torch.allclose(got, want, rtol=2e-2, atol=2e-2),
-              f"kernel C differs from plain ({case}): max abs err {err}, limit {limit}")
+              f"{label} differs from plain ({case}): max abs err {err}, limit {limit}")
         if window is not None:
             # The check is sharp enough to see a window off by one key tile.
             for w in (window - 64, window + 64):
-                off = (_flash_plain(q, k, v, pos, seq, d**-0.5, w).float() - got).abs().max().item()
+                off = (plain(pos, seq, w).float() - got).abs().max().item()
                 check(off > limit, f"a window of {w} passes the check of window {window}: {off} <= {limit}")
-                print(f"phase 4 kernel C against a plain window of {w}: max abs diff {off:.2e} "
+                print(f"phase 4 {label} against a plain window of {w}: max abs diff {off:.2e} "
                       f"> limit {limit:.2e} (fails, as it must)")
-        ms = time_ms([lambda: _flash_kernel(q, k, v, pos, seq, d**-0.5, window)])
-        plain = time_ms([lambda: _flash_plain(q, k, v, pos, seq, d**-0.5, window)], iters=3, graph=False)
+        if int8:
+            # The bf16 branch on the dequantized cache computes nearly the
+            # same function: K and V round to bf16 first.
+            ref = kern(pos, seq, window, (k, v)).float()
+            torch.cuda.synchronize()
+            off = (ref - got).abs().max().item()
+            check(off <= limit, f"{label} against the bf16 kernel on the dequantized cache: {off} > {limit}")
+            print(f"phase 4 {label} {case} against kernel C bf16 on the dequantized cache: max abs diff "
+                  f"{off:.2e} (limit {limit:.2e})")
+        ms = time_ms([lambda: kern(pos, seq, window)])
+        plain_ms = time_ms([lambda: plain(pos, seq, window)], iters=3, graph=False)
         qpos = pos0 + torch.arange(s, device=dev)[:, None]
         tk = torch.arange(t, device=dev)[None, :]
         vis = (tk <= qpos) & (tk < lens)
@@ -271,14 +344,14 @@ def phase_flash(gen, dev):
             lib = time_ms([lambda: F.scaled_dot_product_attention(q, k_rep, v_rep, attn_mask=vis)])
         pairs = int(vis.sum().item()) * h  # visible (query, key) pairs over all heads
         keys = int(vis.any(dim=0).sum().item())  # key slots any query reads
-        nbytes = 2 * q.numel() * 2 + 2 * b * kv * keys * d * 2
+        nbytes = 2 * q.numel() * 2 + 2 * b * kv * keys * slot_bytes
         bnd = bound_ms(nbytes, 4 * pairs * d, PEAK_BF16_S)
-        res[case] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd, max_abs_err=err,
+        res[case] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib, bound_ms=bnd, max_abs_err=err,
                          tflops=4 * pairs * d / ms / 1e9)
-        print(f"phase 4 kernel C {case} pos0={pos0} seq_len={lens} window={window}: max abs err {err:.2e} "
+        print(f"phase 4 {label} {case} pos0={pos0} seq_len={lens} window={window}: max abs err {err:.2e} "
               f"(limit {limit:.2e}); "
-              f"{ms:.4f} ms ({res[case]['tflops']:.1f} TFLOP/s), plain {plain:.4f} ms, "
-              f"SDPA {lib:.4f} ms, bound {bnd:.4f} ms")
+              f"{ms:.4f} ms ({res[case]['tflops']:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
+              f"SDPA{' on the dequantized cache' if int8 else ''} {lib:.4f} ms, bound {bnd:.4f} ms")
     return res
 
 
@@ -315,19 +388,15 @@ def params_to(params, device):
                                final_norm=mv(params.final_norm), lm_head=mv(params.lm_head))
 
 
-def phase_main_paths(dev, profile=False):
-    import numpy as np
+def phase_dequant_api(dev, rng):
+    """Main path (a): the dequant API on a Llama-3-8B wqkv-shaped bnb module,
+    exact (kernel A) and fast (kernel F), each against the CPU path."""
     import torch
 
     import nf4_tpu_torch
-    from nf4_tpu_torch.models import configs
-    from nf4_tpu_torch.models.llama import LlamaConfig, init_kv_cache, prefill
-    from nf4_tpu_torch.models.synthetic import synthetic_params
+    from nf4_tpu_torch.nf4.adapters import quant_state_from_module
     from nf4_tpu_torch.ops import _cuda
-    from nf4_tpu_torch.serve.engine import Engine
 
-    rng = np.random.default_rng(0)
-    # Main path 1: the dequant API on a Llama-3-8B wqkv-shaped bnb module.
     module = bnb_module(rng, 6144, 4096)
     _cuda.reset_launch_counts()
     w = nf4_tpu_torch.dequantize_nf4_module(module)
@@ -338,35 +407,45 @@ def phase_main_paths(dev, profile=False):
     check(torch.equal(w.cpu().view(torch.int16), ref.view(torch.int16)), "dequant API differs from the CPU path")
     print(f"phase 5a dequant API (6144x4096 module): bit-exact vs the CPU path; launches {dequant_counts}")
     check(dequant_counts["dequant_t"] > 0, "the dequant API did not launch kernel A")
-    del w, ref
 
-    # Main path 2: greedy serving of Llama-3-8B, full width and depth.
-    cfg = configs.LLAMA3_8B
-    t0 = time.perf_counter()
-    params = synthetic_params(cfg, seed=0)
+    state = quant_state_from_module(module)
+    pw = nf4_tpu_torch.pack_for_tpu(state)
+    _cuda.reset_launch_counts()
+    wf = nf4_tpu_torch.dequantize_fast(pw)
     torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
-    packed_gb = sum(
-        w.nbytes for lp in params.layers for w in (lp.wqkv, lp.wo, lp.w_gateup, lp.w_down)
-    ) / 1e9
-    print(f"phase 5b Llama-3-8B synthetic params: {packed_gb:.3f} GB packed+scales, built in {build_s:.1f} s")
+    fast_counts = _cuda.launch_counts()
+    check(wf.shape == (6144, 4096) and wf.dtype == torch.bfloat16 and wf.is_cuda, "dequantize_fast output")
+    ref = nf4_tpu_torch.dequantize_fast(nf4_tpu_torch.pack_for_tpu(state, device="cpu"))
+    check(torch.equal(wf.cpu().view(torch.int16), ref.view(torch.int16)), "dequantize_fast differs from the CPU path")
+    print(f"phase 5a dequantize_fast (the same weight): bit-exact vs the CPU path; launches {fast_counts}")
+    check(fast_counts["dequant_t_fast"] > 0, "dequantize_fast did not launch kernel F")
+    return dequant_counts, fast_counts
+
+
+def serve_llama(label, params, cfg, prompts, weight_bytes, profile):
+    """Greedy serving at batch 4: the requests with every launch count set
+    to 0 just before and read just after, then the prefill of the
+    1024-token prompt and decode steps at position 1024, timed alone."""
+    import numpy as np
+    import torch
+
+    from nf4_tpu_torch.models.llama import init_kv_cache
+    from nf4_tpu_torch.ops import _cuda
+    from nf4_tpu_torch.serve.engine import Engine
+
     eng = Engine(params, cfg, batch_size=4, eos_token=-1, decode_chunk=8)
-    lengths = (1024, 37, 300, 64, 700, 9)
-    prompts = [list(map(int, rng.integers(0, cfg.vocab_size, n))) for n in lengths]
     torch.cuda.reset_peak_memory_stats()
     _cuda.reset_launch_counts()
     t0 = time.perf_counter()
     results = eng.generate(prompts, max_new_tokens=32)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
-    serve_counts = _cuda.launch_counts()
+    counts = _cuda.launch_counts()
     check(len(results) == len(prompts), "every request answered")
     for r, p in zip(results, prompts):
         check(r.prompt == p and len(r.tokens) == 32, "32 new tokens per request")
         check(all(0 <= t < cfg.vocab_size for t in r.tokens), "tokens in the vocabulary")
-    check(serve_counts["matmul_bf16"] > 0 and serve_counts["flash_attention"] > 0,
-          f"serving did not launch kernels B and C: {serve_counts}")
-    print(f"phase 5b generate: 6 requests x 32 tokens in {gen_s:.2f} s; launches {serve_counts}; "
+    print(f"phase {label} generate: {len(prompts)} requests x 32 tokens in {gen_s:.2f} s; launches {counts}; "
           f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
 
     # Throughput of the engine's two steps, timed alone.
@@ -388,22 +467,90 @@ def phase_main_paths(dev, profile=False):
     for _ in range(3):
         eng.decode_steps(cache, cur, pos, act, 8)
     decode_s = (time.perf_counter() - t0) / 24
-    print(f"phase 5b prefill 1024 tokens: {prefill_s * 1e3:.1f} ms = {1024 / prefill_s:.0f} tokens/s; "
+    bound = weight_bytes / PEAK_BYTES_S
+    print(f"phase {label} prefill 1024 tokens: {prefill_s * 1e3:.1f} ms = {1024 / prefill_s:.0f} tokens/s; "
           f"decode B=4 at position 1024: {decode_s * 1e3:.2f} ms/step = {4 / decode_s:.1f} tokens/s "
-          f"(weight-stream bound ~1.5 ms/step) on {card_line()}")
+          f"(weight-stream bound {bound * 1e3:.2f} ms/step) on {card_line()}")
     if profile:
-        profile_breakdown("decode chunk of 8 steps, batch 4, position 1024",
+        profile_breakdown(f"{label} decode chunk of 8 steps, batch 4, position 1024",
                           lambda: eng.decode_steps(cache, cur, np.full(4, 1024, np.int64), act, 8))
-        profile_breakdown("prefill 1024 tokens", step)
-    serving = dict(generate_s=gen_s, prefill_tok_s=1024 / prefill_s, decode_ms_step=decode_s * 1e3,
-                   decode_tok_s=4 / decode_s, packed_gb=packed_gb)
-    del eng, params, cache
+        profile_breakdown(f"{label} prefill 1024 tokens", step)
+    return counts, dict(generate_s=gen_s, prefill_tok_s=1024 / prefill_s, decode_ms_step=decode_s * 1e3,
+                        decode_tok_s=4 / decode_s, weight_gb=weight_bytes / 1e9, kv_cache_gb=cache.nbytes / 1e9)
 
-    # A small model on the card against the same weights on the CPU.
-    small = dataclasses.replace(
-        LlamaConfig(), vocab_size=512, hidden_size=256, intermediate_size=512, num_layers=2,
-        num_heads=4, num_kv_heads=2, head_dim=128, max_seq_len=256,
-    )
+
+def projection_bytes(params) -> int:
+    return sum(w.nbytes for lp in params.layers for w in (lp.wqkv, lp.wo, lp.w_gateup, lp.w_down))
+
+
+def phase_serving(prompts, profile):
+    """Main path (b): greedy serving of Llama-3-8B, full width and depth."""
+    import torch
+
+    from nf4_tpu_torch.models import configs
+    from nf4_tpu_torch.models.synthetic import synthetic_params
+
+    cfg = configs.LLAMA3_8B
+    t0 = time.perf_counter()
+    params = synthetic_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    packed = projection_bytes(params)
+    print(f"phase 5b Llama-3-8B synthetic params: {packed / 1e9:.3f} GB packed+scales, "
+          f"built in {time.perf_counter() - t0:.1f} s")
+    head = params.lm_head.numel() * params.lm_head.element_size()
+    counts, serving = serve_llama("5b", params, cfg, prompts, packed + head, profile)
+    check(counts["matmul_bf16"] > 0 and counts["flash_attention"] > 0,
+          f"serving did not launch kernels B and C: {counts}")
+    return counts, serving
+
+
+def phase_int8_serving(prompts, profile):
+    """Main path (d): the same serving with every projection recoded to int8
+    (kernel D) and an int8 KV cache (kernel C's int8 branch)."""
+    import torch
+
+    from nf4_tpu_torch.models import configs
+    from nf4_tpu_torch.models.llama import recode_params_int8
+    from nf4_tpu_torch.models.synthetic import synthetic_params
+
+    cfg = dataclasses.replace(configs.LLAMA3_8B, kv_quant=True)
+    params = synthetic_params(cfg, seed=0)
+    packed = projection_bytes(params)
+    t0 = time.perf_counter()
+    params = recode_params_int8(params)
+    torch.cuda.synchronize()
+    recode_s = time.perf_counter() - t0
+    int8 = projection_bytes(params)
+    # The KV cache of 4 slots at the full 8192 context: int8 values + fp32
+    # scales, against the bf16 cache of phase 5b.
+    slots = cfg.num_layers * 4 * cfg.num_kv_heads * cfg.max_seq_len
+    kv8, kv16 = slots * 2 * (cfg.head_dim + 4), slots * 2 * cfg.head_dim * 2
+    print(f"phase 5d Llama-3-8B int8 recode: {int8 / 1e9:.3f} GB int8+scales (from {packed / 1e9:.3f} GB packed) "
+          f"in {recode_s:.2f} s; KV cache for 4 slots x {cfg.max_seq_len}: {kv8 / 1e9:.3f} GB int8 "
+          f"(bf16: {kv16 / 1e9:.3f} GB)")
+    head = params.lm_head.numel() * params.lm_head.element_size()
+    counts, serving = serve_llama("5d", params, cfg, prompts, int8 + head, profile)
+    check(counts["int8_matmul"] > 0 and counts["flash_attention_int8"] > 0,
+          f"int8 serving did not launch kernel D and kernel C's int8 branch: {counts}")
+    check(counts["matmul_bf16"] == 0 and counts["flash_attention"] == 0,
+          f"int8 serving launched a 4-bit or bf16-KV kernel: {counts}")
+    check(abs(serving["kv_cache_gb"] - kv8 / 1e9) < 1e-9, "KV cache size")
+    return counts, dict(serving, recode_s=recode_s)
+
+
+SMALL = dict(vocab_size=512, hidden_size=256, intermediate_size=512, num_layers=2,
+             num_heads=4, num_kv_heads=2, head_dim=128, max_seq_len=256)
+
+
+def phase_small_model(dev, rng):
+    """Main path (c): a small model on the card against the same weights on
+    the CPU."""
+    import torch
+
+    from nf4_tpu_torch.models.llama import LlamaConfig, prefill
+    from nf4_tpu_torch.models.synthetic import synthetic_params
+
+    small = LlamaConfig(**SMALL)
     p_gpu = synthetic_params(small, seed=1)
     p_cpu = params_to(p_gpu, "cpu")
     tk = torch.as_tensor(rng.integers(0, 512, (2, 100)), dtype=torch.int32)
@@ -413,7 +560,40 @@ def phase_main_paths(dev, profile=False):
     scale = lc.abs().max().item()
     check(bool(torch.isfinite(lg).all()) and diff <= 2e-2 * scale, f"small model: card vs CPU {diff} at scale {scale}")
     print(f"phase 5c small model logits, card vs CPU plain path: max abs diff {diff:.2e} (max |logit| {scale:.2f})")
-    return dequant_counts, serve_counts, serving
+
+
+def phase_checkpoint(dev, rng):
+    """Main path (e): a packed checkpoint written by the port (``.npz``),
+    loaded on the card with an int8 KV cache and recoded to int8, against
+    the same checkpoint served on the CPU."""
+    import os
+    import tempfile
+
+    import torch
+
+    from nf4_tpu_torch.models.llama import LlamaConfig, prefill, recode_params_int8
+    from nf4_tpu_torch.models.loader import load_packed_auto, save_packed
+    from nf4_tpu_torch.models.synthetic import synthetic_params
+
+    small = LlamaConfig(**SMALL)
+    p_src = params_to(synthetic_params(small, seed=2), "cpu")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "small.npz")
+        save_packed(path, p_src, small)
+        p_gpu, cfg = load_packed_auto(path, kv_quant=True)
+        p_cpu, cfg_cpu = load_packed_auto(path, device="cpu", kv_quant=True)
+    check(cfg == cfg_cpu == dataclasses.replace(small, kv_quant=True), "checkpoint config")
+    for a, b in ((p_gpu.layers[0].wqkv.packed, p_src.layers[0].wqkv.packed), (p_gpu.lm_head, p_src.lm_head)):
+        check(a.is_cuda and torch.equal(a.cpu().view(torch.uint8), b.view(torch.uint8)), "checkpoint round trip")
+    tk = torch.as_tensor(rng.integers(0, 512, (2, 100)), dtype=torch.int32)
+    lg, cache = prefill(recode_params_int8(p_gpu), cfg, tk.to(dev))
+    lc, _ = prefill(recode_params_int8(p_cpu), cfg_cpu, tk)
+    diff = (lg.cpu() - lc).abs().max().item()
+    scale = lc.abs().max().item()
+    check(cache.k.dtype == torch.int8 and bool(torch.isfinite(lg).all()) and diff <= 2e-2 * scale,
+          f"checkpoint model int8/kv8: card vs CPU {diff} at scale {scale}")
+    print(f"phase 5e packed checkpoint (.npz) loaded with kv_quant=True and recoded to int8, card vs CPU: "
+          f"max abs diff {diff:.2e} (max |logit| {scale:.2f})")
 
 
 def main() -> int:
@@ -445,33 +625,65 @@ def main() -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     deq = phase_dequant(gen, dev)
+    fast = phase_dequant(gen, dev, fast=True)
     mm = phase_matmul(gen, dev)
+    mm8 = phase_matmul(gen, dev, int8=True)
     fl = phase_flash(gen, dev)
-    dequant_counts, serve_counts, serving = phase_main_paths(dev, args.profile)
+    fl8 = phase_flash(gen, dev, int8=True)
 
-    decode = [mm[(name, 4)] for name in LLAMA3_8B_PROJ]
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    dequant_counts, fast_counts = phase_dequant_api(dev, rng)
+    from nf4_tpu_torch.models.configs import LLAMA3_8B
+
+    prompts = [list(map(int, rng.integers(0, LLAMA3_8B.vocab_size, n))) for n in (1024, 37, 300, 64, 700, 9)]
+    serve_counts, serving = phase_serving(prompts, args.profile)
+    phase_small_model(dev, rng)
+    int8_counts, serving8 = phase_int8_serving(prompts, args.profile)
+    phase_checkpoint(dev, rng)
+
+    def decode_layer(res):  # one decode layer's four projections at B=4
+        return [res[(name, 4)] for name in LLAMA3_8B_PROJ]
+
+    def matmul_row(name, source, replaces, res, launches):
+        rows = decode_layer(res)
+        return dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches,
+                    max_abs_err=max(r["max_abs_err"] for r in res.values()),
+                    ms=sum(r["ms"] for r in rows), plain_ms=sum(r["plain_ms"] for r in rows),
+                    bound_ms=sum(r["bound_ms"] for r in rows), bound_by="bytes",
+                    library_ms=sum(r["library_ms"] for r in rows))
+
+    def flash_row(name, res, launches):
+        return dict(name=name, route="cuda", source="nf4_tpu_torch/csrc/flash_attn.cu",
+                    replaces="nf4_tpu/ops/attention.py:371", launches=launches,
+                    max_abs_err=max(r["max_abs_err"] for r in res.values()), ms=res["causal"]["ms"],
+                    plain_ms=res["causal"]["plain_ms"], bound_ms=res["causal"]["bound_ms"],
+                    bound_by="operations", library_ms=res["causal"]["library_ms"])
+
     kernels = [
         dict(name="dequant_t", route="cuda", source="nf4_tpu_torch/csrc/dequant.cu",
              replaces="nf4_tpu/ops/dequant.py:86", launches=dequant_counts["dequant_t"],
              max_abs_err=deq["max_abs_err"], ms=deq["w_down"]["ms"], plain_ms=deq["w_down"]["plain_ms"],
              bound_ms=deq["w_down"]["bound_ms"], bound_by="bytes", library_ms=None),
-        # One decode layer's four projections at B=4 (sums of the four shapes).
-        dict(name="matmul_bf16", route="cuda", source="nf4_tpu_torch/csrc/matmul.cu",
-             replaces="nf4_tpu/ops/matmul.py:148", launches=serve_counts["matmul_bf16"],
-             max_abs_err=max(r["max_abs_err"] for r in mm.values()),
-             ms=sum(r["ms"] for r in decode), plain_ms=sum(r["plain_ms"] for r in decode),
-             bound_ms=sum(r["bound_ms"] for r in decode), bound_by="bytes",
-             library_ms=sum(r["library_ms"] for r in decode)),
-        dict(name="flash_attention", route="cuda", source="nf4_tpu_torch/csrc/flash_attn.cu",
-             replaces="nf4_tpu/ops/attention.py:371", launches=serve_counts["flash_attention"],
-             max_abs_err=max(r["max_abs_err"] for r in fl.values()), ms=fl["causal"]["ms"],
-             plain_ms=fl["causal"]["plain_ms"], bound_ms=fl["causal"]["bound_ms"],
-             bound_by="operations", library_ms=fl["causal"]["library_ms"]),
+        matmul_row("matmul_bf16", "nf4_tpu_torch/csrc/matmul.cu", "nf4_tpu/ops/matmul.py:148", mm,
+                   serve_counts["matmul_bf16"]),
+        flash_row("flash_attention", fl, serve_counts["flash_attention"]),
+        flash_row("flash_attention_int8", fl8, int8_counts["flash_attention_int8"]),
+        matmul_row("int8_matmul", "nf4_tpu_torch/csrc/int8_matmul.cu", "nf4_tpu/ops/int8_serve.py:151", mm8,
+                   int8_counts["int8_matmul"]),
+        dict(name="dequant_t_fast", route="cuda", source="nf4_tpu_torch/csrc/dequant.cu",
+             replaces="nf4_tpu/ops/dequant.py:147", launches=fast_counts["dequant_t_fast"],
+             max_abs_err=fast["max_abs_err"], ms=fast["w_down"]["ms"], plain_ms=fast["w_down"]["plain_ms"],
+             bound_ms=fast["w_down"]["bound_ms"], bound_by="bytes", library_ms=None),
     ]
     if args.out:
         with open(args.out, "w") as f:
-            json.dump(dict(card=card, dequant=deq, matmul={f"{k[0]} B={k[1]}": v for k, v in mm.items()},
-                           flash=fl, serving=serving, kernels=kernels), f, indent=1)
+            json.dump(dict(card=card, dequant=deq, fast_dequant=fast,
+                           matmul={f"{k[0]} B={k[1]}": v for k, v in mm.items()},
+                           int8_matmul={f"{k[0]} B={k[1]}": v for k, v in mm8.items()},
+                           flash=fl, flash_int8=fl8, serving=serving, serving_int8=serving8,
+                           kernels=kernels), f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}

@@ -13,14 +13,20 @@ rather than fall back.
   is the JAX package's; the layout is the same here).
 * :func:`dequantize` / :func:`dequantize_t` -- exact dequant (kernel
   ``csrc/dequant.cu``).
+* :func:`dequantize_fast` / :func:`dequantize_t_fast` -- bf16 dequant
+  through the byte table (``csrc/dequant.cu``'s second kernel).
 * :func:`nf4_matmul` -- fused dequant-matmul for bf16 activations (kernel
   ``csrc/matmul.cu``).
+
+Serving lives in ``models/`` (Llama, packed checkpoints in
+``models/loader.py``, the int8 recode ``recode_params_int8``) and
+``serve/engine.py``.
 """
 
 from .nf4.format import PackedNF4, pack_for_tpu
 from .nf4.lut import FP4_CODE, NF4_CODE, dynamic_code, get_code
 from .nf4.reference import QuantState
-from .ops.dequant import dequantize, dequantize_t
+from .ops.dequant import dequantize, dequantize_fast, dequantize_t, dequantize_t_fast
 from .ops.matmul import nf4_matmul
 
 __version__ = "0.1.0"
@@ -35,6 +41,8 @@ __all__ = [
     "pack_for_tpu",
     "dequantize",
     "dequantize_t",
+    "dequantize_fast",
+    "dequantize_t_fast",
     "nf4_matmul",
     "dequantize_nf4_module",
     "reset_dequantize_state",

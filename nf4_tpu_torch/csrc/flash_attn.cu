@@ -1,7 +1,7 @@
-// Prefill flash attention over a bf16 KV cache (kernel C).
+// Prefill flash attention over a bf16 or int8 KV cache (kernel C).
 //
 // Replaces: nf4_tpu/ops/attention.py:flash_attention (kernel body
-// _make_flash_kernel), bf16-KV branch.
+// _make_flash_kernel), both the bf16-KV and the int8-KV branch.
 //
 // Computes: out[b, h, s] = softmax(scale * q . k^T) . v over the cache
 // slots t visible to query position p = pos0[b] + s:
@@ -11,6 +11,14 @@
 // P.V product, masked scores set to -1e30 (finite: a row that is fully
 // masked so far carries garbage that the first visible tile discards), and
 // a final acc / max(l, 1e-30).
+//
+// int8 KV (INT8 = true): k and v are int8 with fp32 per-slot absmax scales
+// ks, vs [B, KV, T].  The int8 tiles convert to bf16 (exact for |v| <= 127)
+// into the same shared-memory K/V buffers; after the `* scale` each score
+// is multiplied by ks[t] / 127; l is updated with the unscaled
+// probability p, and p is multiplied by vs[t] / 127 before its bf16
+// rounding and the P.V product (the TPU kernel's order: folding vs into l,
+// or applying it after P.V, would be another function).
 //
 // Bound: operations at prefill lengths (each K/V tile feeds 64 query rows),
 // bytes only for short prompts over a long cache.  Design:
@@ -28,12 +36,15 @@
 //   rescale of a row is a plain loop (WMMA hides the fragment layout).
 // * Query rows past S and cache slots past T are zero-filled in shared
 //   memory instead of padding the tensors, so the KV cache is read in
-//   place (batch and head strides are arguments).
+//   place (batch and head strides are arguments; the int8 scale planes
+//   too).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 using namespace nvcuda;
 
@@ -72,12 +83,28 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <int D>
+// Convert 16 int8 values to 16 bf16 values (exact) at dst.
+__device__ __forceinline__ void int8x16_to_bf16(uint4 src, __nv_bfloat16* dst) {
+  const int8_t* b = reinterpret_cast<const int8_t*>(&src);
+  uint32_t w[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    __nv_bfloat162 p = __floats2bfloat162_rn((float)b[2 * i], (float)b[2 * i + 1]);
+    w[i] = *reinterpret_cast<uint32_t*>(&p);
+  }
+  reinterpret_cast<uint4*>(dst)[0] = make_uint4(w[0], w[1], w[2], w[3]);
+  reinterpret_cast<uint4*>(dst)[1] = make_uint4(w[4], w[5], w[6], w[7]);
+}
+
+// KV is bf16 (INT8 false) or int8 with scale planes ks/vs (INT8 true).
+template <int D, bool INT8>
 __global__ void __launch_bounds__(THREADS)
-flash_attn_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+flash_attn_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict__ k,
+                  const void* __restrict__ v, const float* __restrict__ ks,
+                  const float* __restrict__ vs, __nv_bfloat16* __restrict__ out,
                   const int* __restrict__ pos0s, const int* __restrict__ seq_lens, int H, int KV,
                   int S, int T, long long k_sb, long long k_sh, long long v_sb, long long v_sh,
+                  long long ks_sb, long long ks_sh, long long vs_sb, long long vs_sh,
                   int sc, int window, float scale) {
   using L = Smem<D>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -124,20 +151,37 @@ flash_attn_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
   int t_end = min(T, min(pos_last + 1, seq_len));
   int t_begin = 0;
   if (window > 0) t_begin = max(0, (pos_first - window + 1) / BC * BC);
-  const __nv_bfloat16* kb = k + b * k_sb + kvh * k_sh;
-  const __nv_bfloat16* vb = v + b * v_sb + kvh * v_sh;
+  using KV_T = typename std::conditional<INT8, int8_t, __nv_bfloat16>::type;
+  const KV_T* kb = static_cast<const KV_T*>(k) + b * k_sb + kvh * k_sh;
+  const KV_T* vb = static_cast<const KV_T*>(v) + b * v_sb + kvh * v_sh;
+  const float* ksb = INT8 ? ks + b * ks_sb + kvh * ks_sh : nullptr;
+  const float* vsb = INT8 ? vs + b * vs_sb + kvh * vs_sh : nullptr;
 
   for (int t0 = t_begin; t0 < t_end; t0 += BC) {
     __syncthreads();  // every warp is done with the previous K/V tile
-    for (int i = tid; i < BC * DV; i += THREADS) {
-      const int r = i / DV, c = (i % DV) * 8;
-      uint4 kv = make_uint4(0, 0, 0, 0), vv = kv;
-      if (t0 + r < T) {
-        kv = *reinterpret_cast<const uint4*>(kb + (size_t)(t0 + r) * D + c);
-        vv = *reinterpret_cast<const uint4*>(vb + (size_t)(t0 + r) * D + c);
+    if constexpr (INT8) {
+      constexpr int DV8 = D / 16;  // 16-byte pieces per int8 row
+      for (int i = tid; i < BC * DV8; i += THREADS) {
+        const int r = i / DV8, c = (i % DV8) * 16;
+        uint4 kv = make_uint4(0, 0, 0, 0), vv = kv;
+        if (t0 + r < T) {
+          kv = *reinterpret_cast<const uint4*>(kb + (size_t)(t0 + r) * D + c);
+          vv = *reinterpret_cast<const uint4*>(vb + (size_t)(t0 + r) * D + c);
+        }
+        int8x16_to_bf16(kv, Ks + r * L::KLD + c);
+        int8x16_to_bf16(vv, Vs + r * L::KLD + c);
       }
-      *reinterpret_cast<uint4*>(Ks + r * L::KLD + c) = kv;
-      *reinterpret_cast<uint4*>(Vs + r * L::KLD + c) = vv;
+    } else {
+      for (int i = tid; i < BC * DV; i += THREADS) {
+        const int r = i / DV, c = (i % DV) * 8;
+        uint4 kv = make_uint4(0, 0, 0, 0), vv = kv;
+        if (t0 + r < T) {
+          kv = *reinterpret_cast<const uint4*>(kb + (size_t)(t0 + r) * D + c);
+          vv = *reinterpret_cast<const uint4*>(vb + (size_t)(t0 + r) * D + c);
+        }
+        *reinterpret_cast<uint4*>(Ks + r * L::KLD + c) = kv;
+        *reinterpret_cast<uint4*>(Vs + r * L::KLD + c) = vv;
+      }
     }
     __syncthreads();
 
@@ -156,6 +200,17 @@ flash_attn_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
     }
     __syncwarp();
 
+    // This lane's two slots' int8 scale factors, ks[t] / 127 and vs[t] / 127.
+    float kfac[2] = {1.f, 1.f}, vfac[2] = {1.f, 1.f};
+    if constexpr (INT8) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int t = t0 + lane + 32 * e;
+        kfac[e] = t < T ? ksb[t] * (1.f / 127.f) : 0.f;
+        vfac[e] = t < T ? vsb[t] * (1.f / 127.f) : 0.f;
+      }
+    }
+
     // Online softmax, one row at a time across the warp (2 slots per lane).
     for (int rr = 0; rr < 16; ++rr) {
       const int r = warp * 16 + rr;
@@ -166,15 +221,18 @@ flash_attn_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
         const int c = lane + 32 * e, t = t0 + c;
         bool vis = t <= p && t < seq_len;
         if (window > 0) vis = vis && t > p - window;
-        s2[e] = vis ? Ss[r * L::SLD + c] * scale : NEG;
+        float sv = Ss[r * L::SLD + c] * scale;
+        if constexpr (INT8) sv *= kfac[e];
+        s2[e] = vis ? sv : NEG;
       }
       const float m_old = ms[r];
       const float m_new = fmaxf(m_old, warp_max(fmaxf(s2[0], s2[1])));
       const float alpha = expf(m_old - m_new);
       const float p0 = expf(s2[0] - m_new), p1 = expf(s2[1] - m_new);
       const float psum = warp_sum(p0 + p1);
-      Ps[r * L::PLD + lane] = __float2bfloat16_rn(p0);
-      Ps[r * L::PLD + lane + 32] = __float2bfloat16_rn(p1);
+      // l takes the unscaled p; P.V the p scaled by vs[t] / 127 (int8 KV).
+      Ps[r * L::PLD + lane] = __float2bfloat16_rn(INT8 ? p0 * vfac[0] : p0);
+      Ps[r * L::PLD + lane + 32] = __float2bfloat16_rn(INT8 ? p1 * vfac[1] : p1);
 #pragma unroll
       for (int d = lane; d < D; d += 32) Os[r * L::OLD + d] *= alpha;
       if (lane == 0) {
@@ -216,26 +274,46 @@ flash_attn_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
   }
 }
 
-template <int D>
-int launch(const void* q, const void* k, const void* v, void* out, const void* pos0,
-           const void* lens, int B, int H, int KV, int S, int T, long long k_sb, long long k_sh,
-           long long v_sb, long long v_sh, int sc, int window, float scale, cudaStream_t stream) {
+struct Args {
+  const void *q, *k, *v, *ks, *vs;
+  void* out;
+  const void *pos0, *lens;
+  int B, H, KV, S, T;
+  long long k_sb, k_sh, v_sb, v_sh, ks_sb, ks_sh, vs_sb, vs_sh;
+  int sc, window;
+  float scale;
+};
+
+template <int D, bool INT8>
+int launch(const Args& a, cudaStream_t stream) {
   // Shared memory above 48 KB needs the opt-in attribute, set once per
   // process (the first launch), so a later launch can be captured in a graph.
   static bool opted_in = false;
   if (!opted_in) {
-    cudaError_t err = cudaFuncSetAttribute(flash_attn_kernel<D>,
+    cudaError_t err = cudaFuncSetAttribute(flash_attn_kernel<D, INT8>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<D>::BYTES);
     if (err != cudaSuccess) return (int)err;
     opted_in = true;
   }
-  dim3 grid(B * KV, (S + sc - 1) / sc);
-  flash_attn_kernel<D><<<grid, THREADS, Smem<D>::BYTES, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      static_cast<const int*>(pos0), static_cast<const int*>(lens), H, KV, S, T, k_sb, k_sh, v_sb,
-      v_sh, sc, window, scale);
+  dim3 grid(a.B * a.KV, (a.S + a.sc - 1) / a.sc);
+  flash_attn_kernel<D, INT8><<<grid, THREADS, Smem<D>::BYTES, stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q), a.k, a.v, static_cast<const float*>(a.ks),
+      static_cast<const float*>(a.vs), static_cast<__nv_bfloat16*>(a.out),
+      static_cast<const int*>(a.pos0), static_cast<const int*>(a.lens), a.H, a.KV, a.S, a.T,
+      a.k_sb, a.k_sh, a.v_sb, a.v_sh, a.ks_sb, a.ks_sh, a.vs_sb, a.vs_sh, a.sc, a.window, a.scale);
   return 0;
+}
+
+template <bool INT8>
+int dispatch(const Args& a, int D, cudaStream_t stream) {
+  if (a.KV <= 0 || a.H % a.KV || a.sc <= 0 || a.sc * (a.H / a.KV) != BR || a.B <= 0 || a.S <= 0)
+    return (int)cudaErrorInvalidValue;
+  int rc;
+  if (D == 128) rc = launch<128, INT8>(a, stream);
+  else if (D == 64) rc = launch<64, INT8>(a, stream);
+  else return (int)cudaErrorInvalidValue;
+  if (rc) return rc;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -248,13 +326,21 @@ extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
                                     int S, int T, int D, long long k_sb, long long k_sh,
                                     long long v_sb, long long v_sh, int sc, int window,
                                     float scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (KV <= 0 || H % KV || sc <= 0 || sc * (H / KV) != BR || B <= 0 || S <= 0)
-    return (int)cudaErrorInvalidValue;
-  int rc;
-  if (D == 128) rc = launch<128>(q, k, v, out, pos0, seq_lens, B, H, KV, S, T, k_sb, k_sh, v_sb, v_sh, sc, window, scale, s);
-  else if (D == 64) rc = launch<64>(q, k, v, out, pos0, seq_lens, B, H, KV, S, T, k_sb, k_sh, v_sb, v_sh, sc, window, scale, s);
-  else return (int)cudaErrorInvalidValue;
-  if (rc) return rc;
-  return (int)cudaGetLastError();
+  const Args a{q, k, v, nullptr, nullptr, out, pos0, seq_lens, B, H, KV, S, T,
+               k_sb, k_sh, v_sb, v_sh, 0, 0, 0, 0, sc, window, scale};
+  return dispatch<false>(a, D, static_cast<cudaStream_t>(stream));
+}
+
+// As flash_attention_bf16 with int8 k, v and fp32 scale planes ks, vs
+// [B, KV, T] (slots contiguous; batch and head strides in elements).
+extern "C" int flash_attention_int8(const void* q, const void* k, const void* v, const void* ks,
+                                    const void* vs, void* out, const void* pos0,
+                                    const void* seq_lens, int B, int H, int KV, int S, int T,
+                                    int D, long long k_sb, long long k_sh, long long v_sb,
+                                    long long v_sh, long long ks_sb, long long ks_sh,
+                                    long long vs_sb, long long vs_sh, int sc, int window,
+                                    float scale, void* stream) {
+  const Args a{q, k, v, ks, vs, out, pos0, seq_lens, B, H, KV, S, T,
+               k_sb, k_sh, v_sb, v_sh, ks_sb, ks_sh, vs_sb, vs_sh, sc, window, scale};
+  return dispatch<true>(a, D, static_cast<cudaStream_t>(stream));
 }

@@ -35,49 +35,12 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "gemm_common.cuh"
+
+using namespace gemm;
 using namespace nvcuda;
 
 namespace {
-
-constexpr int BN = 128;      // output columns per block
-constexpr int BK = 64;       // K rows per step (one scale block)
-constexpr int THREADS = 128; // 4 warps
-constexpr int XS_LD = BK + 8;
-constexpr int WS_LD = BN + 8;
-constexpr int CS_LD = BN + 4;
-
-__device__ __forceinline__ void store_out(void* out, int kind, size_t idx, float4 v) {
-  if (kind == 0) {
-    *reinterpret_cast<float4*>(static_cast<float*>(out) + idx) = v;
-  } else if (kind == 1) {
-    __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y), b = __floats2bfloat162_rn(v.z, v.w);
-    uint2 w;
-    w.x = *reinterpret_cast<uint32_t*>(&a);
-    w.y = *reinterpret_cast<uint32_t*>(&b);
-    *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(out) + idx) = w;
-  } else {
-    __half2 a = __floats2half2_rn(v.x, v.y), b = __floats2half2_rn(v.z, v.w);
-    uint2 w;
-    w.x = *reinterpret_cast<uint32_t*>(&a);
-    w.y = *reinterpret_cast<uint32_t*>(&b);
-    *reinterpret_cast<uint2*>(static_cast<__half*>(out) + idx) = w;
-  }
-}
-
-template <int BM>
-struct Tiles {
-  static constexpr int WM = BM == 16 ? 16 : 32;  // rows per warp
-  static constexpr int WN = BM == 16 ? 32 : 64;  // columns per warp
-  static constexpr int FM = WM / 16;
-  static constexpr int FN = WN / 16;
-  static constexpr int WARPS_N = BN / WN;
-  static constexpr int XV = BM * BK / 8 / THREADS;  // 16-byte x loads per thread
-  static constexpr int TILE_BYTES = (BM * XS_LD + BK * WS_LD) * 2;
-  static constexpr int STAGE_BYTES = BM * CS_LD * 4;
-  static constexpr int SMEM = TILE_BYTES > STAGE_BYTES ? TILE_BYTES : STAGE_BYTES;
-  static_assert((BM / WM) * WARPS_N == THREADS / 32, "4 warps tile the block");
-  static_assert(XV >= 1, "x tile load");
-};
 
 // out_kind 0/1/2 = fp32/bf16/fp16 written at out + blockIdx.z * split_stride.
 template <int BM>
@@ -205,21 +168,7 @@ nf4_matmul_bf16_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __res
   for (int idx = tid; idx < BM * BN / 4; idx += THREADS) {
     const int r = idx / (BN / 4), c = (idx % (BN / 4)) * 4;
     const float4 v = *reinterpret_cast<const float4*>(cs + r * CS_LD + c);
-    store_out(dst, out_kind, (size_t)(m0 + r) * m_pad + n0 + c, v);
-  }
-}
-
-// Sum the K-split fp32 partials in split order and store in the out type.
-__global__ void splitk_reduce_kernel(const float* __restrict__ part, void* __restrict__ out,
-                                     int ksplit, size_t n4, int out_kind) {
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float4 s = reinterpret_cast<const float4*>(part)[i];
-    for (int z = 1; z < ksplit; ++z) {
-      const float4 v = reinterpret_cast<const float4*>(part + z * n4 * 4)[i];
-      s.x += v.x; s.y += v.y; s.z += v.z; s.w += v.w;
-    }
-    store_out(out, out_kind, i * 4, s);
+    gemm::store_out(dst, out_kind, (size_t)(m0 + r) * m_pad + n0 + c, v);
   }
 }
 
@@ -256,12 +205,6 @@ extern "C" int nf4_matmul_bf16(const void* x, const void* packed, const void* sc
   const size_t stride = (size_t)b_pad * m_pad;
   if (bm == 16) launch<16>(x, packed, scales, table, dst, b_pad, n_pad, m_pad, per, ksplit, stride, kind, s);
   else launch<64>(x, packed, scales, table, dst, b_pad, n_pad, m_pad, per, ksplit, stride, kind, s);
-  if (ksplit > 1) {
-    const size_t n4 = stride / 4;
-    size_t blocks = (n4 + 255) / 256;
-    if (blocks > 65535u * 8u) blocks = 65535u * 8u;
-    splitk_reduce_kernel<<<(unsigned)blocks, 256, 0, s>>>(static_cast<const float*>(workspace), out,
-                                                          ksplit, n4, out_kind);
-  }
+  if (ksplit > 1) gemm::splitk_reduce(static_cast<const float*>(workspace), out, ksplit, stride, out_kind, s);
   return (int)cudaGetLastError();
 }

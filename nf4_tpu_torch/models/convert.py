@@ -5,9 +5,14 @@ leaves as numpy arrays (``jax.tree.map(np.asarray, params)``), read by
 attribute only: ``embed``, ``final_norm``, ``lm_head`` and the stacked
 ``[L, ...]`` ``layers.{wqkv, wo, w_gateup, w_down}`` (each with ``packed``,
 ``scales``, ``shape``, ``padded_shape``, ``dtype``, ``shards`` and
-``quant_type``, or a dense array) and ``layers.{input_norm,
-post_attn_norm}``.  It returns the port's params with the layers split.
-The packed bytes and scales are copied as they are: the layout is shared.
+``quant_type``; an int8-recoded one with ``values`` and ``scales``; or a
+dense array) and ``layers.{input_norm, post_attn_norm}``.  It returns the
+port's params with the layers split.  The packed bytes, int8 values and
+scales are copied as they are: the layouts are shared.
+
+:func:`config_to_dict` / :func:`config_from_dict` are the JAX package's
+configuration dicts (its ``models/loader.py``), as packed checkpoints
+store them.
 """
 
 from __future__ import annotations
@@ -18,10 +23,11 @@ import numpy as np
 import torch
 
 from ..nf4.format import PackedNF4
+from ..ops.int8_serve import PackedInt8
 from ..utils.device import resolve_device
 from .llama import LayerParams, LlamaConfig, LlamaParams
 
-__all__ = ["params_from_numpy", "config_from_dict"]
+__all__ = ["params_from_numpy", "config_from_dict", "config_to_dict"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16, "float32": torch.float32}
 
@@ -51,6 +57,15 @@ def _weight(w, i, device):
             shards=int(w.shards),
             quant_type=str(w.quant_type),
         )
+    if hasattr(w, "values"):
+        return PackedInt8(
+            values=_tensor(pick(w.values), device),
+            scales=_tensor(pick(w.scales), device),
+            shape=tuple(int(d) for d in w.shape),
+            padded_shape=tuple(int(d) for d in w.padded_shape),
+            dtype=_torch_dtype(w.dtype),
+            shards=int(w.shards),
+        )
     return _tensor(pick(w), device)
 
 
@@ -79,6 +94,14 @@ def params_from_numpy(tree, cfg: LlamaConfig, device=None) -> LlamaParams:
         final_norm=_tensor(tree.final_norm, dev),
         lm_head=_weight(tree.lm_head, None, dev),
     )
+
+
+def config_to_dict(cfg: LlamaConfig) -> dict:
+    """A JSON-serializable dict of ``cfg`` (the dtype by its name), as the
+    JAX package's ``config_to_dict`` writes it."""
+    out = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    out["dtype"] = str(cfg.dtype).removeprefix("torch.")
+    return out
 
 
 def config_from_dict(d: dict) -> LlamaConfig:

@@ -3,7 +3,9 @@
 The counterpart of the inference half of the JAX package's
 ``models/llama.py``: RMSNorm, rotary embeddings, GQA attention over a KV
 cache, SwiGLU MLP.  Every projection goes through one call site,
-:func:`_matmul`, which runs the fused 4-bit matmul.
+:func:`_matmul`: the fused 4-bit matmul for :class:`PackedNF4` weights,
+the int8 matmul for weights recoded by :func:`recode_params_int8`.  With
+``kv_quant`` the KV cache is int8 with per-slot absmax scales.
 
 PyTorch idiom in place of the JAX one: layers are a Python list iterated by
 a loop (the JAX package scans stacked layers), and :func:`forward` writes
@@ -21,6 +23,7 @@ import torch.nn.functional as F
 
 from ..nf4.format import PackedNF4
 from ..ops.attention import attention
+from ..ops.int8_serve import PackedInt8, int8_matmul, recode_int8_weight
 from ..ops.matmul import nf4_matmul
 from ..utils.device import resolve_device
 
@@ -37,6 +40,7 @@ __all__ = [
     "forward",
     "prefill",
     "decode_step",
+    "recode_params_int8",
 ]
 
 
@@ -97,7 +101,6 @@ def check_supported(cfg: LlamaConfig) -> None:
     """Raise for configuration features this port does not serve yet."""
     missing = {
         "quantize=False (dense projections)": not cfg.quantize,
-        "kv_quant": cfg.kv_quant,
         "num_experts > 1": cfg.num_experts > 1,
         "attn_bias": cfg.attn_bias,
         "qk_norm": cfg.qk_norm,
@@ -116,14 +119,17 @@ def check_supported(cfg: LlamaConfig) -> None:
         raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
 
 
+Weight = Union[PackedNF4, PackedInt8]
+
+
 @dataclasses.dataclass
 class LayerParams:
     """One decoder layer.  q+k+v and gate+up are fused, one matmul each."""
 
-    wqkv: PackedNF4  # [q_dim + 2*kv_dim, hidden]
-    wo: PackedNF4  # [hidden, q_dim]
-    w_gateup: PackedNF4  # [2*intermediate, hidden]
-    w_down: PackedNF4  # [hidden, intermediate]
+    wqkv: Weight  # [q_dim + 2*kv_dim, hidden]
+    wo: Weight  # [hidden, q_dim]
+    w_gateup: Weight  # [2*intermediate, hidden]
+    w_down: Weight  # [hidden, intermediate]
     input_norm: torch.Tensor  # fp32 [hidden]
     post_attn_norm: torch.Tensor  # fp32 [hidden]
 
@@ -133,21 +139,43 @@ class LlamaParams:
     embed: torch.Tensor  # [vocab, hidden], cfg.dtype
     layers: List[LayerParams]
     final_norm: torch.Tensor  # fp32 [hidden]
-    lm_head: Union[PackedNF4, torch.Tensor]  # dense [vocab, hidden] cfg.dtype, or packed
+    lm_head: Union[Weight, torch.Tensor]  # dense [vocab, hidden] cfg.dtype, or packed
 
 
 @dataclasses.dataclass
 class KVCache:
-    k: torch.Tensor  # [L, B, KV, S_max, D]
+    k: torch.Tensor  # [L, B, KV, S_max, D] (cfg.dtype, or int8 with kv_quant)
     v: torch.Tensor
+    # fp32 [L, B, KV, S_max] per-slot absmax scales of the int8 cache
+    # (cfg.kv_quant); None for the bf16 cache.
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+
+    def planes(self) -> dict:
+        """The cache's tensors by field name (the scales only when int8)."""
+        return {f.name: getattr(self, f.name) for f in dataclasses.fields(self) if getattr(self, f.name) is not None}
+
+    def layer(self, i: int) -> "KVCache":
+        """Layer ``i``'s views of every plane (writes go to this cache)."""
+        return KVCache(**{name: t[i] for name, t in self.planes().items()})
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in self.planes().values())
 
 
 def init_kv_cache(cfg: LlamaConfig, batch_size: int, device=None) -> KVCache:
-    """A zeroed cfg.dtype (bf16) cache on ``device`` (default ``cuda``)."""
-    if cfg.kv_quant:
-        raise NotImplementedError("not ported yet: kv_quant")
+    """A zeroed cache on ``device`` (default ``cuda``): cfg.dtype (bf16), or
+    int8 with fp32 scale planes under ``cfg.kv_quant``."""
     dev = resolve_device(device)
     shape = (cfg.num_layers, batch_size, cfg.num_kv_heads, cfg.max_seq_len, cfg.head_dim)
+    if cfg.kv_quant:
+        return KVCache(
+            k=torch.zeros(shape, dtype=torch.int8, device=dev),
+            v=torch.zeros(shape, dtype=torch.int8, device=dev),
+            k_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=dev),
+            v_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=dev),
+        )
     return KVCache(
         k=torch.zeros(shape, dtype=cfg.dtype, device=dev),
         v=torch.zeros(shape, dtype=cfg.dtype, device=dev),
@@ -165,10 +193,28 @@ def _dense_logits(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y.reshape(*x.shape[:-1], w.shape[0])
 
 
-def _matmul(x: torch.Tensor, w: PackedNF4, out_dtype=None) -> torch.Tensor:
-    """The one call site of every projection (int8-recoded weights join
-    here when their kernel is ported)."""
-    return nf4_matmul(x, w, out_dtype=out_dtype or x.dtype)
+def _matmul(x: torch.Tensor, w: Weight, out_dtype=None) -> torch.Tensor:
+    """The one call site of every projection."""
+    out_dtype = out_dtype or x.dtype
+    if isinstance(w, PackedInt8):
+        return int8_matmul(x, w, out_dtype=out_dtype)
+    return nf4_matmul(x, w, out_dtype=out_dtype)
+
+
+def recode_params_int8(params: LlamaParams) -> LlamaParams:
+    """Every packed 4-bit projection recoded to int8 (see
+    :mod:`~nf4_tpu_torch.ops.int8_serve`): twice the weight bytes, values on
+    the 4-bit grid up to the int8 rounding of the codebook.  A dense bf16
+    lm_head stays as it is."""
+
+    def recode(w):
+        return recode_int8_weight(w) if isinstance(w, PackedNF4) else w
+
+    layers = [
+        dataclasses.replace(lp, **{n: recode(getattr(lp, n)) for n in ("wqkv", "wo", "w_gateup", "w_down")})
+        for lp in params.layers
+    ]
+    return dataclasses.replace(params, layers=layers, lm_head=recode(params.lm_head))
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -199,16 +245,30 @@ def split_fused(y: torch.Tensor, sizes) -> List[torch.Tensor]:
     return list(torch.split(y, list(sizes), dim=-1))
 
 
+def _quantize_kv(t: torch.Tensor):
+    """[B, KV, S, D] -> (int8 values, fp32 per-slot absmax scales [B, KV, S]):
+    ``round(t * (127 / s))`` with round-half-even, s the absmax (1 where the
+    absmax is 0)."""
+    tf = t.float()
+    absmax = tf.abs().amax(dim=-1)
+    s = torch.where(absmax > 0, absmax, torch.ones_like(absmax))
+    # A true division (``127.0 / s`` on a tensor is reciprocal-then-multiply).
+    q8 = torch.round(tf * torch.div(torch.full_like(s, 127.0), s)[..., None]).to(torch.int8)
+    return q8, absmax
+
+
 def _write_kv(layer_cache: torch.Tensor, new: torch.Tensor, positions: torch.Tensor) -> None:
-    """In place: layer_cache [B, KV, T, D][b, :, positions[b, s]] = new[b, :, s].
-    Every position must be < T."""
+    """In place: layer_cache [B, KV, T, ...][b, :, positions[b, s]] =
+    new[b, :, s] (the K/V planes and the int8 scale planes alike).  Every
+    position must be < T."""
     b, s = positions.shape
     rows = torch.arange(b, device=positions.device)[:, None].expand(b, s)
     layer_cache.transpose(1, 2)[rows, positions.long()] = new.transpose(1, 2).to(layer_cache.dtype)
 
 
-def _layer_forward(cfg, x, lp: LayerParams, layer_k, layer_v, positions, seq_lens, cos, sin, kv_len):
-    """One decoder layer; x [B, S, hidden]; writes this call's K/V in place."""
+def _layer_forward(cfg, x, lp: LayerParams, layer_cache: KVCache, positions, seq_lens, cos, sin, kv_len):
+    """One decoder layer; x [B, S, hidden]; writes this call's K/V into the
+    layer's cache views in place."""
     b, s, _ = x.shape
     attn_in = rms_norm(x, lp.input_norm, cfg.rms_norm_eps)
     qkv = _matmul(attn_in, lp.wqkv)  # one kernel for q+k+v
@@ -218,12 +278,18 @@ def _layer_forward(cfg, x, lp: LayerParams, layer_k, layer_v, positions, seq_len
     v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    _write_kv(layer_k, k, positions)
-    _write_kv(layer_v, v, positions)
+    if cfg.kv_quant:
+        (k, k_scale), (v, v_scale) = _quantize_kv(k), _quantize_kv(v)
+        _write_kv(layer_cache.k_scale, k_scale, positions)
+        _write_kv(layer_cache.v_scale, v_scale, positions)
+    _write_kv(layer_cache.k, k, positions)
+    _write_kv(layer_cache.v, v, positions)
     attn = attention(
-        q, layer_k, layer_v, positions, seq_lens,
+        q, layer_cache.k, layer_cache.v, positions, seq_lens,
         scale=cfg.attn_scale,
         sliding_window=cfg.sliding_window,
+        k_scale=layer_cache.k_scale,
+        v_scale=layer_cache.v_scale,
         kv_len=kv_len,
     )
     attn = attn.transpose(1, 2).reshape(b, s, cfg.q_dim)
@@ -254,12 +320,12 @@ def forward(
     x = params.embed[tokens.long()]
     cos, sin = rope_tables(cfg, positions)
     for i, lp in enumerate(params.layers):
-        x = _layer_forward(cfg, x, lp, cache.k[i], cache.v[i], positions, seq_lens, cos, sin, kv_len)
+        x = _layer_forward(cfg, x, lp, cache.layer(i), positions, seq_lens, cos, sin, kv_len)
     if last_only:
         last_idx = torch.clamp(seq_lens - 1 - positions[:, 0], 0, s - 1).long()
         x = x[torch.arange(b, device=x.device), last_idx]
     x = rms_norm(x, params.final_norm, cfg.rms_norm_eps)
-    if isinstance(params.lm_head, PackedNF4):
+    if isinstance(params.lm_head, (PackedNF4, PackedInt8)):
         logits = _matmul(x, params.lm_head, out_dtype=torch.float32)
     else:
         logits = _dense_logits(x, params.lm_head.to(x.dtype))

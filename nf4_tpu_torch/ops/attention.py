@@ -18,7 +18,14 @@ in serving), and probabilities round to it before the P.V product.
 Every caller passes per-row contiguous positions (``pos0 + arange(S)``),
 which the flash kernel needs.
 
-The int8-KV branch, segment ids and logit softcapping are not ported yet.
+int8 KV: k and v are int8 with fp32 per-slot absmax scales ``k_scale`` /
+``v_scale`` [B, KV, T].  Every path folds them in without materializing a
+dequantized cache: scores are multiplied by ``scale`` and then by
+``k_scale / 127``; the softmax normaliser takes the unscaled probabilities,
+which are then multiplied by ``v_scale / 127`` before their rounding to the
+working dtype and the P.V product.
+
+Segment ids and logit softcapping are not ported yet.
 """
 
 from __future__ import annotations
@@ -42,6 +49,11 @@ _KERNEL = Kernel(
     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 4
     + [ctypes.c_int] * 2 + [ctypes.c_float],
 )
+_INT8_KERNEL = Kernel(
+    "flash_attention_int8", "flash_attn", "flash_attention_int8",
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 8
+    + [ctypes.c_int] * 2 + [ctypes.c_float],
+)
 
 
 def _visibility(t_ids, positions, seq_lens, sliding_window):
@@ -54,23 +66,37 @@ def _visibility(t_ids, positions, seq_lens, sliding_window):
     return vis
 
 
-def naive_attention(q, k, v, positions, seq_lens, *, scale: float, sliding_window: Optional[int] = None):
-    """q [B, H, S, D], k/v [B, KV, T, D], positions [B, S], seq_lens [B]."""
+def _int8_factor(kv_scale):
+    """[B, KV, C] absmax scales -> the [B, KV, 1, 1, C] factor scale / 127."""
+    return (kv_scale * (1.0 / 127.0))[:, :, None, None, :]
+
+
+def naive_attention(
+    q, k, v, positions, seq_lens, *, scale: float, sliding_window: Optional[int] = None,
+    k_scale=None, v_scale=None,
+):
+    """q [B, H, S, D], k/v [B, KV, T, D] (bf16, or int8 with k_scale/v_scale
+    [B, KV, T]), positions [B, S], seq_lens [B]."""
     b, nh, s, d = q.shape
     nkv, t_max = k.shape[1], k.shape[2]
     qg = q.reshape(b, nkv, nh // nkv, s, d).float()
     scores = torch.matmul(qg, k.float()[:, :, None].transpose(-1, -2)) * scale
+    if k_scale is not None:
+        scores = scores * _int8_factor(k_scale)
     t_ids = torch.arange(t_max, device=q.device)
     vis = _visibility(t_ids, positions, seq_lens, sliding_window)
     scores = torch.where(vis[:, None, None], scores, torch.full_like(scores, _NEG))
-    probs = torch.softmax(scores, dim=-1).to(q.dtype).float()
+    probs = torch.softmax(scores, dim=-1)
+    if v_scale is not None:
+        probs = probs * _int8_factor(v_scale)
+    probs = probs.to(q.dtype).float()
     out = torch.matmul(probs, v.float()[:, :, None])
     return out.reshape(b, nh, s, d).to(q.dtype)
 
 
 def chunked_attention(
     q, k, v, positions, seq_lens, *, scale: float, sliding_window: Optional[int] = None,
-    q_chunk: int = 512, kv_chunk: int = 512,
+    k_scale=None, v_scale=None, q_chunk: int = 512, kv_chunk: int = 512,
 ):
     """Streaming softmax over (query chunk, key chunk) pairs; key chunks a
     query chunk cannot see are skipped (one host read of the chunk's
@@ -96,6 +122,8 @@ def chunked_attention(
             kc = k[:, :, t0 : t0 + kv_chunk].float()
             vc = v[:, :, t0 : t0 + kv_chunk]
             sct = torch.matmul(qt, kc[:, :, None].transpose(-1, -2)) * scale
+            if k_scale is not None:
+                sct = sct * _int8_factor(k_scale[:, :, t0 : t0 + kv_chunk])
             t_ids = torch.arange(t0, t0 + kc.shape[2], device=q.device)
             vis = _visibility(t_ids, pos_t, seq_lens, sliding_window)
             sct = torch.where(vis[:, None, None], sct, torch.full_like(sct, _NEG))
@@ -103,29 +131,39 @@ def chunked_attention(
             alpha = torch.exp(m - m_new)
             p = torch.exp(sct - m_new[..., None])
             l = l * alpha + p.sum(dim=-1)
+            if v_scale is not None:
+                p = p * _int8_factor(v_scale[:, :, t0 : t0 + kv_chunk])
             o = o * alpha[..., None] + torch.matmul(p.to(q.dtype).float(), vc.float()[:, :, None])
             m = m_new
         outs.append((o / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype))
     return torch.cat(outs, dim=3).reshape(b, nh, s, d)
 
 
-def _flash_plain(q, k, v, pos0, seq_lens, scale, sliding_window=None):
+def _flash_plain(q, k, v, pos0, seq_lens, scale, sliding_window=None, k_scale=None, v_scale=None):
     """The plain version of kernel C: the same online softmax over key
     tiles of the kernel's 64 slots, for all query rows at once.  pos0 [B]."""
     s = q.shape[2]
     positions = pos0[:, None] + torch.arange(s, device=q.device)[None, :]
     return chunked_attention(q, k, v, positions, seq_lens, scale=scale, sliding_window=sliding_window,
-                             q_chunk=s, kv_chunk=_FLASH_TILE)
+                             k_scale=k_scale, v_scale=v_scale, q_chunk=s, kv_chunk=_FLASH_TILE)
 
 
-def _flash_kernel(q, k, v, pos0, seq_lens, scale, sliding_window=None):
-    """Launch kernel C: q bf16 [B, H, S, D] contiguous; k/v bf16
-    [B, KV, T, D] with contiguous rows (a view of the cache is read in
-    place); pos0, seq_lens [B]."""
+def _check_scale_plane(sp, k) -> None:
+    if sp.dtype != torch.float32 or sp.shape != k.shape[:3] or sp.stride(2) != 1 or sp.device != k.device:
+        raise ValueError(f"int8 KV scales must be fp32 {tuple(k.shape[:3])} with contiguous slots, on k's device")
+
+
+def _flash_kernel(q, k, v, pos0, seq_lens, scale, sliding_window=None, k_scale=None, v_scale=None):
+    """Launch kernel C: q bf16 [B, H, S, D] contiguous; k/v bf16, or int8
+    with fp32 scale planes k_scale/v_scale [B, KV, T], [B, KV, T, D] with
+    contiguous rows (views of the cache are read in place); pos0,
+    seq_lens [B]."""
     b, nh, s, d = q.shape
     nkv, t_max = k.shape[1], k.shape[2]
-    if q.dtype != torch.bfloat16 or k.dtype != torch.bfloat16 or v.dtype != torch.bfloat16:
-        raise TypeError("kernel C takes bf16 q, k and v")
+    int8_kv = k_scale is not None
+    kv_dtype = torch.int8 if int8_kv else torch.bfloat16
+    if q.dtype != torch.bfloat16 or k.dtype != kv_dtype or v.dtype != kv_dtype:
+        raise TypeError("kernel C takes bf16 q and bf16 k, v, or int8 k, v with k_scale and v_scale")
     if d not in (64, 128) or nh % nkv or _FLASH_ROWS % (nh // nkv):
         raise ValueError(f"kernel C needs D in (64, 128) and 64 % (H/KV) == 0; got D={d}, H={nh}, KV={nkv}")
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
@@ -138,9 +176,17 @@ def _flash_kernel(q, k, v, pos0, seq_lens, scale, sliding_window=None):
     pos0 = pos0.to(device=q.device, dtype=torch.int32).contiguous()
     lens = seq_lens.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty_like(q)
-    _KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), pos0.data_ptr(), lens.data_ptr(),
-            b, nh, nkv, s, t_max, d, k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-            _FLASH_ROWS // (nh // nkv), int(sliding_window or 0), float(scale))
+    tail = (_FLASH_ROWS // (nh // nkv), int(sliding_window or 0), float(scale))
+    if int8_kv:
+        _check_scale_plane(k_scale, k)
+        _check_scale_plane(v_scale, v)
+        _INT8_KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
+                     out.data_ptr(), pos0.data_ptr(), lens.data_ptr(), b, nh, nkv, s, t_max, d,
+                     k.stride(0), k.stride(1), v.stride(0), v.stride(1), k_scale.stride(0),
+                     k_scale.stride(1), v_scale.stride(0), v_scale.stride(1), *tail)
+    else:
+        _KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), pos0.data_ptr(), lens.data_ptr(),
+                b, nh, nkv, s, t_max, d, k.stride(0), k.stride(1), v.stride(0), v.stride(1), *tail)
     return out
 
 
@@ -149,12 +195,10 @@ def flash_attention(
     k_scale=None, v_scale=None,
 ):
     """Prefill flash attention; ``positions[b]`` MUST be ``pos0_b + arange(S)``."""
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError("kernel not ported yet: the int8-KV branch of flash attention")
-    pos0 = positions[:, 0]
-    if q.is_cuda:
-        return _flash_kernel(q, k, v, pos0, seq_lens, scale, sliding_window)
-    return _flash_plain(q, k, v, pos0, seq_lens, scale, sliding_window)
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("int8 KV needs both k_scale and v_scale")
+    fn = _flash_kernel if q.is_cuda else _flash_plain
+    return fn(q, k, v, positions[:, 0], seq_lens, scale, sliding_window, k_scale, v_scale)
 
 
 # Take the chunked or flash path once the naive score tensor (B*H*S*T fp32)
@@ -178,7 +222,7 @@ def _flash_eligible(q, k, s: int, d: int) -> bool:
 
 def attention(
     q, k, v, positions, seq_lens, *, scale, sliding_window=None,
-    kv_len: Optional[int] = None,
+    k_scale=None, v_scale=None, kv_len: Optional[int] = None,
 ):
     """Dispatching entry point; see the module docstring for the contract
     (``positions[b]`` must be ``pos0_b + arange(S)``).  ``kv_len`` is an optional host-side
@@ -189,19 +233,19 @@ def attention(
     do."""
     b, nh, s, d = q.shape
     t_max = k.shape[2]
+    scales = dict(k_scale=k_scale, v_scale=v_scale)
+    if s > 1 and b * nh * s * t_max >= _CHUNKED_MIN_SCORE_ELEMS and _flash_eligible(q, k, s, d):
+        return flash_attention(
+            q, k, v, positions, seq_lens, scale=scale, sliding_window=sliding_window, **scales
+        )
     if kv_len is not None and kv_len < t_max:
-        k_live, v_live = k[:, :, :kv_len], v[:, :, :kv_len]
-    else:
-        k_live, v_live = k, v
+        k, v = k[:, :, :kv_len], v[:, :, :kv_len]
+        scales = {n: None if sp is None else sp[:, :, :kv_len] for n, sp in scales.items()}
     if s > 1 and b * nh * s * t_max >= _CHUNKED_MIN_SCORE_ELEMS:
-        if _flash_eligible(q, k, s, d):
-            return flash_attention(
-                q, k, v, positions, seq_lens, scale=scale, sliding_window=sliding_window
-            )
         return chunked_attention(
-            q, k_live, v_live, positions, seq_lens, scale=scale, sliding_window=sliding_window,
-            q_chunk=min(512, s),
+            q, k, v, positions, seq_lens, scale=scale, sliding_window=sliding_window,
+            q_chunk=min(512, s), **scales,
         )
     return naive_attention(
-        q, k_live, v_live, positions, seq_lens, scale=scale, sliding_window=sliding_window
+        q, k, v, positions, seq_lens, scale=scale, sliding_window=sliding_window, **scales
     )

@@ -21,8 +21,8 @@ import torch
 from ..nf4.format import PackedNF4, chunk_views, pad_to
 from ..nf4.reference import NF4_BLOCK
 from ._cuda import Kernel
-from .dequant import _OUT_KIND, _dequant_t_plain
-from .lut_eval import byte_word_table, code_tensor
+from .dequant import _OUT_KIND, _bf16_weight_t, _dequant_t_plain
+from .lut_eval import byte_word_table
 
 __all__ = ["nf4_matmul"]
 
@@ -30,18 +30,6 @@ _KERNEL = Kernel(
     "matmul_bf16", "matmul", "nf4_matmul_bf16",
     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6,
 )
-
-
-def _bf16_weight_t(packed: torch.Tensor, scales: torch.Tensor, quant_type: str) -> torch.Tensor:
-    """W^T [n_pad, m_pad] as the kernel decodes it: bf16(code) * bf16(scale),
-    rounded to bf16 (the product of two bf16 values is exact in fp32, so
-    one rounding)."""
-    b = packed.to(torch.int32)
-    khalf, m_pad = b.shape
-    idx_t = torch.stack([b & 0xF, (b >> 4) & 0xF], dim=1).reshape(2 * khalf, m_pad)
-    code = code_tensor(quant_type, packed.device).to(torch.bfloat16).float()
-    sexp = scales.to(torch.bfloat16).float().repeat_interleave(NF4_BLOCK, dim=0)
-    return (code[idx_t.long()] * sexp).to(torch.bfloat16)
 
 
 def _matmul_bf16_plain(x_pad, packed, scales, out_dtype, quant_type="nf4") -> torch.Tensor:

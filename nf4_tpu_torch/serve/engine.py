@@ -6,7 +6,9 @@ retire and their slots refill from the queue; prompts are bucketed to
 powers of two and same-bucket groups (of 4, 2 or 1) prefill together into
 their slots, in segments of ``PREFILL_SEGMENT`` tokens above that length;
 decode runs ``decode_chunk`` steps per host read-back, with idle slots
-riding along frozen under an active-slot mask.
+riding along frozen under an active-slot mask.  Params may be packed 4-bit
+or int8-recoded (``recode_params_int8``), and the cache bf16 or int8
+(``cfg.kv_quant``).
 
 :meth:`Engine.generate` hands one call to a :class:`_Scheduler`, which
 owns the per-call state.  Pipelined chunks, speculation, prefix caching,
@@ -91,15 +93,16 @@ class Engine:
         """Prefill a group of prompts (each padded to the same bucket) into
         cache slots ``slots``; returns the last-token logits [G, V].
 
-        The slots' cache rows are gathered, run through the model and
-        scattered back (the JAX package's ``_prefill_impl``).  Buckets above
+        The slots' cache rows (the int8 scale planes' too) are gathered,
+        run through the model and scattered back (the JAX package's
+        ``_prefill_impl``).  Buckets above
         ``PREFILL_SEGMENT`` run segment by segment, each attending to the
         cache the earlier ones wrote; each row's logits come from the
         segment holding its last token."""
         dev = self.device
         g, bucket = tokens.shape
         slots_t = torch.as_tensor(slots, dtype=torch.long, device=dev)
-        slot_cache = KVCache(k=cache.k[:, slots_t], v=cache.v[:, slots_t])
+        slot_cache = KVCache(**{name: t[:, slots_t] for name, t in cache.planes().items()})
         toks = torch.as_tensor(tokens, dtype=torch.int32, device=dev)
         lens = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
         seg = self.PREFILL_SEGMENT
@@ -113,8 +116,8 @@ class Engine:
             )
             here = torch.as_tensor((lengths - 1) // seg == t0 // seg, device=dev)
             last = logits if last is None else torch.where(here[:, None], logits, last)
-        cache.k[:, slots_t] = slot_cache.k
-        cache.v[:, slots_t] = slot_cache.v
+        for name, t in slot_cache.planes().items():
+            getattr(cache, name)[:, slots_t] = t
         return last
 
     def decode_steps(self, cache: KVCache, tokens: np.ndarray, positions: np.ndarray, active: np.ndarray, n: int):

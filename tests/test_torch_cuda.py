@@ -5,8 +5,9 @@ a machine with an H100 (sm_90a) and the CUDA toolkit:
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda
 
-Kernel A must be bit-exact; kernels B and C within 2e-2 (bf16 products
-summed in another order than the plain version's).
+Kernels A and F must be bit-exact; kernels B, C (bf16 and int8 KV) and D
+within 2e-2 (bf16 products summed in another order than the plain
+version's).
 """
 
 import numpy as np
@@ -77,6 +78,56 @@ def test_flash_kernel_close(dev, window, pos0, g, d):
     lens = torch.tensor([pos0 + s, pos0 + s - 50], device=dev, dtype=torch.int32)
     got = _flash_kernel(q, k, v, pos, lens, d**-0.5, window).float()
     want = _flash_plain(q, k, v, pos, lens, d**-0.5, window).float()
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got[0].cpu().numpy(), want[0].cpu().numpy(), rtol=2e-2, atol=2e-2)
+    np.testing.assert_allclose(got[1, :, : s - 50].cpu().numpy(), want[1, :, : s - 50].cpu().numpy(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("quant_type", ["nf4", "fp4"])
+def test_fast_dequant_kernel_bit_exact(dev, quant_type):
+    from nf4_tpu_torch.ops.dequant import _bf16_weight_t, _dequant_t_fast_kernel
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    pw = _packed(gen, 384, 2048, dev)
+    got = _dequant_t_fast_kernel(pw.packed, pw.scales, quant_type)
+    want = _bf16_weight_t(pw.packed, pw.scales, quant_type)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.parametrize("b", [1, 4, 37, 200])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32, torch.float16])
+def test_int8_matmul_kernel_close(dev, b, out_dtype):
+    from nf4_tpu_torch.ops.int8_serve import _int8_matmul_kernel, _int8_matmul_plain, recode_int8_weight
+    from nf4_tpu_torch.ops.matmul import _pick_bm
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    p8 = recode_int8_weight(_packed(gen, 640, 3072, dev))
+    b_pad = -(-b // _pick_bm(b)) * _pick_bm(b)
+    x = torch.zeros((b_pad, 3072), device=dev, dtype=torch.bfloat16)
+    x[:b] = torch.randn((b, 3072), generator=gen, device=dev).to(torch.bfloat16)
+    got = _int8_matmul_kernel(x, p8.values, p8.scales, out_dtype).float()
+    want = _int8_matmul_plain(x, p8.values, p8.scales, out_dtype).float()
+    torch.cuda.synchronize()
+    assert ((got - want).abs().max() / want.abs().max()).item() < 2e-2
+
+
+@pytest.mark.parametrize("window,pos0,g", [(None, 0, 4), (96, 300, 4), (None, 17, 1)])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_kernel_int8_kv_close(dev, window, pos0, g, d):
+    from nf4_tpu_torch.ops.attention import _flash_kernel, _flash_plain
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    b, kv, s, t = 2, 2, 300, 700
+    q = torch.randn((b, kv * g, s, d), generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randint(-127, 128, (b, kv, t, d), generator=gen, device=dev, dtype=torch.int8)
+    v = torch.randint(-127, 128, (b, kv, t, d), generator=gen, device=dev, dtype=torch.int8)
+    ks = torch.rand((b, kv, t), generator=gen, device=dev) * 3 + 0.5
+    vs = torch.rand((b, kv, t), generator=gen, device=dev) * 3 + 0.5
+    pos = torch.full((b,), pos0, device=dev, dtype=torch.int32)
+    lens = torch.tensor([pos0 + s, pos0 + s - 50], device=dev, dtype=torch.int32)
+    got = _flash_kernel(q, k, v, pos, lens, d**-0.5, window, ks, vs).float()
+    want = _flash_plain(q, k, v, pos, lens, d**-0.5, window, ks, vs).float()
     torch.cuda.synchronize()
     np.testing.assert_allclose(got[0].cpu().numpy(), want[0].cpu().numpy(), rtol=2e-2, atol=2e-2)
     np.testing.assert_allclose(got[1, :, : s - 50].cpu().numpy(), want[1, :, : s - 50].cpu().numpy(), rtol=2e-2, atol=2e-2)

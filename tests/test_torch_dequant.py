@@ -1,4 +1,6 @@
-"""Exact dequant (the plain version of kernel A) against nf4_tpu: bit-exact.
+"""Dequant against nf4_tpu: exact (the plain version of kernel A), bit-exact;
+fast bf16 (the plain version of kernel F), bit for bit its byte-table
+values and within the JAX package's tolerance of its ``dequantize_fast``.
 
 Compared with ``nf4_tpu.dequantize_t`` on its jnp path and on its Pallas
 kernel in interpret mode, and with the NumPy oracle, through uint16/uint32
@@ -69,10 +71,44 @@ def test_dtype_override_and_padding_region(rng):
     assert not full[320:].any() and not full[:, 100:].any()
 
 
-def test_fast_dequant_not_ported_yet(rng):
-    from nf4_tpu_torch.ops.dequant import dequantize_fast, dequantize_t_fast
+@pytest.mark.parametrize("shape,shards", [((256, 1024), 1), ((100, 320), 1), ((100, 384), 2)])
+@pytest.mark.parametrize("quant_type", ["nf4", "fp4"])
+def test_fast_dequant_matches(rng, shape, shards, quant_type):
+    """``dequantize_fast`` (the plain version of kernel F): bit for bit the
+    byte-table values bf16(bf16(code) * bf16(scale)), computed here with
+    numpy and ml_dtypes; against JAX ``dequantize_fast`` (its exact path on
+    the CPU) within the JAX package's own rtol 1.1e-2 / atol 1e-6."""
+    w = rng.standard_normal(shape).astype(np.float32) * 0.05
+    state = quantize_nf4(w, quant_type=quant_type)
+    pj = nf4_tpu.pack_for_tpu(state, dtype=jnp.bfloat16, shards=shards)
+    pt = nf4_tpu_torch.pack_for_tpu(state, dtype=torch.float32, shards=shards, device="cpu")
+    got_t = nf4_tpu_torch.dequantize_t_fast(pt)
+    got = nf4_tpu_torch.dequantize_fast(pt)
+    assert got_t.dtype == got.dtype == torch.bfloat16  # always bf16
+    assert got_t.shape == (shape[1], shape[0]) and got.shape == shape
 
-    pt = nf4_tpu_torch.pack_for_tpu(quantize_nf4(rng.standard_normal((128, 256))), device="cpu")
-    for fn in (dequantize_fast, dequantize_t_fast):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            fn(pt)
+    code = nf4_tpu.get_code(quant_type).astype(ml_dtypes.bfloat16).astype(np.float32)
+    idx = np.asarray(nf4_tpu.nf4.reference.unpack_nibbles(state.packed, w.size)).reshape(shape)
+    scale = nf4_tpu.nf4.reference.dequantize_absmax(state).reshape(shape[0], -1)
+    scale = np.repeat(scale.astype(ml_dtypes.bfloat16).astype(np.float32), 64, axis=1)
+    want = (code[idx] * scale).astype(ml_dtypes.bfloat16)
+    np.testing.assert_array_equal(_tbits(got), _bits(want))
+
+    jfast = np.asarray(nf4_tpu.dequantize_fast(pj), np.float32)
+    np.testing.assert_allclose(got.float().numpy(), jfast, rtol=1.1e-2, atol=1e-6)
+
+
+def test_fast_dequant_padded_plain_is_kernel_b_weights(rng):
+    """On the padded layout the plain version of kernel F is kernel B's
+    weight decode, padding included (exact zeros)."""
+    from nf4_tpu_torch.ops.dequant import _bf16_weight_t
+    from nf4_tpu_torch.ops.matmul import _matmul_bf16_plain
+
+    pt = nf4_tpu_torch.pack_for_tpu(quantize_nf4(rng.standard_normal((100, 320))), device="cpu")
+    wt = _bf16_weight_t(pt.packed, pt.scales, pt.quant_type)
+    assert wt.shape == (1024, 128) and not wt[320:].any() and not wt[:, 100:].any()
+    np.testing.assert_array_equal(_tbits(wt[:320, :100]), _tbits(nf4_tpu_torch.dequantize_t_fast(pt)))
+    eye = torch.eye(1024, dtype=torch.bfloat16)[:16]
+    np.testing.assert_array_equal(  # values: a sum turns -0 into +0
+        _matmul_bf16_plain(eye, pt.packed, pt.scales, torch.bfloat16).float().numpy(), wt[:16].float().numpy()
+    )

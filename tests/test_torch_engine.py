@@ -8,8 +8,10 @@ streams must agree up to the first step whose JAX top-2 gap is within the
 tolerance (a near-tie has no canonical winner across programs).
 LOGIT_TOL is the forward tolerance of ``test_torch_llama.py``, for the same
 reason: the port's projections round weights to bf16, JAX's CPU path does
-not.
+not.  The same holds in the int8/kv8 serving mode.
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -21,6 +23,7 @@ from nf4_tpu.models import configs as jconfigs
 from nf4_tpu.models import llama as jllama
 from nf4_tpu.models.loader import config_to_dict
 from nf4_tpu.serve.engine import Engine as JaxEngine
+from nf4_tpu_torch.models import llama
 from nf4_tpu_torch.models.convert import config_from_dict, params_from_numpy
 from nf4_tpu_torch.serve.engine import Engine
 from nf4_tpu_torch.serve.sampling import SamplingParams, sample
@@ -92,6 +95,44 @@ def test_engine_matches_jax_engine(models, eos_pick):
         assert len(g.tokens) <= 8
         _teacher_forced(cfg, params, g, {eos})
         _agree_until_near_tie(cfg, params, g, w)
+
+
+@pytest.fixture(scope="module")
+def int8_models(models):
+    """The ``--int8 --kv8`` serving mode: int8-recoded weights, int8 KV cache."""
+    cfg, params, tcfg, tparams = models
+    return (dataclasses.replace(cfg, kv_quant=True), jllama.recode_params_int8(params),
+            dataclasses.replace(tcfg, kv_quant=True), llama.recode_params_int8(tparams))
+
+
+def test_int8_kv8_engine_matches_jax_engine(int8_models):
+    """The int8/kv8 engine against the JAX engine in the same mode, under
+    the same teacher-forced rule and tolerance."""
+    cfg, params, tcfg, tparams = int8_models
+    prompts = _prompts()
+    want = JaxEngine(params, cfg, batch_size=2, eos_token=-1, decode_chunk=4).generate(prompts, max_new_tokens=8)
+    got = Engine(tparams, tcfg, batch_size=2, eos_token=-1, decode_chunk=4, device="cpu").generate(
+        prompts, max_new_tokens=8
+    )
+    assert [r.prompt for r in got] == prompts
+    for g, w in zip(got, want):
+        assert len(g.tokens) == 8
+        _teacher_forced(cfg, params, g, {-1})
+        _agree_until_near_tie(cfg, params, g, w)
+
+
+def test_int8_kv8_segmented_prefill_is_invisible(int8_models):
+    """With an int8 cache too, segments and slot refills (which gather and
+    scatter the scale planes with K/V) do not change greedy output."""
+    _, _, tcfg, tparams = int8_models
+    prompts = _prompts()
+    ref = Engine(tparams, tcfg, batch_size=1, eos_token=-1, decode_chunk=1, device="cpu").generate(
+        prompts, max_new_tokens=6
+    )
+    eng = Engine(tparams, tcfg, batch_size=3, eos_token=-1, decode_chunk=4, device="cpu")
+    eng.PREFILL_SEGMENT = 8
+    got = eng.generate(prompts, max_new_tokens=6)
+    assert [r.tokens for r in got] == [r.tokens for r in ref]
 
 
 def test_segmented_prefill_and_chunking_are_invisible(models):

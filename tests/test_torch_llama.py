@@ -85,9 +85,84 @@ def test_last_only_and_ragged_lengths(models):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=LOGIT_TOL, rtol=0)
 
 
+@pytest.fixture(scope="module")
+def int8_models(models):
+    """The same model recoded to int8 weights, served with an int8 KV cache."""
+    import dataclasses
+
+    cfg, params, tcfg, tparams = models
+    return (dataclasses.replace(cfg, kv_quant=True), jllama.recode_params_int8(params),
+            dataclasses.replace(tcfg, kv_quant=True), llama.recode_params_int8(tparams))
+
+
+def test_recode_params_int8_matches_jax(models, int8_models):
+    """The port's recode of the bridged params is the JAX recode bridged:
+    int8 values and scales identical, every projection and a packed
+    lm_head recoded, a dense lm_head untouched."""
+    from nf4_tpu_torch.ops.int8_serve import PackedInt8
+
+    _, p8, tcfg, t8 = int8_models
+    bridged = params_from_numpy(jax.tree.map(np.asarray, p8), tcfg, device="cpu")
+    for lt, lb in zip(t8.layers, bridged.layers):
+        for name in ("wqkv", "wo", "w_gateup", "w_down"):
+            a, b = getattr(lt, name), getattr(lb, name)
+            assert isinstance(a, PackedInt8) and isinstance(b, PackedInt8)
+            assert torch.equal(a.values, b.values) and torch.equal(a.scales.view(torch.int32), b.scales.view(torch.int32))
+            assert (a.shape, a.padded_shape, a.shards) == (b.shape, b.padded_shape, b.shards)
+    assert torch.equal(t8.lm_head, models[3].lm_head)
+
+
+def test_int8_kv_cache_layout(int8_models):
+    _, _, tcfg, _ = int8_models
+    cache = llama.init_kv_cache(tcfg, 3, device="cpu")
+    shape = (tcfg.num_layers, 3, tcfg.num_kv_heads, tcfg.max_seq_len, tcfg.head_dim)
+    assert cache.k.dtype == cache.v.dtype == torch.int8 and cache.k.shape == shape
+    assert cache.k_scale.dtype == torch.float32 and cache.k_scale.shape == shape[:-1]
+    assert set(cache.planes()) == {"k", "v", "k_scale", "v_scale"}
+    assert cache.nbytes == 2 * np.prod(shape) + 2 * 4 * np.prod(shape[:-1])
+
+
+def test_int8_kv8_prefill_then_decode_logits_match(int8_models):
+    """int8 weights and an int8 KV cache, the JAX model's against the port's:
+    logits within LOGIT_TOL (the reason is the 4-bit model's: the port's
+    bf16 path rounds each weight to bf16, JAX's CPU path keeps fp32), and
+    the int8 caches' dequantized keys close."""
+    cfg, p8, tcfg, t8 = int8_models
+    rng = np.random.default_rng(3)
+    toks = rng.integers(0, cfg.vocab_size, (3, 24)).astype(np.int32)
+    lj, cj = jllama.prefill(p8, cfg, jnp.asarray(toks))
+    lt, ct = llama.prefill(t8, tcfg, torch.from_numpy(toks))
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), atol=LOGIT_TOL, rtol=0)
+    assert ct.k.dtype == torch.int8
+    kj = np.asarray(cj.k[..., :24, :], np.float32) * np.asarray(cj.k_scale[..., :24, None]) / 127
+    kt = ct.k[..., :24, :].float() * ct.k_scale[..., :24, None] / 127
+    np.testing.assert_allclose(kt.numpy(), kj, atol=0.1, rtol=0.05)
+
+    tok = np.asarray(jnp.argmax(lj[:, -1], -1)).astype(np.int32)
+    pos = np.full(3, 24, np.int32)
+    for _ in range(4):
+        a, cj = jllama.decode_step(p8, cfg, jnp.asarray(tok), cj, jnp.asarray(pos))
+        b, ct = llama.decode_step(t8, tcfg, torch.from_numpy(tok), ct, torch.from_numpy(pos))
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), atol=LOGIT_TOL, rtol=0)
+        tok = np.asarray(jnp.argmax(a, -1)).astype(np.int32)
+        pos = pos + 1
+
+
+def test_quantize_kv_identical(rng):
+    """``_quantize_kv``: int8 values identical and absmax scales bit-identical
+    to the JAX package's, an all-zero slot included."""
+    t = rng.standard_normal((2, 3, 37, 64)).astype(np.float32) * 3
+    t[0, 1, 5] = 0
+    j8, js = jllama._quantize_kv(jnp.asarray(t, jnp.bfloat16))
+    t8, ts = llama._quantize_kv(torch.from_numpy(t).to(torch.bfloat16))
+    assert t8.dtype == torch.int8 and ts.dtype == torch.float32 and ts[0, 1, 5] == 0
+    np.testing.assert_array_equal(t8.numpy(), np.asarray(j8))
+    np.testing.assert_array_equal(ts.numpy().view(np.uint32), np.asarray(js).view(np.uint32))
+
+
 @pytest.mark.parametrize(
     "field,value",
-    [("quantize", False), ("kv_quant", True), ("num_experts", 4), ("attn_bias", True), ("qk_norm", True),
+    [("quantize", False), ("num_experts", 4), ("attn_bias", True), ("qk_norm", True),
      ("final_logit_softcapping", 30.0), ("rope_scaling", ("linear", 2.0)), ("tp_shards", 2),
      ("rmsnorm_one_plus", True), ("activation", "gelu_tanh")],
 )

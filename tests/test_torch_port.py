@@ -41,7 +41,8 @@ def test_import_loads_no_jax_and_builds_nothing():
         "from nf4_tpu_torch.ops import _cuda\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'ml_dtypes', 'nf4_tpu')]\n"
         "assert not bad, bad\n"
-        "assert sorted(_cuda.KERNELS) == ['dequant_t', 'flash_attention', 'matmul_bf16'], _cuda.KERNELS\n"
+        "assert sorted(_cuda.KERNELS) == ['dequant_t', 'dequant_t_fast', 'flash_attention',"
+        " 'flash_attention_int8', 'int8_matmul', 'matmul_bf16'], _cuda.KERNELS\n"
         "assert set(_cuda.launch_counts().values()) == {0}\n"
     )
     subprocess.run([sys.executable, "-c", code], check=True, cwd=PKG.parent, timeout=120)
