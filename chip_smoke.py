@@ -15,7 +15,9 @@ Phases, each of which fails the run on any error:
    bf16 and fp16 out);
 3. kernels B (fused 4-bit matmul) and D (int8 matmul) against their plain
    versions at the four projection shapes, decode B=4 and prefill B=1024,
-   max rel err < 2e-2;
+   max rel err < 2e-2; (3e) kernel E (the fp32/fp16-activation matmul) at
+   the same shapes, fp32 x (fp32 out) and fp16 x (fp16 and fp32 out), max
+   abs err <= 1e-5 * max|want| for fp32 out, 2e-3 * max|want| for fp16;
 4. kernel C (prefill flash attention), bf16 and int8 KV, against its plain
    version at B=1, H=32, KV=8, D=128, S=1024, T=8192, with and without a
    window; the int8 branch also against the bf16 branch on the dequantized
@@ -31,7 +33,20 @@ Phases, each of which fails the run on any error:
    against the same checkpoint served on the CPU.  With ``--profile``,
    phases 5b and 5d also print a ``torch.profiler`` breakdown of a decode
    chunk and a 1024-token prefill: wall time, the device's busy share and
-   the device kernels by time.
+   the device kernels by time;
+6. QLoRA fine-tuning: (a) the ``nf4_matmul`` backward at w_gateup, g
+   [1024, 28672], against the plain fp32 product within 1e-5 * max, also
+   under ``torch.set_float32_matmul_precision("high")``; (b, c) 3 AdamW
+   steps (lr 1e-4, weight decay 1e-4, ``remat=True``) of rank-16 adapters
+   on all four targets of Llama-3-8B at full width and depth (synthetic
+   packed weights), on one ``pack_sft`` batch of 2 x 512 slots, in bf16
+   (kernels B and A) and in fp32 (kernels E and A), each step's launches
+   counted from 0, the step-0 loss held against ``lm_loss`` through the
+   inference forward (one prefill per example); with ``--profile`` a
+   ``torch.profiler`` breakdown of one step; (d) a small model's train
+   step on the card against the CPU (loss, adapter gradients, adapters
+   after one SGD step); (e) a run saved with ``save_train_state`` and
+   resumed against the uninterrupted run.
 
 Kernel and library times are device times: many calls captured in one
 CUDA graph, replayed, and timed with CUDA events (an eager loop of small
@@ -355,6 +370,57 @@ def phase_flash(gen, dev, int8=False):
     return res
 
 
+def phase_exact(gen, dev):
+    """Kernel E (fused 4-bit matmul, fp32/fp16 activations, fp32 products)
+    against its plain version; timed with fp32 x and fp32 out."""
+    import torch
+
+    from nf4_tpu_torch.ops.dequant import _dequant_t_plain
+    from nf4_tpu_torch.ops.matmul import _matmul_exact_kernel, _matmul_exact_plain
+
+    limits = {torch.float32: 1e-5, torch.float16: 2e-3}
+    res = {}
+    for b in (4, 1024):
+        b_pad = 16 if b <= 16 else b
+        for name, (m, n, _) in LLAMA3_8B_PROJ.items():
+            pw = random_packed(gen, m, n, dev)
+            x = torch.zeros((b_pad, n), device=dev)
+            x[:b] = torch.randn((b, n), generator=gen, device=dev)
+            err = 0.0
+            for xdt, od in ((torch.float32, torch.float32), (torch.float16, torch.float16),
+                            (torch.float16, torch.float32)):
+                xc = x.to(xdt)
+                got = _matmul_exact_kernel(xc, pw.packed, pw.scales, od).float()
+                want = _matmul_exact_plain(xc, pw.packed, pw.scales, od).float()
+                torch.cuda.synchronize()
+                e = (got - want).abs().max().item()
+                limit = limits[od] * want.abs().max().item()
+                check(e <= limit, f"kernel E max abs err {e} > {limit} at {name} B={b} x {xdt} out {od}")
+                if od == torch.float32:
+                    err = max(err, e)
+            ws = [pw] + [random_packed(gen, m, n, dev) for _ in range(copies_for(pw.nbytes) - 1)]
+            ms = time_ms([lambda w=w: _matmul_exact_kernel(x, w.packed, w.scales, torch.float32) for w in ws])
+            plain_ms = time_ms([lambda w=w: _matmul_exact_plain(x, w.packed, w.scales, torch.float32) for w in ws],
+                               iters=3, graph=False)
+            # Yardstick only (the port never calls it): torch.matmul on the
+            # weight dequantized to fp32 ahead of time, TF32 off.
+            prev = torch.get_float32_matmul_precision()
+            torch.set_float32_matmul_precision("highest")
+            wts = [_dequant_t_plain(w.packed, w.scales, torch.float32) for w in ws[:max(1, copies_for(4 * m * n))]]
+            lib = time_ms([lambda wt=wt: torch.matmul(x, wt) for wt in wts])
+            torch.set_float32_matmul_precision(prev)
+            del wts
+            # The work this call's data needs: its b rows (not the padding
+            # rows the kernel also multiplies).
+            io = b * n * 4 + b * m * 4
+            bnd = bound_ms(pw.nbytes + io, 2 * b * n * m, PEAK_FP32_S)
+            res[(name, b)] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib, bound_ms=bnd, max_abs_err=err)
+            print(f"phase 3e kernel E {name} B={b} m={m} n={n} fp32: max abs err {err:.2e} (fp16 x and out "
+                  f"within 2e-3*max); {ms:.4f} ms ({2 * b * m * n / ms / 1e9:.1f} TFLOP/s), plain "
+                  f"{plain_ms:.4f} ms, torch.matmul on fp32 weight {lib:.4f} ms, bound {bnd:.4f} ms")
+    return res
+
+
 def bnb_module(rng, m, n):
     """A duck-typed bitsandbytes Linear4bit with random contents."""
     import numpy as np
@@ -596,6 +662,220 @@ def phase_checkpoint(dev, rng):
           f"max abs diff {diff:.2e} (max |logit| {scale:.2f})")
 
 
+def phase_backward(gen, dev):
+    """Main path (6a): the ``nf4_matmul`` gradient at w_gateup, g [1024,
+    28672], against the plain fp32 product, under the default precision
+    and under "high" (TF32 allowed for the caller's own products)."""
+    import torch
+
+    import nf4_tpu_torch
+    from nf4_tpu_torch.ops.dequant import _dequant_t_plain
+
+    m, n, _ = LLAMA3_8B_PROJ["w_gateup"]
+    pw = random_packed(gen, m, n, dev)
+    x = torch.randn((1024, n), generator=gen, device=dev).requires_grad_()
+    g = torch.randn((1024, m), generator=gen, device=dev)
+    want = g @ _dequant_t_plain(pw.packed, pw.scales, torch.float32).T
+    limit = 1e-5 * want.abs().max().item()
+    prev = torch.get_float32_matmul_precision()
+    for precision in ("highest", "high"):
+        torch.set_float32_matmul_precision(precision)
+        try:
+            (dx,) = torch.autograd.grad(nf4_tpu_torch.nf4_matmul(x, pw), x, g)
+        finally:
+            torch.set_float32_matmul_precision(prev)
+        torch.cuda.synchronize()
+        err = (dx - want).abs().max().item()
+        check(err <= limit, f"backward under {precision!r}: max abs err {err} > {limit}")
+        print(f"phase 6a nf4_matmul backward, w_gateup, g [1024, {m}], precision {precision!r}: max abs err "
+              f"{err:.2e} (limit {limit:.2e})")
+
+
+def sft_examples(rng, vocab, n_examples, lo, hi):
+    """Seeded (prompt, completion) token-id pairs of random lengths."""
+    out = []
+    for _ in range(n_examples):
+        n = int(rng.integers(lo, hi))
+        n_p = int(rng.integers(max(1, n // 4), n // 2))
+        toks = [int(t) for t in rng.integers(1, vocab, n)]
+        out.append((toks[:n_p], toks[n_p:]))
+    return out
+
+
+def batch_to(batch, dev):
+    import torch
+
+    return [torch.as_tensor(a, device=dev) for a in (batch.tokens, batch.loss_mask, batch.positions,
+                                                      batch.segment_ids)]
+
+
+def reference_loss(params, cfg, examples):
+    """``lm_loss`` of a packed batch computed through the inference
+    ``prefill``, one example at a time (packing is exact, so each example's
+    logits are its own row's): the masked mean NLL of every completion."""
+    import numpy as np
+    import torch
+
+    from nf4_tpu_torch.models.llama import prefill
+
+    cfg = dataclasses.replace(cfg, max_seq_len=max(len(p) + len(c) for p, c in examples))
+    total, count = 0.0, 0
+    with torch.no_grad():
+        for p, c in examples:
+            toks = torch.as_tensor(np.asarray([p + c], np.int32), device=params.embed.device)
+            logits, _ = prefill(params, cfg, toks)
+            logp = torch.log_softmax(logits[0, len(p) - 1 : -1].float(), dim=-1)
+            tgt = toks[0, len(p):].long()
+            total += -logp.gather(-1, tgt[:, None]).sum().item()
+            count += len(c)
+    return total / count
+
+
+TRAIN_EXPECT = {  # launches per step: one forward and its recompute, the backward's dequants
+    "bf16": {"matmul_bf16": 256, "dequant_t": 127},
+    "fp32": {"matmul_exact": 256, "dequant_t": 127},
+}
+
+
+def phase_training(label, kind, examples, profile):
+    """Main paths (6b, 6c): 3 AdamW steps of QLoRA on Llama-3-8B, full
+    width and depth, one packed batch of 2 x 512 slots."""
+    import torch
+
+    from nf4_tpu_torch.models import configs
+    from nf4_tpu_torch.models.synthetic import synthetic_params
+    from nf4_tpu_torch.ops import _cuda
+    from nf4_tpu_torch.train import LoraConfig, init_lora, make_train_step, pack_sft
+
+    dtype = {"bf16": torch.bfloat16, "fp32": torch.float32}[kind]
+    cfg = dataclasses.replace(configs.LLAMA3_8B, dtype=dtype)
+    params = synthetic_params(cfg, seed=0)
+    check(params.embed.dtype == dtype and params.lm_head.dtype == dtype, "dense leaves follow cfg.dtype")
+    batch = pack_sft(examples, 512)
+    check(batch.tokens.shape == (2, 512), f"the batch packs into 2 x 512, got {batch.tokens.shape}")
+    tok, mask, pos, seg = batch_to(batch, "cuda")
+    lcfg = LoraConfig(rank=16, alpha=32.0)
+    lora = init_lora(cfg, lcfg, seed=0)
+    opt = torch.optim.AdamW(lora.parameters(), lr=1e-4, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
+    step = make_train_step(cfg, opt, remat=True)
+    ref = reference_loss(params, cfg, examples)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs, counts = [], [], []
+    for _ in range(3):
+        _cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        losses.append(step(params, lora, tok, mask, pos, seg).item())
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        counts.append(_cuda.launch_counts())
+    peak = torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(v) for v in losses), f"finite losses {losses}")
+    want = {name: 0 for name in _cuda.KERNELS}
+    want.update(TRAIN_EXPECT[kind])
+    for c in counts:
+        check(c == want, f"launches per step {c}, expected {want}")
+    tol = 2e-2 if kind == "bf16" else 1e-3
+    check(abs(losses[0] - ref) <= tol, f"step-0 loss {losses[0]} against the inference forward's {ref} (tol {tol})")
+    step_s = sum(secs[1:]) / 2
+    tokens = batch.tokens.size
+    print(f"phase {label} QLoRA Llama-3-8B {kind}, rank 16, 2 x 512 packed ({len(examples)} examples, "
+          f"{int(batch.loss_mask[:, 1:].sum())} targets): losses {losses}; step-0 loss against the inference "
+          f"forward {ref:.6f} (|diff| {abs(losses[0] - ref):.2e}, tol {tol}); step times "
+          f"{[round(v * 1e3, 1) for v in secs]} ms; {step_s * 1e3:.1f} ms/step = {tokens / step_s:.0f} training "
+          f"tokens/s; peak memory {peak / 1e9:.2f} GB; launches per step {counts[0]} on {card_line()}")
+    if profile:
+        profile_breakdown(f"{label} one {kind} training step",
+                          lambda: step(params, lora, tok, mask, pos, seg).item(), rows=20)
+    return dict(losses=losses, ref_loss=ref, step_ms=step_s * 1e3, tokens_s=tokens / step_s, peak_gb=peak / 1e9,
+                launches_per_step=counts[0], launches={k: sum(c[k] for c in counts) for k in counts[0]})
+
+
+def small_lora(cfg, dev, seed):
+    """Rank-8 adapters with a seeded nonzero B (so A gets a gradient too)."""
+    import numpy as np
+    import torch
+
+    from nf4_tpu_torch.train import LoraConfig, init_lora
+
+    lora = init_lora(cfg, LoraConfig(rank=8, alpha=16.0), seed=seed, device=dev)
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for ll in lora.layers:
+            for ab in (ll.qkv, ll.o, ll.gateup, ll.down):
+                ab.b.copy_(torch.as_tensor(rng.standard_normal(tuple(ab.b.shape)).astype(np.float32) * 0.02))
+    return lora
+
+
+def phase_train_small(rng, devices=("cuda", "cpu")):
+    """Main path (6d): one fp32 training step of a small model on the card
+    against the same step on the CPU (``devices``): the loss, the adapters'
+    gradients, and the adapters after one SGD(1.0) step."""
+    import torch
+
+    from nf4_tpu_torch.models.llama import LlamaConfig
+    from nf4_tpu_torch.models.synthetic import synthetic_params
+    from nf4_tpu_torch.ops import _cuda
+    from nf4_tpu_torch.train import make_train_step, pack_sft
+
+    small = LlamaConfig(**SMALL, dtype=torch.float32)
+    params = synthetic_params(small, seed=3, device=devices[0])
+    batch = pack_sft(sft_examples(rng, small.vocab_size, 6, 16, 60), 128)
+    runs = []  # (loss, {name: (grad, adapter after the step)}, launches) per device
+    for dev in devices:
+        lora = small_lora(small, dev, seed=4)
+        step = make_train_step(small, torch.optim.SGD(lora.parameters(), lr=1.0))
+        _cuda.reset_launch_counts()
+        loss = step(params_to(params, dev), lora, *batch_to(batch, dev)).item()
+        runs.append((loss, {n: (p.grad.cpu(), p.detach().cpu()) for n, p in lora.named_parameters()},
+                     _cuda.launch_counts()))
+    (loss, got, counts), (want_loss, want, _) = runs
+    if devices[0] == "cuda":
+        check(counts["matmul_exact"] > 0 and counts["dequant_t"] > 0,
+              f"the card's step did not launch kernels E and A: {counts}")
+    check(abs(loss - want_loss) <= 1e-5 * abs(want_loss), f"small train step loss, card vs CPU: {loss} vs {want_loss}")
+    g_err = p_err = 0.0
+    for name, (g_ref, p_ref) in want.items():
+        scale = g_ref.abs().max().item()
+        g_err = max(g_err, (got[name][0] - g_ref).abs().max().item() / scale)
+        p_err = max(p_err, (got[name][1] - p_ref).abs().max().item() / scale)
+    check(g_err <= 1e-4 and p_err <= 1e-4, f"small train step grads/adapters, card vs CPU: {g_err}, {p_err}")
+    print(f"phase 6d small model fp32 train step, card vs CPU plain path: loss {loss:.6f} vs {want_loss:.6f}; "
+          f"max grad diff {g_err:.2e} and max adapter diff after SGD(1.0) {p_err:.2e} of each gradient's "
+          f"largest value (limit 1e-4); card launches {counts}")
+
+
+def phase_resume(rng, dev="cuda"):
+    """Main path (6e): a run saved with ``save_train_state`` after 2 AdamW
+    steps and resumed equals the uninterrupted run's third step."""
+    import os
+    import tempfile
+
+    import torch
+
+    from nf4_tpu_torch.models.llama import LlamaConfig
+    from nf4_tpu_torch.models.synthetic import synthetic_params
+    from nf4_tpu_torch.train import LoraConfig, load_train_state, make_train_step, pack_sft, save_train_state
+
+    small = LlamaConfig(**SMALL, dtype=torch.float32)
+    params = synthetic_params(small, seed=5, device=dev)
+    data = batch_to(pack_sft(sft_examples(rng, small.vocab_size, 6, 16, 60), 128), dev)
+    adamw = lambda ps: torch.optim.AdamW(ps, lr=1e-3, weight_decay=1e-4)  # noqa: E731
+    lora = small_lora(small, dev, seed=6)
+    opt = adamw(lora.parameters())
+    step = make_train_step(small, opt)
+    for _ in range(2):
+        step(params, lora, *data)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "run.npz")
+        save_train_state(path, lora, LoraConfig(rank=8, alpha=16.0), opt, step=2)
+        want = step(params, lora, *data).item()
+        lora2, _, opt2, at = load_train_state(path, adamw, device=dev)
+    got = make_train_step(small, opt2)(params, lora2, *data).item()
+    check(at == 2 and got == want, f"resumed step loss {got} (step {at}) != uninterrupted {want}")
+    print(f"phase 6e save_train_state after 2 AdamW steps, resumed: step-3 loss {got!r} == uninterrupted {want!r}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write the results as JSON to this file")
@@ -628,6 +908,7 @@ def main() -> int:
     fast = phase_dequant(gen, dev, fast=True)
     mm = phase_matmul(gen, dev)
     mm8 = phase_matmul(gen, dev, int8=True)
+    ex = phase_exact(gen, dev)
     fl = phase_flash(gen, dev)
     fl8 = phase_flash(gen, dev, int8=True)
 
@@ -642,6 +923,15 @@ def main() -> int:
     phase_small_model(dev, rng)
     int8_counts, serving8 = phase_int8_serving(prompts, args.profile)
     phase_checkpoint(dev, rng)
+    phase_backward(gen, dev)
+    # 7 examples of 60-200 tokens that pack into 2 x 512 slots (97.8% full).
+    examples = sft_examples(np.random.default_rng(0), LLAMA3_8B.vocab_size, 7, 60, 200)
+    train16 = phase_training("6b", "bf16", examples, args.profile)
+    train32 = phase_training("6c", "fp32", examples, args.profile)
+    check(train32["launches_per_step"]["matmul_bf16"] == 0 and train16["launches_per_step"]["matmul_exact"] == 0,
+          "kernel E only in fp32, kernel B only in bf16")
+    phase_train_small(rng)
+    phase_resume(rng)
 
     def decode_layer(res):  # one decode layer's four projections at B=4
         return [res[(name, 4)] for name in LLAMA3_8B_PROJ]
@@ -676,14 +966,24 @@ def main() -> int:
              replaces="nf4_tpu/ops/dequant.py:147", launches=fast_counts["dequant_t_fast"],
              max_abs_err=fast["max_abs_err"], ms=fast["w_down"]["ms"], plain_ms=fast["w_down"]["plain_ms"],
              bound_ms=fast["w_down"]["bound_ms"], bound_by="bytes", library_ms=None),
+        # Kernel E on its main path's shapes: one training layer's four
+        # projections at B=1024 (the 2 x 511 rows of the fp32 step, padded).
+        dict(name="matmul_exact", route="cuda", source="nf4_tpu_torch/csrc/matmul_exact.cu",
+             replaces="nf4_tpu/ops/matmul.py:186", launches=train32["launches"]["matmul_exact"],
+             max_abs_err=max(r["max_abs_err"] for r in ex.values()),
+             ms=sum(ex[(n, 1024)]["ms"] for n in LLAMA3_8B_PROJ),
+             plain_ms=sum(ex[(n, 1024)]["plain_ms"] for n in LLAMA3_8B_PROJ),
+             bound_ms=sum(ex[(n, 1024)]["bound_ms"] for n in LLAMA3_8B_PROJ), bound_by="operations",
+             library_ms=sum(ex[(n, 1024)]["library_ms"] for n in LLAMA3_8B_PROJ)),
     ]
     if args.out:
         with open(args.out, "w") as f:
             json.dump(dict(card=card, dequant=deq, fast_dequant=fast,
                            matmul={f"{k[0]} B={k[1]}": v for k, v in mm.items()},
                            int8_matmul={f"{k[0]} B={k[1]}": v for k, v in mm8.items()},
+                           exact_matmul={f"{k[0]} B={k[1]}": v for k, v in ex.items()},
                            flash=fl, flash_int8=fl8, serving=serving, serving_int8=serving8,
-                           kernels=kernels), f, indent=1)
+                           training_bf16=train16, training_fp32=train32, kernels=kernels), f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}

@@ -15,12 +15,13 @@ rather than fall back.
   ``csrc/dequant.cu``).
 * :func:`dequantize_fast` / :func:`dequantize_t_fast` -- bf16 dequant
   through the byte table (``csrc/dequant.cu``'s second kernel).
-* :func:`nf4_matmul` -- fused dequant-matmul for bf16 activations (kernel
-  ``csrc/matmul.cu``).
+* :func:`nf4_matmul` -- fused dequant-matmul: bf16 activations on kernel
+  ``csrc/matmul.cu``, fp32/fp16 on ``csrc/matmul_exact.cu``;
+  differentiable in the activations (the weight stays frozen).
 
 Serving lives in ``models/`` (Llama, packed checkpoints in
 ``models/loader.py``, the int8 recode ``recode_params_int8``) and
-``serve/engine.py``.
+``serve/engine.py``; QLoRA fine-tuning in ``train/``.
 """
 
 from .nf4.format import PackedNF4, pack_for_tpu

@@ -13,6 +13,11 @@ scales are copied as they are: the layouts are shared.
 :func:`config_to_dict` / :func:`config_from_dict` are the JAX package's
 configuration dicts (its ``models/loader.py``), as packed checkpoints
 store them.
+
+:func:`lora_from_numpy` takes the JAX package's ``train.lora.LoraParams``
+with numpy leaves (``layers.{qkv, o, gateup, down}``, each None or with
+``a`` [L, r, in], ``b`` [L, out, r] and ``scaling``; and ``tp_basis``) and
+returns the port's adapters, one layer each.
 """
 
 from __future__ import annotations
@@ -24,10 +29,11 @@ import torch
 
 from ..nf4.format import PackedNF4
 from ..ops.int8_serve import PackedInt8
+from ..train.lora import LoraAB, LoraLayer, LoraParams
 from ..utils.device import resolve_device
 from .llama import LayerParams, LlamaConfig, LlamaParams
 
-__all__ = ["params_from_numpy", "config_from_dict", "config_to_dict"]
+__all__ = ["params_from_numpy", "lora_from_numpy", "config_from_dict", "config_to_dict"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16, "float32": torch.float32}
 
@@ -94,6 +100,23 @@ def params_from_numpy(tree, cfg: LlamaConfig, device=None) -> LlamaParams:
         final_norm=_tensor(tree.final_norm, dev),
         lm_head=_weight(tree.lm_head, None, dev),
     )
+
+
+def lora_from_numpy(tree, device=None):
+    """The port's ``LoraParams`` on ``device`` (default ``cuda``) from the
+    JAX package's numpy-leaved adapters."""
+    dev = resolve_device(device)
+    fields = ("qkv", "o", "gateup", "down")
+    present = {f: getattr(tree.layers, f) for f in fields if getattr(tree.layers, f) is not None}
+    if not present:
+        raise ValueError("the adapters adapt no projection")
+    num_layers = next(iter(present.values())).a.shape[0]
+    layers = [
+        LoraLayer(**{f: LoraAB(_tensor(ab.a[i], dev), _tensor(ab.b[i], dev), float(ab.scaling))
+                     for f, ab in present.items()})
+        for i in range(num_layers)
+    ]
+    return LoraParams(layers, tp_basis=int(tree.tp_basis))
 
 
 def config_to_dict(cfg: LlamaConfig) -> dict:

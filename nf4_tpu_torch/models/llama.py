@@ -1,11 +1,15 @@
-"""Llama inference over packed 4-bit weights (dense Llama, single device).
+"""Llama over packed 4-bit weights (dense Llama, single device): inference
+and the fine-tuning forward.
 
-The counterpart of the inference half of the JAX package's
-``models/llama.py``: RMSNorm, rotary embeddings, GQA attention over a KV
-cache, SwiGLU MLP.  Every projection goes through one call site,
-:func:`_matmul`: the fused 4-bit matmul for :class:`PackedNF4` weights,
-the int8 matmul for weights recoded by :func:`recode_params_int8`.  With
-``kv_quant`` the KV cache is int8 with per-slot absmax scales.
+The counterpart of the JAX package's ``models/llama.py``: RMSNorm, rotary
+embeddings, GQA attention over a KV cache, SwiGLU MLP.  Every projection
+goes through one call site, :func:`_matmul`: the fused 4-bit matmul for
+:class:`PackedNF4` weights, the int8 matmul for weights recoded by
+:func:`recode_params_int8`.  With ``kv_quant`` the KV cache is int8 with
+per-slot absmax scales.  :func:`train_forward` is the cache-free,
+differentiable forward of QLoRA fine-tuning: LoRA deltas
+(``train.lora``) on the adapted projections, gradients to the adapters
+through the packed weights' backward.
 
 PyTorch idiom in place of the JAX one: layers are a Python list iterated by
 a loop (the JAX package scans stacked layers), and :func:`forward` writes
@@ -20,6 +24,7 @@ from typing import List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..nf4.format import PackedNF4
 from ..ops.attention import attention
@@ -38,6 +43,7 @@ __all__ = [
     "apply_rope",
     "split_fused",
     "forward",
+    "train_forward",
     "prefill",
     "decode_step",
     "recode_params_int8",
@@ -182,12 +188,32 @@ def init_kv_cache(cfg: LlamaConfig, batch_size: int, device=None) -> KVCache:
     )
 
 
+class _HalfLogits(torch.autograd.Function):
+    """``x @ w.T`` of bf16/fp16 CUDA operands with an fp32 result, and its
+    gradient in ``x`` (``w``, a dense leaf of the frozen base, gets none)."""
+
+    @staticmethod
+    def forward(ctx, x2, w):
+        ctx.save_for_backward(w)
+        return torch.mm(x2, w.t(), out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        (w,) = ctx.saved_tensors
+        # g rounds to the operand type (the half-precision product's input),
+        # the sums stay fp32 until the one rounding to x's type.
+        return torch.mm(g.to(w.dtype), w, out_dtype=torch.float32).to(w.dtype), None
+
+
 def _dense_logits(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w.T`` of bf16 operands with an fp32 result (no bf16 rounding of
-    the sums: greedy argmax over a large vocabulary needs the fp32 values)."""
+    """``x @ w.T`` with an fp32 result (no bf16 rounding of the sums: greedy
+    argmax over a large vocabulary needs the fp32 values); differentiable
+    in ``x``."""
     x2 = x.reshape(-1, x.shape[-1])
-    if x2.is_cuda:
-        y = torch.mm(x2, w.t(), out_dtype=torch.float32)
+    if x2.dtype == torch.float32:
+        y = x2 @ w.t()
+    elif x2.is_cuda:
+        y = _HalfLogits.apply(x2, w)
     else:
         y = x2.float() @ w.float().t()
     return y.reshape(*x.shape[:-1], w.shape[0])
@@ -266,40 +292,72 @@ def _write_kv(layer_cache: torch.Tensor, new: torch.Tensor, positions: torch.Ten
     layer_cache.transpose(1, 2)[rows, positions.long()] = new.transpose(1, 2).to(layer_cache.dtype)
 
 
-def _layer_forward(cfg, x, lp: LayerParams, layer_cache: KVCache, positions, seq_lens, cos, sin, kv_len):
+def _lora_delta(x: torch.Tensor, ab) -> Optional[torch.Tensor]:
+    """One projection's low-rank update ``(x @ A^T) @ B^T * scaling`` in
+    ``x``'s dtype (the QLoRA convention), or None when ``ab`` (a
+    ``train.lora.LoraAB``, duck-typed) is None."""
+    if ab is None:
+        return None
+    return (x @ ab.a.to(x.dtype).t()) @ ab.b.to(x.dtype).t() * ab.scaling
+
+
+def _add_delta(y: torch.Tensor, delta: Optional[torch.Tensor]) -> torch.Tensor:
+    return y if delta is None else y + delta.to(y.dtype)
+
+
+def _layer_forward(cfg, x, lp: LayerParams, layer_cache: Optional[KVCache], positions, seq_lens, cos, sin,
+                   kv_len=None, ll=None, train: bool = False, segment_ids=None):
     """One decoder layer; x [B, S, hidden]; writes this call's K/V into the
-    layer's cache views in place."""
+    layer's cache views in place.  ``ll`` is the layer's LoRA adapters
+    (``train.lora.LoraLayer``) or None; ``train=True`` uses no cache
+    (attention over this call's own K/V, differentiable paths only, with
+    ``segment_ids`` for packed rows)."""
     b, s, _ = x.shape
+
+    def delta(t, name):
+        return None if ll is None else _lora_delta(t, getattr(ll, name))
+
     attn_in = rms_norm(x, lp.input_norm, cfg.rms_norm_eps)
-    qkv = _matmul(attn_in, lp.wqkv)  # one kernel for q+k+v
+    qkv = _add_delta(_matmul(attn_in, lp.wqkv), delta(attn_in, "qkv"))  # one kernel for q+k+v
     q, k, v = split_fused(qkv, (cfg.q_dim, cfg.kv_dim, cfg.kv_dim))
     q = q.reshape(b, s, cfg.num_heads, cfg.head_dim).transpose(1, 2)
     k = k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2)
     v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    if cfg.kv_quant:
-        (k, k_scale), (v, v_scale) = _quantize_kv(k), _quantize_kv(v)
-        _write_kv(layer_cache.k_scale, k_scale, positions)
-        _write_kv(layer_cache.v_scale, v_scale, positions)
-    _write_kv(layer_cache.k, k, positions)
-    _write_kv(layer_cache.v, v, positions)
-    attn = attention(
-        q, layer_cache.k, layer_cache.v, positions, seq_lens,
-        scale=cfg.attn_scale,
-        sliding_window=cfg.sliding_window,
-        k_scale=layer_cache.k_scale,
-        v_scale=layer_cache.v_scale,
-        kv_len=kv_len,
-    )
+    if train:
+        attn = attention(
+            q, k, v, positions, seq_lens,
+            scale=cfg.attn_scale,
+            sliding_window=cfg.sliding_window,
+            differentiable=True,
+            segment_ids=segment_ids,
+        )
+    else:
+        if cfg.kv_quant:
+            (k, k_scale), (v, v_scale) = _quantize_kv(k), _quantize_kv(v)
+            _write_kv(layer_cache.k_scale, k_scale, positions)
+            _write_kv(layer_cache.v_scale, v_scale, positions)
+        _write_kv(layer_cache.k, k, positions)
+        _write_kv(layer_cache.v, v, positions)
+        attn = attention(
+            q, layer_cache.k, layer_cache.v, positions, seq_lens,
+            scale=cfg.attn_scale,
+            sliding_window=cfg.sliding_window,
+            k_scale=layer_cache.k_scale,
+            v_scale=layer_cache.v_scale,
+            kv_len=kv_len,
+        )
     attn = attn.transpose(1, 2).reshape(b, s, cfg.q_dim)
-    x = x + _matmul(attn, lp.wo, out_dtype=torch.float32).to(x.dtype)
+    o_proj = _add_delta(_matmul(attn, lp.wo, out_dtype=torch.float32), delta(attn, "o"))
+    x = x + o_proj.to(x.dtype)
 
     mlp_in = rms_norm(x, lp.post_attn_norm, cfg.rms_norm_eps)
-    gateup = _matmul(mlp_in, lp.w_gateup)  # one kernel for gate+up
+    gateup = _add_delta(_matmul(mlp_in, lp.w_gateup), delta(mlp_in, "gateup"))  # one kernel for gate+up
     gate, up = split_fused(gateup, (cfg.intermediate_size, cfg.intermediate_size))
     h = F.silu(gate.float()).to(up.dtype) * up
-    return x + _matmul(h, lp.w_down, out_dtype=torch.float32).to(x.dtype)
+    down = _add_delta(_matmul(h, lp.w_down, out_dtype=torch.float32), delta(h, "down"))
+    return x + down.to(x.dtype)
 
 
 def forward(
@@ -311,25 +369,68 @@ def forward(
     seq_lens: torch.Tensor,  # [B] visible length AFTER this step
     last_only: bool = False,
     kv_len: Optional[int] = None,
+    lora=None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """Embed, run every layer, return fp32 logits ([B, S, V], or [B, V] for
     each row's last valid token with ``last_only``) and the cache, written
-    in place.  ``kv_len`` (host int) bounds the slots any query can see."""
+    in place.  ``kv_len`` (host int) bounds the slots any query can see.
+    ``lora`` is an optional unmerged ``train.lora.LoraParams``."""
     check_supported(cfg)
     b, s = tokens.shape
     x = params.embed[tokens.long()]
     cos, sin = rope_tables(cfg, positions)
     for i, lp in enumerate(params.layers):
-        x = _layer_forward(cfg, x, lp, cache.layer(i), positions, seq_lens, cos, sin, kv_len)
+        ll = None if lora is None else lora.layers[i]
+        x = _layer_forward(cfg, x, lp, cache.layer(i), positions, seq_lens, cos, sin, kv_len, ll=ll)
     if last_only:
         last_idx = torch.clamp(seq_lens - 1 - positions[:, 0], 0, s - 1).long()
         x = x[torch.arange(b, device=x.device), last_idx]
+    return _logits(params, cfg, x), cache
+
+
+def _logits(params: LlamaParams, cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
     x = rms_norm(x, params.final_norm, cfg.rms_norm_eps)
     if isinstance(params.lm_head, (PackedNF4, PackedInt8)):
-        logits = _matmul(x, params.lm_head, out_dtype=torch.float32)
-    else:
-        logits = _dense_logits(x, params.lm_head.to(x.dtype))
-    return logits, cache
+        return _matmul(x, params.lm_head, out_dtype=torch.float32)
+    return _dense_logits(x, params.lm_head.to(x.dtype))
+
+
+def train_forward(
+    params: LlamaParams,
+    cfg: LlamaConfig,
+    tokens: torch.Tensor,  # [B, S] int
+    lora=None,
+    remat: bool = False,
+    positions: Optional[torch.Tensor] = None,  # [B, S] segment-relative (packed rows); default arange
+    segment_ids: Optional[torch.Tensor] = None,  # [B, S] example id per slot, -1 = padding
+) -> torch.Tensor:
+    """Full-sequence fp32 logits [B, S, V] for fine-tuning.
+
+    Differs from :func:`prefill` where training needs it: no KV cache (each
+    layer attends over its own fresh K/V), attention on the differentiable
+    plain paths, and ``remat=True`` checkpoints each layer
+    (``torch.utils.checkpoint``, non-reentrant), so the backward recomputes
+    the layer's activations instead of keeping all ``L`` layers' of them.
+    Gradients flow to ``lora`` (and any dense leaf that requires one); the
+    packed weights are frozen.  For packed rows (``train.data.pack_sft``)
+    ``segment_ids`` makes attention block-diagonal and ``positions`` carries
+    the segment-relative rotary phases; the causal mask runs on slot
+    indices."""
+    check_supported(cfg)
+    b, s = tokens.shape
+    x = params.embed[tokens.long()]
+    slot_ids = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
+    seq_lens = torch.full((b,), s, dtype=torch.int32, device=tokens.device)
+    cos, sin = rope_tables(cfg, slot_ids if positions is None else positions)
+    for i, lp in enumerate(params.layers):
+        ll = None if lora is None else lora.layers[i]
+
+        def layer(x, lp=lp, ll=ll):
+            return _layer_forward(cfg, x, lp, None, slot_ids, seq_lens, cos, sin,
+                                  ll=ll, train=True, segment_ids=segment_ids)
+
+        x = checkpoint(layer, x, use_reentrant=False) if remat else layer(x)
+    return _logits(params, cfg, x)
 
 
 def prefill(params, cfg: LlamaConfig, tokens: torch.Tensor, cache: Optional[KVCache] = None):

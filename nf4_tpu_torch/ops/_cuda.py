@@ -26,7 +26,7 @@ __all__ = ["Kernel", "KERNELS", "build", "launch_counts", "reset_launch_counts"]
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("dequant", "matmul", "int8_matmul", "flash_attn")
+SOURCES = ("dequant", "matmul", "matmul_exact", "int8_matmul", "flash_attn")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -25,7 +25,14 @@ dequantized cache: scores are multiplied by ``scale`` and then by
 which are then multiplied by ``v_scale / 127`` before their rounding to the
 working dtype and the P.V product.
 
-Segment ids and logit softcapping are not ported yet.
+Packed training rows (``segment_ids`` [B, S], self-attention only): a
+query sees a key only when their segment ids also match (block-diagonal
+attention); the positions are then slot indices.  The training forward
+asks for ``differentiable=True``, which never takes kernel C (it has no
+backward): the plain paths run under autograd, as the JAX package's XLA
+paths do under ``jax.grad``.
+
+Logit softcapping is not ported yet.
 """
 
 from __future__ import annotations
@@ -56,13 +63,17 @@ _INT8_KERNEL = Kernel(
 )
 
 
-def _visibility(t_ids, positions, seq_lens, sliding_window):
-    """Bool [B, S, C]: key slots ``t_ids`` [C] visible to ``positions`` [B, S]."""
+def _visibility(t_ids, positions, seq_lens, sliding_window, q_seg=None, k_seg=None):
+    """Bool [B, S, C]: key slots ``t_ids`` [C] visible to ``positions``
+    [B, S]; with segment ids, only where ``q_seg`` [B, S] equals ``k_seg``
+    [B, C]."""
     t = t_ids[None, None, :]
     p = positions[:, :, None]
     vis = (t <= p) & (t < seq_lens[:, None, None])
     if sliding_window is not None:
         vis = vis & (t > p - sliding_window)
+    if q_seg is not None:
+        vis = vis & (q_seg[:, :, None] == k_seg[:, None, :])
     return vis
 
 
@@ -71,20 +82,26 @@ def _int8_factor(kv_scale):
     return (kv_scale * (1.0 / 127.0))[:, :, None, None, :]
 
 
+def _check_segments(segment_ids, s, t_max):
+    if segment_ids is not None and t_max != s:
+        raise ValueError("segment_ids requires self-attention (S == T)")
+
+
 def naive_attention(
     q, k, v, positions, seq_lens, *, scale: float, sliding_window: Optional[int] = None,
-    k_scale=None, v_scale=None,
+    k_scale=None, v_scale=None, segment_ids=None,
 ):
     """q [B, H, S, D], k/v [B, KV, T, D] (bf16, or int8 with k_scale/v_scale
-    [B, KV, T]), positions [B, S], seq_lens [B]."""
+    [B, KV, T]), positions [B, S], seq_lens [B], segment_ids [B, S]."""
     b, nh, s, d = q.shape
     nkv, t_max = k.shape[1], k.shape[2]
+    _check_segments(segment_ids, s, t_max)
     qg = q.reshape(b, nkv, nh // nkv, s, d).float()
     scores = torch.matmul(qg, k.float()[:, :, None].transpose(-1, -2)) * scale
     if k_scale is not None:
         scores = scores * _int8_factor(k_scale)
     t_ids = torch.arange(t_max, device=q.device)
-    vis = _visibility(t_ids, positions, seq_lens, sliding_window)
+    vis = _visibility(t_ids, positions, seq_lens, sliding_window, segment_ids, segment_ids)
     scores = torch.where(vis[:, None, None], scores, torch.full_like(scores, _NEG))
     probs = torch.softmax(scores, dim=-1)
     if v_scale is not None:
@@ -96,19 +113,21 @@ def naive_attention(
 
 def chunked_attention(
     q, k, v, positions, seq_lens, *, scale: float, sliding_window: Optional[int] = None,
-    k_scale=None, v_scale=None, q_chunk: int = 512, kv_chunk: int = 512,
+    k_scale=None, v_scale=None, q_chunk: int = 512, kv_chunk: int = 512, segment_ids=None,
 ):
     """Streaming softmax over (query chunk, key chunk) pairs; key chunks a
     query chunk cannot see are skipped (one host read of the chunk's
     position range per query chunk)."""
     b, nh, s, d = q.shape
     nkv, t_max = k.shape[1], k.shape[2]
+    _check_segments(segment_ids, s, t_max)
     g = nh // nkv
     qg = q.reshape(b, nkv, g, s, d)
     outs = []
     for s0 in range(0, s, q_chunk):
         qt = qg[:, :, :, s0 : s0 + q_chunk].float()
         pos_t = positions[:, s0 : s0 + q_chunk]
+        seg_t = None if segment_ids is None else segment_ids[:, s0 : s0 + q_chunk]
         max_pos, min_pos = int(pos_t.max()), int(pos_t.min())
         sc = qt.shape[3]
         m = torch.full((b, nkv, g, sc), _NEG, device=q.device)
@@ -125,7 +144,8 @@ def chunked_attention(
             if k_scale is not None:
                 sct = sct * _int8_factor(k_scale[:, :, t0 : t0 + kv_chunk])
             t_ids = torch.arange(t0, t0 + kc.shape[2], device=q.device)
-            vis = _visibility(t_ids, pos_t, seq_lens, sliding_window)
+            seg_c = None if segment_ids is None else segment_ids[:, t0 : t0 + kv_chunk]
+            vis = _visibility(t_ids, pos_t, seq_lens, sliding_window, seg_t, seg_c)
             sct = torch.where(vis[:, None, None], sct, torch.full_like(sct, _NEG))
             m_new = torch.maximum(m, sct.amax(dim=-1))
             alpha = torch.exp(m - m_new)
@@ -223,6 +243,7 @@ def _flash_eligible(q, k, s: int, d: int) -> bool:
 def attention(
     q, k, v, positions, seq_lens, *, scale, sliding_window=None,
     k_scale=None, v_scale=None, kv_len: Optional[int] = None,
+    differentiable: bool = False, segment_ids=None,
 ):
     """Dispatching entry point; see the module docstring for the contract
     (``positions[b]`` must be ``pos0_b + arange(S)``).  ``kv_len`` is an optional host-side
@@ -230,22 +251,26 @@ def attention(
     ``k[:, :, :kv_len]`` (the JAX package's chunk-skipping decode path reads
     only the live prefix the same way; here the caller knows its length).
     The dispatch thresholds use the full cache length, as the JAX package's
-    do."""
+    do.  ``differentiable=True`` (training) and ``segment_ids`` (packed
+    rows) keep to the plain paths."""
     b, nh, s, d = q.shape
     t_max = k.shape[2]
-    scales = dict(k_scale=k_scale, v_scale=v_scale)
-    if s > 1 and b * nh * s * t_max >= _CHUNKED_MIN_SCORE_ELEMS and _flash_eligible(q, k, s, d):
+    opts = dict(k_scale=k_scale, v_scale=v_scale, segment_ids=segment_ids)
+    large = s > 1 and b * nh * s * t_max >= _CHUNKED_MIN_SCORE_ELEMS
+    if large and not differentiable and segment_ids is None and _flash_eligible(q, k, s, d):
         return flash_attention(
-            q, k, v, positions, seq_lens, scale=scale, sliding_window=sliding_window, **scales
+            q, k, v, positions, seq_lens, scale=scale, sliding_window=sliding_window,
+            k_scale=k_scale, v_scale=v_scale,
         )
     if kv_len is not None and kv_len < t_max:
         k, v = k[:, :, :kv_len], v[:, :, :kv_len]
-        scales = {n: None if sp is None else sp[:, :, :kv_len] for n, sp in scales.items()}
-    if s > 1 and b * nh * s * t_max >= _CHUNKED_MIN_SCORE_ELEMS:
+        for n in ("k_scale", "v_scale"):
+            opts[n] = None if opts[n] is None else opts[n][:, :, :kv_len]
+    if large:
         return chunked_attention(
             q, k, v, positions, seq_lens, scale=scale, sliding_window=sliding_window,
-            q_chunk=min(512, s), **scales,
+            q_chunk=min(512, s), **opts,
         )
     return naive_attention(
-        q, k, v, positions, seq_lens, scale=scale, sliding_window=sliding_window, **scales
+        q, k, v, positions, seq_lens, scale=scale, sliding_window=sliding_window, **opts
     )

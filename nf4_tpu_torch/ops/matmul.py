@@ -1,19 +1,25 @@
-"""Fused 4-bit dequant-matmul ``y = x @ W^T`` with W kept packed (kernel B).
+"""Fused 4-bit dequant-matmul ``y = x @ W^T`` with W kept packed (kernels B
+and E), and its gradient with respect to ``x``.
 
 bf16 activations on a CUDA tensor run the hand-written kernel
-``csrc/matmul.cu``: weight values ``bf16(bf16(code) * bf16(scale))``, a
-bf16 product with fp32 accumulation, within the 2e-2 contract of the JAX
-package's bf16 path.  On a CPU tensor the plain version
-:func:`_matmul_bf16_plain` computes the same values.
+``csrc/matmul.cu`` (kernel B): weight values ``bf16(bf16(code) *
+bf16(scale))``, a bf16 product with fp32 accumulation, within the 2e-2
+contract of the JAX package's bf16 path.  fp32 and fp16 activations run
+``csrc/matmul_exact.cu`` (kernel E): the oracle's fp32 weight values and an
+fp32 product with fp32 accumulation (no TF32), the JAX package's exact
+path.  On a CPU tensor the plain versions :func:`_matmul_bf16_plain` and
+:func:`_matmul_exact_plain` compute the same values.
 
-fp32 and fp16 activations take the JAX package's exact path (fp32 weights,
-fp32 product): on the CPU as plain PyTorch, on CUDA not yet, because their
-kernel (the JAX package's ``_matmul_pallas_exact``) is not ported yet.  The
-backward (``dx = g @ W``) waits for the training slice.
+The backward is the JAX package's custom VJP (``_nf4_matmul_bwd``): the
+packed weight is frozen (the QLoRA contract), so only ``x`` gets a
+gradient, ``dx = g @ W`` with W dequantized exactly to fp32 (kernel A on
+CUDA) and a true fp32 product, cast to ``x``'s dtype.  Nothing but the
+packed weight is kept for the backward.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -21,8 +27,8 @@ import torch
 from ..nf4.format import PackedNF4, chunk_views, pad_to
 from ..nf4.reference import NF4_BLOCK
 from ._cuda import Kernel
-from .dequant import _OUT_KIND, _bf16_weight_t, _dequant_t_plain
-from .lut_eval import byte_word_table
+from .dequant import _OUT_KIND, _bf16_weight_t, _dequant_t_plain, dequantize_t
+from .lut_eval import byte_word_table, code_tensor
 
 __all__ = ["nf4_matmul"]
 
@@ -30,6 +36,25 @@ _KERNEL = Kernel(
     "matmul_bf16", "matmul", "nf4_matmul_bf16",
     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6,
 )
+_EXACT_KERNEL = Kernel(
+    "matmul_exact", "matmul_exact", "nf4_matmul_exact",
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7,
+)
+_X_KIND = {torch.float32: 0, torch.float16: 2}
+
+
+@contextlib.contextmanager
+def _ieee_fp32():
+    """fp32 matrix products in full fp32 inside the block, whatever
+    ``torch.set_float32_matmul_precision`` says outside it (the JAX
+    package's ``Precision.HIGHEST``).  The setting is process-wide: it is
+    set and restored around the product."""
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)
 
 
 def _matmul_bf16_plain(x_pad, packed, scales, out_dtype, quant_type="nf4") -> torch.Tensor:
@@ -39,10 +64,11 @@ def _matmul_bf16_plain(x_pad, packed, scales, out_dtype, quant_type="nf4") -> to
 
 
 def _matmul_exact_plain(x_pad, packed, scales, out_dtype, quant_type="nf4") -> torch.Tensor:
-    """fp32 weights (exact dequant), fp32 product: the JAX package's exact
-    path, for fp32/fp16 activations."""
+    """The plain version of kernel E: fp32 weights (exact dequant), fp32
+    product, for fp32/fp16 activations."""
     wt = _dequant_t_plain(packed, scales, torch.float32, quant_type)
-    return (x_pad.float() @ wt).to(out_dtype)
+    with _ieee_fp32():
+        return (x_pad.float() @ wt).to(out_dtype)
 
 
 def _pick_bm(b: int) -> int:
@@ -61,13 +87,11 @@ def _pick_ksplit(tiles: int, nkb: int, device) -> int:
     return -(-nkb // per)  # no empty split
 
 
-def _matmul_bf16_kernel(x_pad, packed, scales, out_dtype, quant_type="nf4") -> torch.Tensor:
-    """Launch kernel B on CUDA tensors; x_pad rows a multiple of the block
-    rows (see :func:`_pick_bm`)."""
+def _check_operands(label, x_pad, packed, scales, out_dtype) -> int:
+    """The shape, layout and device checks kernels B and E share; returns
+    the batch rows per block."""
     b_pad, n_pad = x_pad.shape
     khalf, m_pad = packed.shape
-    if x_pad.dtype != torch.bfloat16 or packed.dtype != torch.uint8 or scales.dtype != torch.float32:
-        raise TypeError("kernel B takes bf16 x, uint8 packed and fp32 scales")
     if out_dtype not in _OUT_KIND:
         raise TypeError(f"output dtype {out_dtype} not in {list(_OUT_KIND)}")
     bm = _pick_bm(b_pad)
@@ -76,9 +100,18 @@ def _matmul_bf16_kernel(x_pad, packed, scales, out_dtype, quant_type="nf4") -> t
     if scales.shape != (n_pad // NF4_BLOCK, m_pad):
         raise ValueError(f"bad scales shape {tuple(scales.shape)}")
     if not (x_pad.is_contiguous() and packed.is_contiguous() and scales.is_contiguous()):
-        raise ValueError("kernel B needs contiguous operands")
+        raise ValueError(f"{label} needs contiguous operands")
     if not (x_pad.device == packed.device == scales.device):
         raise ValueError("operands on different devices")
+    return bm
+
+
+def _launch(kernel, x_pad, packed, scales, out_dtype, bm, table_ptr, *mid):
+    """Allocate the output (and the K-split partials) and launch ``kernel``
+    (C arguments: x, packed, scales, table, out, partials, b_pad, n_pad,
+    m_pad, bm, *mid, ksplit, out kind)."""
+    b_pad, n_pad = x_pad.shape
+    m_pad = packed.shape[1]
     dev = x_pad.device
     ksplit = _pick_ksplit((m_pad // 128) * (b_pad // bm), n_pad // NF4_BLOCK, dev)
     out = torch.empty((b_pad, m_pad), dtype=out_dtype, device=dev)
@@ -86,26 +119,38 @@ def _matmul_bf16_kernel(x_pad, packed, scales, out_dtype, quant_type="nf4") -> t
         torch.empty((ksplit, b_pad, m_pad), dtype=torch.float32, device=dev)
         if ksplit > 1 else None
     )
-    table = byte_word_table(quant_type, dev)
-    _KERNEL(x_pad.data_ptr(), packed.data_ptr(), scales.data_ptr(), table.data_ptr(),
-            out.data_ptr(), None if work is None else work.data_ptr(),
-            b_pad, n_pad, m_pad, bm, ksplit, _OUT_KIND[out_dtype])
+    kernel(x_pad.data_ptr(), packed.data_ptr(), scales.data_ptr(), table_ptr,
+           out.data_ptr(), None if work is None else work.data_ptr(),
+           b_pad, n_pad, m_pad, bm, *mid, ksplit, _OUT_KIND[out_dtype])
     return out
 
 
-def nf4_matmul(x: torch.Tensor, pw: PackedNF4, out_dtype=None) -> torch.Tensor:
-    """``x @ W^T`` for packed ``W`` of logical shape [m, n]; ``x`` has any
-    leading batch shape and trailing dim n.  ``shards > 1`` sums the
-    per-chunk partial products."""
+def _matmul_bf16_kernel(x_pad, packed, scales, out_dtype, quant_type="nf4") -> torch.Tensor:
+    """Launch kernel B on CUDA tensors; x_pad rows a multiple of the block
+    rows (see :func:`_pick_bm`)."""
+    if x_pad.dtype != torch.bfloat16 or packed.dtype != torch.uint8 or scales.dtype != torch.float32:
+        raise TypeError("kernel B takes bf16 x, uint8 packed and fp32 scales")
+    bm = _check_operands("kernel B", x_pad, packed, scales, out_dtype)
+    table = byte_word_table(quant_type, x_pad.device)
+    return _launch(_KERNEL, x_pad, packed, scales, out_dtype, bm, table.data_ptr())
+
+
+def _matmul_exact_kernel(x_pad, packed, scales, out_dtype, quant_type="nf4") -> torch.Tensor:
+    """Launch kernel E on CUDA tensors: fp32 or fp16 x_pad, rows a multiple
+    of the block rows (see :func:`_pick_bm`)."""
+    if x_pad.dtype not in _X_KIND or packed.dtype != torch.uint8 or scales.dtype != torch.float32:
+        raise TypeError("kernel E takes fp32 or fp16 x, uint8 packed and fp32 scales")
+    bm = _check_operands("kernel E", x_pad, packed, scales, out_dtype)
+    if x_pad.data_ptr() % 16:  # the kernel reads x in 16- (fp16: 8-) byte pieces
+        x_pad = x_pad.clone()
+    code = code_tensor(quant_type, x_pad.device)
+    return _launch(_EXACT_KERNEL, x_pad, packed, scales, out_dtype, bm, code.data_ptr(),
+                   _X_KIND[x_pad.dtype])
+
+
+def _nf4_matmul_impl(x: torch.Tensor, pw: PackedNF4, out_dtype) -> torch.Tensor:
+    """The single-shard forward: pad, flatten the batch, dispatch."""
     m, n = pw.shape
-    if pw.shards > 1:
-        n_chunk = n // pw.shards
-        parts = [
-            nf4_matmul(x[..., s * n_chunk : (s + 1) * n_chunk], v, out_dtype=out_dtype)
-            for s, v in enumerate(chunk_views(pw))
-        ]
-        return sum(parts[1:], parts[0])
-    out_dtype = out_dtype if out_dtype is not None else x.dtype
     m_pad, n_pad = pw.padded_shape
     *batch, xn = x.shape
     assert xn == n, f"x trailing dim {xn} != in_features {n}"
@@ -118,11 +163,45 @@ def nf4_matmul(x: torch.Tensor, pw: PackedNF4, out_dtype=None) -> torch.Tensor:
         x2 = torch.nn.functional.pad(x2, (0, n_pad - n, 0, b_pad - B))
     if x2.dtype == torch.bfloat16:
         fn = _matmul_bf16_kernel if x2.is_cuda else _matmul_bf16_plain
-    elif x2.is_cuda:
-        raise NotImplementedError(
-            "kernel not ported yet: the exact fp32/fp16-activation matmul (kernel E)"
-        )
     else:
-        fn = _matmul_exact_plain
+        fn = _matmul_exact_kernel if x2.is_cuda else _matmul_exact_plain
     y = fn(x2.contiguous(), pw.packed, pw.scales, out_dtype, pw.quant_type)
     return y[:B, :m].reshape(*batch, m)
+
+
+class _NF4Matmul(torch.autograd.Function):
+    """``x @ W^T`` differentiable in ``x`` only (the JAX package's
+    ``_nf4_matmul_vjp``)."""
+
+    @staticmethod
+    def forward(ctx, x, pw, out_dtype):
+        ctx.pw, ctx.x_dtype = pw, x.dtype  # the packed weight, no activations
+        return _nf4_matmul_impl(x, pw, out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None
+        wt = dequantize_t(ctx.pw, torch.float32)  # [n, m], kernel A on CUDA
+        with _ieee_fp32():
+            dx = g.float() @ wt.T
+        return dx.to(ctx.x_dtype), None, None
+
+
+def nf4_matmul(x: torch.Tensor, pw: PackedNF4, out_dtype=None) -> torch.Tensor:
+    """``x @ W^T`` for packed ``W`` of logical shape [m, n]; ``x`` has any
+    leading batch shape and trailing dim n.  ``shards > 1`` sums the
+    per-chunk partial products (autograd sums their gradients).
+    Differentiable with respect to ``x``; ``W`` is frozen."""
+    m, n = pw.shape
+    if pw.shards > 1:
+        n_chunk = n // pw.shards
+        parts = [
+            nf4_matmul(x[..., s * n_chunk : (s + 1) * n_chunk], v, out_dtype=out_dtype)
+            for s, v in enumerate(chunk_views(pw))
+        ]
+        return sum(parts[1:], parts[0])
+    out_dtype = out_dtype if out_dtype is not None else x.dtype
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _NF4Matmul.apply(x, pw, out_dtype)
+    return _nf4_matmul_impl(x, pw, out_dtype)

@@ -1,6 +1,7 @@
 """Attention against nf4_tpu: naive, chunked and flash (the plain version of
 kernel C; the JAX flash kernel runs in interpret mode), over a bf16 KV
-cache and over an int8 one with absmax scales.
+cache and over an int8 one with absmax scales, and the training paths:
+self-attention over packed rows with segment ids.
 
 Tolerance rtol = atol = 2e-2 on the rows each sequence can see (rows past
 a sequence's length are padding by contract), as the JAX package's own
@@ -128,3 +129,51 @@ def test_int8_kv_dispatcher_and_live_prefix(rng):
     np.testing.assert_array_equal(full.float().numpy(), naive.float().numpy())
     with pytest.raises(ValueError, match="both"):
         tattn.flash_attention(q, k, v, pos, lens, scale=D**-0.5, k_scale=tsc["k_scale"])
+
+
+def _segment_inputs(rng, dtype=torch.bfloat16):
+    """Self-attention over packed rows (S == T, slot positions): three
+    segments and padding (-1) in row 0, one segment and padding in row 1."""
+    s = T // 2
+    q = rng.standard_normal((B, H, s, D)).astype(np.float32)
+    k = rng.standard_normal((B, KV, s, D)).astype(np.float32)
+    v = rng.standard_normal((B, KV, s, D)).astype(np.float32)
+    seg = np.full((B, s), -1, np.int32)
+    seg[0, :100], seg[0, 100:180], seg[0, 180:230] = 0, 1, 2
+    seg[1, :200] = 0
+    positions = np.broadcast_to(np.arange(s, dtype=np.int32), (B, s)).copy()
+    seq_lens = np.full(B, s, np.int32)
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    jx = [jnp.asarray(a, jdt) for a in (q, k, v)] + [jnp.asarray(positions), jnp.asarray(seq_lens)]
+    tx = [torch.from_numpy(a).to(dtype) for a in (q, k, v)] + [torch.from_numpy(positions), torch.from_numpy(seq_lens)]
+    return jx, jnp.asarray(seg), tx, torch.from_numpy(seg)
+
+
+@pytest.mark.parametrize("path", ["naive", "chunked"])
+def test_segment_ids_match(rng, path):
+    """Block-diagonal attention: every row, padding rows included (they
+    see the padding slots, in both packages)."""
+    jx, jseg, tx, tseg = _segment_inputs(rng)
+    kw = dict(q_chunk=64, kv_chunk=64) if path == "chunked" else {}
+    want = getattr(jattn, f"{path}_attention")(*jx, scale=D**-0.5, segment_ids=jseg, **kw)
+    got = getattr(tattn, f"{path}_attention")(*tx, scale=D**-0.5, segment_ids=tseg, **kw)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), **TOL)
+    # A segment changes what a query sees: without the ids row 0's second
+    # segment would attend to the first.
+    plain = tattn.naive_attention(*tx, scale=D**-0.5)
+    assert not torch.allclose(plain[0, :, 100:180].float(), got[0, :, 100:180].float(), atol=0.1)
+    with pytest.raises(ValueError, match="self-attention"):
+        getattr(tattn, f"{path}_attention")(tx[0], tx[1][:, :, :64], tx[2][:, :, :64], *tx[3:],
+                                            scale=D**-0.5, segment_ids=tseg)
+
+
+def test_differentiable_dispatch_and_gradients(rng):
+    """``differentiable=True`` keeps to the plain paths (never kernel C) and
+    gradients flow to q, k and v; fp32 gives the naive path's values."""
+    _, _, tx, tseg = _segment_inputs(rng, torch.float32)
+    q, k, v, pos, lens = tx
+    q, k, v = (t.clone().requires_grad_() for t in (q, k, v))
+    out = tattn.attention(q, k, v, pos, lens, scale=D**-0.5, differentiable=True, segment_ids=tseg)
+    torch.testing.assert_close(out, tattn.naive_attention(q, k, v, pos, lens, scale=D**-0.5, segment_ids=tseg))
+    out.sum().backward()
+    assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in (q, k, v))

@@ -7,7 +7,10 @@ a machine with an H100 (sm_90a) and the CUDA toolkit:
 
 Kernels A and F must be bit-exact; kernels B, C (bf16 and int8 KV) and D
 within 2e-2 (bf16 products summed in another order than the plain
-version's).
+version's); kernel E (fp32 products) within 1e-5 of the largest value for
+fp32 out, within one rounding for fp16 (2e-3) and bf16 (8e-3) out; the
+``nf4_matmul`` backward within 1e-5 of the largest value, under every
+``torch.set_float32_matmul_precision`` setting.
 """
 
 import numpy as np
@@ -131,3 +134,59 @@ def test_flash_kernel_int8_kv_close(dev, window, pos0, g, d):
     torch.cuda.synchronize()
     np.testing.assert_allclose(got[0].cpu().numpy(), want[0].cpu().numpy(), rtol=2e-2, atol=2e-2)
     np.testing.assert_allclose(got[1, :, : s - 50].cpu().numpy(), want[1, :, : s - 50].cpu().numpy(), rtol=2e-2, atol=2e-2)
+
+
+_EXACT_LIMIT = {torch.float32: 1e-5, torch.float16: 2e-3, torch.bfloat16: 8e-3}
+
+
+@pytest.mark.parametrize("b", [1, 4, 37, 200])
+@pytest.mark.parametrize(
+    "xdt,out_dtype",
+    [(torch.float32, torch.float32), (torch.float32, torch.bfloat16), (torch.float16, torch.float16),
+     (torch.float16, torch.float32)],
+)
+def test_exact_matmul_kernel_close(dev, b, xdt, out_dtype):
+    from nf4_tpu_torch.ops.matmul import _matmul_exact_kernel, _matmul_exact_plain, _pick_bm
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    pw = _packed(gen, 640, 3072, dev)
+    b_pad = -(-b // _pick_bm(b)) * _pick_bm(b)
+    x = torch.zeros((b_pad, 3072), device=dev, dtype=xdt)
+    x[:b] = torch.randn((b, 3072), generator=gen, device=dev).to(xdt)
+    got = _matmul_exact_kernel(x, pw.packed, pw.scales, out_dtype)
+    want = _matmul_exact_plain(x, pw.packed, pw.scales, out_dtype).float()
+    torch.cuda.synchronize()
+    assert got.dtype == out_dtype
+    err = (got.float() - want).abs().max().item()
+    assert err <= _EXACT_LIMIT[out_dtype] * want.abs().max().item()
+
+
+@pytest.mark.parametrize("precision", ["highest", "high"])
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
+def test_matmul_backward_on_card(dev, precision, xdt):
+    """``dx = g @ W`` through kernel A and a true fp32 product, even under
+    "high" (TF32); the forward of fp32 x launches kernel E, of bf16 x B."""
+    import nf4_tpu_torch
+    from nf4_tpu_torch.ops import _cuda
+    from nf4_tpu_torch.ops.dequant import _dequant_t_plain
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    pw = _packed(gen, 640, 3072, dev)
+    x = torch.randn((37, 3072), generator=gen, device=dev).to(xdt).requires_grad_()
+    g = torch.randn((37, 640), generator=gen, device=dev)
+    want = (g @ _dequant_t_plain(pw.packed, pw.scales, torch.float32).T).to(xdt).float()
+    prev = torch.get_float32_matmul_precision()
+    _cuda.reset_launch_counts()
+    torch.set_float32_matmul_precision(precision)
+    try:
+        y = nf4_tpu_torch.nf4_matmul(x, pw)
+        (dx,) = torch.autograd.grad(y, x, g.to(y.dtype))
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    torch.cuda.synchronize()
+    counts = _cuda.launch_counts()
+    fwd = "matmul_exact" if xdt == torch.float32 else "matmul_bf16"
+    assert counts[fwd] == 1 and counts["dequant_t"] == 1, counts
+    assert dx.dtype == xdt
+    limit = (1e-5 if xdt == torch.float32 else 8e-3) * want.abs().max().item()
+    assert (dx.float() - want).abs().max().item() <= limit

@@ -56,8 +56,8 @@ def test_bf16_matmul_matches(rng, bshape, shape, shards, out, quant_type):
 
 @pytest.mark.parametrize("xdt", ["fp32", "fp16"])
 def test_exact_path_for_fp32_fp16_activations(rng, xdt):
-    """fp32/fp16 activations take the exact path on the CPU (kernel E, their
-    CUDA kernel, is not ported yet)."""
+    """fp32/fp16 activations take the exact path (kernel E's plain version
+    on the CPU)."""
     pj, pt = _pair(rng, (100, 320))
     x = rng.standard_normal((7, 320)).astype(np.float32)
     jdt, tdt = (jnp.float32, torch.float32) if xdt == "fp32" else (jnp.float16, torch.float16)

@@ -1,4 +1,4 @@
-"""The port stands alone: nf4_tpu_torch imports neither JAX, Flax,
+"""The port stands alone: nf4_tpu_torch imports neither JAX, Flax, optax,
 ml_dtypes nor anything of nf4_tpu, and builds no kernel at import time."""
 
 import ast
@@ -9,7 +9,7 @@ import sys
 import pytest
 
 PKG = pathlib.Path(__file__).resolve().parent.parent / "nf4_tpu_torch"
-FORBIDDEN = ("jax", "flax", "ml_dtypes", "nf4_tpu")
+FORBIDDEN = ("jax", "flax", "optax", "ml_dtypes", "nf4_tpu")
 
 
 def _imported_modules(path: pathlib.Path):
@@ -39,10 +39,10 @@ def test_import_loads_no_jax_and_builds_nothing():
         "for m in pkgutil.walk_packages(nf4_tpu_torch.__path__, 'nf4_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "from nf4_tpu_torch.ops import _cuda\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'ml_dtypes', 'nf4_tpu')]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax', 'ml_dtypes', 'nf4_tpu')]\n"
         "assert not bad, bad\n"
         "assert sorted(_cuda.KERNELS) == ['dequant_t', 'dequant_t_fast', 'flash_attention',"
-        " 'flash_attention_int8', 'int8_matmul', 'matmul_bf16'], _cuda.KERNELS\n"
+        " 'flash_attention_int8', 'int8_matmul', 'matmul_bf16', 'matmul_exact'], _cuda.KERNELS\n"
         "assert set(_cuda.launch_counts().values()) == {0}\n"
     )
     subprocess.run([sys.executable, "-c", code], check=True, cwd=PKG.parent, timeout=120)
