@@ -14,14 +14,15 @@ Phases, each of which fails the run on any error:
    versions at the Llama-3-8B shapes, bit for bit, NF4 and FP4 (A also
    bf16 and fp16 out);
 3. kernels B (fused 4-bit matmul) and D (int8 matmul) against their plain
-   versions at the four projection shapes, decode B=4 and prefill B=1024,
-   max rel err < 2e-2; (3e) kernel E (the fp32/fp16-activation matmul) at
+   versions at the four projection shapes, decode B=4 and prefill B=1024
+   (B also at the serving run's ragged B=37, 300 and 700), max rel err < 2e-2;
+   (3e) kernel E (the fp32/fp16-activation matmul) at
    the same shapes, fp32 x (fp32 out) and fp16 x (fp16 and fp32 out), max
    abs err <= 1e-5 * max|want| for fp32 out, 2e-3 * max|want| for fp16;
 4. kernel C (prefill flash attention), bf16 and int8 KV, against its plain
    version at B=1, H=32, KV=8, D=128, S=1024, T=8192, with and without a
-   window; the int8 branch also against the bf16 branch on the dequantized
-   cache;
+   window, and at a ragged S=700 from position 0 and from 37; the int8
+   branch also against the bf16 branch on the dequantized cache;
 5. the main paths, each with every launch count set to 0 just before and
    read just after: (a) the dequant API on Llama-3-8B-shaped weights, exact
    and fast; (b) greedy serving of Llama-3-8B at full width and depth
@@ -232,8 +233,9 @@ def phase_matmul(gen, dev, int8=False):
     matmul on the same weights recoded) against its plain version."""
     import torch
 
+    from nf4_tpu_torch.nf4.format import pad_to
     from nf4_tpu_torch.ops.int8_serve import _int8_matmul_kernel, _int8_matmul_plain, _int8_weight_t
-    from nf4_tpu_torch.ops.matmul import _bf16_weight_t, _matmul_bf16_kernel, _matmul_bf16_plain
+    from nf4_tpu_torch.ops.matmul import _bf16_weight_t, _matmul_bf16_kernel, _matmul_bf16_plain, _pick_bm
 
     if int8:
         label, make = "kernel D", random_int8
@@ -247,6 +249,21 @@ def phase_matmul(gen, dev, int8=False):
         weight_t = lambda w: _bf16_weight_t(w.packed, w.scales, "nf4")
     dts = {"bf16": torch.bfloat16, "fp32": torch.float32}
     res = {}
+    if not int8:
+        # The serving run's ragged prompt rows, checked only: b_pad 64 (the
+        # 128 x 256 blocks), 320 and 704 (256 x 128 blocks, the last one
+        # partly filled).
+        for b in (37, 300, 700):
+            for name, (m, n, od) in LLAMA3_8B_PROJ.items():
+                pw = make(gen, m, n, dev)
+                x = torch.zeros((pad_to(b, _pick_bm(b)), n), device=dev, dtype=torch.bfloat16)
+                x[:b] = torch.randn((b, n), generator=gen, device=dev).to(torch.bfloat16)
+                got = kern(x, pw, dts[od]).float()
+                want = plain(x, pw, dts[od]).float()
+                torch.cuda.synchronize()
+                rel = (got - want).abs().max().item() / want.abs().max().item()
+                check(rel < 2e-2, f"{label} max rel err {rel:.3g} at {name} B={b}")
+                print(f"phase 3 {label} {name} B={b} (b_pad {x.shape[0]}) m={m} n={n} out={od}: rel err {rel:.2e}")
     for b in (4, 1024):
         b_pad = 16 if b <= 16 else b
         for name, (m, n, od) in LLAMA3_8B_PROJ.items():
@@ -306,11 +323,27 @@ def phase_flash(gen, dev, int8=False):
         cache = (k, v)
         slot_bytes = 2 * d
 
-    def kern(pos, seq, window, kvs=cache):
+    def kern(pos, seq, window, kvs=cache, q=q):
         return _flash_kernel(q, kvs[0], kvs[1], pos, seq, d**-0.5, window, *kvs[2:])
 
-    def plain(pos, seq, window):
+    def plain(pos, seq, window, q=q):
         return _flash_plain(q, cache[0], cache[1], pos, seq, d**-0.5, window, *cache[2:])
+
+    # A ragged prefill: S = 700 queries (not a multiple of a query or key
+    # tile) at position 0 and at position 37, checked only.
+    q700 = q[:, :, :700].contiguous()
+    for pos0 in (0, 37):
+        pos = torch.full((b,), pos0, device=dev, dtype=torch.int32)
+        seq = torch.full((b,), pos0 + 700, device=dev, dtype=torch.int32)
+        got = kern(pos, seq, None, q=q700).float()
+        want = plain(pos, seq, None, q=q700).float()
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        limit = 2e-2 * want.abs().max().item()
+        check(err <= limit and torch.allclose(got, want, rtol=2e-2, atol=2e-2),
+              f"{label} differs from plain (S=700, pos0={pos0}): max abs err {err}, limit {limit}")
+        print(f"phase 4 {label} ragged S=700 pos0={pos0} seq_len={pos0 + 700}: max abs err {err:.2e} "
+              f"(limit {limit:.2e})")
 
     k_rep, v_rep = k.repeat_interleave(g, dim=1), v.repeat_interleave(g, dim=1)
     res = {}
@@ -898,7 +931,7 @@ def main() -> int:
     print(f"phase 1 built {sorted(reports) or 'nothing (cached)'} in {time.perf_counter() - t0:.1f} s")
     for name, rep in sorted(reports.items()):
         for line in rep.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "arning", "serialized")):
                 print(f"  ptxas {name}: {line.strip()}")
 
     dev = torch.device("cuda")
@@ -936,20 +969,27 @@ def main() -> int:
     def decode_layer(res):  # one decode layer's four projections at B=4
         return [res[(name, 4)] for name in LLAMA3_8B_PROJ]
 
-    def matmul_row(name, source, replaces, res, launches):
+    def matmul_row(name, source, replaces, res, launches, prefill=False):
         rows = decode_layer(res)
-        return dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches,
-                    max_abs_err=max(r["max_abs_err"] for r in res.values()),
-                    ms=sum(r["ms"] for r in rows), plain_ms=sum(r["plain_ms"] for r in rows),
-                    bound_ms=sum(r["bound_ms"] for r in rows), bound_by="bytes",
-                    library_ms=sum(r["library_ms"] for r in rows))
+        row = dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches,
+                   max_abs_err=max(r["max_abs_err"] for r in res.values()),
+                   ms=sum(r["ms"] for r in rows), plain_ms=sum(r["plain_ms"] for r in rows),
+                   bound_ms=sum(r["bound_ms"] for r in rows), bound_by="bytes",
+                   library_ms=sum(r["library_ms"] for r in rows))
+        if prefill:  # one prefill layer's four projections at B=1024
+            pre = [res[(n, 1024)] for n in LLAMA3_8B_PROJ]
+            row.update(prefill_ms=sum(r["ms"] for r in pre), prefill_bound_ms=sum(r["bound_ms"] for r in pre),
+                       prefill_library_ms=sum(r["library_ms"] for r in pre))
+        return row
 
     def flash_row(name, res, launches):
         return dict(name=name, route="cuda", source="nf4_tpu_torch/csrc/flash_attn.cu",
                     replaces="nf4_tpu/ops/attention.py:371", launches=launches,
                     max_abs_err=max(r["max_abs_err"] for r in res.values()), ms=res["causal"]["ms"],
                     plain_ms=res["causal"]["plain_ms"], bound_ms=res["causal"]["bound_ms"],
-                    bound_by="operations", library_ms=res["causal"]["library_ms"])
+                    bound_by="operations", library_ms=res["causal"]["library_ms"],
+                    window_ms=res["window"]["ms"], window_bound_ms=res["window"]["bound_ms"],
+                    window_library_ms=res["window"]["library_ms"])
 
     kernels = [
         dict(name="dequant_t", route="cuda", source="nf4_tpu_torch/csrc/dequant.cu",
@@ -957,7 +997,7 @@ def main() -> int:
              max_abs_err=deq["max_abs_err"], ms=deq["w_down"]["ms"], plain_ms=deq["w_down"]["plain_ms"],
              bound_ms=deq["w_down"]["bound_ms"], bound_by="bytes", library_ms=None),
         matmul_row("matmul_bf16", "nf4_tpu_torch/csrc/matmul.cu", "nf4_tpu/ops/matmul.py:148", mm,
-                   serve_counts["matmul_bf16"]),
+                   serve_counts["matmul_bf16"], prefill=True),
         flash_row("flash_attention", fl, serve_counts["flash_attention"]),
         flash_row("flash_attention_int8", fl8, int8_counts["flash_attention_int8"]),
         matmul_row("int8_matmul", "nf4_tpu_torch/csrc/int8_matmul.cu", "nf4_tpu/ops/int8_serve.py:151", mm8,

@@ -47,7 +47,9 @@ from ._cuda import Kernel
 __all__ = ["attention", "naive_attention", "chunked_attention", "flash_attention"]
 
 _NEG = -1e30
-# Query rows per kernel block: the GQA-packed [G, sc] rows, sc = 64 / G.
+# Query rows per kernel query tile (one warpgroup): the GQA-packed [G, sc]
+# rows, sc = 64 / G; cache slots per key tile, which the plain version's
+# key chunks mirror.
 _FLASH_ROWS = 64
 _FLASH_TILE = 64
 

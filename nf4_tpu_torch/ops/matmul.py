@@ -2,7 +2,8 @@
 and E), and its gradient with respect to ``x``.
 
 bf16 activations on a CUDA tensor run the hand-written kernel
-``csrc/matmul.cu`` (kernel B): weight values ``bf16(bf16(code) *
+``csrc/matmul.cu`` (kernel B: WMMA at decode, a pipelined wgmma
+dequant-GEMM at prefill): weight values ``bf16(bf16(code) *
 bf16(scale))``, a bf16 product with fp32 accumulation, within the 2e-2
 contract of the JAX package's bf16 path.  fp32 and fp16 activations run
 ``csrc/matmul_exact.cu`` (kernel E): the oracle's fp32 weight values and an
@@ -72,7 +73,10 @@ def _matmul_exact_plain(x_pad, packed, scales, out_dtype, quant_type="nf4") -> t
 
 
 def _pick_bm(b: int) -> int:
-    """Batch rows per block: 16 for decode-sized batches, else 64."""
+    """The multiple the batch rows are padded to: 16 for decode-sized
+    batches (kernel B's decode kernel, kernel E's 16-row blocks), else 64
+    (kernel E's 64-row blocks; kernel B's prefill blocks of 128 or 256
+    rows mask their ragged last tile)."""
     return 16 if b <= 16 else 64
 
 
@@ -82,9 +86,36 @@ def _pick_ksplit(tiles: int, nkb: int, device) -> int:
     want = 2 * torch.cuda.get_device_properties(device).multi_processor_count
     if tiles >= want:
         return 1
-    ksplit = min(nkb, -(-want // tiles))
+    return _even_splits(nkb, min(nkb, -(-want // tiles)))
+
+
+def _even_splits(nkb: int, ksplit: int) -> int:
     per = -(-nkb // ksplit)
     return -(-nkb // per)  # no empty split
+
+
+# Kernel B's prefill layouts, by the rows of a block: its columns (256
+# rows: 4 consumer warpgroups; 128 rows: 2).
+_PREFILL_COLS = {256: 128, 128: 256}
+
+
+def _prefill_rows(b_pad: int, m_pad: int) -> int:
+    """The rows of kernel B's prefill blocks: 128 x 256 up to 128 rows
+    where m_pad allows, else 256 x 128.  On the H100 the 128-row blocks
+    win only there (1.54x at 64 rows, 1.32x at 128; from 192 rows on the
+    256-row blocks win, 1.24x at 1024: ``utils/kernel_variants.py --only
+    layouts``)."""
+    return 128 if b_pad <= 128 and m_pad % 256 == 0 else 256
+
+
+def _prefill_ksplit(b_pad: int, m_pad: int, nkb: int, rows: int, device) -> int:
+    """K splits for kernel B's prefill blocks of ``rows`` rows (one block
+    per SM): as many as fit in one wave beside the output tiles, so a short
+    prompt still fills the card and a long one is not split into a second
+    wave."""
+    tiles = -(-b_pad // rows) * (m_pad // _PREFILL_COLS[rows])
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return _even_splits(nkb, max(1, min(nkb, sms // tiles)))
 
 
 def _check_operands(label, x_pad, packed, scales, out_dtype) -> int:
@@ -106,14 +137,16 @@ def _check_operands(label, x_pad, packed, scales, out_dtype) -> int:
     return bm
 
 
-def _launch(kernel, x_pad, packed, scales, out_dtype, bm, table_ptr, *mid):
+def _launch(kernel, x_pad, packed, scales, out_dtype, bm, table_ptr, *mid, ksplit=None):
     """Allocate the output (and the K-split partials) and launch ``kernel``
     (C arguments: x, packed, scales, table, out, partials, b_pad, n_pad,
-    m_pad, bm, *mid, ksplit, out kind)."""
+    m_pad, bm, *mid, ksplit, out kind).  ``ksplit`` defaults to the split
+    for blocks of ``bm`` rows x 128 columns."""
     b_pad, n_pad = x_pad.shape
     m_pad = packed.shape[1]
     dev = x_pad.device
-    ksplit = _pick_ksplit((m_pad // 128) * (b_pad // bm), n_pad // NF4_BLOCK, dev)
+    if ksplit is None:
+        ksplit = _pick_ksplit((m_pad // 128) * (b_pad // bm), n_pad // NF4_BLOCK, dev)
     out = torch.empty((b_pad, m_pad), dtype=out_dtype, device=dev)
     work = (
         torch.empty((ksplit, b_pad, m_pad), dtype=torch.float32, device=dev)
@@ -125,14 +158,21 @@ def _launch(kernel, x_pad, packed, scales, out_dtype, bm, table_ptr, *mid):
     return out
 
 
-def _matmul_bf16_kernel(x_pad, packed, scales, out_dtype, quant_type="nf4") -> torch.Tensor:
-    """Launch kernel B on CUDA tensors; x_pad rows a multiple of the block
-    rows (see :func:`_pick_bm`)."""
+def _matmul_bf16_kernel(x_pad, packed, scales, out_dtype, quant_type="nf4", rows=None) -> torch.Tensor:
+    """Launch kernel B on CUDA tensors; x_pad rows a multiple of
+    :func:`_pick_bm` (16: the decode kernel; 64: the prefill kernel, which
+    masks its ragged last row tile).  ``rows`` forces a prefill layout
+    (see ``_PREFILL_COLS``); by default :func:`_prefill_rows` picks it."""
     if x_pad.dtype != torch.bfloat16 or packed.dtype != torch.uint8 or scales.dtype != torch.float32:
         raise TypeError("kernel B takes bf16 x, uint8 packed and fp32 scales")
     bm = _check_operands("kernel B", x_pad, packed, scales, out_dtype)
     table = byte_word_table(quant_type, x_pad.device)
-    return _launch(_KERNEL, x_pad, packed, scales, out_dtype, bm, table.data_ptr())
+    ksplit = None
+    if bm != 16:
+        (b_pad, n_pad), m_pad = x_pad.shape, packed.shape[1]
+        bm = rows or _prefill_rows(b_pad, m_pad)
+        ksplit = _prefill_ksplit(b_pad, m_pad, n_pad // NF4_BLOCK, bm, x_pad.device)
+    return _launch(_KERNEL, x_pad, packed, scales, out_dtype, bm, table.data_ptr(), ksplit=ksplit)
 
 
 def _matmul_exact_kernel(x_pad, packed, scales, out_dtype, quant_type="nf4") -> torch.Tensor:

@@ -50,6 +50,36 @@ def test_flash_plain_matches_jax_flash(rng, window, pos0):
     _check_visible(got, want)
 
 
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("window", [None, 100])
+def test_flash_plain_ragged_matches_jax_flash(rng, int8, window):
+    """A ragged prefill: S = 700 queries (not a multiple of kernel C's
+    64-row or 64-slot tiles) from position 37, a window edge inside a key
+    tile; bf16 and int8 KV.  Tolerance 2e-2, as above."""
+    b, s, t, pos0 = 1, 700, 1024, 37
+    q = rng.standard_normal((b, H, s, D)).astype(np.float32)
+    if int8:
+        k = rng.integers(-127, 128, (b, KV, t, D)).astype(np.int8)
+        v = rng.integers(-127, 128, (b, KV, t, D)).astype(np.int8)
+        ks, vs = (rng.uniform(0.5, 4.0, (b, KV, t)).astype(np.float32) for _ in range(2))
+        jkv, tkv = [jnp.asarray(k), jnp.asarray(v)], [torch.from_numpy(k), torch.from_numpy(v)]
+        jsc = dict(k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs))
+        tsc = dict(k_scale=torch.from_numpy(ks), v_scale=torch.from_numpy(vs))
+    else:
+        k, v = (rng.standard_normal((b, KV, t, D)).astype(np.float32) for _ in range(2))
+        jkv = [jnp.asarray(a, jnp.bfloat16) for a in (k, v)]
+        tkv = [torch.from_numpy(a).to(torch.bfloat16) for a in (k, v)]
+        jsc, tsc = {}, {}
+    positions = (pos0 + np.arange(s, dtype=np.int32))[None]
+    seq_lens = np.asarray([pos0 + s], np.int32)
+    want = jattn.flash_attention(jnp.asarray(q, jnp.bfloat16), *jkv, jnp.asarray(positions), jnp.asarray(seq_lens),
+                                 scale=D**-0.5, sliding_window=window, sc=128, c=128, interpret=True, **jsc)
+    got = tattn.flash_attention(torch.from_numpy(q).to(torch.bfloat16), *tkv, torch.from_numpy(positions),
+                                torch.from_numpy(seq_lens), scale=D**-0.5, sliding_window=window, **tsc)
+    assert got.shape == (b, H, s, D) and got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), **TOL)
+
+
 @pytest.mark.parametrize("window", [None, 64])
 def test_naive_matches(rng, window):
     jx, tx = _inputs(rng)

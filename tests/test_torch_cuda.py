@@ -27,14 +27,14 @@ def dev():
     return torch.device("cuda")
 
 
-def _packed(gen, m, n, dev):
+def _packed(gen, m, n, dev, quant_type="nf4"):
     from nf4_tpu_torch.nf4.format import PackedNF4, pad_to
 
     m_pad, n_pad = pad_to(m, 128), pad_to(n, 1024)
     return PackedNF4(
         packed=torch.randint(0, 256, (n_pad // 2, m_pad), generator=gen, device=dev, dtype=torch.uint8),
         scales=torch.rand((n_pad // 64, m_pad), generator=gen, device=dev) * 0.02,
-        shape=(m, n), padded_shape=(m_pad, n_pad), dtype=torch.bfloat16,
+        shape=(m, n), padded_shape=(m_pad, n_pad), dtype=torch.bfloat16, quant_type=quant_type,
     )
 
 
@@ -65,6 +65,80 @@ def test_matmul_kernel_close(dev, b, out_dtype):
     want = _matmul_bf16_plain(x, pw.packed, pw.scales, out_dtype).float()
     torch.cuda.synchronize()
     assert ((got - want).abs().max() / want.abs().max()).item() < 2e-2
+
+
+@pytest.mark.parametrize("b", [65, 300, 700, 1024])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32, torch.float16])
+@pytest.mark.parametrize("quant_type", ["nf4", "fp4"])
+@pytest.mark.parametrize("m", [640, 1024])
+def test_matmul_prefill_kernel_close(dev, b, out_dtype, quant_type, m):
+    """Kernel B's prefill kernel (wgmma) in the layout ``_prefill_rows``
+    picks: 128 x 256 blocks (m 1024 at b_pad 128) or 256 x 128 (m 640;
+    b_pad 320 and 704 with a ragged last tile; 1024), K split or not."""
+    from nf4_tpu_torch.ops.matmul import _matmul_bf16_kernel, _matmul_bf16_plain, _pick_bm
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    pw = _packed(gen, m, 3072, dev, quant_type)
+    b_pad = -(-b // _pick_bm(b)) * _pick_bm(b)
+    x = torch.zeros((b_pad, 3072), device=dev, dtype=torch.bfloat16)
+    x[:b] = torch.randn((b, 3072), generator=gen, device=dev).to(torch.bfloat16)
+    got = _matmul_bf16_kernel(x, pw.packed, pw.scales, out_dtype, quant_type)
+    want = _matmul_bf16_plain(x, pw.packed, pw.scales, out_dtype, quant_type).float()
+    torch.cuda.synchronize()
+    assert got.dtype == out_dtype and got.shape == (b_pad, pw.padded_shape[0])
+    assert ((got.float() - want).abs().max() / want.abs().max()).item() < 2e-2
+
+
+@pytest.mark.parametrize("b", [64, 300, 700, 1024])
+@pytest.mark.parametrize("rows", [128, 256])
+def test_matmul_prefill_layouts_close(dev, b, rows):
+    """Both prefill layouts, forced, at every serving row count, whichever
+    ``_prefill_rows`` would pick."""
+    from nf4_tpu_torch.ops.matmul import _matmul_bf16_kernel, _matmul_bf16_plain
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    pw = _packed(gen, 1024, 3072, dev)
+    b_pad = -(-b // 64) * 64
+    x = torch.zeros((b_pad, 3072), device=dev, dtype=torch.bfloat16)
+    x[:b] = torch.randn((b, 3072), generator=gen, device=dev).to(torch.bfloat16)
+    got = _matmul_bf16_kernel(x, pw.packed, pw.scales, torch.bfloat16, rows=rows).float()
+    want = _matmul_bf16_plain(x, pw.packed, pw.scales, torch.bfloat16).float()
+    torch.cuda.synchronize()
+    assert ((got - want).abs().max() / want.abs().max()).item() < 2e-2
+
+
+def _flash_inputs(gen, dev, b, g, kv, s, t, d, int8):
+    q = torch.randn((b, kv * g, s, d), generator=gen, device=dev).to(torch.bfloat16)
+    if not int8:
+        k = torch.randn((b, kv, t, d), generator=gen, device=dev).to(torch.bfloat16)
+        v = torch.randn((b, kv, t, d), generator=gen, device=dev).to(torch.bfloat16)
+        return q, k, v, ()
+    k = torch.randint(-127, 128, (b, kv, t, d), generator=gen, device=dev, dtype=torch.int8)
+    v = torch.randint(-127, 128, (b, kv, t, d), generator=gen, device=dev, dtype=torch.int8)
+    ks = torch.rand((b, kv, t), generator=gen, device=dev) * 3 + 0.5
+    vs = torch.rand((b, kv, t), generator=gen, device=dev) * 3 + 0.5
+    return q, k, v, (ks, vs)
+
+
+@pytest.mark.parametrize("window,pos0", [(None, 0), (None, 37), (100, 37)])
+@pytest.mark.parametrize("g", [1, 4, 8])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("int8", [False, True])
+def test_flash_kernel_ragged_close(dev, window, pos0, g, d, int8):
+    """Kernel C at S = 700 (not a multiple of a query or key tile), at and
+    off position 0, with a window whose edge falls inside a key tile."""
+    from nf4_tpu_torch.ops.attention import _flash_kernel, _flash_plain
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    b, kv, s, t = 2, 2, 700, 1024
+    q, k, v, sc = _flash_inputs(gen, dev, b, g, kv, s, t, d, int8)
+    pos = torch.full((b,), pos0, device=dev, dtype=torch.int32)
+    lens = torch.tensor([pos0 + s, pos0 + s - 50], device=dev, dtype=torch.int32)
+    got = _flash_kernel(q, k, v, pos, lens, d**-0.5, window, *sc).float()
+    want = _flash_plain(q, k, v, pos, lens, d**-0.5, window, *sc).float()
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got[0].cpu().numpy(), want[0].cpu().numpy(), rtol=2e-2, atol=2e-2)
+    np.testing.assert_allclose(got[1, :, : s - 50].cpu().numpy(), want[1, :, : s - 50].cpu().numpy(), rtol=2e-2, atol=2e-2)
 
 
 @pytest.mark.parametrize("window,pos0,g", [(None, 0, 4), (96, 300, 4), (None, 17, 1), (None, 0, 8)])

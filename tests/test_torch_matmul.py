@@ -41,6 +41,8 @@ def _rel_err(got, want):
         ((37,), (100, 320), 1, "bf16"),  # padded shape
         ((5,), (100, 384), 2, "bf16"),  # K-chunked (row-parallel) layout
         ((37,), (256, 1024), 1, "fp32"),
+        ((300,), (256, 1024), 1, "bf16"),  # the serving run's ragged prompt rows
+        ((700,), (256, 1024), 1, "fp32"),
     ],
 )
 @pytest.mark.parametrize("quant_type", ["nf4", "fp4"])
@@ -78,3 +80,27 @@ def test_byte_table_matches_jax(rng):
         lo, hi = _byte_word_tables(qt)
         want = np.concatenate([lo.ravel(), hi.ravel()])
         np.testing.assert_array_equal(byte_word_table(qt, "cpu").numpy(), want)
+
+
+@pytest.mark.parametrize(
+    "b_pad,m_pad,nkb,want",
+    [
+        (1024, 28672, 64, 1),  # w_gateup at B=1024: 4 x 224 tiles of 256 x 128 fill the card
+        (1024, 4096, 224, 1),  # w_down: 4 x 32 = 128 tiles, one wave without a split
+        (64, 6144, 64, 5),  # wqkv of a 64-row prompt: 24 tiles of 128 x 256 x 5 splits of 13 K steps
+        (320, 6144, 64, 1),  # wqkv of a 320-row prompt: 2 x 48 tiles of 256 x 128, one wave
+        (320, 640, 48, 12),  # 256 x 128 where m_pad is not a multiple of 256: 10 tiles x 12 splits
+    ],
+)
+def test_prefill_ksplit(monkeypatch, b_pad, m_pad, nkb, want):
+    """Kernel B's prefill kernel splits K only as far as one wave of the
+    layout's tiles (see ``_prefill_rows``) allows on a 132-SM card, with no
+    empty split."""
+    import types
+
+    from nf4_tpu_torch.ops import matmul as tm
+
+    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda dev: types.SimpleNamespace(multi_processor_count=132))
+    ksplit = tm._prefill_ksplit(b_pad, m_pad, nkb, tm._prefill_rows(b_pad, m_pad), "cuda")
+    per = -(-nkb // ksplit)
+    assert ksplit == want and (ksplit - 1) * per < nkb
