@@ -1,6 +1,7 @@
 // Pieces shared by the weight-streaming matmul kernels (B in matmul.cu, D in
-// int8_matmul.cu): their block tiling, the output store in fp32, bf16 or
-// fp16, and the deterministic second pass that sums K-split fp32 partials.
+// int8_matmul.cu, E in matmul_exact.cu): the block tiling of B's and D's
+// decode kernels, the output store in fp32, bf16 or fp16, and the
+// deterministic second pass that sums K-split fp32 partials.
 
 #pragma once
 
@@ -18,13 +19,14 @@ constexpr int XS_LD = BK + 8;
 constexpr int WS_LD = BN + 8;
 constexpr int CS_LD = BN + 4;
 
-// A block of BM (16 or 64) batch rows x BN columns: the warps' tiles of
-// WMMA 16x16 fragments, the x and decoded-weight tiles of one K step in
-// shared memory, reused as the fp32 staging of the epilogue.
+// A block of BM = 16 batch rows x BN columns (the decode kernels): the
+// warps' tiles of WMMA 16x16 fragments, the x and decoded-weight tiles of
+// one K step in shared memory, reused as the fp32 staging of the epilogue.
 template <int BM>
 struct Tiles {
-  static constexpr int WM = BM == 16 ? 16 : 32;  // rows per warp
-  static constexpr int WN = BM == 16 ? 32 : 64;  // columns per warp
+  static_assert(BM == 16, "the decode kernels' tiling");
+  static constexpr int WM = 16;  // rows per warp
+  static constexpr int WN = 32;  // columns per warp
   static constexpr int FM = WM / 16;
   static constexpr int FN = WN / 16;
   static constexpr int WARPS_N = BN / WN;

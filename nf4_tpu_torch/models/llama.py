@@ -262,8 +262,9 @@ def rope_tables(cfg: LlamaConfig, positions: torch.Tensor) -> Tuple[torch.Tensor
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
     """x [B, H, S, D]; cos/sin [B, S, D] (broadcast over heads)."""
     half = x.shape[-1] // 2
-    rotated = torch.cat([-x[..., half:], x[..., :half]], dim=-1)
-    return (x.float() * cos[:, None] + rotated.float() * sin[:, None]).to(x.dtype)
+    xf = x.float()
+    rotated = torch.cat([-xf[..., half:], xf[..., :half]], dim=-1)
+    return (xf * cos[:, None] + rotated * sin[:, None]).to(x.dtype)
 
 
 def split_fused(y: torch.Tensor, sizes) -> List[torch.Tensor]:
@@ -271,25 +272,37 @@ def split_fused(y: torch.Tensor, sizes) -> List[torch.Tensor]:
     return list(torch.split(y, list(sizes), dim=-1))
 
 
+# The dividend of _quantize_kv's true division: a CPU scalar, which a CUDA
+# division reads as a constant (no fill kernel).
+_KV_LEVELS = torch.tensor(127.0)
+
+
 def _quantize_kv(t: torch.Tensor):
     """[B, KV, S, D] -> (int8 values, fp32 per-slot absmax scales [B, KV, S]):
     ``round(t * (127 / s))`` with round-half-even, s the absmax (1 where the
-    absmax is 0)."""
-    tf = t.float()
-    absmax = tf.abs().amax(dim=-1)
-    s = torch.where(absmax > 0, absmax, torch.ones_like(absmax))
-    # A true division (``127.0 / s`` on a tensor is reciprocal-then-multiply).
-    q8 = torch.round(tf * torch.div(torch.full_like(s, 127.0), s)[..., None]).to(torch.int8)
+    absmax is 0).  Any leading shape: K and V go through it stacked.  Each
+    eager op is a launch, and the host's launches bound the int8 prefill."""
+    absmax = torch.linalg.vector_norm(t, float("inf"), dim=-1, dtype=torch.float32)  # max |t|, exact
+    s = torch.where(absmax > 0, absmax, 1.0)
+    # A true division (``127.0 / s`` on a tensor is reciprocal-then-multiply);
+    # t times an fp32 tensor is computed in fp32.
+    q8 = torch.round(t * torch.div(_KV_LEVELS, s)[..., None]).to(torch.int8)
     return q8, absmax
 
 
-def _write_kv(layer_cache: torch.Tensor, new: torch.Tensor, positions: torch.Tensor) -> None:
-    """In place: layer_cache [B, KV, T, ...][b, :, positions[b, s]] =
-    new[b, :, s] (the K/V planes and the int8 scale planes alike).  Every
-    position must be < T."""
+def _cache_index(positions: torch.Tensor):
+    """The (row, slot) index of every position [B, S] a forward writes,
+    built once and shared by every layer's :func:`_write_kv`."""
     b, s = positions.shape
-    rows = torch.arange(b, device=positions.device)[:, None].expand(b, s)
-    layer_cache.transpose(1, 2)[rows, positions.long()] = new.transpose(1, 2).to(layer_cache.dtype)
+    return torch.arange(b, device=positions.device)[:, None].expand(b, s), positions.long()
+
+
+def _write_kv(layer_cache: torch.Tensor, new: torch.Tensor, index) -> None:
+    """In place: layer_cache [B, KV, T, ...][b, :, positions[b, s]] =
+    new[b, :, s] (the K/V planes and the int8 scale planes alike), with
+    ``index`` the positions' :func:`_cache_index`.  Every position must be
+    < T."""
+    layer_cache.transpose(1, 2)[index] = new.transpose(1, 2).to(layer_cache.dtype)
 
 
 def _lora_delta(x: torch.Tensor, ab) -> Optional[torch.Tensor]:
@@ -306,9 +319,10 @@ def _add_delta(y: torch.Tensor, delta: Optional[torch.Tensor]) -> torch.Tensor:
 
 
 def _layer_forward(cfg, x, lp: LayerParams, layer_cache: Optional[KVCache], positions, seq_lens, cos, sin,
-                   kv_len=None, ll=None, train: bool = False, segment_ids=None):
+                   kv_len=None, ll=None, train: bool = False, segment_ids=None, cache_index=None):
     """One decoder layer; x [B, S, hidden]; writes this call's K/V into the
-    layer's cache views in place.  ``ll`` is the layer's LoRA adapters
+    layer's cache views in place at ``cache_index`` (the positions'
+    :func:`_cache_index`).  ``ll`` is the layer's LoRA adapters
     (``train.lora.LoraLayer``) or None; ``train=True`` uses no cache
     (attention over this call's own K/V, differentiable paths only, with
     ``segment_ids`` for packed rows)."""
@@ -319,12 +333,11 @@ def _layer_forward(cfg, x, lp: LayerParams, layer_cache: Optional[KVCache], posi
 
     attn_in = rms_norm(x, lp.input_norm, cfg.rms_norm_eps)
     qkv = _add_delta(_matmul(attn_in, lp.wqkv), delta(attn_in, "qkv"))  # one kernel for q+k+v
-    q, k, v = split_fused(qkv, (cfg.q_dim, cfg.kv_dim, cfg.kv_dim))
-    q = q.reshape(b, s, cfg.num_heads, cfg.head_dim).transpose(1, 2)
-    k = k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2)
+    qk, v = split_fused(qkv, (cfg.q_dim + cfg.kv_dim, cfg.kv_dim))
+    # RoPE of the q and k heads in one pass.
+    qk = apply_rope(qk.reshape(b, s, cfg.num_heads + cfg.num_kv_heads, cfg.head_dim).transpose(1, 2), cos, sin)
+    q, k = qk.split((cfg.num_heads, cfg.num_kv_heads), dim=1)
     v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
     if train:
         attn = attention(
             q, k, v, positions, seq_lens,
@@ -335,11 +348,11 @@ def _layer_forward(cfg, x, lp: LayerParams, layer_cache: Optional[KVCache], posi
         )
     else:
         if cfg.kv_quant:
-            (k, k_scale), (v, v_scale) = _quantize_kv(k), _quantize_kv(v)
-            _write_kv(layer_cache.k_scale, k_scale, positions)
-            _write_kv(layer_cache.v_scale, v_scale, positions)
-        _write_kv(layer_cache.k, k, positions)
-        _write_kv(layer_cache.v, v, positions)
+            (k, v), kv_scale = _quantize_kv(torch.stack((k, v)))
+            _write_kv(layer_cache.k_scale, kv_scale[0], cache_index)
+            _write_kv(layer_cache.v_scale, kv_scale[1], cache_index)
+        _write_kv(layer_cache.k, k, cache_index)
+        _write_kv(layer_cache.v, v, cache_index)
         attn = attention(
             q, layer_cache.k, layer_cache.v, positions, seq_lens,
             scale=cfg.attn_scale,
@@ -379,9 +392,11 @@ def forward(
     b, s = tokens.shape
     x = params.embed[tokens.long()]
     cos, sin = rope_tables(cfg, positions)
+    index = _cache_index(positions)
     for i, lp in enumerate(params.layers):
         ll = None if lora is None else lora.layers[i]
-        x = _layer_forward(cfg, x, lp, cache.layer(i), positions, seq_lens, cos, sin, kv_len, ll=ll)
+        x = _layer_forward(cfg, x, lp, cache.layer(i), positions, seq_lens, cos, sin, kv_len, ll=ll,
+                           cache_index=index)
     if last_only:
         last_idx = torch.clamp(seq_lens - 1 - positions[:, 0], 0, s - 1).long()
         x = x[torch.arange(b, device=x.device), last_idx]

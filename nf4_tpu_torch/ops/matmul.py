@@ -6,9 +6,10 @@ bf16 activations on a CUDA tensor run the hand-written kernel
 dequant-GEMM at prefill): weight values ``bf16(bf16(code) *
 bf16(scale))``, a bf16 product with fp32 accumulation, within the 2e-2
 contract of the JAX package's bf16 path.  fp32 and fp16 activations run
-``csrc/matmul_exact.cu`` (kernel E): the oracle's fp32 weight values and an
-fp32 product with fp32 accumulation (no TF32), the JAX package's exact
-path.  On a CPU tensor the plain versions :func:`_matmul_bf16_plain` and
+``csrc/matmul_exact.cu`` (kernel E: SIMT FFMA at decode, 3xTF32 on wgmma at
+prefill): the oracle's fp32 weight values and an fp32 product with fp32
+accumulation, the JAX package's exact path, within 1e-5 of the largest
+output.  On a CPU tensor the plain versions :func:`_matmul_bf16_plain` and
 :func:`_matmul_exact_plain` compute the same values.
 
 The backward is the JAX package's custom VJP (``_nf4_matmul_bwd``): the
@@ -39,7 +40,7 @@ _KERNEL = Kernel(
 )
 _EXACT_KERNEL = Kernel(
     "matmul_exact", "matmul_exact", "nf4_matmul_exact",
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7,
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p] + [ctypes.c_int] * 2,
 )
 _X_KIND = {torch.float32: 0, torch.float16: 2}
 
@@ -74,9 +75,8 @@ def _matmul_exact_plain(x_pad, packed, scales, out_dtype, quant_type="nf4") -> t
 
 def _pick_bm(b: int) -> int:
     """The multiple the batch rows are padded to: 16 for decode-sized
-    batches (kernel B's decode kernel, kernel E's 16-row blocks), else 64
-    (kernel E's 64-row blocks; kernel B's prefill blocks of 128 or 256
-    rows mask their ragged last tile)."""
+    batches (the decode kernels of B, D and E), else 64 (their prefill
+    blocks of 128 or 256 rows mask their ragged last tile)."""
     return 16 if b <= 16 else 64
 
 
@@ -108,14 +108,22 @@ def _prefill_rows(b_pad: int, m_pad: int) -> int:
     return 128 if b_pad <= 128 and m_pad % 256 == 0 else 256
 
 
-def _prefill_ksplit(b_pad: int, m_pad: int, nkb: int, rows: int, device) -> int:
-    """K splits for kernel B's prefill blocks of ``rows`` rows (one block
-    per SM): as many as fit in one wave beside the output tiles, so a short
+def _wave_ksplit(tiles: int, nsteps: int, device) -> int:
+    """K splits of ``nsteps`` steps for ``tiles`` output tiles of one block
+    per SM each: as many as fit in one wave beside the tiles, so a short
     prompt still fills the card and a long one is not split into a second
     wave."""
-    tiles = -(-b_pad // rows) * (m_pad // _PREFILL_COLS[rows])
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return _even_splits(nkb, max(1, min(nkb, sms // tiles)))
+    return _even_splits(nsteps, max(1, min(nsteps, sms // tiles)))
+
+
+def _prefill_ksplit(b_pad: int, m_pad: int, nkb: int, rows: int, device) -> int:
+    """K splits for kernel B's (and D's) prefill blocks of ``rows`` rows."""
+    return _wave_ksplit(-(-b_pad // rows) * (m_pad // _PREFILL_COLS[rows]), nkb, device)
+
+
+# Kernel E's prefill blocks: 128 rows x 128 columns, K steps of 32 rows.
+_EXACT_ROWS, _EXACT_KS = 128, 32
 
 
 def _check_operands(label, x_pad, packed, scales, out_dtype) -> int:
@@ -177,15 +185,23 @@ def _matmul_bf16_kernel(x_pad, packed, scales, out_dtype, quant_type="nf4", rows
 
 def _matmul_exact_kernel(x_pad, packed, scales, out_dtype, quant_type="nf4") -> torch.Tensor:
     """Launch kernel E on CUDA tensors: fp32 or fp16 x_pad, rows a multiple
-    of the block rows (see :func:`_pick_bm`)."""
+    of :func:`_pick_bm` (16: the SIMT decode kernel; 64: the 3xTF32 prefill
+    kernel, whose pre-pass splits x into the scratch allocated here)."""
     if x_pad.dtype not in _X_KIND or packed.dtype != torch.uint8 or scales.dtype != torch.float32:
         raise TypeError("kernel E takes fp32 or fp16 x, uint8 packed and fp32 scales")
     bm = _check_operands("kernel E", x_pad, packed, scales, out_dtype)
-    if x_pad.data_ptr() % 16:  # the kernel reads x in 16- (fp16: 8-) byte pieces
+    if x_pad.data_ptr() % 16:  # the kernels read x in 16- (fp16: 8-) byte pieces
         x_pad = x_pad.clone()
     code = code_tensor(quant_type, x_pad.device)
-    return _launch(_EXACT_KERNEL, x_pad, packed, scales, out_dtype, bm, code.data_ptr(),
-                   _X_KIND[x_pad.dtype])
+    if bm == 16:
+        return _launch(_EXACT_KERNEL, x_pad, packed, scales, out_dtype, bm, code.data_ptr(),
+                       _X_KIND[x_pad.dtype], None)
+    (b_pad, n_pad), m_pad = x_pad.shape, packed.shape[1]
+    halves = 2 if x_pad.dtype == torch.float32 else 1  # x_hi and x_lo; fp16 x is exact in tf32
+    xsplit = torch.empty((halves, b_pad, n_pad), dtype=torch.float32, device=x_pad.device)
+    ksplit = _wave_ksplit(-(-b_pad // _EXACT_ROWS) * (m_pad // 128), n_pad // _EXACT_KS, x_pad.device)
+    return _launch(_EXACT_KERNEL, x_pad, packed, scales, out_dtype, _EXACT_ROWS, code.data_ptr(),
+                   _X_KIND[x_pad.dtype], xsplit.data_ptr(), ksplit=ksplit)
 
 
 def _nf4_matmul_impl(x: torch.Tensor, pw: PackedNF4, out_dtype) -> torch.Tensor:

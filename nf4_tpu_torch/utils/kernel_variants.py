@@ -1,19 +1,19 @@
-"""Time what a kernel's time is made of, in one process on one card: kernel
-B's two prefill layouts at each prompt size, and text-edited variants of a
-CUDA source beside the source as it is.
+"""Time what a kernel's time is made of, in one process on one card: the two
+prefill layouts of kernels B and D at each prompt size, and text-edited
+variants of a CUDA source beside the source as it is.
 
-    python -m nf4_tpu_torch.utils.kernel_variants [--only layouts|matmul|flash]
+    python -m nf4_tpu_torch.utils.kernel_variants [--only layouts|matmul|int8_matmul|matmul_exact|flash]
 
-A variant is the source with a few lines replaced (a step skipped, an
-intrinsic swapped); it is built with the port's nvcc flags into a scratch
-directory under ``_build/``, and the port's own wrappers launch it in place
-of the built source.  Variants that compute the same function report their
+A variant is the source and its headers with a few lines replaced (a step
+skipped, an intrinsic swapped); it is built with the port's nvcc flags into
+a scratch directory under ``_build/``, and the port's own wrappers launch it
+in place of the built source.  Variants that compute the same function report their
 largest difference from the unedited build; variants that skip work report
 nothing to compare.  Times are the mean device time of one launch, from the
 replay of a CUDA graph of 20 launches after a warm-up, at the shapes
-``chip_smoke.py`` times: kernel B at Llama-3-8B's four projections (the
-layouts at 64 to 1024 rows, the variants at w_gateup and w_down with 1024
-rows), kernel C at B=1, H=32, KV=8, D=128, S=1024 (causal from position 0,
+``chip_smoke.py`` times: kernels B and D at Llama-3-8B's four projections
+(the layouts at 64 to 1024 rows; the variants of kernels B, D and E at
+w_gateup and w_down with 1024 rows), kernel C at B=1, H=32, KV=8, D=128, S=1024 (causal from position 0,
 and the last 1024 positions of an 8192-slot cache under a 4096-slot
 window), bf16 and int8 KV.
 """
@@ -32,7 +32,8 @@ from ..ops import _cuda
 
 # Kernel B without the decode of steps after the first, or without the
 # copies after the prologue (and without waiting for them: a wait for a
-# copy never started would never end).
+# copy never started would never end); these edit the main loop it shares
+# with kernels D and E (csrc/dequant_gemm.cuh).
 _NO_DECODE = [("    if (i + 1 < nk) decode(i + 1, (i + 1) % L::W_TILES);", "")]
 _NO_LOADS = [
     ("    if (i + STAGES - 1 < nk) load(i + STAGES - 1);", ""),
@@ -43,7 +44,7 @@ _NO_LOADS = [
 MATMUL_VARIANTS = [
     ("as is", [], True),
     ("one byte table (not 32 bank-private copies)", [
-        ("table[i / 32];", "table[i % 256];"),
+        ("(table)[i / 32];", "(table)[i % 256];"),
         ("lut[((pw[r] >> (8 * e)) & 0xff) * 32 + lane]", "lut[(pw[r] >> (8 * e)) & 0xff]"),
     ], True),
     ("no decode after step 0", _NO_DECODE, False),
@@ -55,6 +56,31 @@ MATMUL_VARIANTS = [
     ], False),
 ]
 
+# Kernels D and E on the same main loop.
+_LOOP_VARIANTS = [
+    ("no decode after step 0", _NO_DECODE, False),
+    ("no loads after the prologue", _NO_LOADS, False),
+    ("neither", _NO_DECODE + _NO_LOADS, False),
+]
+INT8_VARIANTS = [("as is", [], True), *_LOOP_VARIANTS]
+EXACT_VARIANTS = [
+    ("as is", [], True),
+    # Every product into one accumulator over all of K: the tensor cores'
+    # truncation then drifts with K (compare the max |diff|).
+    ("one accumulator (no step sums)", [
+        ("  static constexpr bool STEP_SUMS = true;", "  static constexpr bool STEP_SUMS = false;"),
+        ("hop::wgmma_desc(xl + kk * 32), w_hi, kk > 0);", "hop::wgmma_desc(xl + kk * 32), w_hi, 1);"),
+        ("hop::wgmma_m64n128k8_tf32(acc, x_hi, w_lo, XLO || kk > 0);", "hop::wgmma_m64n128k8_tf32(acc, x_hi, w_lo, 1);"),
+    ], True),
+    # The decode's rounding to tf32 by cvt.rna.tf32.f32 instead of the
+    # integer add and mask (the same value for finite weights).
+    ("cvt.rna in the decode (not the integer rounding)", [
+        ("        hi[k] = tf32_rna_int(v);", "        hi[k] = hop::tf32_rna(v);"),
+        ("        lo[k] = tf32_rna_int(__fsub_rn(", "        lo[k] = hop::tf32_rna(__fsub_rn("),
+    ], True),
+    *_LOOP_VARIANTS,
+]
+
 FLASH_VARIANTS = [
     ("as is", [], True),
     ("expf instead of __expf", [("__expf(", "expf(")], True),
@@ -62,7 +88,8 @@ FLASH_VARIANTS = [
      True),
 ]
 
-VARIANTS = {"matmul": MATMUL_VARIANTS, "flash_attn": FLASH_VARIANTS}
+VARIANTS = {"matmul": MATMUL_VARIANTS, "int8_matmul": INT8_VARIANTS, "matmul_exact": EXACT_VARIANTS,
+            "flash_attn": FLASH_VARIANTS}
 
 # Kernel B's shapes: name -> (out m, in n, output dtype), as chip_smoke.py.
 _PROJ = {
@@ -74,30 +101,35 @@ _PROJ = {
 _L2_BYTES = 50 * 2**20
 
 
-def edited_source(source: str, edits) -> str:
-    """``csrc/<source>.cu`` with each (old, new) edit applied; raises if an
-    old text is not in the source."""
-    text = (_cuda.CSRC / f"{source}.cu").read_text()
+def edited_sources(source: str, edits) -> dict:
+    """``{file name: text}`` of ``csrc/<source>.cu`` and every header in
+    ``csrc/``, with each (old, new) edit applied to every file that holds the
+    old text; raises if no file holds it."""
+    paths = [_cuda.CSRC / f"{source}.cu", *sorted(_cuda.CSRC.glob("*.cuh"))]
+    texts = {p.name: p.read_text() for p in paths}
     for old, new in edits:
-        if old not in text:
-            raise RuntimeError(f"{old[:60]!r} not in {source}.cu")
-        text = text.replace(old, new)
-    return text
+        hits = [name for name, text in texts.items() if old in text]
+        if not hits:
+            raise RuntimeError(f"{old[:60]!r} not in {source}.cu or its headers")
+        for name in hits:
+            texts[name] = texts[name].replace(old, new)
+    return texts
 
 
 def _build(source: str, variants, out_dir):
-    """Build every variant of ``csrc/<source>.cu``; returns {name: CDLL}."""
+    """Build every variant of ``csrc/<source>.cu``, each in its own
+    directory with its headers; returns {name: CDLL}."""
     import ctypes
 
-    out_dir.mkdir(parents=True, exist_ok=True)
-    for h in _cuda.CSRC.glob("*.cuh"):
-        shutil.copy(h, out_dir)
     procs = {}
     for i, (name, edits, _) in enumerate(variants):
-        path = out_dir / f"{source}_{i}.cu"
-        path.write_text(edited_source(source, edits))
-        lib = out_dir / f"lib{source}_{i}.so"
-        cmd = [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o", str(lib), str(path)]
+        vdir = out_dir / f"{source}_{i}"
+        shutil.rmtree(vdir, ignore_errors=True)
+        vdir.mkdir(parents=True)
+        for fname, text in edited_sources(source, edits).items():
+            (vdir / fname).write_text(text)
+        lib = vdir / f"lib{source}_{i}.so"
+        cmd = [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o", str(lib), str(vdir / f"{source}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), lib)
     libs = {}
     for name, (proc, lib) in procs.items():
@@ -152,61 +184,82 @@ def _report(label, variants, run):
         print(f"{label} {name}: {ms:.4f} ms{diff}", flush=True)
 
 
-def _weights(gen, dev):
-    """Per projection: random packed weights and scales, enough copies to
-    hold twice the L2 cache, so no launch reads the previous one's bytes."""
+def _weights(gen, dev, int8=False):
+    """Per projection: random packed (``int8``: int8) weights and scales,
+    enough copies to hold twice the L2 cache, so no launch reads the previous
+    one's bytes."""
     out = {}
     for proj, (m, n, _) in _PROJ.items():
-        copies = max(1, min(16, math.ceil(2 * _L2_BYTES / (m * n * 0.5625))))
-        out[proj] = [(torch.randint(0, 256, (n // 2, m), generator=gen, device=dev, dtype=torch.uint8),
-                      torch.rand((n // 64, m), generator=gen, device=dev) * 0.02) for _ in range(copies)]
+        nbytes = m * n * (1.0625 if int8 else 0.5625)
+        copies = max(1, min(16, math.ceil(2 * _L2_BYTES / nbytes)))
+        out[proj] = [
+            (torch.randint(-127, 128, (n, m), generator=gen, device=dev, dtype=torch.int8) if int8 else
+             torch.randint(0, 256, (n // 2, m), generator=gen, device=dev, dtype=torch.uint8),
+             torch.rand((n // 64, m), generator=gen, device=dev) * 0.02)
+            for _ in range(copies)
+        ]
     return out
 
 
 def layouts() -> None:
-    """Kernel B's prefill layouts at each prompt size: one layer's four
-    projections, each layout with its own K split."""
+    """Kernels B's and D's prefill layouts at each prompt size: one layer's
+    four projections, each layout with its own K split."""
+    from ..ops.int8_serve import _int8_matmul_kernel
     from ..ops.matmul import _PREFILL_COLS, _matmul_bf16_kernel, _prefill_rows
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    ws = _weights(gen, dev)
-    for b in (64, 128, 192, 320, 512, 704, 1024):
-        xs = {proj: torch.randn((b, n), generator=gen, device=dev).to(torch.bfloat16)
-              for proj, (_, n, _) in _PROJ.items()}
-        times, outs = {}, {}
-        for rows in _PREFILL_COLS:
-            times[rows] = 0.0
-            for proj, (_, _, od) in _PROJ.items():
-                calls = [lambda x=xs[proj], p=p, s=s, od=od, rows=rows: _matmul_bf16_kernel(x, p, s, od, rows=rows)
-                         for p, s in ws[proj]]
-                times[rows] += _time(calls)
-                outs[rows, proj] = calls[0]().float()
-        diff = max((outs[256, p] - outs[128, p]).abs().max().item() for p in _PROJ)
-        print(f"kernel B prefill, four projections, B={b}: 256 x 128 blocks {times[256]:.4f} ms, "
-              f"128 x 256 blocks {times[128]:.4f} ms; picked {_prefill_rows(b, 4096)} rows; "
-              f"max |diff| {diff:.3g}", flush=True)
+    for label, kern, int8 in (("B", _matmul_bf16_kernel, False), ("D", _int8_matmul_kernel, True)):
+        ws = _weights(gen, dev, int8)
+        for b in (64, 128, 192, 320, 512, 704, 1024):
+            xs = {proj: torch.randn((b, n), generator=gen, device=dev).to(torch.bfloat16)
+                  for proj, (_, n, _) in _PROJ.items()}
+            times, outs = {}, {}
+            for rows in _PREFILL_COLS:
+                times[rows] = 0.0
+                for proj, (_, _, od) in _PROJ.items():
+                    calls = [lambda x=xs[proj], w=w, s=s, od=od, rows=rows: kern(x, w, s, od, rows=rows)
+                             for w, s in ws[proj]]
+                    times[rows] += _time(calls)
+                    outs[rows, proj] = calls[0]().float()
+            diff = max((outs[256, p] - outs[128, p]).abs().max().item() for p in _PROJ)
+            print(f"kernel {label} prefill, four projections, B={b}: 256 x 128 blocks {times[256]:.4f} ms, "
+                  f"128 x 256 blocks {times[128]:.4f} ms; picked {_prefill_rows(b, 4096)} rows; "
+                  f"max |diff| {diff:.3g}", flush=True)
+        del ws
 
 
-def matmul(out_dir) -> None:
-    from ..ops.matmul import _matmul_bf16_kernel
+def matmul(out_dir, source="matmul") -> None:
+    """The variants of kernel B (``matmul``), D (``int8_matmul``) or E
+    (``matmul_exact``, fp32 x and out) at w_gateup and w_down, 1024 rows."""
+    from ..ops.int8_serve import _int8_matmul_kernel
+    from ..ops.matmul import _matmul_bf16_kernel, _matmul_exact_kernel
 
-    libs = _build("matmul", MATMUL_VARIANTS, out_dir)
+    libs = _build(source, VARIANTS[source], out_dir)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     b = 1024
     for proj in ("w_gateup", "w_down"):
         m, n, _ = _PROJ[proj]
-        x = torch.randn((b, n), generator=gen, device=dev).to(torch.bfloat16)
-        packed = torch.randint(0, 256, (n // 2, m), generator=gen, device=dev, dtype=torch.uint8)
+        x = torch.randn((b, n), generator=gen, device=dev)
         scales = torch.rand((n // 64, m), generator=gen, device=dev) * 0.02
+        if source == "int8_matmul":
+            label, od, x = "D", torch.bfloat16, x.to(torch.bfloat16)
+            w = torch.randint(-127, 128, (n, m), generator=gen, device=dev, dtype=torch.int8)
+            kern = _int8_matmul_kernel
+        else:
+            w = torch.randint(0, 256, (n // 2, m), generator=gen, device=dev, dtype=torch.uint8)
+            if source == "matmul":
+                label, od, x, kern = "B", torch.bfloat16, x.to(torch.bfloat16), _matmul_bf16_kernel
+            else:
+                label, od, kern = "E", torch.float32, _matmul_exact_kernel
 
         def run(name):
-            with _library("matmul", libs[name]):
-                call = lambda: _matmul_bf16_kernel(x, packed, scales, torch.bfloat16)
+            with _library(source, libs[name]):
+                call = lambda: kern(x, w, scales, od)
                 return _time([call]), call()
 
-        _report(f"kernel B {proj} B={b} m={m} n={n} ({2 * b * m * n / 1e9:.1f} GFLOP)", MATMUL_VARIANTS, run)
+        _report(f"kernel {label} {proj} B={b} m={m} n={n} ({2 * b * m * n / 1e9:.1f} GFLOP)", VARIANTS[source], run)
 
 
 def flash(out_dir) -> None:
@@ -237,7 +290,7 @@ def flash(out_dir) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("layouts", "matmul", "flash"))
+    ap.add_argument("--only", choices=("layouts", "matmul", "int8_matmul", "matmul_exact", "flash"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_variants: no CUDA device")
@@ -247,8 +300,9 @@ def main() -> None:
     print(f"{card}; torch {torch.__version__}", flush=True)
     if args.only in (None, "layouts"):
         layouts()
-    if args.only in (None, "matmul"):
-        matmul(out_dir)
+    for source in ("matmul", "int8_matmul", "matmul_exact"):
+        if args.only in (None, source):
+            matmul(out_dir, source)
     if args.only in (None, "flash"):
         flash(out_dir)
 

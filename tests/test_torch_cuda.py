@@ -5,8 +5,8 @@ a machine with an H100 (sm_90a) and the CUDA toolkit:
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda
 
-Kernels A and F must be bit-exact; kernels B, C (bf16 and int8 KV) and D
-within 2e-2 (bf16 products summed in another order than the plain
+Kernels A and F must be bit-exact (and so must kernel D's prefill weight
+values); kernels B, C (bf16 and int8 KV) and D within 2e-2 (bf16 products summed in another order than the plain
 version's); kernel E (fp32 products) within 1e-5 of the largest value for
 fp32 out, within one rounding for fp16 (2e-3) and bf16 (8e-3) out; the
 ``nf4_matmul`` backward within 1e-5 of the largest value, under every
@@ -172,21 +172,64 @@ def test_fast_dequant_kernel_bit_exact(dev, quant_type):
     assert got.dtype == torch.bfloat16 and torch.equal(got.view(torch.int16), want.view(torch.int16))
 
 
-@pytest.mark.parametrize("b", [1, 4, 37, 200])
+# (rows, layout): every row count in the layout ``_prefill_rows`` picks (the
+# decode kernel up to 16 rows), then each prefill layout forced.
+_INT8_CASES = [(b, None) for b in (1, 4, 37, 64, 200, 320, 704)] + [
+    (b, rows) for b in (64, 320, 704) for rows in (128, 256)
+]
+
+
+@pytest.mark.parametrize("b,rows", _INT8_CASES)
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32, torch.float16])
-def test_int8_matmul_kernel_close(dev, b, out_dtype):
+def test_int8_matmul_kernel_close(dev, b, rows, out_dtype):
+    """Kernel D's decode kernel (b_pad 16) and its prefill kernel (b_pad 64,
+    256, 320, 704: 128 x 256 blocks, 256 x 128 with a ragged last tile) in
+    the layout ``_prefill_rows`` picks (``rows`` None) and in each layout
+    forced; m 1024 allows both."""
     from nf4_tpu_torch.ops.int8_serve import _int8_matmul_kernel, _int8_matmul_plain, recode_int8_weight
     from nf4_tpu_torch.ops.matmul import _pick_bm
 
     gen = torch.Generator(device=dev).manual_seed(4)
-    p8 = recode_int8_weight(_packed(gen, 640, 3072, dev))
+    p8 = recode_int8_weight(_packed(gen, 1024 if rows else 640, 3072, dev))
     b_pad = -(-b // _pick_bm(b)) * _pick_bm(b)
     x = torch.zeros((b_pad, 3072), device=dev, dtype=torch.bfloat16)
     x[:b] = torch.randn((b, 3072), generator=gen, device=dev).to(torch.bfloat16)
-    got = _int8_matmul_kernel(x, p8.values, p8.scales, out_dtype).float()
+    got = _int8_matmul_kernel(x, p8.values, p8.scales, out_dtype, rows=rows)
     want = _int8_matmul_plain(x, p8.values, p8.scales, out_dtype).float()
     torch.cuda.synchronize()
-    assert ((got - want).abs().max() / want.abs().max()).item() < 2e-2
+    assert got.dtype == out_dtype and got.shape == (b_pad, p8.padded_shape[0])
+    assert ((got.float() - want).abs().max() / want.abs().max()).item() < 2e-2
+
+
+def test_int8_matmul_prefill_weight_values(dev):
+    """Kernel D's prefill decode gives _int8_weight_t's values bit for bit:
+    x = one-hot rows picks single K rows of W^T, so each output is one
+    weight value times 1 (exact in the fp32 sum), for every int8 value."""
+    from nf4_tpu_torch.ops.int8_serve import _int8_matmul_kernel, _int8_weight_t
+
+    gen = torch.Generator(device=dev).manual_seed(10)
+    values = torch.arange(-128, 128, device=dev, dtype=torch.int32).repeat(256 * 128 // 256).reshape(256, 128)
+    values = values[torch.randperm(256, generator=gen, device=dev)].to(torch.int8).contiguous()
+    scales = torch.rand((4, 128), generator=gen, device=dev) * 0.02
+    x = torch.eye(256, device=dev, dtype=torch.bfloat16)
+    got = _int8_matmul_kernel(x, values, scales, torch.float32)
+    want = _int8_weight_t(values, scales).float()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_quantize_kv_on_card_bit_identical(dev, dtype):
+    """The int8 KV cache's quantizer gives the CPU's values and scales on
+    the card, zero rows included (its division's dividend is a CPU scalar)."""
+    from nf4_tpu_torch.models.llama import _quantize_kv
+
+    gen = torch.Generator().manual_seed(12)
+    t = (torch.randn((2, 1, 8, 300, 128), generator=gen) * torch.logspace(-20, 2, 300)[:, None]).to(dtype)
+    t[0, 0, 0, :7] = 0
+    want8, want_s = _quantize_kv(t)
+    got8, got_s = _quantize_kv(t.to(dev))
+    assert torch.equal(got8.cpu(), want8) and torch.equal(got_s.cpu().view(torch.int32), want_s.view(torch.int32))
 
 
 @pytest.mark.parametrize("window,pos0,g", [(None, 0, 4), (96, 300, 4), (None, 17, 1)])
@@ -213,13 +256,16 @@ def test_flash_kernel_int8_kv_close(dev, window, pos0, g, d):
 _EXACT_LIMIT = {torch.float32: 1e-5, torch.float16: 2e-3, torch.bfloat16: 8e-3}
 
 
-@pytest.mark.parametrize("b", [1, 4, 37, 200])
+@pytest.mark.parametrize("b", [1, 4, 37, 64, 200, 320, 704])
 @pytest.mark.parametrize(
     "xdt,out_dtype",
     [(torch.float32, torch.float32), (torch.float32, torch.bfloat16), (torch.float16, torch.float16),
      (torch.float16, torch.float32)],
 )
 def test_exact_matmul_kernel_close(dev, b, xdt, out_dtype):
+    """Kernel E's decode kernel (b_pad 16) and its 3xTF32 prefill kernel
+    (b_pad 64, 256, 320, 704: 128-row blocks, a ragged last tile at 320 and
+    704), fp32 and fp16 x."""
     from nf4_tpu_torch.ops.matmul import _matmul_exact_kernel, _matmul_exact_plain, _pick_bm
 
     gen = torch.Generator(device=dev).manual_seed(6)
@@ -230,9 +276,25 @@ def test_exact_matmul_kernel_close(dev, b, xdt, out_dtype):
     got = _matmul_exact_kernel(x, pw.packed, pw.scales, out_dtype)
     want = _matmul_exact_plain(x, pw.packed, pw.scales, out_dtype).float()
     torch.cuda.synchronize()
-    assert got.dtype == out_dtype
+    assert got.dtype == out_dtype and got.shape == (b_pad, pw.padded_shape[0])
     err = (got.float() - want).abs().max().item()
     assert err <= _EXACT_LIMIT[out_dtype] * want.abs().max().item()
+
+
+def test_exact_matmul_prefill_weight_values(dev):
+    """Kernel E's prefill decode and split: x = one-hot fp16 rows (exact in
+    tf32, so two products) picks single K rows of W^T, and w_hi + w_lo
+    recovers each fp32 weight value to within 2^-21 of it."""
+    from nf4_tpu_torch.ops.dequant import _dequant_t_plain
+    from nf4_tpu_torch.ops.matmul import _matmul_exact_kernel
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    pw = _packed(gen, 256, 1024, dev)
+    x = torch.eye(1024, device=dev, dtype=torch.float16)
+    got = _matmul_exact_kernel(x, pw.packed, pw.scales, torch.float32)
+    want = _dequant_t_plain(pw.packed, pw.scales, torch.float32)
+    torch.cuda.synchronize()
+    assert ((got - want).abs() <= want.abs() * 2.0**-21).all()
 
 
 @pytest.mark.parametrize("precision", ["highest", "high"])

@@ -9,6 +9,10 @@ against nf4_tpu's ``ops/int8_serve.py``.
   fp32 path: max relative error < 3e-2, the JAX package's own bound for
   bf16 activations (``tests/test_int8_serve.py``); fp32/fp16 activations
   take the same fp32 path in both, so rtol = atol = 1e-3.
+* Kernel D's prefill decode, emulated on bit patterns: the byte trick that
+  turns an int8 into fp32 is exact for all 256 bytes, and the decoded
+  weight equals ``_int8_weight_t`` bit for bit.
+* Kernel D's prefill dispatch (layout and K split) on a 132-SM card.
 """
 
 import jax.numpy as jnp
@@ -119,3 +123,60 @@ def test_kernel_weight_values(rng):
     want = (v * np.repeat(s, 64, axis=0)).astype(ml_dtypes.bfloat16)
     got = tint8._int8_weight_t(t8.values, t8.scales)
     np.testing.assert_array_equal(got.view(torch.int16).numpy().view(np.uint16), want.view(np.uint16))
+
+
+def _byte_trick(b: torch.Tensor) -> torch.Tensor:
+    """Kernel D's int8 -> fp32 conversion, on the bit patterns: the byte
+    (two's complement) XOR 0x80 is x + 128, which becomes the low mantissa
+    byte of the fp32 2^23 + x + 128; subtracting 2^23 + 128 leaves x."""
+    u = (b.to(torch.int32) & 0xFF) ^ 0x80
+    return (u | 0x4B000000).view(torch.float32) - 8388736.0
+
+
+def test_kernel_d_byte_trick_exact():
+    b = torch.arange(256, dtype=torch.int32)
+    assert torch.equal(_byte_trick(b), b.to(torch.uint8).view(torch.int8).float())
+
+
+@pytest.mark.parametrize("quant_type", ["nf4", "fp4"])
+def test_kernel_d_decode_matches_weight_t(rng, quant_type):
+    """bf16(x * bf16(scale)) in fp32 from the byte trick, on a weight
+    quantized and recoded by nf4_tpu, is ``_int8_weight_t`` bit for bit."""
+    w = rng.standard_normal((100, 320)).astype(np.float32) * 0.05
+    j8 = jint8.recode_int8_weight(nf4_tpu.quantize_for_tpu(w, method="oracle", quant_type=quant_type))
+    values = torch.from_numpy(np.array(j8.values))
+    scales = torch.from_numpy(np.array(j8.scales))
+    s = scales.to(torch.bfloat16).float().repeat_interleave(64, dim=0)
+    got = (_byte_trick(values) * s).to(torch.bfloat16)
+    want = tint8._int8_weight_t(values, scales)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+LLAMA3_8B = {"wqkv": (6144, 4096), "wo": (4096, 4096), "w_gateup": (28672, 4096), "w_down": (4096, 14336)}
+
+
+@pytest.mark.parametrize(
+    "b_pad,want",
+    [
+        # 128 x 256 blocks up to 128 rows; K split to fill one wave of 132 SMs.
+        (64, {"wqkv": (128, 5), "wo": (128, 8), "w_gateup": (128, 1), "w_down": (128, 8)}),
+        (320, {"wqkv": (256, 1), "wo": (256, 2), "w_gateup": (256, 1), "w_down": (256, 2)}),
+        (1024, {"wqkv": (256, 1), "wo": (256, 1), "w_gateup": (256, 1), "w_down": (256, 1)}),
+    ],
+)
+def test_prefill_dispatch(monkeypatch, b_pad, want):
+    """Kernel D's wrapper passes the C entry the prefill layout (block rows)
+    and K split for Llama-3-8B's four projections on a 132-SM card."""
+    import types
+
+    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda dev: types.SimpleNamespace(multi_processor_count=132))
+    launched = []
+    monkeypatch.setattr(tint8, "_KERNEL", lambda *args: launched.append(args))
+    for name, (m, n) in LLAMA3_8B.items():
+        x = torch.empty((b_pad, n), dtype=torch.bfloat16)
+        values = torch.empty((n, m), dtype=torch.int8)
+        scales = torch.empty((n // 64, m), dtype=torch.float32)
+        tint8._int8_matmul_kernel(x, values, scales, torch.bfloat16)
+        *_, bm, ksplit, _ = launched[-1]
+        per = -(-(n // 64) // ksplit)
+        assert (bm, ksplit) == want[name] and (ksplit - 1) * per < n // 64, name

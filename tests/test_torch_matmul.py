@@ -4,6 +4,10 @@ On the CPU the JAX package takes its exact path (fp32 weights); the port's
 bf16 path rounds each weight value to bf16 as the kernel does, so the two
 agree within the bf16 contract: max relative error < 2e-2 (max abs
 difference over max abs value).
+
+Kernel E's prefill arithmetic, 3xTF32, is emulated here in torch on the
+bit patterns and held to the fp32 contract (1e-5 of the largest output)
+against ``nf4_tpu.nf4_matmul``.
 """
 
 import jax.numpy as jnp
@@ -104,3 +108,45 @@ def test_prefill_ksplit(monkeypatch, b_pad, m_pad, nkb, want):
     ksplit = tm._prefill_ksplit(b_pad, m_pad, nkb, tm._prefill_rows(b_pad, m_pad), "cuda")
     per = -(-nkb // ksplit)
     assert ksplit == want and (ksplit - 1) * per < nkb
+
+
+def _tf32_rna(t: torch.Tensor) -> torch.Tensor:
+    """fp32 -> tf32 to nearest, ties away from zero (``cvt.rna.tf32.f32``),
+    on the int32 view of the bits: add half the unit of the 13 dropped bits
+    to the magnitude, then clear them (the sign bit is untouched)."""
+    u = t.contiguous().view(torch.int32)
+    return ((u + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_split(t: torch.Tensor):
+    hi = _tf32_rna(t)
+    return hi, _tf32_rna(t - hi)
+
+
+@pytest.mark.parametrize("b,shape", [(37, (100, 320)), (64, (64, 1024)), (100, (256, 1024))])
+def test_exact_3xtf32_meets_fp32_contract(rng, b, shape):
+    """Kernel E's prefill products, emulated: x and W^T split into tf32
+    halves, x_lo.w_hi + x_hi.w_lo + x_hi.w_hi, against nf4_tpu's fp32 path
+    within 1e-5 of the largest output."""
+    from nf4_tpu_torch.ops.dequant import _dequant_t_plain
+
+    pj, pt = _pair(rng, shape)
+    m, n = shape
+    n_pad = pt.padded_shape[1]
+    x = rng.standard_normal((b, n)).astype(np.float32)
+    want = np.asarray(nf4_tpu.nf4_matmul(jnp.asarray(x), pj), np.float32)
+    xp = torch.nn.functional.pad(torch.from_numpy(x), (0, n_pad - n))
+    wt = _dequant_t_plain(pt.packed, pt.scales, torch.float32)
+    (xh, xl), (wh, wl) = _tf32_split(xp), _tf32_split(wt)
+    for h in (xh, xl, wh, wl):  # tf32 values: the 13 low bits are 0
+        assert not (h.view(torch.int32) & 0x1FFF).any()
+    assert ((xh + xl - xp).abs() <= xp.abs() * 2.0**-22).all()
+    y = (xl @ wh + xh @ wl + xh @ wh)[:, :m].numpy()
+    assert np.abs(y - want).max() <= 1e-5 * np.abs(want).max()
+
+
+def test_exact_3xtf32_fp16_x_has_no_low_half(rng):
+    """fp16 x is exact in tf32, so x_lo = 0 and kernel E skips x_lo.w_hi."""
+    x = torch.from_numpy((rng.standard_normal((64, 1024)) * 30).astype(np.float16)).float()
+    hi, lo = _tf32_split(x)
+    assert torch.equal(hi, x) and not lo.any()
