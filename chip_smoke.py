@@ -15,7 +15,8 @@ Phases, each of which fails the run on any error:
    bf16 and fp16 out);
 3. kernels B (fused 4-bit matmul) and D (int8 matmul) against their plain
    versions at the four projection shapes, decode B=4 and prefill B=1024,
-   and at the serving run's ragged B=37, 300 and 700, max rel err < 2e-2;
+   and at decode B=1, 8 and 16 and the serving run's ragged B=37, 300 and
+   700, max rel err < 2e-2;
    (3e) kernel E (the fp32/fp16-activation matmul) at the same shapes and
    ragged rows, fp32 x (fp32 out) and fp16 x (fp16 and fp32 out), max abs
    err <= 1e-5 * max|want| for fp32 out, 2e-3 * max|want| for fp16; at B=4
@@ -254,9 +255,10 @@ def phase_matmul(gen, dev, int8=False):
         weight_t = lambda w: _bf16_weight_t(w.packed, w.scales, "nf4")
     dts = {"bf16": torch.bfloat16, "fp32": torch.float32}
     res = {}
-    # The serving run's ragged prompt rows, checked only: b_pad 64 (the 128 x
-    # 256 blocks), 320 and 704 (256 x 128 blocks, the last one partly filled).
-    for b in (37, 300, 700):
+    # Checked only: decode rows 1, 8 and 16 (b_pad 16) and the serving run's
+    # ragged prompt rows, b_pad 64 (the 128 x 256 blocks), 320 and 704 (256 x
+    # 128 blocks, the last one partly filled).
+    for b in (1, 8, 16, 37, 300, 700):
         for name, (m, n, od) in LLAMA3_8B_PROJ.items():
             pw = make(gen, m, n, dev)
             x = torch.zeros((pad_to(b, _pick_bm(b)), n), device=dev, dtype=torch.bfloat16)
@@ -292,6 +294,12 @@ def phase_matmul(gen, dev, int8=False):
             res[(name, b)] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib, bound_ms=bnd, max_abs_err=err, rel=rel)
             print(f"phase 3 {label} {name} B={b} m={m} n={n} out={od}: rel err {rel:.2e}; {ms:.4f} ms, "
                   f"plain {plain_ms:.4f} ms, torch.matmul on bf16 weight {lib:.4f} ms, bound {bnd:.4f} ms")
+    if not int8:
+        from nf4_tpu_torch.ops.matmul import _decode_ksplit, _decode_shape
+
+        splits = {name: _decode_ksplit(16, m, n // 64, dev) for name, (m, n, _) in LLAMA3_8B_PROJ.items()}
+        cols, blocks = _decode_shape(dev)
+        print(f"phase 3 {label} decode: blocks of {cols} columns, {blocks} per SM, K splits {splits}")
     return res
 
 

@@ -51,6 +51,12 @@ __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool va
                : "memory");
 }
 
+// Ask for the 128-byte line holding p to be brought into L2 (no register,
+// no completion to wait for).
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
+}
+
 __device__ __forceinline__ void cp_async_commit(){ asm volatile("cp.async.commit_group;\n" ::: "memory"); }
 
 // Wait until at most N of this thread's committed groups are in flight.

@@ -93,13 +93,16 @@ class Kernel:
         self.name, self.source, self.symbol = name, source, symbol
         self.argtypes = list(argtypes) + [ctypes.c_void_p]  # + the stream
         self.launches = 0
+        self._lib = self._fn = None
         KERNELS[name] = self
 
     def __call__(self, *args) -> None:
-        fn = getattr(_load(self.source), self.symbol)
-        fn.argtypes = self.argtypes
-        fn.restype = ctypes.c_int
-        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+        lib = _load(self.source)
+        if lib is not self._lib:  # bound once per library
+            fn = getattr(lib, self.symbol)
+            fn.argtypes, fn.restype = self.argtypes, ctypes.c_int
+            self._lib, self._fn = lib, fn
+        err = self._fn(*args, torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise RuntimeError(f"{self.symbol}: CUDA launch failed with error {err}")
         self.launches += 1

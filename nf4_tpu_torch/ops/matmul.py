@@ -2,8 +2,8 @@
 and E), and its gradient with respect to ``x``.
 
 bf16 activations on a CUDA tensor run the hand-written kernel
-``csrc/matmul.cu`` (kernel B: WMMA at decode, a pipelined wgmma
-dequant-GEMM at prefill): weight values ``bf16(bf16(code) *
+``csrc/matmul.cu`` (kernel B: mma.sync with the weights as the A operand
+at decode, a pipelined wgmma dequant-GEMM at prefill): weight values ``bf16(bf16(code) *
 bf16(scale))``, a bf16 product with fp32 accumulation, within the 2e-2
 contract of the JAX package's bf16 path.  fp32 and fp16 activations run
 ``csrc/matmul_exact.cu`` (kernel E: SIMT FFMA at decode, 3xTF32 on wgmma at
@@ -28,6 +28,7 @@ import torch
 
 from ..nf4.format import PackedNF4, chunk_views, pad_to
 from ..nf4.reference import NF4_BLOCK
+from . import _cuda
 from ._cuda import Kernel
 from .dequant import _OUT_KIND, _bf16_weight_t, _dequant_t_plain, dequantize_t
 from .lut_eval import byte_word_table, code_tensor
@@ -36,7 +37,7 @@ __all__ = ["nf4_matmul"]
 
 _KERNEL = Kernel(
     "matmul_bf16", "matmul", "nf4_matmul_bf16",
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6,
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p] + [ctypes.c_int] * 2,
 )
 _EXACT_KERNEL = Kernel(
     "matmul_exact", "matmul_exact", "nf4_matmul_exact",
@@ -94,6 +95,56 @@ def _even_splits(nkb: int, ksplit: int) -> int:
     return -(-nkb // per)  # no empty split
 
 
+# Kernel B's decode blocks: 16 batch rows each; their columns and
+# occupancy come from the built library.
+_DECODE_ROWS = 16
+_DECODE_SHAPE: dict = {}
+_TILE_COUNTERS: dict = {}
+
+
+def _decode_shape(device) -> tuple:
+    """(output columns per block, resident blocks per SM) of kernel B's
+    decode kernel, as the built library reports them (once per library
+    and device)."""
+    lib = _cuda._load("matmul")
+    key = (lib, torch.device(device))
+    if key not in _DECODE_SHAPE:
+        fn = lib.nf4_matmul_bf16_decode_shape
+        fn.argtypes, fn.restype = [ctypes.c_void_p, ctypes.c_void_p], ctypes.c_int
+        cols, blocks = ctypes.c_int(0), ctypes.c_int(0)
+        with torch.cuda.device(key[1]):
+            err = fn(ctypes.byref(cols), ctypes.byref(blocks))
+        if err != 0 or blocks.value < 1:
+            raise RuntimeError(f"kernel B's decode occupancy query failed (error {err}, {blocks.value} blocks)")
+        _DECODE_SHAPE[key] = (cols.value, blocks.value)
+    return _DECODE_SHAPE[key]
+
+
+def _decode_tiles(b_pad: int, m_pad: int, device) -> int:
+    """Output tiles of kernel B's decode kernel (the last may be ragged)."""
+    return -(-m_pad // _decode_shape(device)[0]) * (b_pad // _DECODE_ROWS)
+
+
+def _decode_ksplit(b_pad: int, m_pad: int, nkb: int, device) -> int:
+    """K splits for kernel B's decode blocks: one wave of every SM's
+    resident blocks (``_wave_ksplit``)."""
+    return _wave_ksplit(_decode_tiles(b_pad, m_pad, device), nkb, device, _decode_shape(device)[1])
+
+
+def _tile_counters(device, tiles: int) -> torch.Tensor:
+    """The decode kernel's per-output-tile counters on ``device``: int32,
+    zeroed once when allocated; every launch leaves them at zero again, so
+    no launch needs a memset (and a CUDA graph may capture it).  Launches
+    that use them must not run concurrently on two streams."""
+    buf = _TILE_COUNTERS.get(device)
+    if buf is None or buf.numel() < tiles:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("kernel B's tile counters must be allocated before CUDA graph capture")
+        buf = torch.zeros(max(tiles, 4096), dtype=torch.int32, device=device)
+        _TILE_COUNTERS[device] = buf
+    return buf
+
+
 # Kernel B's prefill layouts, by the rows of a block: its columns (256
 # rows: 4 consumer warpgroups; 128 rows: 2).
 _PREFILL_COLS = {256: 128, 128: 256}
@@ -108,13 +159,14 @@ def _prefill_rows(b_pad: int, m_pad: int) -> int:
     return 128 if b_pad <= 128 and m_pad % 256 == 0 else 256
 
 
-def _wave_ksplit(tiles: int, nsteps: int, device) -> int:
-    """K splits of ``nsteps`` steps for ``tiles`` output tiles of one block
-    per SM each: as many as fit in one wave beside the tiles, so a short
-    prompt still fills the card and a long one is not split into a second
-    wave."""
+def _wave_ksplit(tiles: int, nsteps: int, device, blocks_per_sm: int = 1) -> int:
+    """K splits of ``nsteps`` steps for ``tiles`` output tiles, with
+    ``blocks_per_sm`` blocks resident on each SM: as many as fit in one wave
+    beside the tiles, so a short prompt still fills the card and a long one
+    is not split into a second wave (which would leave most SMs idle); no
+    empty split."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return _even_splits(nsteps, max(1, min(nsteps, sms // tiles)))
+    return _even_splits(nsteps, max(1, min(nsteps, sms * blocks_per_sm // tiles)))
 
 
 def _prefill_ksplit(b_pad: int, m_pad: int, nkb: int, rows: int, device) -> int:
@@ -168,19 +220,23 @@ def _launch(kernel, x_pad, packed, scales, out_dtype, bm, table_ptr, *mid, kspli
 
 def _matmul_bf16_kernel(x_pad, packed, scales, out_dtype, quant_type="nf4", rows=None) -> torch.Tensor:
     """Launch kernel B on CUDA tensors; x_pad rows a multiple of
-    :func:`_pick_bm` (16: the decode kernel; 64: the prefill kernel, which
-    masks its ragged last row tile).  ``rows`` forces a prefill layout
-    (see ``_PREFILL_COLS``); by default :func:`_prefill_rows` picks it."""
+    :func:`_pick_bm` (16: the decode kernel, which sums its K splits
+    itself; 64: the prefill kernel, which masks its ragged last row tile).
+    ``rows`` forces a prefill layout (see ``_PREFILL_COLS``); by default
+    :func:`_prefill_rows` picks it."""
     if x_pad.dtype != torch.bfloat16 or packed.dtype != torch.uint8 or scales.dtype != torch.float32:
         raise TypeError("kernel B takes bf16 x, uint8 packed and fp32 scales")
     bm = _check_operands("kernel B", x_pad, packed, scales, out_dtype)
     table = byte_word_table(quant_type, x_pad.device)
-    ksplit = None
-    if bm != 16:
-        (b_pad, n_pad), m_pad = x_pad.shape, packed.shape[1]
+    (b_pad, n_pad), m_pad = x_pad.shape, packed.shape[1]
+    if bm == _DECODE_ROWS:
+        ksplit = _decode_ksplit(b_pad, m_pad, n_pad // NF4_BLOCK, x_pad.device)
+        counters = _tile_counters(x_pad.device, _decode_tiles(b_pad, m_pad, x_pad.device)).data_ptr()
+    else:
         bm = rows or _prefill_rows(b_pad, m_pad)
         ksplit = _prefill_ksplit(b_pad, m_pad, n_pad // NF4_BLOCK, bm, x_pad.device)
-    return _launch(_KERNEL, x_pad, packed, scales, out_dtype, bm, table.data_ptr(), ksplit=ksplit)
+        counters = None
+    return _launch(_KERNEL, x_pad, packed, scales, out_dtype, bm, table.data_ptr(), counters, ksplit=ksplit)
 
 
 def _matmul_exact_kernel(x_pad, packed, scales, out_dtype, quant_type="nf4") -> torch.Tensor:

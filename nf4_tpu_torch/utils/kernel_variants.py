@@ -2,7 +2,7 @@
 prefill layouts of kernels B and D at each prompt size, and text-edited
 variants of a CUDA source beside the source as it is.
 
-    python -m nf4_tpu_torch.utils.kernel_variants [--only layouts|matmul|int8_matmul|matmul_exact|flash]
+    python -m nf4_tpu_torch.utils.kernel_variants [--only layouts|decode|matmul|int8_matmul|matmul_exact|flash]
 
 A variant is the source and its headers with a few lines replaced (a step
 skipped, an intrinsic swapped); it is built with the port's nvcc flags into
@@ -12,8 +12,9 @@ largest difference from the unedited build; variants that skip work report
 nothing to compare.  Times are the mean device time of one launch, from the
 replay of a CUDA graph of 20 launches after a warm-up, at the shapes
 ``chip_smoke.py`` times: kernels B and D at Llama-3-8B's four projections
-(the layouts at 64 to 1024 rows; the variants of kernels B, D and E at
-w_gateup and w_down with 1024 rows), kernel C at B=1, H=32, KV=8, D=128, S=1024 (causal from position 0,
+(the layouts at 64 to 1024 rows; the variants of kernel B's decode kernel
+at 4 rows, padded to 16; the variants of kernels B, D and E at w_gateup
+and w_down with 1024 rows), kernel C at B=1, H=32, KV=8, D=128, S=1024 (causal from position 0,
 and the last 1024 positions of an 8192-slot cache under a 4096-slot
 window), bf16 and int8 KV.
 """
@@ -54,6 +55,44 @@ MATMUL_VARIANTS = [
         ("    hop::wgmma_wait<0>();\n    hop::fence_proxy_async();\n    __syncthreads();",
          "    hop::wgmma_wait<0>();"),
     ], False),
+]
+
+# Kernel B's decode kernel (bm = 16): its block shape (warps side by side
+# over columns x warps on the same columns over K) and ring depth (each
+# changes the shared memory and registers of a block, so the occupancy and
+# with it the K split), the products of zero batch rows 8-15 not skipped;
+# and, not the same function, without the table lookup, without the
+# copies or without reading the ring (its reads, decode and products: what
+# each costs), and copying only the first 4 scale blocks of every column
+# (the copies served from L2, not DRAM).
+_DK = ("constexpr int WN = 1;        // warps side by side over a block's columns\n"
+       "constexpr int WK = 4;        // warps on the same columns, each over its own scale blocks\n"
+       "constexpr int STAGES = 4;    // scale blocks in a lane's ring")
+
+
+def _dk(wn, wk, stages):
+    return [(_DK, _DK.replace("WN = 1", f"WN = {wn}").replace("WK = 4", f"WK = {wk}")
+             .replace("STAGES = 4", f"STAGES = {stages}"))]
+
+
+_COPY = "hop::cp_async16(dst + r * 512, src + (size_t)r * m_pad, true);"
+_NO_COPIES = [(f"      for (int r = 0; r < PIECES; ++r) {_COPY}", "      (void)src, (void)dst;")]
+_NO_PRODUCTS = [("    for (int s = 0; s < 4; ++s) {\n      const uint4 lo4", "    for (int s = 0; s < 0; ++s) {\n      const uint4 lo4")]
+DECODE_VARIANTS = [
+    ("as is", [], True),
+    ("batch rows 8-15 multiplied when zero", [("if (rows_hi) hop::mma_bf16_16816(", "hop::mma_bf16_16816(")], True),
+    ("2 x 4 warps (256 columns), 3 stages", _dk(2, 4, 3), True),
+    ("2 x 2 warps (256 columns), 4 stages", _dk(2, 2, 4), True),
+    ("4 x 2 warps (512 columns), 2 stages", _dk(4, 2, 2), True),
+    ("1 x 8 warps, 2 stages", _dk(1, 8, 2), True),
+    ("no table lookup", [("uint32_t w = *reinterpret_cast<const uint32_t*>(lut + off);", "uint32_t w = off;")],
+     False),
+    ("no copies of the weights", _NO_COPIES, False),
+    ("no products", _NO_PRODUCTS, False),
+    ("no products, copies of the first 4 scale blocks only", _NO_PRODUCTS + [
+        ("const uint8_t* src = pk + (size_t)kb * (BK / 2) * m_pad;",
+         "const uint8_t* src = pk + (size_t)(kb % 4) * (BK / 2) * m_pad;")], False),
+    ("neither copies nor products", _NO_COPIES + _NO_PRODUCTS, False),
 ]
 
 # Kernels D and E on the same main loop.
@@ -116,9 +155,10 @@ def edited_sources(source: str, edits) -> dict:
     return texts
 
 
-def _build(source: str, variants, out_dir):
+def _build(source: str, variants, out_dir, logs=None):
     """Build every variant of ``csrc/<source>.cu``, each in its own
-    directory with its headers; returns {name: CDLL}."""
+    directory with its headers; returns {name: CDLL}.  ``logs``, a dict,
+    gets each variant's compiler output (ptxas's registers and spills)."""
     import ctypes
 
     procs = {}
@@ -136,6 +176,8 @@ def _build(source: str, variants, out_dir):
         _, err = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"variant {name!r} did not build:\n{err[-4000:]}")
+        if logs is not None:
+            logs[name] = err
         libs[name] = ctypes.CDLL(str(lib))
     return libs
 
@@ -229,6 +271,45 @@ def layouts() -> None:
         del ws
 
 
+def decode(out_dir) -> None:
+    """The variants of kernel B's decode kernel: one layer's four
+    projections at 4 rows (b_pad 16), each variant with the K split its own
+    occupancy gives."""
+    from ..ops.matmul import _decode_ksplit, _decode_shape, _matmul_bf16_kernel
+
+    logs = {}
+    libs = _build("matmul", DECODE_VARIANTS, out_dir, logs)
+    for name, err in logs.items():  # the decode kernel's entry is followed by its register count
+        lines = err.splitlines()
+        at = next((i for i, line in enumerate(lines) if "decode_kernel" in line and "Compiling" in line), None)
+        used = [line.split(":", 1)[-1].strip() for line in lines[at + 1:at + 4] if "registers" in line or "spill" in line]
+        print(f"  {name}: ptxas {'; '.join(used) if at is not None else 'no decode kernel found'}", flush=True)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ws = _weights(gen, dev)
+    x = {}
+    for proj, (_, n, _) in _PROJ.items():
+        x[proj] = torch.zeros((16, n), device=dev, dtype=torch.bfloat16)
+        x[proj][:4] = torch.randn((4, n), generator=gen, device=dev).to(torch.bfloat16)
+
+    def run(name):
+        with _library("matmul", libs[name]):
+            times, outs, splits = [], [], []
+            for proj, (m, n, od) in _PROJ.items():
+                calls = [lambda w=w, s=s, od=od, proj=proj: _matmul_bf16_kernel(x[proj], w, s, od)
+                         for w, s in ws[proj]]
+                times.append(_time(calls))
+                outs.append(calls[0]().float().ravel())
+                splits.append(_decode_ksplit(16, m, n // 64, dev))
+            print(f"  {name}: blocks of {_decode_shape(dev)[0]} columns, {_decode_shape(dev)[1]} per SM, "
+                  f"K splits {splits}, ms "
+                  + ", ".join(f"{p} {t:.4f}" for p, t in zip(_PROJ, times)), flush=True)
+            return sum(times), torch.cat(outs)
+
+    _report("kernel B decode, four projections, B=4", DECODE_VARIANTS, run)
+    del ws
+
+
 def matmul(out_dir, source="matmul") -> None:
     """The variants of kernel B (``matmul``), D (``int8_matmul``) or E
     (``matmul_exact``, fp32 x and out) at w_gateup and w_down, 1024 rows."""
@@ -290,7 +371,7 @@ def flash(out_dir) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("layouts", "matmul", "int8_matmul", "matmul_exact", "flash"))
+    ap.add_argument("--only", choices=("layouts", "decode", "matmul", "int8_matmul", "matmul_exact", "flash"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_variants: no CUDA device")
@@ -300,6 +381,8 @@ def main() -> None:
     print(f"{card}; torch {torch.__version__}", flush=True)
     if args.only in (None, "layouts"):
         layouts()
+    if args.only in (None, "decode"):
+        decode(out_dir)
     for source in ("matmul", "int8_matmul", "matmul_exact"):
         if args.only in (None, source):
             matmul(out_dir, source)

@@ -51,20 +51,104 @@ def test_dequant_kernel_bit_exact(dev, dtype, quant_type):
     assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
 
 
-@pytest.mark.parametrize("b", [1, 4, 37, 200])
+@pytest.mark.parametrize("b", [1, 4, 8, 16, 37, 200])
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32, torch.float16])
-def test_matmul_kernel_close(dev, b, out_dtype):
+@pytest.mark.parametrize("shape", [(640, 3072), (1536, 4096)])
+def test_matmul_kernel_close(dev, b, out_dtype, shape):
+    """Kernel B at decode (b <= 16) and prefill rows; at decode (1536, 4096)
+    splits K unevenly (12 column tiles: the last split is shorter)."""
     from nf4_tpu_torch.ops.matmul import _matmul_bf16_kernel, _matmul_bf16_plain, _pick_bm
 
+    m, n = shape
     gen = torch.Generator(device=dev).manual_seed(1)
-    pw = _packed(gen, 640, 3072, dev)
+    pw = _packed(gen, m, n, dev)
     b_pad = -(-b // _pick_bm(b)) * _pick_bm(b)
-    x = torch.zeros((b_pad, 3072), device=dev, dtype=torch.bfloat16)
-    x[:b] = torch.randn((b, 3072), generator=gen, device=dev).to(torch.bfloat16)
-    got = _matmul_bf16_kernel(x, pw.packed, pw.scales, out_dtype).float()
+    x = torch.zeros((b_pad, n), device=dev, dtype=torch.bfloat16)
+    x[:b] = torch.randn((b, n), generator=gen, device=dev).to(torch.bfloat16)
+    got = _matmul_bf16_kernel(x, pw.packed, pw.scales, out_dtype)
     want = _matmul_bf16_plain(x, pw.packed, pw.scales, out_dtype).float()
     torch.cuda.synchronize()
-    assert ((got - want).abs().max() / want.abs().max()).item() < 2e-2
+    assert got.dtype == out_dtype and got.shape == (b_pad, pw.padded_shape[0])
+    assert ((got.float() - want).abs().max() / want.abs().max()).item() < 2e-2
+
+
+def _decode_case(gen, dev, m, n, b=4):
+    pw = _packed(gen, m, n, dev)
+    x = torch.zeros((16, pw.padded_shape[1]), device=dev, dtype=torch.bfloat16)
+    x[:b, :n] = torch.randn((b, n), generator=gen, device=dev).to(torch.bfloat16)
+    return x, pw
+
+
+@pytest.mark.parametrize("quant_type", ["nf4", "fp4"])
+def test_matmul_decode_weight_values(dev, quant_type):
+    """One-hot rows of x read single K rows of W^T through kernel B's decode
+    kernel: fp32 out equals the plain weights bit for bit, at every K row
+    of a 64-row scale block."""
+    from nf4_tpu_torch.ops.dequant import _bf16_weight_t
+    from nf4_tpu_torch.ops.matmul import _matmul_bf16_kernel
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    pw = _packed(gen, 640, 3072, dev, quant_type)
+    wt = _bf16_weight_t(pw.packed, pw.scales, quant_type).float()
+    for k0 in range(0, 64, 16):
+        rows = torch.arange(16, device=dev) + k0 + 64 * 5
+        x = torch.zeros((16, 3072), device=dev, dtype=torch.bfloat16)
+        x[torch.arange(16, device=dev), rows] = 1.0
+        got = _matmul_bf16_kernel(x, pw.packed, pw.scales, torch.float32, quant_type)
+        torch.cuda.synchronize()
+        assert torch.equal(got, wt[rows])
+
+
+def test_matmul_decode_deterministic(dev):
+    """Two launches of kernel B's decode kernel, K split across blocks, give
+    the same bits (the splits are summed in split order)."""
+    from nf4_tpu_torch.ops.matmul import _matmul_bf16_kernel
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    x, pw = _decode_case(gen, dev, 1536, 14336)
+    a = _matmul_bf16_kernel(x, pw.packed, pw.scales, torch.float32)
+    b = _matmul_bf16_kernel(x, pw.packed, pw.scales, torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def test_matmul_decode_split_needs_counters(dev):
+    """The decode kernel sums its K splits itself: a split launch without
+    the tile counters is refused, and so counted as no launch."""
+    from nf4_tpu_torch.ops.lut_eval import byte_word_table
+    from nf4_tpu_torch.ops.matmul import _KERNEL, _launch
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    x, pw = _decode_case(gen, dev, 1536, 4096)
+    table = byte_word_table("nf4", dev)
+    before = _KERNEL.launches
+    with pytest.raises(RuntimeError, match=r"error 1$"):
+        _launch(_KERNEL, x, pw.packed, pw.scales, torch.float32, 16, table.data_ptr(), None, ksplit=4)
+    assert _KERNEL.launches == before
+
+
+def test_matmul_decode_in_cuda_graph(dev):
+    """Three decode launches (two with K split across blocks) captured in one
+    CUDA graph and replayed twice equal the eager launches: every launch
+    leaves the tile counters at zero."""
+    from nf4_tpu_torch.ops.matmul import _matmul_bf16_kernel
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    cases = [(_decode_case(gen, dev, m, n), od) for m, n, od in
+             ((1536, 4096, torch.bfloat16), (28672, 4096, torch.float32), (4096, 14336, torch.float16))]
+    calls = [lambda x=x, pw=pw, od=od: _matmul_bf16_kernel(x, pw.packed, pw.scales, od) for (x, pw), od in cases]
+    eager = [c() for c in calls]
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [c() for c in calls]
+    for _ in range(2):
+        for o in outs:
+            o.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for o, want in zip(outs, eager):
+            assert torch.equal(o, want)
 
 
 @pytest.mark.parametrize("b", [65, 300, 700, 1024])

@@ -4,9 +4,10 @@ sources as they are, or the tool would stop at its first call on the card."""
 
 import pytest
 
-from nf4_tpu_torch.utils.kernel_variants import VARIANTS, edited_sources
+from nf4_tpu_torch.utils.kernel_variants import DECODE_VARIANTS, VARIANTS, edited_sources
 
 CASES = [(source, name, edits) for source, variants in VARIANTS.items() for name, edits, _ in variants]
+CASES += [("matmul", f"decode {name}", edits) for name, edits, _ in DECODE_VARIANTS]
 
 
 @pytest.mark.parametrize("source,name,edits", CASES, ids=[f"{s}:{n}" for s, n, _ in CASES])

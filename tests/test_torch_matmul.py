@@ -8,6 +8,12 @@ difference over max abs value).
 Kernel E's prefill arithmetic, 3xTF32, is emulated here in torch on the
 bit patterns and held to the fp32 contract (1e-5 of the largest output)
 against ``nf4_tpu.nf4_matmul``.
+
+Kernel B's decode kernel is emulated the same way: its mma.sync A
+registers rebuilt from the bytes its mapping names (one byte-table word
+times a bf16 scale per register), held bit for bit to the plain weights,
+and its products, warp and K-split sums and epilogue held to
+``nf4_tpu.nf4_matmul`` within 2e-2.
 """
 
 import jax.numpy as jnp
@@ -150,3 +156,137 @@ def test_exact_3xtf32_fp16_x_has_no_low_half(rng):
     x = torch.from_numpy((rng.standard_normal((64, 1024)) * 30).astype(np.float16)).float()
     hi, lo = _tf32_split(x)
     assert torch.equal(hi, x) and not lo.any()
+
+
+# Kernel B's decode kernel (csrc/matmul.cu, namespace dk): 128 columns and
+# 16 batch rows per block, WARPS warps over the block's scale blocks.
+_DK_WARPS = 4
+
+
+def _decode_registers(packed, scales, quant_type):
+    """The A registers of kernel B's decode kernel, as bf16 bits, indexed
+    [column tile, scale block kb, K step s, m-tile mt, lane group g, lane t,
+    piece p, column e, half]: the byte at packed row 32kb + 8t + 2s + p,
+    column 128ct + 16g + 2mt + e, through the byte table (half 0 = low
+    nibble = K row 2j), times the column's bf16 scale.  Also returns each
+    register half's K row and column."""
+    from nf4_tpu_torch.ops.lut_eval import byte_word_table
+
+    khalf, m_pad = packed.shape
+    ct, kb, s, mt, g, t, p, e, half = torch.meshgrid(
+        *(torch.arange(k) for k in (m_pad // 128, khalf // 32, 4, 8, 8, 4, 2, 2, 2)), indexing="ij")
+    row = 32 * kb + 8 * t + 2 * s + p
+    col = 128 * ct + 16 * g + 2 * mt + e
+    word = byte_word_table(quant_type, "cpu").long()[packed[row, col].long()] & 0xFFFFFFFF
+    bits = ((word >> (16 * half)) & 0xFFFF).to(torch.int32).to(torch.int16)  # two's-complement view
+    code = bits.view(torch.bfloat16).float()
+    scale = scales.to(torch.bfloat16).float()[kb, col]
+    return (code * scale).to(torch.bfloat16), 2 * row + half, col
+
+
+def _emulate_decode(x_pad, packed, scales, quant_type, ksplit):
+    """y [16, m_pad] as the decode kernel computes it: per column tile and
+    K step the 16 x 16 A tiles times x's 16 x 16 B tile (K slot 2t + 8p +
+    half = K row 64kb + 16t + 4s + 2p + half), summed per warp over its
+    scale blocks, the warps in order, the splits in order; then the
+    accumulator fragments through the epilogue's column mapping."""
+    regs, _, _ = _decode_registers(packed, scales, quant_type)
+    n_ct, nkb = regs.shape[:2]
+    # [ct, kb, s, mt, g, t, p, e, half] -> A[ct, kb, s, mt][row g + 8e, slot 8p + 2t + half]
+    a = regs.permute(0, 1, 2, 3, 7, 4, 6, 5, 8).reshape(n_ct, nkb, 4, 8, 16, 16).float()
+    kb, s, p, t, half = torch.meshgrid(*(torch.arange(k) for k in (nkb, 4, 2, 4, 2)), indexing="ij")
+    krow = (64 * kb + 16 * t + 4 * s + 2 * p + half).reshape(nkb, 4, 16)
+    b = x_pad.float()[:, krow].permute(1, 2, 3, 0)  # [kb, s, slot, batch row]
+    prod = (a @ b[None, :, :, None]).sum(dim=2)  # [ct, kb, mt, 16 A rows, 16 batch rows]
+    per = -(-nkb // ksplit)
+    c = None
+    for z in range(ksplit):  # splits in order, each the sum of its warps in order
+        lo, hi = z * per, min(nkb, (z + 1) * per)
+        part = None
+        for w in range(_DK_WARPS):
+            kbs = list(range(lo + w, hi, _DK_WARPS))
+            wsum = prod[:, kbs].sum(dim=1) if kbs else torch.zeros_like(prod[:, 0])
+            part = wsum if part is None else part + wsum
+        c = part if c is None else c + part
+    # Fragments: acc[mt][nt][i] of lane (g, t) = C row g + 8(i // 2), batch row 8nt + 2t + i % 2.
+    y = torch.full((16, n_ct * 128), float("nan"))
+    for g in range(8):
+        for t in range(4):
+            acc = [[[c[:, mt, g + 8 * (i // 2), 8 * nt + 2 * t + i % 2] for i in range(4)]
+                    for nt in range(2)] for mt in range(8)]
+            for nt in range(2):
+                for e in range(2):
+                    for q in range(4):
+                        vals = (acc[2 * q][nt][e], acc[2 * q][nt][2 + e],
+                                acc[2 * q + 1][nt][e], acc[2 * q + 1][nt][2 + e])
+                        for k, v in enumerate(vals):
+                            y[8 * nt + 2 * t + e, torch.arange(n_ct) * 128 + 16 * g + 4 * q + k] = v
+    return y
+
+
+_DECODE_CASES = [((640, 1024), 3), ((100, 320), 1), ((256, 3072), 5)]
+
+
+@pytest.mark.parametrize("shape,ksplit", _DECODE_CASES)
+@pytest.mark.parametrize("quant_type", ["nf4", "fp4"])
+def test_decode_registers_are_the_plain_weights(rng, shape, ksplit, quant_type):
+    """Every A register half of the decode kernel lands on a distinct (K
+    row, column) of W^T, and together they are ``_bf16_weight_t`` bit for
+    bit."""
+    from nf4_tpu_torch.ops.dequant import _bf16_weight_t
+
+    _, pt = _pair(rng, shape, quant_type=quant_type)
+    regs, krow, col = _decode_registers(pt.packed, pt.scales, quant_type)
+    want = _bf16_weight_t(pt.packed, pt.scales, quant_type)
+    hits = torch.zeros(want.shape, dtype=torch.int32).index_put_((krow.ravel(), col.ravel()),
+                                                                 torch.ones(krow.numel(), dtype=torch.int32),
+                                                                 accumulate=True)
+    assert (hits == 1).all()
+    got = torch.zeros(want.shape, dtype=torch.bfloat16).index_put_((krow.ravel(), col.ravel()), regs.ravel())
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.parametrize("b", [1, 4, 16])
+@pytest.mark.parametrize("shape,ksplit", _DECODE_CASES)
+@pytest.mark.parametrize("quant_type", ["nf4", "fp4"])
+def test_decode_emulation_matches(rng, b, shape, ksplit, quant_type):
+    """The decode kernel's products, sums and epilogue, emulated, against
+    nf4_tpu's matmul on the same inputs (uneven K splits and warp shares
+    at (640, 1024) in 3 splits: 6, 6, 4 scale blocks; padded columns at m
+    = 100)."""
+    pj, pt = _pair(rng, shape, quant_type=quant_type)
+    m, n = shape
+    m_pad, n_pad = pt.padded_shape
+    x = rng.standard_normal((b, n)).astype(np.float32)
+    want = np.asarray(nf4_tpu.nf4_matmul(jnp.asarray(x, jnp.bfloat16), pj, out_dtype=jnp.float32), np.float32)
+    x_pad = torch.nn.functional.pad(torch.from_numpy(x).to(torch.bfloat16), (0, n_pad - n, 0, 16 - b))
+    y = _emulate_decode(x_pad, pt.packed, pt.scales, quant_type, ksplit)
+    assert not y.isnan().any() and not y[b:].any() and not y[:, m:].any()
+    assert _rel_err(y[:b, :m].numpy(), want) < REL_TOL
+
+
+@pytest.mark.parametrize(
+    "blocks_per_sm,m_pad,nkb,want",
+    [
+        (2, 6144, 64, 5),  # wqkv: 48 tiles x 5 splits of 13, 12 scale blocks = 240 of 264 slots
+        (2, 4096, 64, 8),  # wo: 32 tiles x 8 splits of 8
+        (2, 28672, 64, 1),  # w_gateup: 224 tiles fill the card alone
+        (2, 4096, 224, 8),  # w_down: 32 x 8 splits of 28
+        (1, 6144, 64, 2),  # one block per SM: 48 x 2 splits of 32
+        (1, 4096, 224, 4),
+        (2, 1536, 64, 22),  # 12 tiles x 22 splits of 3, the last 1: uneven
+    ],
+)
+def test_decode_ksplit(monkeypatch, blocks_per_sm, m_pad, nkb, want):
+    """Kernel B's decode kernel splits K as far as one wave of resident
+    blocks on a 132-SM card allows beside the Llama-3-8B projections'
+    column tiles at b_pad 16, with no empty split."""
+    import types
+
+    from nf4_tpu_torch.ops import matmul as tm
+
+    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda dev: types.SimpleNamespace(multi_processor_count=132))
+    monkeypatch.setattr(tm, "_decode_shape", lambda dev: (128, blocks_per_sm))
+    ksplit = tm._decode_ksplit(16, m_pad, nkb, "cuda")
+    per = -(-nkb // ksplit)
+    assert ksplit == want and (ksplit - 1) * per < nkb
