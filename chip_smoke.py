@@ -294,12 +294,13 @@ def phase_matmul(gen, dev, int8=False):
             res[(name, b)] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib, bound_ms=bnd, max_abs_err=err, rel=rel)
             print(f"phase 3 {label} {name} B={b} m={m} n={n} out={od}: rel err {rel:.2e}; {ms:.4f} ms, "
                   f"plain {plain_ms:.4f} ms, torch.matmul on bf16 weight {lib:.4f} ms, bound {bnd:.4f} ms")
-    if not int8:
-        from nf4_tpu_torch.ops.matmul import _decode_ksplit, _decode_shape
+    from nf4_tpu_torch.ops.int8_serve import _D_DECODE
+    from nf4_tpu_torch.ops.matmul import _B_DECODE, _decode_ksplit, _decode_shape
 
-        splits = {name: _decode_ksplit(16, m, n // 64, dev) for name, (m, n, _) in LLAMA3_8B_PROJ.items()}
-        cols, blocks = _decode_shape(dev)
-        print(f"phase 3 {label} decode: blocks of {cols} columns, {blocks} per SM, K splits {splits}")
+    query = _D_DECODE if int8 else _B_DECODE  # the shared decode kernel with D's or B's decode
+    splits = {name: _decode_ksplit(16, m, n // 64, dev, query) for name, (m, n, _) in LLAMA3_8B_PROJ.items()}
+    cols, blocks = _decode_shape(dev, query)
+    print(f"phase 3 {label} decode: blocks of {cols} columns, {blocks} per SM, K splits {splits}")
     return res
 
 

@@ -1,7 +1,7 @@
 // Pieces shared by the weight-streaming matmul kernels (B in matmul.cu, D in
-// int8_matmul.cu, E in matmul_exact.cu): the block tiling of B's and D's
-// decode kernels, the output store in fp32, bf16 or fp16, and the
-// deterministic second pass that sums K-split fp32 partials.
+// int8_matmul.cu, E in matmul_exact.cu): the output columns of a block and
+// the K rows of a scale block, the output store in fp32, bf16 or fp16, and
+// the deterministic second pass that sums K-split fp32 partials.
 
 #pragma once
 
@@ -14,29 +14,6 @@ namespace gemm {
 
 constexpr int BN = 128;      // output columns per block
 constexpr int BK = 64;       // K rows per step (one scale block)
-constexpr int THREADS = 128; // 4 warps
-constexpr int XS_LD = BK + 8;
-constexpr int WS_LD = BN + 8;
-constexpr int CS_LD = BN + 4;
-
-// A block of BM = 16 batch rows x BN columns (the decode kernels): the
-// warps' tiles of WMMA 16x16 fragments, the x and decoded-weight tiles of
-// one K step in shared memory, reused as the fp32 staging of the epilogue.
-template <int BM>
-struct Tiles {
-  static_assert(BM == 16, "the decode kernels' tiling");
-  static constexpr int WM = 16;  // rows per warp
-  static constexpr int WN = 32;  // columns per warp
-  static constexpr int FM = WM / 16;
-  static constexpr int FN = WN / 16;
-  static constexpr int WARPS_N = BN / WN;
-  static constexpr int XV = BM * BK / 8 / THREADS;  // 16-byte x loads per thread
-  static constexpr int TILE_BYTES = (BM * XS_LD + BK * WS_LD) * 2;
-  static constexpr int STAGE_BYTES = BM * CS_LD * 4;
-  static constexpr int SMEM = TILE_BYTES > STAGE_BYTES ? TILE_BYTES : STAGE_BYTES;
-  static_assert((BM / WM) * WARPS_N == THREADS / 32, "4 warps tile the block");
-  static_assert(XV >= 1, "x tile load");
-};
 
 // Store 4 fp32 sums at out + idx as out_kind 0/1/2 = fp32/bf16/fp16 (bf16
 // and fp16 rounded once from the fp32 sum).

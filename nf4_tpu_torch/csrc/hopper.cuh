@@ -100,6 +100,15 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
       : "memory");
 }
 
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) of contiguous
+// global memory into shared memory by one bulk copy; completion is
+// reported to mbarrier `bar`.
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
+               "l"(src), "r"(bytes), "r"(bar)
+               : "memory");
+}
+
 // TMA: the box at coordinates (c0 innermost, c1) of a 2-D tensor map into
 // shared memory at dst; completion is reported to mbarrier `bar`.
 __device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map, int c0, int c1, uint32_t bar) {

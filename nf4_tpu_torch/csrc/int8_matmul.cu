@@ -13,26 +13,49 @@
 // (bf16 and fp16 rounded once from the fp32 sum).
 //
 // Bound: at decode (B <= 16) bytes: the int8 values and their scales (1.0625
-// bytes per weight) are read once and each byte feeds only 2*B flops.  At
-// prefill (B in the hundreds or more) operations, 989 TFLOP/s bf16,
-// reachable only through wgmma.  Two kernels, with the K loop inside the
-// block and, where the output tiles alone cannot fill the card, K split
-// across blocks with fp32 partials summed in a fixed order by a second pass
-// (deterministic, no atomics):
-// * Decode (bm = 16): kernel B's WMMA tiling, 16 rows x 128 columns per
-//   block of 4 warps; a thread loads 16 bytes (16 neighbouring columns) of
-//   each of 4 K rows and their scales, converts and scales in registers,
-//   and writes bf16 to shared memory; the next step's values load into
-//   registers while the current step multiplies.
+// bytes per weight) are read once and each byte feeds only 2*B flops
+// (Llama-3-8B's four projections of one layer: 231.7 MB, 0.0699 ms at 3.35
+// TB/s).  At prefill (B in the hundreds or more) operations, 989 TFLOP/s
+// bf16, reachable only through wgmma.  Two kernels, with the K loop inside
+// the block and, where the output tiles alone cannot fill the card, K split
+// across blocks with fp32 partials summed in a fixed order (deterministic,
+// no float atomics):
+// * Decode (bm = 16): kernel B's mma.sync decode kernel (decode_mma.cuh:
+//   the weights the A operand, 4 warps on the same 128 columns over
+//   interleaved scale blocks, no block barrier in the K loop, the split
+//   that finishes last sums the partials) with this file's Dec,
+//   Int8Decode.  An int8 row is one K row, so an A register (two K slots of
+//   one column) takes the byte at that column from each of two rows: lane t
+//   reads the 16 rows 64kb + 16t .. +15 of its 16 columns per scale block
+//   (twice kernel B's pieces), and K step s pairs rows 16t + 4s with +1
+//   and +2 with +3.  A register is two bytes made exact fp32 by the byte
+//   trick below (x + 128 in the low mantissa byte of 2^23, minus 2^23 +
+//   128), whose high halves are then the exact bf16 of the two values
+//   (|x| <= 128 has at most 8 significant bits), packed by one byte
+//   permute and multiplied by the column's bf16x2 scale with one __hmul2:
+//   the product of two bf16 values is exact in fp32, so this rounds once,
+//   to the bits of bf16(x * bf16(scale)) (fp32 products and one convert
+//   give the same bits and time, with 221 registers).  Twice kernel B's
+//   bytes per weight made the per-lane cp.async copies the larger cost
+//   (231.7 MB at 2.0 TB/s alone), so the ring is filled by bulk copies:
+//   each warp's 64 rows of 128 bytes per scale block, two cp.async.bulk a
+//   lane, on one mbarrier per warp and stage, in 144-byte rows skewed by
+//   32 bytes per lane t (no bank conflict on the reads).  No table: 3
+//   stages of 9.1 KB per warp, 109 KB of shared memory, 197 registers, 2
+//   blocks per SM.  Measured (chip_smoke.py phase 3, NVIDIA H100 80GB
+//   HBM3, 700.00 W): one Llama-3-8B layer's four projections at B=4 in
+//   0.1405 ms, 50% of the byte bound, against 0.168 ms for torch.matmul
+//   on a bf16 weight; the per-lane cp.async ring 16-17% slower in the same
+//   call, 2 or 4 stages no faster (utils/kernel_variants.py --only
+//   decode).
 // * Prefill (bm = 256 or 128, b_pad a multiple of 64): kernel B's pipelined
 //   wgmma main loop (dequant_gemm.cuh: 256 x 128 blocks of 4 consumer
 //   warpgroups or 128 x 256 of 2, x by TMA, a 4-stage ring, the decode of
 //   step s+1 under the products of step s) with an int8 decode.  A K step is
 //   64 int8 rows (one scale row; twice the bytes of kernel B's packed
 //   rows).  The decode needs no table: each byte becomes an exact fp32 by
-//   putting x + 128 in the low mantissa byte of 2^23 (one byte permute) and
-//   subtracting 2^23 + 128, is multiplied by the column's bf16 scale in fp32
-//   and rounded once to bf16.  The int8 rows are N-contiguous while kernel
+//   the byte trick, is multiplied by the column's bf16 scale in fp32 and
+//   rounded once to bf16.  The int8 rows are N-contiguous while kernel
 //   B's wgmma B operand is read K-major.  This kernel transposes in
 //   registers: a thread reads 8 K rows x CW columns from the ring, so its
 //   registers hold each column's 8 K values, which it writes as one 16-byte
@@ -48,143 +71,62 @@
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
+#include "decode_mma.cuh"
 #include "dequant_gemm.cuh"
 #include "gemm_common.cuh"
 #include "hopper.cuh"
 
 using namespace gemm;
-using namespace nvcuda;
 
 namespace {
 
-constexpr int WROWS = BK / (THREADS / 8);  // K rows of the weight tile per thread
+// Byte e of lo and of hi (two K rows of one column, each byte XOR 0x80 = x
+// + 128) -> the A register of those two K rows: bf16(x * bf16(scale))
+// each, low half = lo's.
+__device__ __forceinline__ uint32_t int8_pair(uint32_t lo, uint32_t hi, int e, __nv_bfloat162 scale) {
+  const float a = __uint_as_float(__byte_perm(lo, 0x4B000000u, 0x7540 + e)) - 8388736.f;
+  const float b = __uint_as_float(__byte_perm(hi, 0x4B000000u, 0x7540 + e)) - 8388736.f;
+  uint32_t w = __byte_perm(__float_as_uint(a), __float_as_uint(b), 0x7632);  // the exact bf16 pair
+  __nv_bfloat162 v = __hmul2(*reinterpret_cast<__nv_bfloat162*>(&w), scale);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
 
-// out_kind 0/1/2 = fp32/bf16/fp16 written at out + blockIdx.z * split_stride.
-template <int BM>
-__global__ void __launch_bounds__(THREADS)
-int8_matmul_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ values,
-                   const float* __restrict__ scales, void* __restrict__ out, int n_pad, int m_pad,
-                   int kb_per_split, size_t split_stride, int out_kind) {
-  using T = Tiles<BM>;
-  __shared__ __align__(128) unsigned char smem[T::SMEM];
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* ws = xs + BM * XS_LD;
-  float* cs = reinterpret_cast<float*>(smem);
+// Kernel D's Dec for the decode kernel (decode_mma.cuh).
+struct Int8Decode {
+  static constexpr int PIECES = 16;  // 16-byte pieces (int8 rows) a lane copies per scale block
+  static constexpr int STAGES = 3;   // scale blocks in a warp's ring
+  static constexpr bool BULK = true;  // the warp's rows by bulk copies, 144-byte rows in a slot
+  static constexpr int PIECE_LD = BULK ? dm::ROW_LD : 512;  // from one of a lane's pieces to the next
+  static constexpr int SMEM = 0;
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int wm = warp / T::WARPS_N, wn = warp % T::WARPS_N;
-  const int n0 = blockIdx.x * BN;  // first output column
-  const int m0 = blockIdx.y * BM;  // first batch row
-  const int nkb = n_pad / BK;
-  const int kb0 = blockIdx.z * kb_per_split;
-  const int kb1 = min(nkb, kb0 + kb_per_split);
+  static __device__ __forceinline__ void init(uint32_t*, const void*, int) {}
 
-  // This thread's share of a K step: XV 16-byte pieces of the x tile, one
-  // 16-byte piece of each of WROWS weight rows (rows wrow + 16 i; columns
-  // c0..c0+15) and those columns' 16 scales.
-  const int c0 = (tid % 8) * 16;
-  const int wrow = tid / 8;
-  uint4 xr[T::XV], wr[WROWS];
-  float4 sr[4];
-
-  auto load = [&](int kb) {
-    const int k0 = kb * BK;
+  // K step s: rows 16t + 4s + r (r = 0..3) of the lane's 16 columns, each
+  // byte XOR 0x80; m-tile mt takes bytes 2mt (A row g) and 2mt + 1 (A row
+  // g + 8) of each, rows r = 0, 1 in K slots 2t, 2t+1 and r = 2, 3 in
+  // slots 2t+8, 2t+9.
+  struct Step {
+    uint32_t v[4][4];
+    __device__ __forceinline__ Step(const unsigned char* slot, int s) {
 #pragma unroll
-    for (int i = 0; i < T::XV; ++i) {
-      const int idx = tid + i * THREADS;
-      const int r = idx / 8, c = (idx % 8) * 8;
-      xr[i] = *reinterpret_cast<const uint4*>(x + (size_t)(m0 + r) * n_pad + k0 + c);
-    }
-#pragma unroll
-    for (int i = 0; i < WROWS; ++i)
-      wr[i] = *reinterpret_cast<const uint4*>(values + (size_t)(k0 + wrow + 16 * i) * m_pad + n0 + c0);
-    const float4* sp = reinterpret_cast<const float4*>(scales + (size_t)kb * m_pad + n0 + c0);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) sr[i] = sp[i];
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[T::FM][T::FN];
-#pragma unroll
-  for (int i = 0; i < T::FM; ++i)
-#pragma unroll
-    for (int j = 0; j < T::FN; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  if (kb0 < kb1) load(kb0);
-
-  for (int kb = kb0; kb < kb1; ++kb) {
-    // Registers -> shared: the x tile as is, the weight tile decoded.
-#pragma unroll
-    for (int i = 0; i < T::XV; ++i) {
-      const int idx = tid + i * THREADS;
-      const int r = idx / 8, c = (idx % 8) * 8;
-      *reinterpret_cast<uint4*>(xs + r * XS_LD + c) = xr[i];
-    }
-    float s[16];
-    const float* sf = reinterpret_cast<const float*>(sr);
-#pragma unroll
-    for (int q = 0; q < 16; ++q) s[q] = __bfloat162float(__float2bfloat16_rn(sf[q]));
-#pragma unroll
-    for (int i = 0; i < WROWS; ++i) {
-      const int8_t* v = reinterpret_cast<const int8_t*>(&wr[i]);
-      uint32_t w[8];
-#pragma unroll
-      for (int q = 0; q < 16; q += 2) {
-        __nv_bfloat162 p = __floats2bfloat162_rn((float)v[q] * s[q], (float)v[q + 1] * s[q + 1]);
-        w[q / 2] = *reinterpret_cast<uint32_t*>(&p);
+      for (int r = 0; r < 4; ++r) {
+        const uint4 p = *reinterpret_cast<const uint4*>(slot + (4 * s + r) * PIECE_LD);
+        v[r][0] = p.x ^ 0x80808080u, v[r][1] = p.y ^ 0x80808080u;
+        v[r][2] = p.z ^ 0x80808080u, v[r][3] = p.w ^ 0x80808080u;
       }
-      uint4* dst = reinterpret_cast<uint4*>(ws + (wrow + 16 * i) * WS_LD + c0);
-      dst[0] = make_uint4(w[0], w[1], w[2], w[3]);
-      dst[1] = make_uint4(w[4], w[5], w[6], w[7]);
     }
-    __syncthreads();
-    if (kb + 1 < kb1) load(kb + 1);  // in flight during the products below
-
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[T::FM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b[T::FN];
-#pragma unroll
-      for (int i = 0; i < T::FM; ++i)
-        wmma::load_matrix_sync(a[i], xs + (wm * T::WM + i * 16) * XS_LD + kk, XS_LD);
-#pragma unroll
-      for (int j = 0; j < T::FN; ++j)
-        wmma::load_matrix_sync(b[j], ws + kk * WS_LD + wn * T::WN + j * 16, WS_LD);
-#pragma unroll
-      for (int i = 0; i < T::FM; ++i)
-#pragma unroll
-        for (int j = 0; j < T::FN; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
+    __device__ __forceinline__ void regs(uint32_t (&a)[4], int mt, const __nv_bfloat162 (&s2)[16],
+                                         const unsigned char*, uint32_t) const {
+      const int w = mt / 2, e = 2 * (mt % 2);  // bytes 2mt, 2mt + 1 of the piece
+      a[0] = int8_pair(v[0][w], v[1][w], e, s2[2 * mt]);
+      a[1] = int8_pair(v[0][w], v[1][w], e + 1, s2[2 * mt + 1]);
+      a[2] = int8_pair(v[2][w], v[3][w], e, s2[2 * mt]);
+      a[3] = int8_pair(v[2][w], v[3][w], e + 1, s2[2 * mt + 1]);
     }
-    __syncthreads();
-  }
-
-  // Epilogue: fragments -> fp32 staging in shared memory -> coalesced stores.
-#pragma unroll
-  for (int i = 0; i < T::FM; ++i)
-#pragma unroll
-    for (int j = 0; j < T::FN; ++j)
-      wmma::store_matrix_sync(cs + (wm * T::WM + i * 16) * CS_LD + wn * T::WN + j * 16,
-                              acc[i][j], CS_LD, wmma::mem_row_major);
-  __syncthreads();
-  void* dst = out_kind == 0 ? static_cast<void*>(static_cast<float*>(out) + blockIdx.z * split_stride) : out;
-  for (int idx = tid; idx < BM * BN / 4; idx += THREADS) {
-    const int r = idx / (BN / 4), c = (idx % (BN / 4)) * 4;
-    const float4 v = *reinterpret_cast<const float4*>(cs + r * CS_LD + c);
-    gemm::store_out(dst, out_kind, (size_t)(m0 + r) * m_pad + n0 + c, v);
-  }
-}
-
-template <int BM>
-void launch(const void* x, const void* values, const void* scales, void* dst, int b_pad, int n_pad,
-            int m_pad, int kb_per_split, int ksplit, size_t stride, int kind, cudaStream_t stream) {
-  dim3 grid(m_pad / BN, b_pad / BM, ksplit);
-  int8_matmul_kernel<BM><<<grid, THREADS, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(values),
-      static_cast<const float*>(scales), dst, n_pad, m_pad, kb_per_split, stride, kind);
-}
+  };
+};
 
 // The prefill kernel's Op for the shared main loop: BN columns and WGS
 // consumer warpgroups of 64 rows per block, K steps of 64 int8 rows.
@@ -278,27 +220,41 @@ int launch_prefill(const void* x, const void* values, const void* scales, void* 
 // 128 x 256 blocks (m_pad a multiple of 256), with b_pad a multiple of 64
 // and the ragged last row tile masked.  The caller picks the layout and the
 // K split.  n_pad is a multiple of 64 and m_pad of 128.  ksplit > 1 needs
-// workspace fp32 [ksplit, b_pad, m_pad].
+// workspace fp32 [ksplit, b_pad, m_pad]; the decode kernel then also needs
+// counters, int32 [ceil(m_pad / cols) * (b_pad / 16)] (cols:
+// int8_matmul_bf16_decode_shape), zero before the launch and zero again
+// after it (the prefill kernel ignores them and sums its partials in a
+// second pass).
 extern "C" int int8_matmul_bf16(const void* x, const void* values, const void* scales, void* out,
-                                void* workspace, int b_pad, int n_pad, int m_pad, int bm,
-                                int ksplit, int out_kind, void* stream) {
+                                void* workspace, void* counters, int b_pad, int n_pad, int m_pad,
+                                int bm, int ksplit, int out_kind, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool rows_ok = bm == 16 ? b_pad % 16 == 0
                                 : (bm == 256 || (bm == 128 && m_pad % 256 == 0)) && b_pad % 64 == 0;
   if (!rows_ok || n_pad % BK || m_pad % BN || ksplit < 1 || out_kind < 0 || out_kind > 2 ||
-      (ksplit > 1 && workspace == nullptr))
+      (ksplit > 1 && (workspace == nullptr || (bm == 16 && counters == nullptr))))
     return (int)cudaErrorInvalidValue;
   const int nkb = n_pad / BK;
   const int per = (nkb + ksplit - 1) / ksplit;
-  void* dst = ksplit > 1 ? workspace : out;
-  const int kind = ksplit > 1 ? 0 : out_kind;
   const size_t stride = (size_t)b_pad * m_pad;
   int rc = 0;
-  if (bm == 16) launch<16>(x, values, scales, dst, b_pad, n_pad, m_pad, per, ksplit, stride, kind, s);
-  else if (bm == 256)
+  if (bm == 16) {
+    rc = dm::launch<Int8Decode>(x, values, scales, nullptr, out, static_cast<float*>(workspace),
+                                static_cast<int*>(counters), b_pad, n_pad, m_pad, per, ksplit, out_kind, s);
+    return rc ? rc : (int)cudaGetLastError();
+  }
+  void* dst = ksplit > 1 ? workspace : out;
+  const int kind = ksplit > 1 ? 0 : out_kind;
+  if (bm == 256)
     rc = launch_prefill<128, 4>(x, values, scales, dst, b_pad, n_pad, m_pad, per, ksplit, stride, kind, s);
   else rc = launch_prefill<256, 2>(x, values, scales, dst, b_pad, n_pad, m_pad, per, ksplit, stride, kind, s);
   if (rc) return rc;
   if (ksplit > 1) gemm::splitk_reduce(static_cast<const float*>(workspace), out, ksplit, stride, out_kind, s);
   return (int)cudaGetLastError();
+}
+
+// The decode kernel's output columns per block and its resident blocks per
+// SM on the current device (ops/int8_serve.py sizes its K split by them).
+extern "C" int int8_matmul_bf16_decode_shape(int* cols, int* blocks) {
+  return dm::shape<Int8Decode>(cols, blocks);
 }

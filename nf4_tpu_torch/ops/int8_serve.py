@@ -7,9 +7,11 @@ the 4-bit grid up to the int8 rounding of the codebook, and decoding it is
 one int8 -> bf16 convert and one scale multiply.
 
 bf16 activations on a CUDA tensor run the hand-written kernel
-``csrc/int8_matmul.cu`` (WMMA at decode; at prefill kernel B's pipelined
-wgmma main loop with an int8 decode): weight values ``bf16(int8 *
-bf16(scale))``, a bf16 product with fp32 accumulation.  On a CPU tensor the plain version
+``csrc/int8_matmul.cu`` (at decode kernel B's mma.sync decode kernel,
+``csrc/decode_mma.cuh``, with the int8 rows paired into A registers; at
+prefill kernel B's pipelined wgmma main loop with an int8 decode): weight
+values ``bf16(int8 * bf16(scale))``, a bf16 product with fp32
+accumulation.  On a CPU tensor the plain version
 :func:`_int8_matmul_plain` computes the same values.  fp32 and fp16
 activations take the JAX package's XLA path (fp32 weights, fp32 product;
 TF32 off), on either device.
@@ -29,14 +31,18 @@ from ..nf4.lut import get_code
 from ..nf4.reference import NF4_BLOCK
 from ._cuda import Kernel
 from .dequant import _OUT_KIND
-from .matmul import _pick_bm, _pick_ksplit, _prefill_ksplit, _prefill_rows
+from .matmul import (
+    _DECODE_ROWS, _decode_ksplit, _decode_tiles, _pick_bm, _prefill_ksplit, _prefill_rows, _tile_counters,
+)
 
 __all__ = ["PackedInt8", "recode_int8_weight", "int8_matmul"]
 
 _KERNEL = Kernel(
     "int8_matmul", "int8_matmul", "int8_matmul_bf16",
-    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6,
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6,
 )
+# Kernel D's decode kernel: its shape query (source, C symbol).
+_D_DECODE = ("int8_matmul", "int8_matmul_bf16_decode_shape")
 
 # A weight whose packed bytes exceed this recodes in chunks of whole scale
 # rows, so the int64 index intermediates stay bounded (the JAX package's
@@ -128,10 +134,11 @@ def _int8_matmul_exact(x_pad, values, scales, out_dtype) -> torch.Tensor:
 
 def _int8_matmul_kernel(x_pad, values, scales, out_dtype, rows=None) -> torch.Tensor:
     """Launch kernel D on CUDA tensors; x_pad rows a multiple of
-    :func:`~nf4_tpu_torch.ops.matmul._pick_bm` (16: the decode kernel; 64:
-    the prefill kernel, which masks its ragged last row tile).  ``rows``
-    forces a prefill layout (256 x 128 or 128 x 256 blocks); by default
-    kernel B's :func:`~nf4_tpu_torch.ops.matmul._prefill_rows` picks it."""
+    :func:`~nf4_tpu_torch.ops.matmul._pick_bm` (16: the decode kernel, which
+    sums its K splits itself; 64: the prefill kernel, which masks its
+    ragged last row tile).  ``rows`` forces a prefill layout (256 x 128 or
+    128 x 256 blocks); by default kernel B's
+    :func:`~nf4_tpu_torch.ops.matmul._prefill_rows` picks it."""
     b_pad, n_pad = x_pad.shape
     if x_pad.dtype != torch.bfloat16 or values.dtype != torch.int8 or scales.dtype != torch.float32:
         raise TypeError("kernel D takes bf16 x, int8 values and fp32 scales")
@@ -148,15 +155,26 @@ def _int8_matmul_kernel(x_pad, values, scales, out_dtype, rows=None) -> torch.Te
     if not (x_pad.device == values.device == scales.device):
         raise ValueError("operands on different devices")
     dev = x_pad.device
-    if bm == 16:
-        ksplit = _pick_ksplit((m_pad // 128) * (b_pad // bm), n_pad // NF4_BLOCK, dev)
+    counters = None
+    if bm == _DECODE_ROWS:
+        ksplit = _decode_ksplit(b_pad, m_pad, n_pad // NF4_BLOCK, dev, _D_DECODE)
+        counters = _tile_counters(dev, _decode_tiles(b_pad, m_pad, dev, _D_DECODE)).data_ptr()
     else:
         bm = rows or _prefill_rows(b_pad, m_pad)
         ksplit = _prefill_ksplit(b_pad, m_pad, n_pad // NF4_BLOCK, bm, dev)
+    return _launch_d(x_pad, values, scales, out_dtype, bm, counters, ksplit)
+
+
+def _launch_d(x_pad, values, scales, out_dtype, bm, counters, ksplit) -> torch.Tensor:
+    """Allocate the output (and the K-split partials) and launch kernel D
+    as it is told: blocks of ``bm`` rows, ``ksplit`` K splits,
+    ``counters`` the decode kernel's tile counters (a pointer or None)."""
+    (b_pad, n_pad), m_pad, dev = x_pad.shape, values.shape[1], x_pad.device
     out = torch.empty((b_pad, m_pad), dtype=out_dtype, device=dev)
     work = torch.empty((ksplit, b_pad, m_pad), dtype=torch.float32, device=dev) if ksplit > 1 else None
     _KERNEL(x_pad.data_ptr(), values.data_ptr(), scales.data_ptr(), out.data_ptr(),
-            None if work is None else work.data_ptr(), b_pad, n_pad, m_pad, bm, ksplit, _OUT_KIND[out_dtype])
+            None if work is None else work.data_ptr(), counters, b_pad, n_pad, m_pad, bm, ksplit,
+            _OUT_KIND[out_dtype])
     return out
 
 

@@ -95,51 +95,55 @@ def _even_splits(nkb: int, ksplit: int) -> int:
     return -(-nkb // per)  # no empty split
 
 
-# Kernel B's decode blocks: 16 batch rows each; their columns and
-# occupancy come from the built library.
+# The decode kernel's blocks (kernels B and D, csrc/decode_mma.cuh): 16
+# batch rows each; their columns and occupancy come from the built library,
+# through its shape query: (source, C symbol).
 _DECODE_ROWS = 16
+_B_DECODE = ("matmul", "nf4_matmul_bf16_decode_shape")
 _DECODE_SHAPE: dict = {}
 _TILE_COUNTERS: dict = {}
 
 
-def _decode_shape(device) -> tuple:
-    """(output columns per block, resident blocks per SM) of kernel B's
-    decode kernel, as the built library reports them (once per library
-    and device)."""
-    lib = _cuda._load("matmul")
-    key = (lib, torch.device(device))
+def _decode_shape(device, query=_B_DECODE) -> tuple:
+    """(output columns per block, resident blocks per SM) of the decode
+    kernel that ``query`` names (kernel B's by default), as the built
+    library reports them (once per library and device)."""
+    source, symbol = query
+    lib = _cuda._load(source)
+    key = (lib, symbol, torch.device(device))
     if key not in _DECODE_SHAPE:
-        fn = lib.nf4_matmul_bf16_decode_shape
+        fn = getattr(lib, symbol)
         fn.argtypes, fn.restype = [ctypes.c_void_p, ctypes.c_void_p], ctypes.c_int
         cols, blocks = ctypes.c_int(0), ctypes.c_int(0)
-        with torch.cuda.device(key[1]):
+        with torch.cuda.device(key[2]):
             err = fn(ctypes.byref(cols), ctypes.byref(blocks))
         if err != 0 or blocks.value < 1:
-            raise RuntimeError(f"kernel B's decode occupancy query failed (error {err}, {blocks.value} blocks)")
+            raise RuntimeError(f"{symbol}: decode occupancy query failed (error {err}, {blocks.value} blocks)")
         _DECODE_SHAPE[key] = (cols.value, blocks.value)
     return _DECODE_SHAPE[key]
 
 
-def _decode_tiles(b_pad: int, m_pad: int, device) -> int:
-    """Output tiles of kernel B's decode kernel (the last may be ragged)."""
-    return -(-m_pad // _decode_shape(device)[0]) * (b_pad // _DECODE_ROWS)
+def _decode_tiles(b_pad: int, m_pad: int, device, query=_B_DECODE) -> int:
+    """Output tiles of a decode launch (the last may be ragged)."""
+    return -(-m_pad // _decode_shape(device, query)[0]) * (b_pad // _DECODE_ROWS)
 
 
-def _decode_ksplit(b_pad: int, m_pad: int, nkb: int, device) -> int:
-    """K splits for kernel B's decode blocks: one wave of every SM's
+def _decode_ksplit(b_pad: int, m_pad: int, nkb: int, device, query=_B_DECODE) -> int:
+    """K splits for the decode kernel's blocks: one wave of every SM's
     resident blocks (``_wave_ksplit``)."""
-    return _wave_ksplit(_decode_tiles(b_pad, m_pad, device), nkb, device, _decode_shape(device)[1])
+    return _wave_ksplit(_decode_tiles(b_pad, m_pad, device, query), nkb, device, _decode_shape(device, query)[1])
 
 
 def _tile_counters(device, tiles: int) -> torch.Tensor:
-    """The decode kernel's per-output-tile counters on ``device``: int32,
-    zeroed once when allocated; every launch leaves them at zero again, so
-    no launch needs a memset (and a CUDA graph may capture it).  Launches
-    that use them must not run concurrently on two streams."""
+    """The decode kernel's per-output-tile counters on ``device`` (kernels B
+    and D share them): int32, zeroed once when allocated; every launch
+    leaves them at zero again, so no launch needs a memset (and a CUDA graph
+    may capture it).  Launches that use them must not run concurrently on
+    two streams."""
     buf = _TILE_COUNTERS.get(device)
     if buf is None or buf.numel() < tiles:
         if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("kernel B's tile counters must be allocated before CUDA graph capture")
+            raise RuntimeError("the decode kernel's tile counters must be allocated before CUDA graph capture")
         buf = torch.zeros(max(tiles, 4096), dtype=torch.int32, device=device)
         _TILE_COUNTERS[device] = buf
     return buf

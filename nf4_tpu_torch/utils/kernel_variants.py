@@ -12,9 +12,10 @@ largest difference from the unedited build; variants that skip work report
 nothing to compare.  Times are the mean device time of one launch, from the
 replay of a CUDA graph of 20 launches after a warm-up, at the shapes
 ``chip_smoke.py`` times: kernels B and D at Llama-3-8B's four projections
-(the layouts at 64 to 1024 rows; the variants of kernel B's decode kernel
-at 4 rows, padded to 16; the variants of kernels B, D and E at w_gateup
-and w_down with 1024 rows), kernel C at B=1, H=32, KV=8, D=128, S=1024 (causal from position 0,
+(the layouts at 64 to 1024 rows; the variants of the decode kernel, with
+kernel B's and with kernel D's decode, at 4 rows, padded to 16; the
+variants of kernels B, D and E at w_gateup and w_down with 1024 rows),
+kernel C at B=1, H=32, KV=8, D=128, S=1024 (causal from position 0,
 and the last 1024 positions of an 8192-slot cache under a 4096-slot
 window), bf16 and int8 KV.
 """
@@ -57,27 +58,31 @@ MATMUL_VARIANTS = [
     ], False),
 ]
 
-# Kernel B's decode kernel (bm = 16): its block shape (warps side by side
-# over columns x warps on the same columns over K) and ring depth (each
-# changes the shared memory and registers of a block, so the occupancy and
-# with it the K split), the products of zero batch rows 8-15 not skipped;
-# and, not the same function, without the table lookup, without the
-# copies or without reading the ring (its reads, decode and products: what
-# each costs), and copying only the first 4 scale blocks of every column
-# (the copies served from L2, not DRAM).
-_DK = ("constexpr int WN = 1;        // warps side by side over a block's columns\n"
-       "constexpr int WK = 4;        // warps on the same columns, each over its own scale blocks\n"
-       "constexpr int STAGES = 4;    // scale blocks in a lane's ring")
+# The decode kernel (bm = 16, csrc/decode_mma.cuh) of kernel B: its block
+# shape (warps side by side over columns x warps on the same columns over
+# K) and ring depth (each changes the shared memory and registers of a
+# block, so the occupancy and with it the K split), the products of zero
+# batch rows 8-15 not skipped; and, not the same function, without the
+# table lookup, without the copies or without reading the ring (its reads,
+# decode and products: what each costs), and copying only the first 4 scale
+# blocks of every column (the copies served from L2, not DRAM).
+_WARPS = ("constexpr int WN = 1;        // warps side by side over a block's columns\n"
+          "constexpr int WK = 4;        // warps on the same columns, each over its own scale blocks")
+_B_STAGES = "  static constexpr int STAGES = 4;    // scale blocks in a lane's ring"
+_D_STAGES = "  static constexpr int STAGES = 3;   // scale blocks in a warp's ring"
 
 
 def _dk(wn, wk, stages):
-    return [(_DK, _DK.replace("WN = 1", f"WN = {wn}").replace("WK = 4", f"WK = {wk}")
-             .replace("STAGES = 4", f"STAGES = {stages}"))]
+    return [(_WARPS, _WARPS.replace("WN = 1", f"WN = {wn}").replace("WK = 4", f"WK = {wk}")),
+            (_B_STAGES, _B_STAGES.replace("STAGES = 4", f"STAGES = {stages}"))]
 
 
 _COPY = "hop::cp_async16(dst + r * 512, src + (size_t)r * m_pad, true);"
 _NO_COPIES = [(f"      for (int r = 0; r < PIECES; ++r) {_COPY}", "      (void)src, (void)dst;")]
-_NO_PRODUCTS = [("    for (int s = 0; s < 4; ++s) {\n      const uint4 lo4", "    for (int s = 0; s < 0; ++s) {\n      const uint4 lo4")]
+_NO_PRODUCTS = [("    for (int s = 0; s < 4; ++s) {\n      const typename Dec::Step",
+                 "    for (int s = 0; s < 0; ++s) {\n      const typename Dec::Step")]
+_FROM_L2 = [("const uint8_t* src = pk + (size_t)kb * (4 * PIECES) * m_pad;",
+             "const uint8_t* src = pk + (size_t)(kb % 4) * (4 * PIECES) * m_pad;")]
 DECODE_VARIANTS = [
     ("as is", [], True),
     ("batch rows 8-15 multiplied when zero", [("if (rows_hi) hop::mma_bf16_16816(", "hop::mma_bf16_16816(")], True),
@@ -89,10 +94,49 @@ DECODE_VARIANTS = [
      False),
     ("no copies of the weights", _NO_COPIES, False),
     ("no products", _NO_PRODUCTS, False),
-    ("no products, copies of the first 4 scale blocks only", _NO_PRODUCTS + [
-        ("const uint8_t* src = pk + (size_t)kb * (BK / 2) * m_pad;",
-         "const uint8_t* src = pk + (size_t)(kb % 4) * (BK / 2) * m_pad;")], False),
+    ("no products, copies of the first 4 scale blocks only", _NO_PRODUCTS + _FROM_L2, False),
     ("neither copies nor products", _NO_COPIES + _NO_PRODUCTS, False),
+]
+
+# The same decode kernel with kernel D's Dec (Int8Decode): its ring filled
+# by each lane's cp.async (not the warp's bulk copies), its ring depth (2
+# stages: 3 blocks per SM if the registers allow; 4 stages: 1 block), the
+# order of copy and wait, 8 warps on one column tile, its decode through
+# fp32 products rounded by one convert (the prefill kernel's decode; the same
+# bits), and the cuts of kernel B's list (no copies: neither the bulk
+# copies nor the waits for them).
+_D_BULK = "  static constexpr bool BULK = true;  // the warp's rows by bulk copies, 144-byte rows in a slot"
+_BULK_NO_COPIES = [
+    ("        if (lane == 0) hop::mbar_arrive_expect_tx(bar, 4 * PIECES * WCOLS);\n", ""),
+    ("hop::bulk_copy(dst + row_off<Dec>(k), src + (size_t)k * m_pad, WCOLS, bar);", "(void)src, (void)dst, (void)bar;"),
+    ("hop::mbar_wait(bars + (i % STAGES) * 8, (i / STAGES) & 1);  // the warp's rows of step i", "{}"),
+]
+_PER_LANE = [(_D_BULK, _D_BULK.replace("BULK = true", "BULK = false"))]
+_D2 = [(_D_STAGES, _D_STAGES.replace("STAGES = 3", "STAGES = 2"))]
+# Step i + 2's bulk copies issued before the wait for step i (one more
+# stage in flight during the wait), not after it.
+_EARLY = [
+    ("    if constexpr (Dec::BULK) hop::mbar_wait(bars + (i % STAGES) * 8, (i / STAGES) & 1);",
+     "    if constexpr (Dec::BULK) issue(i + STAGES - 1), hop::mbar_wait(bars + (i % STAGES) * 8, (i / STAGES) & 1);"),
+    ("    issue(i + STAGES - 1);  // into the slot step i - 1 read\n", "    if constexpr (!Dec::BULK) issue(i + STAGES - 1);\n"),
+]
+INT8_DECODE_VARIANTS = [
+    ("as is", [], True),
+    ("per-lane cp.async (not bulk copies)", _PER_LANE, True),
+    ("2 stages", _D2, True),
+    ("4 stages", [(_D_STAGES, _D_STAGES.replace("STAGES = 3", "STAGES = 4"))], True),
+    ("copies issued before the wait", _EARLY, True),
+    ("1 x 8 warps, 2 stages", [(_WARPS, _WARPS.replace("WK = 4", "WK = 8"))] + _D2, True),
+    ("fp32 products, one convert (not __hmul2)", [(
+        "  uint32_t w = __byte_perm(__float_as_uint(a), __float_as_uint(b), 0x7632);  // the exact bf16 pair\n"
+        "  __nv_bfloat162 v = __hmul2(*reinterpret_cast<__nv_bfloat162*>(&w), scale);",
+        "  const float sf = __low2float(scale);\n"
+        "  __nv_bfloat162 v = __floats2bfloat162_rn(__fmul_rn(a, sf), __fmul_rn(b, sf));")], True),
+    ("no copies of the weights", _BULK_NO_COPIES, False),
+    ("no products", _NO_PRODUCTS, False),
+    ("no products, copies of the first 4 scale blocks only", _NO_PRODUCTS + _FROM_L2, False),
+    ("neither copies nor products", _BULK_NO_COPIES + _NO_PRODUCTS, False),
+    ("per-lane cp.async, no products", _PER_LANE + _NO_PRODUCTS, False),
 ]
 
 # Kernels D and E on the same main loop.
@@ -155,15 +199,17 @@ def edited_sources(source: str, edits) -> dict:
     return texts
 
 
-def _build(source: str, variants, out_dir, logs=None):
+def _build(source: str, variants, out_dir, logs=None, tag=""):
     """Build every variant of ``csrc/<source>.cu``, each in its own
-    directory with its headers; returns {name: CDLL}.  ``logs``, a dict,
-    gets each variant's compiler output (ptxas's registers and spills)."""
+    directory with its headers (named by ``source``, ``tag`` and its index:
+    a library once loaded stays loaded under its path); returns {name:
+    CDLL}.  ``logs``, a dict, gets each variant's compiler output (ptxas's
+    registers and spills)."""
     import ctypes
 
     procs = {}
     for i, (name, edits, _) in enumerate(variants):
-        vdir = out_dir / f"{source}_{i}"
+        vdir = out_dir / f"{source}{tag}_{i}"
         shutil.rmtree(vdir, ignore_errors=True)
         vdir.mkdir(parents=True)
         for fname, text in edited_sources(source, edits).items():
@@ -272,42 +318,47 @@ def layouts() -> None:
 
 
 def decode(out_dir) -> None:
-    """The variants of kernel B's decode kernel: one layer's four
-    projections at 4 rows (b_pad 16), each variant with the K split its own
-    occupancy gives."""
-    from ..ops.matmul import _decode_ksplit, _decode_shape, _matmul_bf16_kernel
+    """The variants of the decode kernel with kernel B's and kernel D's Dec:
+    one layer's four projections at 4 rows (b_pad 16), each variant with the
+    K split its own occupancy gives."""
+    from ..ops.int8_serve import _D_DECODE, _int8_matmul_kernel
+    from ..ops.matmul import _B_DECODE, _decode_ksplit, _decode_shape, _matmul_bf16_kernel
 
-    logs = {}
-    libs = _build("matmul", DECODE_VARIANTS, out_dir, logs)
-    for name, err in logs.items():  # the decode kernel's entry is followed by its register count
-        lines = err.splitlines()
-        at = next((i for i, line in enumerate(lines) if "decode_kernel" in line and "Compiling" in line), None)
-        used = [line.split(":", 1)[-1].strip() for line in lines[at + 1:at + 4] if "registers" in line or "spill" in line]
-        print(f"  {name}: ptxas {'; '.join(used) if at is not None else 'no decode kernel found'}", flush=True)
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(0)
-    ws = _weights(gen, dev)
-    x = {}
-    for proj, (_, n, _) in _PROJ.items():
-        x[proj] = torch.zeros((16, n), device=dev, dtype=torch.bfloat16)
-        x[proj][:4] = torch.randn((4, n), generator=gen, device=dev).to(torch.bfloat16)
+    for label, source, variants, kern, query, int8 in (
+        ("B", "matmul", DECODE_VARIANTS, _matmul_bf16_kernel, _B_DECODE, False),
+        ("D", "int8_matmul", INT8_DECODE_VARIANTS, _int8_matmul_kernel, _D_DECODE, True),
+    ):
+        logs = {}
+        libs = _build(source, variants, out_dir, logs, tag="_decode")
+        for name, err in logs.items():  # the decode kernel's entry is followed by its register count
+            lines = err.splitlines()
+            at = next((i for i, line in enumerate(lines) if "decode_kernel" in line and "Compiling" in line), None)
+            used = [line.split(":", 1)[-1].strip() for line in lines[at + 1:at + 4]
+                    if "registers" in line or "spill" in line] if at is not None else []
+            print(f"  kernel {label} {name}: ptxas {'; '.join(used) or 'no decode kernel found'}", flush=True)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        ws = _weights(gen, dev, int8)
+        x = {}
+        for proj, (_, n, _) in _PROJ.items():
+            x[proj] = torch.zeros((16, n), device=dev, dtype=torch.bfloat16)
+            x[proj][:4] = torch.randn((4, n), generator=gen, device=dev).to(torch.bfloat16)
 
-    def run(name):
-        with _library("matmul", libs[name]):
-            times, outs, splits = [], [], []
-            for proj, (m, n, od) in _PROJ.items():
-                calls = [lambda w=w, s=s, od=od, proj=proj: _matmul_bf16_kernel(x[proj], w, s, od)
-                         for w, s in ws[proj]]
-                times.append(_time(calls))
-                outs.append(calls[0]().float().ravel())
-                splits.append(_decode_ksplit(16, m, n // 64, dev))
-            print(f"  {name}: blocks of {_decode_shape(dev)[0]} columns, {_decode_shape(dev)[1]} per SM, "
-                  f"K splits {splits}, ms "
-                  + ", ".join(f"{p} {t:.4f}" for p, t in zip(_PROJ, times)), flush=True)
-            return sum(times), torch.cat(outs)
+        def run(name, source=source, libs=libs, kern=kern, query=query, label=label, ws=ws, x=x):
+            with _library(source, libs[name]):
+                times, outs, splits = [], [], []
+                for proj, (m, n, od) in _PROJ.items():
+                    calls = [lambda w=w, s=s, od=od, proj=proj: kern(x[proj], w, s, od) for w, s in ws[proj]]
+                    times.append(_time(calls))
+                    outs.append(calls[0]().float().ravel())
+                    splits.append(_decode_ksplit(16, m, n // 64, dev, query))
+                cols, blocks = _decode_shape(dev, query)
+                print(f"  kernel {label} {name}: blocks of {cols} columns, {blocks} per SM, K splits {splits}, ms "
+                      + ", ".join(f"{p} {t:.4f}" for p, t in zip(_PROJ, times)), flush=True)
+                return sum(times), torch.cat(outs)
 
-    _report("kernel B decode, four projections, B=4", DECODE_VARIANTS, run)
-    del ws
+        _report(f"kernel {label} decode, four projections, B=4", variants, run)
+        del ws
 
 
 def matmul(out_dir, source="matmul") -> None:

@@ -302,6 +302,82 @@ def test_int8_matmul_prefill_weight_values(dev):
     assert torch.equal(got, want)
 
 
+def _int8_decode_case(gen, dev, m, n, b=4):
+    from nf4_tpu_torch.ops.int8_serve import recode_int8_weight
+
+    x, pw = _decode_case(gen, dev, m, n, b)
+    return x, recode_int8_weight(pw)
+
+
+def test_int8_matmul_decode_weight_values(dev):
+    """One-hot rows of x read single K rows of W^T through kernel D's decode
+    kernel: fp32 out equals the plain weights bit for bit, at every K row
+    of a 64-row scale block, for every int8 value."""
+    from nf4_tpu_torch.ops.int8_serve import _int8_matmul_kernel, _int8_weight_t
+
+    gen = torch.Generator(device=dev).manual_seed(15)
+    values = torch.randint(-128, 128, (3072, 640), generator=gen, device=dev, dtype=torch.int8)
+    scales = torch.rand((48, 640), generator=gen, device=dev) * 0.02
+    wt = _int8_weight_t(values, scales).float()
+    for k0 in range(0, 64, 16):
+        rows = torch.arange(16, device=dev) + k0 + 64 * 5
+        x = torch.zeros((16, 3072), device=dev, dtype=torch.bfloat16)
+        x[torch.arange(16, device=dev), rows] = 1.0
+        got = _int8_matmul_kernel(x, values, scales, torch.float32)
+        torch.cuda.synchronize()
+        assert torch.equal(got, wt[rows])
+
+
+def test_int8_matmul_decode_deterministic(dev):
+    """Two launches of kernel D's decode kernel, K split across blocks, give
+    the same bits (the splits are summed in split order)."""
+    from nf4_tpu_torch.ops.int8_serve import _int8_matmul_kernel
+
+    gen = torch.Generator(device=dev).manual_seed(16)
+    x, p8 = _int8_decode_case(gen, dev, 1536, 14336)
+    a = _int8_matmul_kernel(x, p8.values, p8.scales, torch.float32)
+    b = _int8_matmul_kernel(x, p8.values, p8.scales, torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def test_int8_matmul_decode_split_needs_counters(dev):
+    """Kernel D's decode kernel sums its K splits itself: a split launch
+    without the tile counters is refused, and so counted as no launch."""
+    from nf4_tpu_torch.ops.int8_serve import _KERNEL, _launch_d
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    x, p8 = _int8_decode_case(gen, dev, 1536, 4096)
+    before = _KERNEL.launches
+    with pytest.raises(RuntimeError, match=r"error 1$"):
+        _launch_d(x, p8.values, p8.scales, torch.float32, 16, None, 4)
+    assert _KERNEL.launches == before
+
+
+def test_int8_matmul_decode_in_cuda_graph(dev):
+    """Three decode launches of kernel D (two with K split across blocks)
+    captured in one CUDA graph and replayed twice equal the eager launches:
+    every launch leaves the tile counters at zero."""
+    from nf4_tpu_torch.ops.int8_serve import _int8_matmul_kernel
+
+    gen = torch.Generator(device=dev).manual_seed(18)
+    cases = [(_int8_decode_case(gen, dev, m, n), od) for m, n, od in
+             ((1536, 4096, torch.bfloat16), (28672, 4096, torch.float32), (4096, 14336, torch.float16))]
+    calls = [lambda x=x, p8=p8, od=od: _int8_matmul_kernel(x, p8.values, p8.scales, od) for (x, p8), od in cases]
+    eager = [c() for c in calls]
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [c() for c in calls]
+    for _ in range(2):
+        for o in outs:
+            o.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for o, want in zip(outs, eager):
+            assert torch.equal(o, want)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_quantize_kv_on_card_bit_identical(dev, dtype):
     """The int8 KV cache's quantizer gives the CPU's values and scales on

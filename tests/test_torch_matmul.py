@@ -286,7 +286,7 @@ def test_decode_ksplit(monkeypatch, blocks_per_sm, m_pad, nkb, want):
     from nf4_tpu_torch.ops import matmul as tm
 
     monkeypatch.setattr(torch.cuda, "get_device_properties", lambda dev: types.SimpleNamespace(multi_processor_count=132))
-    monkeypatch.setattr(tm, "_decode_shape", lambda dev: (128, blocks_per_sm))
+    monkeypatch.setattr(tm, "_decode_shape", lambda dev, query=None: (128, blocks_per_sm))
     ksplit = tm._decode_ksplit(16, m_pad, nkb, "cuda")
     per = -(-nkb // ksplit)
     assert ksplit == want and (ksplit - 1) * per < nkb
