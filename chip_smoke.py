@@ -18,10 +18,11 @@ Phases, each of which fails the run on any error:
    and at decode B=1, 8 and 16 and the serving run's ragged B=37, 300 and
    700, max rel err < 2e-2;
    (3e) kernel E (the fp32/fp16-activation matmul) at the same shapes and
-   ragged rows, fp32 x (fp32 out) and fp16 x (fp16 and fp32 out), max abs
-   err <= 1e-5 * max|want| for fp32 out, 2e-3 * max|want| for fp16; at B=4
-   and 1024 also the largest error of kernel E and of cuBLAS's fp32 product
-   against a float64 product, E's at most 4x cuBLAS's;
+   rows, fp32 x (fp32 out) and fp16 x (fp16 and fp32 out), max abs err <=
+   1e-5 * max|want| for fp32 out, 2e-3 * max|want| for fp16; at B=4 and
+   1024 also the largest error of kernel E and of cuBLAS's fp32 product
+   against a float64 product, E's at most 4x cuBLAS's; a profile of one
+   decode call per projection holds E's decode to one device launch each;
 4. kernel C (prefill flash attention), bf16 and int8 KV, against its plain
    version at B=1, H=32, KV=8, D=128, S=1024, T=8192, with and without a
    window, and at a ragged S=700 from position 0 and from 37; the int8
@@ -138,6 +139,21 @@ def bound_ms(nbytes, flops, peak):
 
 def _device_us(e) -> float:
     return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
+
+
+def device_kernel_counts(fn) -> dict:
+    """Run ``fn`` once under ``torch.profiler``: {device kernel or copy
+    name: launches}."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # warm up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages() if e.device_type != DeviceType.CPU and _device_us(e) > 0}
 
 
 def profile_breakdown(label: str, fn, rows: int = 15) -> None:
@@ -419,7 +435,8 @@ def phase_exact(gen, dev):
     """Kernel E (fused 4-bit matmul, fp32/fp16 activations, fp32 products)
     against its plain version, and at B=4 and 1024 kernel E and cuBLAS's
     fp32 product against a float64 product; timed with fp32 x and fp32 out
-    (and fp16 x at B=1024)."""
+    (and fp16 x); the decode kernel's block shape, K splits and device
+    launches per call."""
     import torch
 
     from nf4_tpu_torch.nf4.format import pad_to
@@ -443,9 +460,9 @@ def phase_exact(gen, dev):
                 err = max(err, e)
         return err
 
-    # The ragged rows of a prefill, checked only: b_pad 64, 320 and 704 (the
-    # last 128-row tile partly filled).
-    for b in (37, 300, 700):
+    # Checked only: decode rows 1, 8 and 16 (b_pad 16) and the ragged rows of
+    # a prefill, b_pad 64, 320 and 704 (the last 128-row tile partly filled).
+    for b in (1, 8, 16, 37, 300, 700):
         for name, (m, n, _) in LLAMA3_8B_PROJ.items():
             pw = random_packed(gen, m, n, dev)
             x = torch.zeros((pad_to(b, _pick_bm(b)), n), device=dev)
@@ -475,11 +492,8 @@ def phase_exact(gen, dev):
             check(e64 <= 4 * cub64, f"kernel E's float64 error {e64} > 4 x cuBLAS fp32's {cub64} at {name} B={b}")
             ws = [pw] + [random_packed(gen, m, n, dev) for _ in range(copies_for(pw.nbytes) - 1)]
             ms = time_ms([lambda w=w: _matmul_exact_kernel(x, w.packed, w.scales, torch.float32) for w in ws])
-            fp16_ms = None
-            if b > 16:
-                xh = x.half()
-                fp16_ms = time_ms([lambda w=w: _matmul_exact_kernel(xh, w.packed, w.scales, torch.float32)
-                                   for w in ws])
+            xh = x.half()
+            fp16_ms = time_ms([lambda w=w: _matmul_exact_kernel(xh, w.packed, w.scales, torch.float32) for w in ws])
             plain_ms = time_ms([lambda w=w: _matmul_exact_plain(x, w.packed, w.scales, torch.float32) for w in ws],
                                iters=3, graph=False)
             # Yardstick only (the port never calls it): torch.matmul on the
@@ -499,11 +513,27 @@ def phase_exact(gen, dev):
                                   ffma_bound_ms=ffma, max_abs_err=err, f64_err=e64, library_f64_err=cub64)
             print(f"phase 3e kernel E {name} B={b} m={m} n={n} fp32: max abs err {err:.2e} (fp16 x and out "
                   f"within 2e-3*max); against float64: kernel E {e64:.3e}, cuBLAS fp32 {cub64:.3e}; {ms:.4f} ms "
-                  f"({2 * b * m * n / ms / 1e9:.1f} TFLOP/s)"
-                  + (f", fp16 x {fp16_ms:.4f} ms" if fp16_ms else "")
-                  + f", plain {plain_ms:.4f} ms, torch.matmul on fp32 weight {lib:.4f} ms, bound {bnd:.4f} ms "
-                  f"(fp32 FFMA {ffma:.4f} ms)")
-    return res
+                  f"({2 * b * m * n / ms / 1e9:.1f} TFLOP/s), fp16 x {fp16_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"torch.matmul on fp32 weight {lib:.4f} ms, bound {bnd:.4f} ms (fp32 FFMA {ffma:.4f} ms)")
+    from nf4_tpu_torch.ops.matmul import _E_DECODE, _decode_ksplit, _decode_shape
+
+    splits = {name: _decode_ksplit(16, m, n // 64, dev, _E_DECODE) for name, (m, n, _) in LLAMA3_8B_PROJ.items()}
+    cols, blocks = _decode_shape(dev, _E_DECODE)
+    # Device launches of one decode call per projection (K split or not):
+    # the split sum is in the kernel, so one each.
+    calls = []
+    for name, (m, n, _) in LLAMA3_8B_PROJ.items():
+        pw = random_packed(gen, m, n, dev)
+        x = torch.zeros((16, n), device=dev)
+        x[:4] = torch.randn((4, n), generator=gen, device=dev)
+        calls.append(lambda x=x, pw=pw: _matmul_exact_kernel(x, pw.packed, pw.scales, torch.float32))
+    launched = device_kernel_counts(lambda: [c() for c in calls])
+    check(sum(launched.values()) == len(calls) and all("decode_kernel" in k for k in launched),
+          f"kernel E's decode: device launches {launched} for {len(calls)} calls")
+    print(f"phase 3e kernel E decode: blocks of {cols} columns, {blocks} per SM, K splits {splits}; "
+          f"device launches per call 1 ({sum(launched.values())} for {len(calls)} calls, no second pass)")
+    return res, dict(cols=cols, blocks_per_sm=blocks, ksplit=splits,
+                     device_launches_per_call=sum(launched.values()) / len(calls))
 
 
 def bnb_module(rng, m, n):
@@ -999,7 +1029,7 @@ def main() -> int:
     fast = phase_dequant(gen, dev, fast=True)
     mm = phase_matmul(gen, dev)
     mm8 = phase_matmul(gen, dev, int8=True)
-    ex = phase_exact(gen, dev)
+    ex, ex_decode = phase_exact(gen, dev)
     fl = phase_flash(gen, dev)
     fl8 = phase_flash(gen, dev, int8=True)
 
@@ -1072,7 +1102,10 @@ def main() -> int:
              max_abs_err=max(r["max_abs_err"] for r in ex.values()),
              **{k: sum(ex[(n, 1024)][k] for n in LLAMA3_8B_PROJ)
                 for k in ("ms", "plain_ms", "bound_ms", "library_ms", "ffma_bound_ms", "fp16_ms")},
-             bound_by="operations", decode_ms=sum(ex[(n, 4)]["ms"] for n in LLAMA3_8B_PROJ),
+             bound_by="operations",
+             **{f"decode_{k}": sum(ex[(n, 4)][k] for n in LLAMA3_8B_PROJ)
+                for k in ("ms", "fp16_ms", "bound_ms", "library_ms")},
+             decode_device_launches_per_call=ex_decode["device_launches_per_call"],
              f64_err=max(r["f64_err"] for r in ex.values()),
              library_f64_err=max(r["library_f64_err"] for r in ex.values())),
     ]
@@ -1081,7 +1114,7 @@ def main() -> int:
             json.dump(dict(card=card, dequant=deq, fast_dequant=fast,
                            matmul={f"{k[0]} B={k[1]}": v for k, v in mm.items()},
                            int8_matmul={f"{k[0]} B={k[1]}": v for k, v in mm8.items()},
-                           exact_matmul={f"{k[0]} B={k[1]}": v for k, v in ex.items()},
+                           exact_matmul={f"{k[0]} B={k[1]}": v for k, v in ex.items()}, exact_decode=ex_decode,
                            flash=fl, flash_int8=fl8, serving=serving, serving_int8=serving8,
                            training_bf16=train16, training_fp32=train32, kernels=kernels), f, indent=1)
     print(json.dumps({"kernels": kernels}))

@@ -2,6 +2,9 @@
 // weights) and D (int8_matmul.cu, int8 weights) share: y^T [m, 16] = W [m,
 // n] . x^T on mma.sync m16n8k16, the weights the A operand (16 output
 // columns x 16 K rows), x the B operand (two n8 tiles of batch rows).
+// Kernel E's decode kernel (matmul_exact.cu: 3xTF32 on m16n8k8) has a loop
+// of its own and shares this file's constants, column mapping and epilogue
+// (finish).
 //
 // What the two share, and what a kernel's Dec policy supplies:
 // * The mapping (free, as long as the epilogue undoes it): lane (g, t) =
@@ -99,6 +102,96 @@ __device__ __forceinline__ float4 add4(float4 a, float4 b) {
   return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
 }
 
+// The epilogue of the decode kernels (this file's and kernel E's,
+// matmul_exact.cu): acc, a warp's sums over its scale blocks in the mma's
+// C fragments, through shared memory (the kernel's dynamic shared memory,
+// once every warp is done with its ring) into the warp sums, the K-split
+// partials and out.  tid is the thread, nb and r0 the block's first column
+// and batch row.
+__device__ __forceinline__ void finish(const float (&acc)[MT][2][4], void* __restrict__ out,
+                                       float* __restrict__ work, int* __restrict__ counters, int tid, int nb,
+                                       int r0, int m_pad, int out_kind) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ int last;
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  hop::cp_async_wait<0>();
+  __syncthreads();  // every warp is done with its ring and the kernel's own shared memory
+
+  // acc[mt][nt] = y at batch rows 8nt + 2t (+1) of columns 16g + 2mt (+1):
+  // batch row b's 16 columns 16g .. 16g+15 as four float4s.
+  float* cs = reinterpret_cast<float*>(smem) + warp * ROWS * CS_LD;
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        *reinterpret_cast<float4*>(cs + (8 * nt + 2 * t + e) * CS_LD + 16 * g + 4 * q) =
+            make_float4(acc[2 * q][nt][e], acc[2 * q][nt][2 + e], acc[2 * q + 1][nt][e], acc[2 * q + 1][nt][2 + e]);
+  __syncthreads();
+
+  // The sums of the warps on the same columns added in warp order, four
+  // columns a thread at a time (columns at m_pad and beyond are not stored).
+  constexpr int PER = ROWS * COLS / 4 / THREADS;
+  const float* cs0 = reinterpret_cast<const float*>(smem);
+  float4 v[PER];
+  size_t pos[PER];
+  bool in[PER];
+#pragma unroll
+  for (int u = 0; u < PER; ++u) {
+    const int idx = tid + u * THREADS, r = idx / (COLS / 4), c = (idx % (COLS / 4)) * 4;
+    const float* src = cs0 + ((c / WCOLS) * ROWS + r) * CS_LD + c % WCOLS;  // warp c / WCOLS
+    v[u] = *reinterpret_cast<const float4*>(src);
+#pragma unroll
+    for (int k = 1; k < WK; ++k) v[u] = add4(v[u], *reinterpret_cast<const float4*>(src + k * WN * ROWS * CS_LD));
+    pos[u] = (size_t)(r0 + r) * m_pad + nb + c;
+    in[u] = nb + c < m_pad;
+  }
+  if (gridDim.z == 1) {
+#pragma unroll
+    for (int u = 0; u < PER; ++u)
+      if (in[u]) gemm::store_out(out, out_kind, pos[u], v[u]);
+    return;
+  }
+  const size_t stride = (size_t)gridDim.y * ROWS * m_pad;  // b_pad * m_pad
+#pragma unroll
+  for (int u = 0; u < PER; ++u)
+    if (in[u]) *reinterpret_cast<float4*>(work + blockIdx.z * stride + pos[u]) = v[u];
+  __threadfence();
+  __syncthreads();
+  int* counter = counters + blockIdx.y * gridDim.x + blockIdx.x;
+  if (tid == 0) last = atomicAdd(counter, 1) == (int)gridDim.z - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();  // the other splits' partials, read from L2
+  // The partials of LOADS splits are loaded together (one trip to L2 for
+  // LOADS splits) and added in split order; this split's own from registers.
+  constexpr int LOADS = 4;
+  const int ksplit = gridDim.z;
+  float4 sum[PER];
+  for (int z0 = 0; z0 < ksplit; z0 += LOADS) {
+    float4 part[LOADS][PER];
+#pragma unroll
+    for (int j = 0; j < LOADS; ++j)
+#pragma unroll
+      for (int u = 0; u < PER; ++u) {
+        const int z = z0 + j;
+        part[j][u] = z == (int)blockIdx.z || z >= ksplit || !in[u]
+                         ? v[u]
+                         : __ldcg(reinterpret_cast<const float4*>(work + z * stride + pos[u]));
+      }
+#pragma unroll
+    for (int j = 0; j < LOADS; ++j)
+#pragma unroll
+      for (int u = 0; u < PER; ++u)
+        if (z0 + j < ksplit) sum[u] = z0 + j == 0 ? part[j][u] : add4(sum[u], part[j][u]);
+  }
+#pragma unroll
+  for (int u = 0; u < PER; ++u)
+    if (in[u]) gemm::store_out(out, out_kind, pos[u], sum[u]);
+  if (tid == 0) *counter = 0;
+}
+
 // out_kind 0/1/2 = fp32/bf16/fp16.  gridDim.z > 1: split blockIdx.z of
 // the K range writes its fp32 partial to work + blockIdx.z * b_pad * m_pad,
 // and the split that comes last on its output tile's counter sums them
@@ -113,7 +206,6 @@ decode_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ w
   constexpr int SLOT_BYTES = slot_bytes<Dec>();  // one warp's scale block
   constexpr int RING_BYTES = ring_bytes<Dec>();
   extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ int last;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
   const int nb = blockIdx.x * COLS, r0 = blockIdx.y * ROWS;
   const int n0 = nb + (warp % WN) * WCOLS;                // this warp's first column
@@ -233,82 +325,7 @@ decode_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ w
       }
     }
   }
-  hop::cp_async_wait<0>();
-  __syncthreads();  // every warp is done with its ring and the Dec's shared memory
-
-  // acc[mt][nt] = y at batch rows 8nt + 2t (+1) of columns 16g + 2mt (+1):
-  // batch row b's 16 columns 16g .. 16g+15 as four float4s.
-  float* cs = reinterpret_cast<float*>(smem) + warp * ROWS * CS_LD;
-#pragma unroll
-  for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-    for (int e = 0; e < 2; ++e)
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        *reinterpret_cast<float4*>(cs + (8 * nt + 2 * t + e) * CS_LD + 16 * g + 4 * q) =
-            make_float4(acc[2 * q][nt][e], acc[2 * q][nt][2 + e], acc[2 * q + 1][nt][e], acc[2 * q + 1][nt][2 + e]);
-  __syncthreads();
-
-  // The sums of the warps on the same columns added in warp order, four
-  // columns a thread at a time (columns at m_pad and beyond are not stored).
-  constexpr int PER = ROWS * COLS / 4 / THREADS;
-  const float* cs0 = reinterpret_cast<const float*>(smem);
-  float4 v[PER];
-  size_t pos[PER];
-  bool in[PER];
-#pragma unroll
-  for (int u = 0; u < PER; ++u) {
-    const int idx = tid + u * THREADS, r = idx / (COLS / 4), c = (idx % (COLS / 4)) * 4;
-    const float* src = cs0 + ((c / WCOLS) * ROWS + r) * CS_LD + c % WCOLS;  // warp c / WCOLS
-    v[u] = *reinterpret_cast<const float4*>(src);
-#pragma unroll
-    for (int k = 1; k < WK; ++k) v[u] = add4(v[u], *reinterpret_cast<const float4*>(src + k * WN * ROWS * CS_LD));
-    pos[u] = (size_t)(r0 + r) * m_pad + nb + c;
-    in[u] = nb + c < m_pad;
-  }
-  if (gridDim.z == 1) {
-#pragma unroll
-    for (int u = 0; u < PER; ++u)
-      if (in[u]) gemm::store_out(out, out_kind, pos[u], v[u]);
-    return;
-  }
-  const size_t stride = (size_t)gridDim.y * ROWS * m_pad;  // b_pad * m_pad
-#pragma unroll
-  for (int u = 0; u < PER; ++u)
-    if (in[u]) *reinterpret_cast<float4*>(work + blockIdx.z * stride + pos[u]) = v[u];
-  __threadfence();
-  __syncthreads();
-  int* counter = counters + blockIdx.y * gridDim.x + blockIdx.x;
-  if (tid == 0) last = atomicAdd(counter, 1) == (int)gridDim.z - 1;
-  __syncthreads();
-  if (!last) return;
-  __threadfence();  // the other splits' partials, read from L2
-  // The partials of LOADS splits are loaded together (one trip to L2 for
-  // LOADS splits) and added in split order; this split's own from registers.
-  constexpr int LOADS = 4;
-  const int ksplit = gridDim.z;
-  float4 sum[PER];
-  for (int z0 = 0; z0 < ksplit; z0 += LOADS) {
-    float4 part[LOADS][PER];
-#pragma unroll
-    for (int j = 0; j < LOADS; ++j)
-#pragma unroll
-      for (int u = 0; u < PER; ++u) {
-        const int z = z0 + j;
-        part[j][u] = z == (int)blockIdx.z || z >= ksplit || !in[u]
-                         ? v[u]
-                         : __ldcg(reinterpret_cast<const float4*>(work + z * stride + pos[u]));
-      }
-#pragma unroll
-    for (int j = 0; j < LOADS; ++j)
-#pragma unroll
-      for (int u = 0; u < PER; ++u)
-        if (z0 + j < ksplit) sum[u] = z0 + j == 0 ? part[j][u] : add4(sum[u], part[j][u]);
-  }
-#pragma unroll
-  for (int u = 0; u < PER; ++u)
-    if (in[u]) gemm::store_out(out, out_kind, pos[u], sum[u]);
-  if (tid == 0) *counter = 0;
+  finish(acc, out, work, counters, tid, nb, r0, m_pad, out_kind);
 }
 
 template <class Dec>

@@ -1,9 +1,10 @@
 // Low-level Hopper (sm_90a) pieces shared by the redesigned kernels B, D
 // and E (the prefill dequant-GEMMs on wgmma, dequant_gemm.cuh) and C
-// (flash_attn.cu, register-resident attention on mma.sync): asynchronous
-// copies into shared memory (cp.async; TMA with mbarriers), the 128-byte XOR
-// swizzle, ldmatrix and mma.sync for bf16, the wgmma descriptors, fences and
-// products (bf16 and tf32), and the tf32 rounding.
+// (flash_attn.cu, register-resident attention on mma.sync), and the decode
+// kernels of B, D and E (mma.sync): asynchronous copies into shared memory
+// (cp.async; TMA with mbarriers), the 128-byte XOR swizzle, ldmatrix and
+// mma.sync for bf16 and tf32, the wgmma descriptors, fences and products
+// (bf16 and tf32), and the tf32 rounding.
 
 #pragma once
 
@@ -147,6 +148,19 @@ __device__ __forceinline__ void mma_bf16_16816(float (&c)[4], const uint32_t (&a
                                                uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// C[16 x 8] += A[16 x 8] . B[8 x 8], tf32 in (fp32 words whose low 13 bits
+// the tensor cores ignore), fp32 accumulators (one warp; the PTX fragment
+// layouts of mma.m16n8k8: a0 (row g, K slot t), a1 (g + 8, t), a2 (g, t +
+// 4), a3 (g + 8, t + 4); b0 (slot t, column g), b1 (t + 4, g); C as
+// m16n8k16's).
+__device__ __forceinline__ void mma_tf32_1688(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
       "{%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));

@@ -18,16 +18,38 @@
 // At B in the hundreds operations: 2*B*n*m fp32 flops.  The card's fp32
 // FFMA rate (67 TFLOP/s) bounds any SIMT kernel at 6.667 ms per Llama-3-8B
 // layer at B=1024, above cuBLAS's SGEMM (8.67 ms); only the tensor cores go
-// lower, and they have no full-fp32 mode.  Two kernels:
-// * Decode (bm = 16): a tiled SIMT GEMM.  One block of 256 threads per (128
-//   output columns, 16 rows, K split); each thread keeps a 2 x 4 tile of
-//   sums in registers and per K row reads 2 x values (one broadcast across
-//   the warp) and 4 weight values from shared memory.  Each K step (one
-//   64-row scale block = 32 packed rows) decodes 16 packed bytes a thread
-//   into rows 2j and 2j+1 of the W^T tile; the next step's x, bytes and
-//   scales load into registers while the current step multiplies.  K is
-//   split across blocks at step boundaries, each split writes an fp32
-//   partial, and gemm_common.cuh's second pass sums them in a fixed order.
+// lower, and they have no full-fp32 mode.  3xTF32 products on the tensor
+// cores hold the fp32 contract in both kernels:
+// * Decode (bm = 16): 3xTF32 on mma.sync m16n8k8 with the weights as the
+//   A operand, on kernel B's decode design (decode_mma.cuh: the column
+//   mapping, 4 warps on the same 128 columns over interleaved scale blocks,
+//   the warp vote that skips all-zero batch rows 8-15, and its epilogue,
+//   dm::finish, in which the split that finishes last sums the K-split
+//   partials in split order: one launch per product).  It is a kernel of
+//   its own (ed::decode_kernel), not a Dec of decode_mma.cuh's: its loop
+//   runs the m-tiles outside the K steps (below), its scales come through
+//   the ring and its x is split in registers, so B's and D's loop is left
+//   as it was.  In scale block kb lane (g, t) copies packed rows 32kb + 8t
+//   .. +7 at its 16 columns 16g .. 16g+15 (kernel B's pieces, by per-lane
+//   cp.async into a 4-stage ring) and a quarter of its group's 16 scales,
+//   and K step s = 0..7 takes packed row 8t + s: for m-tile mt the A
+//   elements a0/a2 are the low/high nibble (K rows 16t + 2s, +1: the mma's
+//   K slots t, t + 4) of the byte at column 16g + 2mt and a1/a3 those of
+//   column 16g + 2mt + 1.  So x's B operand is a contiguous fp32 pair of
+//   each batch row, and the C fragments are kernel B's.  Each A element is
+//   code[nibble] * scale in fp32 (kernel A's value; the 16 code values in
+//   shared memory, 16 banks) split into hi (tf32) and lo = v - hi (hi + lo
+//   is the value bit for bit; the tensor cores read lo's top 11
+//   significant bits, within 2^-21 of it).  A scale block is
+//   taken in two halves of 4 K steps: x (fp32 or fp16, from L2 one scale
+//   block ahead) is split into hi and lo once per half, and the m-tile
+//   loop runs outside the K-step loop, so a half block's products sum from
+//   0 in one 4-register fragment per n8 tile and are added to the running
+//   sums by round-to-nearest adds (the tensor cores truncate their
+//   accumulator), as the prefill's 32-row step sums.  Whole scale blocks
+//   held 64 split x values and their successors' 32 in registers, and
+//   spilled at 255.  Shared memory: a 4 x 4736-byte ring per warp and the
+//   code table, 75,840 bytes.
 // * Prefill (bm = 128, b_pad a multiple of 64): 3xTF32 on wgmma, the main
 //   loop of dequant_gemm.cuh (kernel B's: x by TMA into a 4-stage ring, the
 //   decode of step s+1 under the products of step s) in 128 x 128 blocks of
@@ -58,30 +80,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "decode_mma.cuh"
 #include "dequant_gemm.cuh"
 #include "gemm_common.cuh"
 #include "hopper.cuh"
 
 namespace {
 
-constexpr int BK = gemm::BK;      // 64 K rows per step: one scale block
+constexpr int BK = gemm::BK;      // 64 K rows: one scale block
 constexpr int BN = gemm::BN;      // 128 output columns per block
-constexpr int THREADS_E = 256;
-constexpr int BM_E = 16;          // rows of a decode block
-constexpr int TN = 4;             // columns per thread
-constexpr int TX = BN / TN;       // 32 threads across the columns (one warp)
-constexpr int TY = THREADS_E / TX;  // 8 warps down the rows
-constexpr int TM = BM_E / TY;     // 2 rows per thread
-
-// Shared memory of a decode block: the 16 code values, the K-major x tile
-// (rows padded by 4 so the transposing stores of one warp fall in distinct
-// banks) and the decoded W^T tile (37,952 bytes: no opt-in needed).
-constexpr int LDX = BM_E + 4;
-constexpr size_t SMEM_E = (16 + BK * LDX + BK * BN) * sizeof(float);
-
-__device__ __forceinline__ float4 load_x4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
 
 __device__ __forceinline__ float4 load_x4(const __half* p) {
   const uint2 u = *reinterpret_cast<const uint2*>(p);
@@ -90,122 +97,256 @@ __device__ __forceinline__ float4 load_x4(const __half* p) {
   return make_float4(a.x, a.y, b.x, b.y);
 }
 
-// The decode kernel.  out_kind 0/1/2 = fp32/bf16/fp16 written at out +
-// blockIdx.z * split_stride.
+// The decode kernel (bm = 16): decode_mma.cuh's mapping, warps and
+// epilogue (dm::finish) with 3xTF32 products on mma.sync m16n8k8.
+namespace ed {
+
+using dm::COLS, dm::MT, dm::ROWS, dm::THREADS, dm::WCOLS, dm::WK, dm::WN;
+
+constexpr int PIECES = 8;   // packed rows (16-byte pieces) a lane copies per scale block
+constexpr int STEPS = 4;    // K steps of 8 rows (one packed row of the lane's) per half scale block
+constexpr int STAGES = 4;   // scale blocks in a warp's ring
+constexpr bool BULK = false;  // each lane copies its own pieces (not the warp's rows by bulk copies)
+constexpr int SC_LD = 80;   // per lane: bytes from one lane group's 16 scales to the next's in a slot
+// A warp's slot (one scale block): its weight rows (per lane: piece r of
+// lane l at 512r + 16l; bulk copies: row k at ROW_LD k + 32 (k / PIECES), as
+// kernel D's), then its scales (per lane: group g's 16 at SC_LD g; bulk
+// copies: the 128 columns' in a row).  After the ring: the code table and
+// (bulk copies) one mbarrier per warp and stage.
+constexpr int PIECE_LD = BULK ? dm::ROW_LD : 512;  // from one of a lane's pieces to the next
+constexpr int SCALE_OFF = BULK ? dm::ROW_LD * 4 * PIECES + 32 * 3 : PIECES * 512;
+constexpr int SLOT_BYTES = SCALE_OFF + (BULK ? 4 * WCOLS : 8 * SC_LD);
+constexpr int RING_BYTES = dm::WARPS * STAGES * SLOT_BYTES;
+constexpr int USED_BYTES = RING_BYTES + 64 + (BULK ? dm::WARPS * STAGES * 8 : 0);
+constexpr int SMEM_BYTES = USED_BYTES > dm::STAGING_BYTES ? USED_BYTES : dm::STAGING_BYTES;
+
+// An A element: the nibble at bit sh of word (a constant once the caller's
+// loops are unrolled) through the code table at lut, times the column's
+// scale (kernel A's fp32 value v), split into hi, v with its 13 low bits
+// cleared (tf32), and lo = v - hi (exact: hi + lo is v bit for bit; the
+// tensor cores read lo's top 11 significant bits, within 2^-21 of v).  Three
+// instructions fewer per element than rounding both halves to nearest (the
+// prefill's split), 14% less time (utils/kernel_variants.py).
+__device__ __forceinline__ void weight(uint32_t& hi, uint32_t& lo, uint32_t word, int sh, float scale,
+                                       const unsigned char* lut) {
+  const uint32_t off = (sh >= 2 ? word >> (sh - 2) : word << (2 - sh)) & 0x3Cu;  // 4 x the nibble
+  const float v = __fmul_rn(*reinterpret_cast<const float*>(lut + off), scale);
+  hi = __float_as_uint(v) & 0xFFFFE000u;
+  lo = __float_as_uint(__fsub_rn(v, __uint_as_float(hi)));
+}
+
+// K step s's products for one n8 tile of batch rows, the small terms first:
+// x_lo . w_hi, x_hi . w_lo, x_hi . w_hi (fp16 x has no x_lo).  xh and xl
+// hold the tile row's 8 K rows of a half scale block; slots t and t + 4 are
+// its K rows 2s and 2s + 1.
+template <bool XLO>
+__device__ __forceinline__ void products(float (&f)[4], const uint32_t (&hi)[4], const uint32_t (&lo)[4],
+                                         const uint32_t (&xh)[2 * STEPS], const uint32_t (&xl)[2 * STEPS], int s) {
+  if constexpr (XLO) hop::mma_tf32_1688(f, hi, xl[2 * s], xl[2 * s + 1]);
+  hop::mma_tf32_1688(f, lo, xh[2 * s], xh[2 * s + 1]);
+  hop::mma_tf32_1688(f, hi, xh[2 * s], xh[2 * s + 1]);
+}
+
+// x fp32 or fp16 [b_pad, n_pad].  gridDim.z > 1: split blockIdx.z of the
+// K range writes its fp32 partial to work, and the split that comes last
+// sums them into out (dm::finish).
 template <typename XT>
-__global__ void __launch_bounds__(THREADS_E)
-nf4_matmul_exact_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ packed,
-                        const float* __restrict__ scales, const float* __restrict__ code,
-                        void* __restrict__ out, int n_pad, int m_pad, int kb_per_split,
-                        size_t split_stride, int out_kind) {
-  extern __shared__ __align__(16) float smem[];
-  float* lut = smem;              // the 16 fp32 code values
-  float* xs = smem + 16;          // x tile, K-major [BK][LDX]
-  float* ws = xs + BK * LDX;      // decoded W^T tile [BK][BN]
+__global__ void __launch_bounds__(THREADS)
+decode_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ packed, const float* __restrict__ scales,
+              const float* __restrict__ code, void* __restrict__ out, float* __restrict__ work,
+              int* __restrict__ counters, int n_pad, int m_pad, int kb_per_split, int out_kind) {
+  constexpr bool XLO = sizeof(XT) == 4;  // fp16 x is exact in tf32: no low half
+  constexpr int XH = sizeof(XT) / 2;     // 16-byte vectors of a batch row's 8 K values
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int n0 = blockIdx.x * COLS + (warp % WN) * WCOLS, r0 = blockIdx.y * ROWS;
+  const int kb0 = blockIdx.z * kb_per_split + warp / WN;
+  const int kb1 = min(n_pad / BK, (int)(blockIdx.z + 1) * kb_per_split);
+  const int cnt = n0 < m_pad && kb0 < kb1 ? (kb1 - kb0 + WK - 1) / WK : 0;
 
-  const int tid = threadIdx.x;
-  const int tx = tid % TX, ty = tid / TX;
-  const int n0 = blockIdx.x * BN;    // first output column
-  const int m0 = blockIdx.y * BM_E;  // first batch row
-  const int nkb = n_pad / BK;
-  const int kb0 = blockIdx.z * kb_per_split;
-  const int kb1 = min(nkb, kb0 + kb_per_split);
-
-  if (tid < 16) lut[tid] = code[tid];
-
-  // This thread's share of a K step: 4 x values (batch row r, K columns
-  // c..c+3; a warp's pieces run down 16 rows at two column groups), 16
-  // packed bytes (packed row prow, columns c0..c0+15) and those columns' 16
-  // scales.
-  const int prow = tid / 8;
-  const int c0 = (tid % 8) * 16;
-  const int xrow = tid % BM_E, xcol = (tid / BM_E) * 4;
-  float4 xr;
-  uint4 pr;
-  float4 sr[4];
-
-  auto load = [&](int kb) {
-    const int k0 = kb * BK;
-    xr = load_x4(x + (size_t)(m0 + xrow) * n_pad + k0 + xcol);
-    pr = *reinterpret_cast<const uint4*>(packed + (size_t)(k0 / 2 + prow) * m_pad + n0 + c0);
-    const float4* sp = reinterpret_cast<const float4*>(scales + (size_t)kb * m_pad + n0 + c0);
+  // This lane's sources in scale block kb: packed rows 32kb + 8t + r at
+  // columns n0 + 16g .. +15 and the scales of columns n0 + 16g + 4t .. +3
+  // (the four lanes of group g copy its 16, SC_LD bytes apart by group: no
+  // bank conflict on the reads); bulk copies: packed row 32kb + lane and
+  // (lane 0) the scales at columns n0 .. +127.  x rows r0 + g and r0 + 8 + g
+  // at K rows 64kb + 16t .. +15.
+  const uint8_t* pk = packed + (size_t)(BULK ? lane : PIECES * t) * m_pad + n0 + (BULK ? 0 : 16 * g);
+  const float* sc = scales + n0 + (BULK ? 0 : 16 * g + 4 * t);
+  const XT* xa = x + (size_t)(r0 + g) * n_pad + 16 * t;
+  const XT* xb = xa + (size_t)8 * n_pad;
+  const int warp_off = warp * STAGES * SLOT_BYTES;
+  const uint32_t ring = hop::smem_u32(smem) + warp_off;
+  // This lane's first piece in a slot and its group's scales.
+  const unsigned char* pieces = smem + warp_off + (BULK ? dm::ROW_LD * PIECES * t + 32 * t + 16 * g : 16 * lane);
+  const unsigned char* scale_row = smem + warp_off + SCALE_OFF + (BULK ? 64 * g : SC_LD * g);
+  const unsigned char* lut = smem + RING_BYTES;  // the 16 fp32 code values: 16 banks
+  const uint32_t bars = hop::smem_u32(smem + RING_BYTES + 64) + warp * STAGES * 8;
+  if constexpr (BULK) {
+    if (lane == 0) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) sr[i] = sp[i];
+      for (int st = 0; st < STAGES; ++st) hop::mbar_init(bars + st * 8, 1);
+      hop::fence_mbar_init();
+    }
+    __syncwarp();
+  }
+
+  auto issue = [&](int i) {
+    if (i < cnt) {
+      const int kb = kb0 + i * WK;
+      const uint8_t* src = pk + (size_t)kb * (4 * PIECES) * m_pad;
+      const uint32_t dst = ring + (i % STAGES) * SLOT_BYTES;
+      if constexpr (BULK) {
+        const uint32_t bar = bars + (i % STAGES) * 8;
+        __syncwarp();  // every lane is done reading the slot
+        if (lane == 0) {
+          hop::mbar_arrive_expect_tx(bar, (4 * PIECES + 4) * WCOLS);
+          hop::bulk_copy(dst + SCALE_OFF, sc + (size_t)kb * m_pad, 4 * WCOLS, bar);
+        }
+        hop::bulk_copy(dst + dm::ROW_LD * lane + 32 * (lane / PIECES), src, WCOLS, bar);
+      } else {
+#pragma unroll
+        for (int r = 0; r < PIECES; ++r) hop::cp_async16(dst + r * 512 + 16 * lane, src + (size_t)r * m_pad, true);
+        hop::cp_async16(dst + SCALE_OFF + SC_LD * g + 16 * t, sc + (size_t)kb * m_pad, true);
+      }
+    }
+    if constexpr (!BULK) hop::cp_async_commit();
+  };
+  // x one scale block ahead, by halves: xn[h] = K rows 64kb + 16t + 8h ..
+  // +7 of batch rows r0 + g (vectors 0 .. XH-1) and r0 + 8 + g (XH ..).
+  uint4 xn[2][2 * XH];
+  auto load_x = [&](int i, int h) {
+    if (i < cnt) {
+      const int kb = kb0 + i * WK;
+      const uint4* pa = reinterpret_cast<const uint4*>(xa + kb * BK) + h * XH;
+      const uint4* pb = reinterpret_cast<const uint4*>(xb + kb * BK) + h * XH;
+#pragma unroll
+      for (int q = 0; q < XH; ++q) xn[h][q] = __ldg(pa + q), xn[h][XH + q] = __ldg(pb + q);
+    }
   };
 
-  float acc[TM][TN];
+  float acc[MT][2][4];
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.0f;
 
-  if (kb0 < kb1) load(kb0);
-  __syncthreads();  // lut ready
+#pragma unroll
+  for (int i = 0; i < STAGES - 1; ++i) issue(i);
+  load_x(0, 0);
+  load_x(0, 1);
+  if (tid < 16) reinterpret_cast<float*>(smem + RING_BYTES)[tid] = __ldg(code + tid);
+  __syncthreads();  // the code table is in place
 
-  for (int kb = kb0; kb < kb1; ++kb) {
-    // Registers -> shared: x transposed to K-major, the packed bytes decoded
-    // (low nibble to W^T row 2*prow, high nibble to row 2*prow + 1).
-    xs[(xcol + 0) * LDX + xrow] = xr.x;
-    xs[(xcol + 1) * LDX + xrow] = xr.y;
-    xs[(xcol + 2) * LDX + xrow] = xr.z;
-    xs[(xcol + 3) * LDX + xrow] = xr.w;
-    {
-      const float* sf = reinterpret_cast<const float*>(sr);
-      const uint8_t* bytes = reinterpret_cast<const uint8_t*>(&pr);
-      float lo[16], hi[16];
+  for (int i = 0; i < cnt; ++i) {
+    if constexpr (BULK) {
+      hop::mbar_wait(bars + (i % STAGES) * 8, (i / STAGES) & 1);  // the warp's rows of step i
+    } else {
+      hop::cp_async_wait<STAGES - 2>();  // this lane's copies of step i have landed
+      __syncwarp();                      // and so have the other lanes' (a group's scales come from four)
+    }
+    // Batch rows 8-15 all zero in this scale block (decode batches of up to
+    // 8 rows): their n8 tile's products would add exact zeros, so they are
+    // skipped (the weights are finite).
+    uint32_t any = 0;
 #pragma unroll
-      for (int q = 0; q < 16; ++q) {
-        lo[q] = __fmul_rn(lut[bytes[q] & 0xF], sf[q]);
-        hi[q] = __fmul_rn(lut[bytes[q] >> 4], sf[q]);
-      }
-      float4* dlo = reinterpret_cast<float4*>(ws + (2 * prow) * BN + c0);
-      float4* dhi = reinterpret_cast<float4*>(ws + (2 * prow + 1) * BN + c0);
+    for (int h = 0; h < 2; ++h)
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        dlo[q] = make_float4(lo[4 * q], lo[4 * q + 1], lo[4 * q + 2], lo[4 * q + 3]);
-        dhi[q] = make_float4(hi[4 * q], hi[4 * q + 1], hi[4 * q + 2], hi[4 * q + 3]);
+      for (int q = XH; q < 2 * XH; ++q) any |= xn[h][q].x | xn[h][q].y | xn[h][q].z | xn[h][q].w;
+    const bool rows_hi = __any_sync(0xffffffffu, any != 0);
+    issue(i + STAGES - 1);  // into the slot step i - 1 read
+    const int slot = (i % STAGES) * SLOT_BYTES;
+    // Half h of the scale block: K steps 4h .. 4h+3.
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      // x as tf32 halves: xh[r][k] + xl[r][k] = batch row 8r + g, K row
+      // 64kb + 16t + 8h + k.
+      uint32_t xh[2][2 * STEPS], xl[2][2 * STEPS];
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int k = 0; k < 2 * STEPS; ++k) {
+          if constexpr (XLO) {
+            const float v = reinterpret_cast<const float*>(xn[h])[2 * STEPS * r + k];
+            xh[r][k] = hop::tf32_rna(v);
+            xl[r][k] = hop::tf32_rna(__fsub_rn(v, __uint_as_float(xh[r][k])));
+          } else {
+            xh[r][k] = __float_as_uint(__half2float(reinterpret_cast<const __half*>(xn[h])[2 * STEPS * r + k]));
+          }
+        }
+      load_x(i + 1, h);  // half a scale block's work to land
+      // m-tiles 2w and 2w + 1: columns 16g + 4w .. +3, word w of each piece.
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        const float4 s4 = *reinterpret_cast<const float4*>(scale_row + slot + 16 * w);
+        uint32_t pw[STEPS];
+#pragma unroll
+        for (int s = 0; s < STEPS; ++s)
+          pw[s] = *reinterpret_cast<const uint32_t*>(pieces + slot + PIECE_LD * (STEPS * h + s) + 4 * w);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int mt = 2 * w + e;
+          const float s0 = e ? s4.z : s4.x, s1 = e ? s4.w : s4.y;  // columns 16g + 2mt (A row g), + 1 (A row g + 8)
+          // The half block's products from 0, added to the sums below by
+          // round-to-nearest adds: the tensor cores truncate their
+          // accumulator.
+          float f[2][4] = {};
+#pragma unroll
+          for (int s = 0; s < STEPS; ++s) {
+            // Step 4h + s: packed row 8t + 4h + s, bytes 2e (A row g) and
+            // 2e + 1 (A row g + 8); low nibbles in K slot t, high ones in
+            // slot t + 4.
+            uint32_t hi[4], lo[4];
+            weight(hi[0], lo[0], pw[s], 16 * e, s0, lut);
+            weight(hi[1], lo[1], pw[s], 16 * e + 8, s1, lut);
+            weight(hi[2], lo[2], pw[s], 16 * e + 4, s0, lut);
+            weight(hi[3], lo[3], pw[s], 16 * e + 12, s1, lut);
+            products<XLO>(f[0], hi, lo, xh[0], xl[0], s);
+            if (rows_hi) products<XLO>(f[1], hi, lo, xh[1], xl[1], s);
+          }
+#pragma unroll
+          for (int k = 0; k < 4; ++k) acc[mt][0][k] += f[0][k];
+          if (rows_hi) {
+#pragma unroll
+            for (int k = 0; k < 4; ++k) acc[mt][1][k] += f[1][k];
+          }
+        }
       }
     }
-    __syncthreads();
-    if (kb + 1 < kb1) load(kb + 1);  // in flight during the products below
-
-#pragma unroll 8
-    for (int k = 0; k < BK; ++k) {
-      const float2 a = *reinterpret_cast<const float2*>(xs + k * LDX + ty * TM);
-      const float4 b = *reinterpret_cast<const float4*>(ws + k * BN + tx * TN);
-      const float av[TM] = {a.x, a.y};
-#pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        acc[i][0] = fmaf(av[i], b.x, acc[i][0]);
-        acc[i][1] = fmaf(av[i], b.y, acc[i][1]);
-        acc[i][2] = fmaf(av[i], b.z, acc[i][2]);
-        acc[i][3] = fmaf(av[i], b.w, acc[i][3]);
-      }
-    }
-    __syncthreads();
   }
-
-  // Epilogue straight from registers: each thread's TM rows of 4 columns, a
-  // warp's stores of one row contiguous.
-  void* dst = out_kind == 0 ? static_cast<void*>(static_cast<float*>(out) + blockIdx.z * split_stride) : out;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const size_t row = (size_t)(m0 + ty * TM + i);
-    gemm::store_out(dst, out_kind, row * m_pad + n0 + tx * TN,
-                    make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
-  }
+  dm::finish(acc, out, work, counters, tid, blockIdx.x * COLS, r0, m_pad, out_kind);
 }
 
 template <typename XT>
-void launch_decode(const void* x, const void* packed, const void* scales, const void* code, void* dst,
-                   int b_pad, int n_pad, int m_pad, int kb_per_split, int ksplit, size_t stride, int kind,
-                   cudaStream_t stream) {
-  dim3 grid(m_pad / BN, b_pad / BM_E, ksplit);
-  nf4_matmul_exact_kernel<XT><<<grid, THREADS_E, SMEM_E, stream>>>(
-      static_cast<const XT*>(x), static_cast<const uint8_t*>(packed),
-      static_cast<const float*>(scales), static_cast<const float*>(code), dst, n_pad, m_pad,
-      kb_per_split, stride, kind);
+cudaError_t opt_in() {
+  static hop::SmemOptIn opt_in;
+  return opt_in(reinterpret_cast<const void*>(&decode_kernel<XT>), SMEM_BYTES);
 }
+
+// One launch: b_pad a multiple of ROWS; ksplit > 1 needs work (fp32
+// [ksplit, b_pad, m_pad]) and counters (int32, one per output tile, zero).
+template <typename XT>
+int launch(const void* x, const void* packed, const void* scales, const void* code, void* out, float* work,
+           int* counters, int b_pad, int n_pad, int m_pad, int kb_per_split, int ksplit, int kind,
+           cudaStream_t stream) {
+  const cudaError_t err = opt_in<XT>();
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((m_pad + COLS - 1) / COLS, b_pad / ROWS, ksplit);
+  decode_kernel<XT><<<grid, THREADS, SMEM_BYTES, stream>>>(
+      static_cast<const XT*>(x), static_cast<const uint8_t*>(packed), static_cast<const float*>(scales),
+      static_cast<const float*>(code), out, work, counters, n_pad, m_pad, kb_per_split, kind);
+  return 0;
+}
+
+template <typename XT>
+int blocks_per_sm(int* blocks) {
+  const cudaError_t err = opt_in<XT>();
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, decode_kernel<XT>, THREADS, SMEM_BYTES);
+}
+
+}  // namespace ed
 
 // The pre-pass of the prefill kernel: x [n4 * 4] fp32 -> xs[0] = x_hi,
 // xs[1] = x_lo, each rounded to tf32; fp16 x -> xs[0] = float(x) (exact in
@@ -344,30 +485,40 @@ int launch_prefill(const void* x, const void* packed, const void* scales, const 
 // [n_pad/2, m_pad]; scales fp32 [n_pad/64, m_pad]; code fp32 [16]; out
 // [b_pad, m_pad] of out_kind (0 fp32, 1 bf16, 2 fp16).  bm is the rows of a
 // block: 16 takes the decode kernel (b_pad a multiple of 16, K split in
-// 64-row steps); 128 the prefill kernel (b_pad a multiple of 64, the ragged
-// last row tile masked, K split in 32-row steps), which needs xsplit fp32
-// [2, b_pad, n_pad] (fp16 x: [1, b_pad, n_pad]).  n_pad is a multiple of 64
-// and m_pad of 128; every pointer 16-byte aligned.  ksplit > 1 needs
-// workspace fp32 [ksplit, b_pad, m_pad].
+// 64-row scale blocks); 128 the prefill kernel (b_pad a multiple of 64, the
+// ragged last row tile masked, K split in 32-row steps), which needs xsplit
+// fp32 [2, b_pad, n_pad] (fp16 x: [1, b_pad, n_pad]).  n_pad is a multiple
+// of 64 and m_pad of 128; every pointer 16-byte aligned.  ksplit > 1 needs
+// workspace fp32 [ksplit, b_pad, m_pad]; the decode kernel then also needs
+// counters, int32 [ceil(m_pad / cols) * (b_pad / 16)] (cols:
+// nf4_matmul_exact_decode_shape), zero before the launch and zero again
+// after it (the prefill kernel ignores them and sums its partials in a
+// second pass).
 extern "C" int nf4_matmul_exact(const void* x, const void* packed, const void* scales,
                                 const void* code, void* out, void* workspace, int b_pad,
-                                int n_pad, int m_pad, int bm, int x_kind, void* xsplit, int ksplit,
-                                int out_kind, void* stream) {
+                                int n_pad, int m_pad, int bm, int x_kind, void* xsplit, void* counters,
+                                int ksplit, int out_kind, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool rows_ok = bm == 16 ? b_pad % 16 == 0 : bm == 128 && b_pad % 64 == 0 && xsplit != nullptr;
   if (!rows_ok || n_pad % BK || m_pad % BN || ksplit < 1 || (x_kind != 0 && x_kind != 2) || out_kind < 0 ||
-      out_kind > 2 || (ksplit > 1 && workspace == nullptr))
+      out_kind > 2 || (ksplit > 1 && (workspace == nullptr || (bm == 16 && counters == nullptr))))
     return (int)cudaErrorInvalidValue;
   const int steps = bm == 16 ? n_pad / BK : n_pad / Nf4Tf32<true>::KS;
   const int per = (steps + ksplit - 1) / ksplit;
+  float* work = static_cast<float*>(workspace);
+  int rc = 0;
+  if (bm == 16) {
+    int* ctr = static_cast<int*>(counters);
+    if (x_kind == 0)
+      rc = ed::launch<float>(x, packed, scales, code, out, work, ctr, b_pad, n_pad, m_pad, per, ksplit, out_kind, s);
+    else
+      rc = ed::launch<__half>(x, packed, scales, code, out, work, ctr, b_pad, n_pad, m_pad, per, ksplit, out_kind, s);
+    return rc ? rc : (int)cudaGetLastError();
+  }
   void* dst = ksplit > 1 ? workspace : out;
   const int kind = ksplit > 1 ? 0 : out_kind;
   const size_t stride = (size_t)b_pad * m_pad;
-  int rc = 0;
-  if (bm == 16) {
-    if (x_kind == 0) launch_decode<float>(x, packed, scales, code, dst, b_pad, n_pad, m_pad, per, ksplit, stride, kind, s);
-    else launch_decode<__half>(x, packed, scales, code, dst, b_pad, n_pad, m_pad, per, ksplit, stride, kind, s);
-  } else if (x_kind == 0) {
+  if (x_kind == 0) {
     rc = launch_prefill<true, float>(x, packed, scales, code, xsplit, dst, b_pad, n_pad, m_pad, per, ksplit,
                                      stride, kind, s);
   } else {
@@ -375,6 +526,18 @@ extern "C" int nf4_matmul_exact(const void* x, const void* packed, const void* s
                                        stride, kind, s);
   }
   if (rc) return rc;
-  if (ksplit > 1) gemm::splitk_reduce(static_cast<const float*>(workspace), out, ksplit, stride, out_kind, s);
+  if (ksplit > 1) gemm::splitk_reduce(work, out, ksplit, stride, out_kind, s);
   return (int)cudaGetLastError();
+}
+
+// The decode kernel's output columns per block and its resident blocks per
+// SM on the current device, the fewer of its fp32-x and fp16-x builds
+// (ops/matmul.py sizes its K split by them).
+extern "C" int nf4_matmul_exact_decode_shape(int* cols, int* blocks) {
+  *cols = ed::COLS;
+  int fp32_x = 0, fp16_x = 0;
+  int rc = ed::blocks_per_sm<float>(&fp32_x);
+  if (rc == 0) rc = ed::blocks_per_sm<__half>(&fp16_x);
+  *blocks = fp32_x < fp16_x ? fp32_x : fp16_x;
+  return rc;
 }

@@ -6,11 +6,12 @@ bf16 activations on a CUDA tensor run the hand-written kernel
 at decode, a pipelined wgmma dequant-GEMM at prefill): weight values ``bf16(bf16(code) *
 bf16(scale))``, a bf16 product with fp32 accumulation, within the 2e-2
 contract of the JAX package's bf16 path.  fp32 and fp16 activations run
-``csrc/matmul_exact.cu`` (kernel E: SIMT FFMA at decode, 3xTF32 on wgmma at
-prefill): the oracle's fp32 weight values and an fp32 product with fp32
-accumulation, the JAX package's exact path, within 1e-5 of the largest
-output.  On a CPU tensor the plain versions :func:`_matmul_bf16_plain` and
-:func:`_matmul_exact_plain` compute the same values.
+``csrc/matmul_exact.cu`` (kernel E: 3xTF32 on mma.sync with the weights as
+the A operand at decode, on wgmma at prefill): the oracle's fp32 weight
+values and an fp32 product with fp32 accumulation, the JAX package's exact
+path, within 1e-5 of the largest output.  On a CPU tensor the plain
+versions :func:`_matmul_bf16_plain` and :func:`_matmul_exact_plain` compute
+the same values.
 
 The backward is the JAX package's custom VJP (``_nf4_matmul_bwd``): the
 packed weight is frozen (the QLoRA contract), so only ``x`` gets a
@@ -41,7 +42,7 @@ _KERNEL = Kernel(
 )
 _EXACT_KERNEL = Kernel(
     "matmul_exact", "matmul_exact", "nf4_matmul_exact",
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p] + [ctypes.c_int] * 2,
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2,
 )
 _X_KIND = {torch.float32: 0, torch.float16: 2}
 
@@ -81,25 +82,18 @@ def _pick_bm(b: int) -> int:
     return 16 if b <= 16 else 64
 
 
-def _pick_ksplit(tiles: int, nkb: int, device) -> int:
-    """K splits so the (columns x rows) tiles times the splits give at least
-    two blocks per SM; 1 when the tiles alone do."""
-    want = 2 * torch.cuda.get_device_properties(device).multi_processor_count
-    if tiles >= want:
-        return 1
-    return _even_splits(nkb, min(nkb, -(-want // tiles)))
-
-
 def _even_splits(nkb: int, ksplit: int) -> int:
     per = -(-nkb // ksplit)
     return -(-nkb // per)  # no empty split
 
 
-# The decode kernel's blocks (kernels B and D, csrc/decode_mma.cuh): 16
-# batch rows each; their columns and occupancy come from the built library,
-# through its shape query: (source, C symbol).
+# The decode kernels' blocks (kernels B and D, csrc/decode_mma.cuh; kernel
+# E's, csrc/matmul_exact.cu): 16 batch rows each; their columns and
+# occupancy come from the built library, through its shape query: (source,
+# C symbol).
 _DECODE_ROWS = 16
 _B_DECODE = ("matmul", "nf4_matmul_bf16_decode_shape")
+_E_DECODE = ("matmul_exact", "nf4_matmul_exact_decode_shape")
 _DECODE_SHAPE: dict = {}
 _TILE_COUNTERS: dict = {}
 
@@ -135,8 +129,8 @@ def _decode_ksplit(b_pad: int, m_pad: int, nkb: int, device, query=_B_DECODE) ->
 
 
 def _tile_counters(device, tiles: int) -> torch.Tensor:
-    """The decode kernel's per-output-tile counters on ``device`` (kernels B
-    and D share them): int32, zeroed once when allocated; every launch
+    """The decode kernels' per-output-tile counters on ``device`` (kernels B,
+    D and E share them): int32, zeroed once when allocated; every launch
     leaves them at zero again, so no launch needs a memset (and a CUDA graph
     may capture it).  Launches that use them must not run concurrently on
     two streams."""
@@ -201,16 +195,13 @@ def _check_operands(label, x_pad, packed, scales, out_dtype) -> int:
     return bm
 
 
-def _launch(kernel, x_pad, packed, scales, out_dtype, bm, table_ptr, *mid, ksplit=None):
+def _launch(kernel, x_pad, packed, scales, out_dtype, bm, table_ptr, *mid, ksplit):
     """Allocate the output (and the K-split partials) and launch ``kernel``
     (C arguments: x, packed, scales, table, out, partials, b_pad, n_pad,
-    m_pad, bm, *mid, ksplit, out kind).  ``ksplit`` defaults to the split
-    for blocks of ``bm`` rows x 128 columns."""
+    m_pad, bm, *mid, ksplit, out kind)."""
     b_pad, n_pad = x_pad.shape
     m_pad = packed.shape[1]
     dev = x_pad.device
-    if ksplit is None:
-        ksplit = _pick_ksplit((m_pad // 128) * (b_pad // bm), n_pad // NF4_BLOCK, dev)
     out = torch.empty((b_pad, m_pad), dtype=out_dtype, device=dev)
     work = (
         torch.empty((ksplit, b_pad, m_pad), dtype=torch.float32, device=dev)
@@ -245,23 +236,26 @@ def _matmul_bf16_kernel(x_pad, packed, scales, out_dtype, quant_type="nf4", rows
 
 def _matmul_exact_kernel(x_pad, packed, scales, out_dtype, quant_type="nf4") -> torch.Tensor:
     """Launch kernel E on CUDA tensors: fp32 or fp16 x_pad, rows a multiple
-    of :func:`_pick_bm` (16: the SIMT decode kernel; 64: the 3xTF32 prefill
-    kernel, whose pre-pass splits x into the scratch allocated here)."""
+    of :func:`_pick_bm` (16: the decode kernel, which sums its K splits
+    itself; 64: the prefill kernel, whose pre-pass splits x into the
+    scratch allocated here)."""
     if x_pad.dtype not in _X_KIND or packed.dtype != torch.uint8 or scales.dtype != torch.float32:
         raise TypeError("kernel E takes fp32 or fp16 x, uint8 packed and fp32 scales")
     bm = _check_operands("kernel E", x_pad, packed, scales, out_dtype)
-    if x_pad.data_ptr() % 16:  # the kernels read x in 16- (fp16: 8-) byte pieces
+    if x_pad.data_ptr() % 16:  # the kernels read x in pieces of up to 16 bytes
         x_pad = x_pad.clone()
     code = code_tensor(quant_type, x_pad.device)
-    if bm == 16:
-        return _launch(_EXACT_KERNEL, x_pad, packed, scales, out_dtype, bm, code.data_ptr(),
-                       _X_KIND[x_pad.dtype], None)
     (b_pad, n_pad), m_pad = x_pad.shape, packed.shape[1]
+    if bm == _DECODE_ROWS:
+        ksplit = _decode_ksplit(b_pad, m_pad, n_pad // NF4_BLOCK, x_pad.device, _E_DECODE)
+        counters = _tile_counters(x_pad.device, _decode_tiles(b_pad, m_pad, x_pad.device, _E_DECODE)).data_ptr()
+        return _launch(_EXACT_KERNEL, x_pad, packed, scales, out_dtype, bm, code.data_ptr(),
+                       _X_KIND[x_pad.dtype], None, counters, ksplit=ksplit)
     halves = 2 if x_pad.dtype == torch.float32 else 1  # x_hi and x_lo; fp16 x is exact in tf32
     xsplit = torch.empty((halves, b_pad, n_pad), dtype=torch.float32, device=x_pad.device)
     ksplit = _wave_ksplit(-(-b_pad // _EXACT_ROWS) * (m_pad // 128), n_pad // _EXACT_KS, x_pad.device)
     return _launch(_EXACT_KERNEL, x_pad, packed, scales, out_dtype, _EXACT_ROWS, code.data_ptr(),
-                   _X_KIND[x_pad.dtype], xsplit.data_ptr(), ksplit=ksplit)
+                   _X_KIND[x_pad.dtype], xsplit.data_ptr(), None, ksplit=ksplit)
 
 
 def _nf4_matmul_impl(x: torch.Tensor, pw: PackedNF4, out_dtype) -> torch.Tensor:

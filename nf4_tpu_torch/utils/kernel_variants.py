@@ -13,7 +13,8 @@ nothing to compare.  Times are the mean device time of one launch, from the
 replay of a CUDA graph of 20 launches after a warm-up, at the shapes
 ``chip_smoke.py`` times: kernels B and D at Llama-3-8B's four projections
 (the layouts at 64 to 1024 rows; the variants of the decode kernel, with
-kernel B's and with kernel D's decode, at 4 rows, padded to 16; the
+kernel B's and with kernel D's decode, and of kernel E's decode kernel
+with fp32 x, at 4 rows, padded to 16; the
 variants of kernels B, D and E at w_gateup and w_down with 1024 rows),
 kernel C at B=1, H=32, KV=8, D=128, S=1024 (causal from position 0,
 and the last 1024 positions of an 8192-slot cache under a 4096-slot
@@ -137,6 +138,52 @@ INT8_DECODE_VARIANTS = [
     ("no products, copies of the first 4 scale blocks only", _NO_PRODUCTS + _FROM_L2, False),
     ("neither copies nor products", _BULK_NO_COPIES + _NO_PRODUCTS, False),
     ("per-lane cp.async, no products", _PER_LANE + _NO_PRODUCTS, False),
+]
+
+# Kernel E's decode kernel (csrc/matmul_exact.cu, namespace ed; fp32 x): its
+# ring filled by bulk copies of the warp's rows (kernel D's route), its
+# weights split as the prefill's (hi and lo both rounded to nearest: within
+# 2^-24 of the value, not 2^-21), 3 stages, registers capped for 3 blocks
+# per SM, the two small products summed in a fragment of their own (two
+# shorter chains of dependent products, 8 more registers); and, not the
+# same function, without the copies of the weights and scales, without
+# the decode and products (the copies alone), neither, and one product
+# (x_hi . w_hi) in place of three (w_lo then unused).
+_E_BULK = "constexpr bool BULK = false;  // each lane copies its own pieces (not the warp's rows by bulk copies)"
+_E_NO_COPIES = [(
+    "#pragma unroll\n        for (int r = 0; r < PIECES; ++r) hop::cp_async16(dst + r * 512 + 16 * lane, "
+    "src + (size_t)r * m_pad, true);\n"
+    "        hop::cp_async16(dst + SCALE_OFF + SC_LD * g + 16 * t, sc + (size_t)kb * m_pad, true);",
+    "        (void)src, (void)dst;")]
+_E_NO_PRODUCTS = [("      for (int w = 0; w < 4; ++w) {", "      for (int w = 0; w < 0; ++w) {")]
+EXACT_DECODE_VARIANTS = [
+    ("as is", [], True),
+    ("bulk copies (kernel D's ring)", [(_E_BULK, _E_BULK.replace("BULK = false", "BULK = true"))], True),
+    ("hi and lo rounded to nearest", [
+        ("  hi = __float_as_uint(v) & 0xFFFFE000u;\n  lo = __float_as_uint(__fsub_rn(v, __uint_as_float(hi)));",
+         "  hi = (__float_as_uint(v) + 0x1000u) & 0xFFFFE000u;\n"
+         "  lo = (__float_as_uint(__fsub_rn(v, __uint_as_float(hi))) + 0x1000u) & 0xFFFFE000u;")], True),
+    ("3 stages", [("constexpr int STAGES = 4;   // scale blocks in a warp's ring",
+                   "constexpr int STAGES = 3;   // scale blocks in a warp's ring")], True),
+    ("3 blocks per SM (at most 168 registers)", [
+        ("__global__ void __launch_bounds__(THREADS)\ndecode_kernel(const XT*",
+         "__global__ void __launch_bounds__(THREADS, 3)\ndecode_kernel(const XT*")], True),
+    ("small products in a fragment of their own", [
+        ("void products(float (&f)[4], const uint32_t (&hi)[4]",
+         "void products(float (&f)[4], float (&fs)[4], const uint32_t (&hi)[4]"),
+        ("  if constexpr (XLO) hop::mma_tf32_1688(f, hi, xl[2 * s], xl[2 * s + 1]);\n  hop::mma_tf32_1688(f, lo,",
+         "  if constexpr (XLO) hop::mma_tf32_1688(fs, hi, xl[2 * s], xl[2 * s + 1]);\n  hop::mma_tf32_1688(fs, lo,"),
+        ("products<XLO>(f[0], hi,", "products<XLO>(f[0], fs[0], hi,"),
+        ("products<XLO>(f[1], hi,", "products<XLO>(f[1], fs[1], hi,"),
+        ("          float f[2][4] = {};", "          float f[2][4] = {}, fs[2][4] = {};"),
+        ("acc[mt][0][k] += f[0][k];", "acc[mt][0][k] += fs[0][k] + f[0][k];"),
+        ("acc[mt][1][k] += f[1][k];", "acc[mt][1][k] += fs[1][k] + f[1][k];")], True),
+    ("no copies of the weights and scales", _E_NO_COPIES, False),
+    ("no decode or products (the copies alone)", _E_NO_PRODUCTS, False),
+    ("neither copies nor products", _E_NO_COPIES + _E_NO_PRODUCTS, False),
+    ("one product (x_hi . w_hi), not three", [
+        ("  if constexpr (XLO) hop::mma_tf32_1688(f, hi, xl[2 * s], xl[2 * s + 1]);\n"
+         "  hop::mma_tf32_1688(f, lo, xh[2 * s], xh[2 * s + 1]);\n", "")], False),
 ]
 
 # Kernels D and E on the same main loop.
@@ -318,31 +365,39 @@ def layouts() -> None:
 
 
 def decode(out_dir) -> None:
-    """The variants of the decode kernel with kernel B's and kernel D's Dec:
-    one layer's four projections at 4 rows (b_pad 16), each variant with the
-    K split its own occupancy gives."""
+    """The variants of the decode kernel with kernel B's and kernel D's Dec,
+    and of kernel E's decode kernel (fp32 x): one layer's four projections
+    at 4 rows (b_pad 16), each variant with the K split its own occupancy
+    gives."""
     from ..ops.int8_serve import _D_DECODE, _int8_matmul_kernel
-    from ..ops.matmul import _B_DECODE, _decode_ksplit, _decode_shape, _matmul_bf16_kernel
+    from ..ops.matmul import (
+        _B_DECODE, _E_DECODE, _decode_ksplit, _decode_shape, _matmul_bf16_kernel, _matmul_exact_kernel,
+    )
 
     dev = torch.device("cuda")
-    for label, source, variants, kern, query, int8 in (
-        ("B", "matmul", DECODE_VARIANTS, _matmul_bf16_kernel, _B_DECODE, False),
-        ("D", "int8_matmul", INT8_DECODE_VARIANTS, _int8_matmul_kernel, _D_DECODE, True),
+    for label, source, variants, kern, query, int8, xdt in (
+        ("B", "matmul", DECODE_VARIANTS, _matmul_bf16_kernel, _B_DECODE, False, torch.bfloat16),
+        ("D", "int8_matmul", INT8_DECODE_VARIANTS, _int8_matmul_kernel, _D_DECODE, True, torch.bfloat16),
+        ("E", "matmul_exact", EXACT_DECODE_VARIANTS, _matmul_exact_kernel, _E_DECODE, False, torch.float32),
     ):
         logs = {}
         libs = _build(source, variants, out_dir, logs, tag="_decode")
-        for name, err in logs.items():  # the decode kernel's entry is followed by its register count
+        for name, err in logs.items():  # each decode kernel's entry is followed by its register count
             lines = err.splitlines()
-            at = next((i for i, line in enumerate(lines) if "decode_kernel" in line and "Compiling" in line), None)
-            used = [line.split(":", 1)[-1].strip() for line in lines[at + 1:at + 4]
-                    if "registers" in line or "spill" in line] if at is not None else []
-            print(f"  kernel {label} {name}: ptxas {'; '.join(used) or 'no decode kernel found'}", flush=True)
+            found = []
+            for at, line in enumerate(lines):
+                if "decode_kernel" in line and "Compiling" in line:
+                    kind = "fp16 x" if "__half" in line else "fp32 x" if "decode_kernelIfE" in line else "decode kernel"
+                    used = [u.split(":", 1)[-1].strip() for u in lines[at + 1:at + 4]
+                            if "registers" in u or "spill" in u]
+                    found.append(f"{kind}: {'; '.join(used)}")
+            print(f"  kernel {label} {name}: ptxas {' | '.join(found) or 'no decode kernel found'}", flush=True)
         gen = torch.Generator(device=dev).manual_seed(0)
         ws = _weights(gen, dev, int8)
         x = {}
         for proj, (_, n, _) in _PROJ.items():
-            x[proj] = torch.zeros((16, n), device=dev, dtype=torch.bfloat16)
-            x[proj][:4] = torch.randn((4, n), generator=gen, device=dev).to(torch.bfloat16)
+            x[proj] = torch.zeros((16, n), device=dev, dtype=xdt)
+            x[proj][:4] = torch.randn((4, n), generator=gen, device=dev).to(xdt)
 
         def run(name, source=source, libs=libs, kern=kern, query=query, label=label, ws=ws, x=x):
             with _library(source, libs[name]):

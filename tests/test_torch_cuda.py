@@ -8,7 +8,8 @@ a machine with an H100 (sm_90a) and the CUDA toolkit:
 Kernels A and F must be bit-exact (and so must kernel D's prefill weight
 values); kernels B, C (bf16 and int8 KV) and D within 2e-2 (bf16 products summed in another order than the plain
 version's); kernel E (fp32 products) within 1e-5 of the largest value for
-fp32 out, within one rounding for fp16 (2e-3) and bf16 (8e-3) out; the
+fp32 out, within one rounding for fp16 (2e-3) and bf16 (8e-3) out, its
+decode kernel's weights w_hi + w_lo bit for bit; the
 ``nf4_matmul`` backward within 1e-5 of the largest value, under every
 ``torch.set_float32_matmul_precision`` setting.
 """
@@ -416,16 +417,16 @@ def test_flash_kernel_int8_kv_close(dev, window, pos0, g, d):
 _EXACT_LIMIT = {torch.float32: 1e-5, torch.float16: 2e-3, torch.bfloat16: 8e-3}
 
 
-@pytest.mark.parametrize("b", [1, 4, 37, 64, 200, 320, 704])
+@pytest.mark.parametrize("b", [1, 4, 8, 9, 16, 37, 64, 200, 320, 704])
 @pytest.mark.parametrize(
     "xdt,out_dtype",
     [(torch.float32, torch.float32), (torch.float32, torch.bfloat16), (torch.float16, torch.float16),
      (torch.float16, torch.float32)],
 )
 def test_exact_matmul_kernel_close(dev, b, xdt, out_dtype):
-    """Kernel E's decode kernel (b_pad 16) and its 3xTF32 prefill kernel
-    (b_pad 64, 256, 320, 704: 128-row blocks, a ragged last tile at 320 and
-    704), fp32 and fp16 x."""
+    """Kernel E's decode kernel (b_pad 16: rows 8-15 zero up to b = 8) and
+    its 3xTF32 prefill kernel (b_pad 64, 256, 320, 704: 128-row blocks, a
+    ragged last tile at 320 and 704), fp32 and fp16 x."""
     from nf4_tpu_torch.ops.matmul import _matmul_exact_kernel, _matmul_exact_plain, _pick_bm
 
     gen = torch.Generator(device=dev).manual_seed(6)
@@ -455,6 +456,100 @@ def test_exact_matmul_prefill_weight_values(dev):
     want = _dequant_t_plain(pw.packed, pw.scales, torch.float32)
     torch.cuda.synchronize()
     assert ((got - want).abs() <= want.abs() * 2.0**-21).all()
+
+
+def _tf32_sum(w):
+    """w_hi + w_lo of fp32 values as kernel E's decode kernel splits its
+    weights and the tensor cores read them: hi = w with its 13 low bits
+    cleared, lo = w - hi with its 13 low bits dropped."""
+    hi = (w.view(torch.int32) & ~0x1FFF).view(torch.float32)
+    return hi + ((w - hi).view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+@pytest.mark.parametrize("xdt", [torch.float16, torch.float32])
+@pytest.mark.parametrize("quant_type", ["nf4", "fp4"])
+def test_exact_matmul_decode_weight_values(dev, xdt, quant_type):
+    """One-hot rows of x read single K rows of W^T through kernel E's decode
+    kernel, at every K row of a 64-row scale block: fp32 out is w_hi + w_lo
+    of ``_dequant_t_plain``'s values as the tensor cores read them, bit for
+    bit (within 2^-21 of the values)."""
+    from nf4_tpu_torch.ops.dequant import _dequant_t_plain
+    from nf4_tpu_torch.ops.matmul import _matmul_exact_kernel
+
+    gen = torch.Generator(device=dev).manual_seed(19)
+    pw = _packed(gen, 640, 3072, dev, quant_type)
+    wt = _dequant_t_plain(pw.packed, pw.scales, torch.float32, quant_type)
+    want = _tf32_sum(wt)
+    assert ((want - wt).abs() <= wt.abs() * 2.0**-21).all()
+    for k0 in range(0, 64, 16):
+        rows = torch.arange(16, device=dev) + k0 + 64 * 5
+        x = torch.zeros((16, 3072), device=dev, dtype=xdt)
+        x[torch.arange(16, device=dev), rows] = 1.0
+        got = _matmul_exact_kernel(x, pw.packed, pw.scales, torch.float32, quant_type)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want[rows])
+
+
+def _exact_decode_case(gen, dev, m, n, b=4, xdt=torch.float32):
+    pw = _packed(gen, m, n, dev)
+    x = torch.zeros((16, pw.padded_shape[1]), device=dev, dtype=xdt)
+    x[:b, :n] = torch.randn((b, n), generator=gen, device=dev).to(xdt)
+    return x, pw
+
+
+def test_exact_matmul_decode_deterministic(dev):
+    """Two launches of kernel E's decode kernel, K split across blocks, give
+    the same bits (the splits are summed in split order)."""
+    from nf4_tpu_torch.ops.matmul import _matmul_exact_kernel
+
+    gen = torch.Generator(device=dev).manual_seed(20)
+    x, pw = _exact_decode_case(gen, dev, 1536, 14336)
+    a = _matmul_exact_kernel(x, pw.packed, pw.scales, torch.float32)
+    b = _matmul_exact_kernel(x, pw.packed, pw.scales, torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def test_exact_matmul_decode_split_needs_counters(dev):
+    """Kernel E's decode kernel sums its K splits itself: a split launch
+    without the tile counters is refused, and so counted as no launch."""
+    from nf4_tpu_torch.ops.lut_eval import code_tensor
+    from nf4_tpu_torch.ops.matmul import _EXACT_KERNEL, _X_KIND, _launch
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    x, pw = _exact_decode_case(gen, dev, 1536, 4096)
+    code = code_tensor("nf4", dev)
+    before = _EXACT_KERNEL.launches
+    with pytest.raises(RuntimeError, match=r"error 1$"):
+        _launch(_EXACT_KERNEL, x, pw.packed, pw.scales, torch.float32, 16, code.data_ptr(), _X_KIND[x.dtype],
+                None, None, ksplit=4)
+    assert _EXACT_KERNEL.launches == before
+
+
+def test_exact_matmul_decode_in_cuda_graph(dev):
+    """Three launches of kernel E's decode kernel (two with K split across
+    blocks; fp32 and fp16 x) captured in one CUDA graph and replayed twice
+    equal the eager launches: every launch leaves the tile counters at
+    zero."""
+    from nf4_tpu_torch.ops.matmul import _matmul_exact_kernel
+
+    gen = torch.Generator(device=dev).manual_seed(22)
+    cases = [(_exact_decode_case(gen, dev, m, n, xdt=xdt), od) for m, n, xdt, od in
+             ((1536, 4096, torch.float32, torch.bfloat16), (28672, 4096, torch.float16, torch.float32),
+              (4096, 14336, torch.float32, torch.float16))]
+    calls = [lambda x=x, pw=pw, od=od: _matmul_exact_kernel(x, pw.packed, pw.scales, od) for (x, pw), od in cases]
+    eager = [c() for c in calls]
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [c() for c in calls]
+    for _ in range(2):
+        for o in outs:
+            o.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for o, want in zip(outs, eager):
+            assert torch.equal(o, want)
 
 
 @pytest.mark.parametrize("precision", ["highest", "high"])

@@ -290,3 +290,167 @@ def test_decode_ksplit(monkeypatch, blocks_per_sm, m_pad, nkb, want):
     ksplit = tm._decode_ksplit(16, m_pad, nkb, "cuda")
     per = -(-nkb // ksplit)
     assert ksplit == want and (ksplit - 1) * per < nkb
+
+
+# Kernel E's decode kernel (csrc/matmul_exact.cu, namespace ed): kernel B's
+# column mapping and warps, 3xTF32 on mma.sync m16n8k8, K step s of a scale
+# block = packed row 8t + s of lane t.
+def _exact_decode_registers(packed, scales, quant_type):
+    """The A registers of kernel E's decode kernel as tf32 halves (fp32
+    words), indexed [column tile, scale block kb, word w, half e, K step s,
+    lane group g, lane t, register i], rebuilt as the kernel builds them:
+    word w of the 16-byte piece of packed row 32kb + 8t + s at columns
+    128ct + 16g .. +15 (m-tiles 2w + e); register i takes the nibble at bit
+    16e + (0, 8, 4, 12)[i] through the fp32 code table, times the scale of
+    its column (byte 2e for a0/a2, 2e + 1 for a1/a3) in fp32, split into
+    hi = v with its 13 low bits cleared and lo = v - hi.  Also returns each
+    register's K row and column."""
+    from nf4_tpu_torch.ops.lut_eval import code_tensor
+
+    khalf, m_pad = packed.shape
+    ct, kb, w, e, s, g, t, i = torch.meshgrid(
+        *(torch.arange(k) for k in (m_pad // 128, khalf // 32, 4, 2, 8, 8, 4, 4)), indexing="ij")
+    row = 32 * kb + 8 * t + s
+    c0 = 128 * ct + 16 * g + 4 * w  # the word's first column
+    word = sum(packed[row, c0 + j].long() << (8 * j) for j in range(4))
+    sh = 16 * e + torch.tensor([0, 8, 4, 12])[i]
+    nib = (word >> sh) & 0xF
+    col = c0 + 2 * e + i % 2
+    v = code_tensor(quant_type, "cpu")[nib] * scales[kb, col]
+    hi = _tf32_trunc(v)
+    return hi, v - hi, 2 * row + i // 2, col
+
+
+def _tf32_trunc(t: torch.Tensor) -> torch.Tensor:
+    """t as the tensor cores read it in tf32: its 13 low bits cleared."""
+    return (t.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _emulate_exact_decode(x_pad, packed, scales, quant_type, ksplit):
+    """y [16, m_pad] as kernel E's decode kernel computes it: per column
+    tile, scale block and m-tile the products of its 8 K steps (A [16 rows x
+    8 slots]: rows g, g + 8 from registers i % 2, slots t, t + 4 from i //
+    2, w_lo as the tensor cores read it; x's B [8 slots x 16 batch rows]:
+    slot t + 4h = K row 64kb + 16t + 2s + h, x split by rna), x_lo.w_hi +
+    x_hi.w_lo + x_hi.w_hi (fp16 x: no x_lo), summed from
+    0 per half scale block (steps 0-3, 4-7); those sums added per warp over
+    its scale blocks, the warps in order, the splits in order; then the
+    epilogue's column mapping."""
+    hi, lo, _, _ = _exact_decode_registers(packed, scales, quant_type)
+    n_ct, nkb = hi.shape[:2]
+
+    def a_tiles(r):  # [ct, kb, w, e, s, g, t, i] -> [ct, kb, mt, s, A row (i % 2) g, slot (i // 2) t]
+        r = r.reshape(n_ct, nkb, 4, 2, 8, 8, 4, 2, 2)  # i = 2 (i // 2) + i % 2
+        return r.permute(0, 1, 2, 3, 4, 8, 5, 7, 6).reshape(n_ct, nkb, 8, 8, 16, 8)
+
+    ah, al = a_tiles(hi), a_tiles(_tf32_trunc(lo))
+    xf = x_pad.float()
+    xh, xl = _tf32_split(xf)  # x by cvt.rna
+    kb, s, h, t = torch.meshgrid(*(torch.arange(k) for k in (nkb, 8, 2, 4)), indexing="ij")
+    krow = (64 * kb + 16 * t + 2 * s + h).reshape(nkb, 8, 8)  # [kb, s, slot t + 4h]
+    bh = xh[:, krow].permute(1, 2, 3, 0)[None, :, None]  # [1, kb, 1, s, slot, batch row]
+    bl = xl[:, krow].permute(1, 2, 3, 0)[None, :, None]
+    steps = ah @ bl + al @ bh + ah @ bh if x_pad.dtype == torch.float32 else al @ bh + ah @ bh
+    # [ct, kb, mt, half, 16 A rows, 16 batch rows]: each half block (4 K steps) from 0
+    prod = steps.reshape(n_ct, nkb, 8, 2, 4, 16, 16).sum(dim=4)
+    per = -(-nkb // ksplit)
+    c = None
+    for z in range(ksplit):
+        lo_kb, hi_kb = z * per, min(nkb, (z + 1) * per)
+        part = None
+        for wp in range(_DK_WARPS):
+            wsum = torch.zeros_like(prod[:, 0, :, 0])
+            for k in range(lo_kb + wp, hi_kb, _DK_WARPS):
+                wsum = wsum + prod[:, k, :, 0] + prod[:, k, :, 1]
+            part = wsum if part is None else part + wsum
+        c = part if c is None else c + part
+    y = torch.full((16, n_ct * 128), float("nan"))
+    for g in range(8):
+        for t in range(4):
+            for mt in range(8):
+                for nt in range(2):
+                    for i in range(4):  # C row g + 8(i // 2) = column 16g + 2mt + i // 2; batch row 8nt + 2t + i % 2
+                        y[8 * nt + 2 * t + i % 2, torch.arange(n_ct) * 128 + 16 * g + 2 * mt + i // 2] = \
+                            c[:, mt, g + 8 * (i // 2), 8 * nt + 2 * t + i % 2]
+    return y
+
+
+@pytest.mark.parametrize("shape,ksplit", _DECODE_CASES)
+@pytest.mark.parametrize("quant_type", ["nf4", "fp4"])
+def test_exact_decode_registers_are_the_plain_weights(rng, shape, ksplit, quant_type):
+    """Every A register of kernel E's decode kernel lands on a distinct (K
+    row, column) of W^T, and its hi + lo is ``_dequant_t_plain``'s fp32
+    value (bit for bit but the sign of a zero), with the 13 low bits of hi
+    zero; hi and lo as the
+    tensor cores read them (lo's 13 low bits dropped) are within 2^-21 of
+    the value."""
+    from nf4_tpu_torch.ops.dequant import _dequant_t_plain
+
+    _, pt = _pair(rng, shape, quant_type=quant_type)
+    hi, lo, krow, col = _exact_decode_registers(pt.packed, pt.scales, quant_type)
+    want = _dequant_t_plain(pt.packed, pt.scales, torch.float32, quant_type)
+    hits = torch.zeros(want.shape, dtype=torch.int32).index_put_((krow.ravel(), col.ravel()),
+                                                                 torch.ones(krow.numel(), dtype=torch.int32),
+                                                                 accumulate=True)
+    assert (hits == 1).all()
+    got_hi = torch.zeros_like(want).index_put_((krow.ravel(), col.ravel()), hi.ravel())
+    got_lo = torch.zeros_like(want).index_put_((krow.ravel(), col.ravel()), lo.ravel())
+    assert torch.equal(got_hi + got_lo, want)  # bit for bit but the sign of zero
+    assert not (got_hi.view(torch.int32) & 0x1FFF).any()
+    assert ((got_hi + _tf32_trunc(got_lo) - want).abs() <= want.abs() * 2.0**-21).all()
+
+
+@pytest.mark.parametrize("b", [1, 4, 16])
+@pytest.mark.parametrize("xdt", ["fp32", "fp16"])
+@pytest.mark.parametrize("shape,ksplit", _DECODE_CASES)
+def test_exact_decode_emulation_matches(rng, b, xdt, shape, ksplit):
+    """Kernel E's decode kernel, emulated, against nf4_tpu's fp32 matmul on
+    the same inputs within 1e-5 of the largest output (uneven K splits and
+    warp shares at (640, 1024) in 3 splits; padded columns at m = 100)."""
+    pj, pt = _pair(rng, shape)
+    m, n = shape
+    n_pad = pt.padded_shape[1]
+    jdt, tdt = (jnp.float32, torch.float32) if xdt == "fp32" else (jnp.float16, torch.float16)
+    x = rng.standard_normal((b, n)).astype(np.float32)
+    want = np.asarray(nf4_tpu.nf4_matmul(jnp.asarray(x, jdt), pj, out_dtype=jnp.float32), np.float32)
+    x_pad = torch.nn.functional.pad(torch.from_numpy(x).to(tdt), (0, n_pad - n, 0, 16 - b))
+    y = _emulate_exact_decode(x_pad, pt.packed, pt.scales, "nf4", ksplit)
+    assert not y.isnan().any() and not y[b:].any() and not y[:, m:].any()
+    assert np.abs(y[:b, :m].numpy() - want).max() <= 1e-5 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("xdt", [torch.float32, torch.float16])
+def test_exact_decode_dispatch(monkeypatch, xdt):
+    """Kernel E's wrapper sends decode rows (b_pad 16) to its decode kernel
+    with the K split its own shape query allows (one wave of 2 resident
+    blocks per SM on a 132-SM card) and the tile counters, for Llama-3-8B's
+    four projections; prefill rows get no counters."""
+    import types
+
+    from nf4_tpu_torch.ops import matmul as tm
+
+    queries = set()
+
+    def shape(dev, query=tm._B_DECODE):
+        queries.add(query)
+        return 128, 2
+
+    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda dev: types.SimpleNamespace(multi_processor_count=132))
+    monkeypatch.setattr(tm, "_decode_shape", shape)
+    monkeypatch.setattr(tm, "_tile_counters", lambda dev, tiles: torch.zeros(tiles, dtype=torch.int32))
+    launched = []
+    monkeypatch.setattr(tm, "_EXACT_KERNEL", lambda *args: launched.append(args))
+    want = {"wqkv": (6144, 4096, 5), "wo": (4096, 4096, 8), "w_gateup": (28672, 4096, 1), "w_down": (4096, 14336, 8)}
+    for name, (m, n, splits) in want.items():
+        packed = torch.empty((n // 2, m), dtype=torch.uint8)
+        scales = torch.empty((n // 64, m), dtype=torch.float32)
+        tm._matmul_exact_kernel(torch.empty((16, n), dtype=xdt), packed, scales, torch.float32)
+        *_, bm, x_kind, xsplit, counters, ksplit, _ = launched[-1]
+        per = -(-(n // 64) // ksplit)
+        assert (bm, x_kind, xsplit, ksplit) == (16, tm._X_KIND[xdt], None, splits), name
+        assert counters is not None and (ksplit - 1) * per < n // 64, name
+    assert queries == {tm._E_DECODE}
+    tm._matmul_exact_kernel(torch.empty((64, 4096), dtype=xdt), packed[:2048, :4096].contiguous(),
+                            scales[:64, :4096].contiguous(), torch.float32)
+    *_, bm, _, xsplit, counters, _, _ = launched[-1]
+    assert (bm, counters) == (128, None) and xsplit is not None
