@@ -31,14 +31,19 @@ Phases, each of which fails the run on any error:
    read just after: (a) the dequant API on Llama-3-8B-shaped weights, exact
    and fast; (b) greedy serving of Llama-3-8B at full width and depth
    (synthetic packed weights from a seed) answering 6 requests of 32 new
-   tokens, one prompt of 1024 tokens; (c) a small model on the card against
-   the same model on the CPU; (d) the same serving in the int8 mode:
-   weights recoded to int8 and an int8 KV cache; (e) a packed checkpoint
-   saved by the port, loaded on the card with an int8 KV cache and recoded,
-   against the same checkpoint served on the CPU.  With ``--profile``,
-   phases 5b and 5d also print a ``torch.profiler`` breakdown of a decode
-   chunk and a 1024-token prefill: wall time, the device's busy share and
-   the device kernels by time;
+   tokens, one prompt of 1024 tokens, its decode chunks CUDA graph replays
+   launched ahead of their read-back, every kernel launch count asserted
+   exactly and the tokens held to an eager, unpipelined run of the same
+   requests; (c) a small model on the card against the same model on the
+   CPU; (d) the same serving in the int8 mode: weights recoded to int8 and
+   an int8 KV cache; (e) a packed checkpoint saved by the port, loaded on
+   the card with an int8 KV cache and recoded, against the same checkpoint
+   served on the CPU.  Phases 5b and 5d also time decode at batch 4 from
+   position 1024, graphed and pipelined (at kv buckets of 256, 512 and
+   1024 positions), graphed alone and eager, with the device's busy share
+   from ``torch.profiler``; with ``--profile`` they print the device
+   kernels of a graphed and an eager decode run and a breakdown of a
+   1024-token prefill;
 6. QLoRA fine-tuning: (a) the ``nf4_matmul`` backward at w_gateup, g
    [1024, 28672], against the plain fp32 product within 1e-5 * max, also
    under ``torch.set_float32_matmul_precision("high")``; (b, c) 3 AdamW
@@ -156,9 +161,10 @@ def device_kernel_counts(fn) -> dict:
     return {e.key: e.count for e in prof.key_averages() if e.device_type != DeviceType.CPU and _device_us(e) > 0}
 
 
-def profile_breakdown(label: str, fn, rows: int = 15) -> None:
+def profile_breakdown(label: str, fn, rows: int = 15):
     """Run ``fn`` once under ``torch.profiler`` and print the wall time, the
-    device's busy share of it and the device kernels and copies by time."""
+    device's busy share of it and (``rows`` > 0) the device kernels and
+    copies by time.  Returns (wall s, device busy s)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -175,9 +181,10 @@ def profile_breakdown(label: str, fn, rows: int = 15) -> None:
     events = [e for e in prof.key_averages() if e.device_type != DeviceType.CPU and _device_us(e) > 0]
     busy = sum(_device_us(e) for e in events) / 1e6
     print(f"profile {label}: wall {wall * 1e3:.2f} ms under the profiler; device busy {busy * 1e3:.2f} ms "
-          f"= {busy / wall:.1%}; device kernels and copies by time:")
+          f"= {busy / wall:.1%}" + ("; device kernels and copies by time:" if rows else ""))
     for e in sorted(events, key=_device_us, reverse=True)[:rows]:
         print(f"  {_device_us(e) / 1e3:9.3f} ms  {e.count:6d} calls  {e.key[:90]}")
+    return wall, busy
 
 
 def random_packed(gen, m, n, dev, quant_type="nf4"):
@@ -603,16 +610,34 @@ def phase_dequant_api(dev, rng):
     return dequant_counts, fast_counts
 
 
+# The serving run's schedule (4 slots, the 6 prompts of main(), 32 new
+# tokens each, chunks of 8): wave 1 prefills 3 groups (buckets 1024, 64 x 2,
+# 512) and decodes 31 steps (3 chunks, the second and third launched ahead,
+# then 7 single steps); wave 2 prefills 2 groups (1024, 16) and decodes 31
+# steps the same way.  Every forward launches one projection kernel per
+# projection and layer; kernel C runs in the 3 prefills of >= 512 tokens.
+SERVE_FORWARDS, SERVE_FLASH_PREFILLS, SERVE_CHUNKS = 5 + 62, 3, 6
+
+
+def serve_expected(cfg) -> tuple:
+    """(projection-kernel launches, kernel-C launches) of the serving run."""
+    return SERVE_FORWARDS * 4 * cfg.num_layers, SERVE_FLASH_PREFILLS * cfg.num_layers
+
+
 def serve_llama(label, params, cfg, prompts, weight_bytes, profile):
-    """Greedy serving at batch 4: the requests with every launch count set
-    to 0 just before and read just after, then the prefill of the
-    1024-token prompt and decode steps at position 1024, timed alone."""
+    """Greedy serving at batch 4 on the graphed, pipelined decode path: the
+    requests with every launch count set to 0 just before and read just
+    after, then the same requests eager and unpipelined, token for token;
+    then the prefill of the 1024-token prompt, and decode chunks from
+    position 1024 timed alone: graphed and pipelined at kv buckets of 256,
+    512 and 1024 positions, graphed alone and eager at the engine's, each
+    eager and graphed chunk with its device-busy share."""
     import numpy as np
     import torch
 
     from nf4_tpu_torch.models.llama import init_kv_cache
     from nf4_tpu_torch.ops import _cuda
-    from nf4_tpu_torch.serve.engine import Engine
+    from nf4_tpu_torch.serve.engine import Decoder, Engine, kv_bucket
 
     eng = Engine(params, cfg, batch_size=4, eos_token=-1, decode_chunk=8)
     torch.cuda.reset_peak_memory_stats()
@@ -622,12 +647,26 @@ def serve_llama(label, params, cfg, prompts, weight_bytes, profile):
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
     counts = _cuda.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
     check(len(results) == len(prompts), "every request answered")
     for r, p in zip(results, prompts):
         check(r.prompt == p and len(r.tokens) == 32, "32 new tokens per request")
         check(all(0 <= t < cfg.vocab_size for t in r.tokens), "tokens in the vocabulary")
-    print(f"phase {label} generate: {len(prompts)} requests x 32 tokens in {gen_s:.2f} s; launches {counts}; "
-          f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+    graphs, pipe = dict(eng.graph_stats), dict(eng.pipeline_stats)
+    check(graphs["replayed"] == SERVE_CHUNKS and pipe == {"launched": 4, "discarded": 0},
+          f"every chunk a graph replay, 2 per wave launched ahead: {graphs}, {pipe}")
+    eager = Engine(params, cfg, batch_size=4, eos_token=-1, decode_chunk=8, pipeline_decode=False,
+                   cuda_graphs=False)
+    t0 = time.perf_counter()
+    want = eager.generate(prompts, max_new_tokens=32)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    check([r.tokens for r in results] == [r.tokens for r in want],
+          "graphed, pipelined tokens differ from eager, unpipelined decode")
+    print(f"phase {label} generate (graphed, pipelined): {len(prompts)} requests x 32 tokens in {gen_s:.2f} s "
+          f"(eager, unpipelined: {eager_s:.2f} s; tokens identical); launches {counts}; graphs captured "
+          f"{graphs['captured']} in {graphs['capture_s']:.2f} s, pool {graphs['pool_bytes'] / 1e6:.1f} MB, "
+          f"replays {graphs['replayed']}; pipeline {pipe}; peak memory {peak / 1e9:.1f} GB")
 
     # Throughput of the engine's two steps, timed alone.
     cache = init_kv_cache(cfg, 4)
@@ -645,25 +684,60 @@ def serve_llama(label, params, cfg, prompts, weight_bytes, profile):
         prefill_runs.append(time.perf_counter() - t0)
     prefill_s = sorted(prefill_runs)[2]
     check(bool(torch.isfinite(logits).all()) and logits.shape == (1, cfg.vocab_size), "finite prefill logits")
-    pos = np.full(4, 1024, np.int64)
-    act = np.ones(4, bool)
-    cur = np.zeros(4, np.int32)
-    eng.decode_steps(cache, cur, pos, act, 8)
-    t0 = time.perf_counter()
-    for _ in range(3):
-        eng.decode_steps(cache, cur, pos, act, 8)
-    decode_s = (time.perf_counter() - t0) / 24
+
+    # Decode at batch 4 from position 1024: 4 chunks of 8 steps (positions
+    # 1024-1055) at one kv bucket, after one untimed chunk (a capture).
+    pos, act, cur = np.full(4, 1024, np.int64), np.ones(4, bool), np.zeros(4, np.int32)
+    chunks, n = 4, 8
+
+    def decode_run(dec, kv, pipelined):
+        h = dec.launch(n, kv, cur, pos, act)
+        for _ in range(chunks - 1):
+            if pipelined:  # the next chunk goes in before this one is read
+                nxt = dec.launch(n, kv)
+                dec.read(h)
+                h = nxt
+            else:
+                dec.read(h)
+                h = dec.launch(n, kv)
+        return dec.read(h)
+
+    def decode_ms(engine, gran, pipelined):
+        dec = Decoder(engine, cache)
+        kv = kv_bucket(1024 + chunks * n, gran, cfg.max_seq_len)
+        dec.read(dec.launch(n, kv, cur, pos, act))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = decode_run(dec, kv, pipelined)
+        ms = (time.perf_counter() - t0) * 1e3 / (chunks * n)
+        check(out.shape == (n, 4) and ((out >= 0) & (out < cfg.vocab_size)).all(), "decode tokens")
+        return ms, dec, kv
+
+    by_bucket = {g: decode_ms(eng, g, True)[0] for g in (256, 512, 1024)}
+    ms_pipe, dec, kv = decode_ms(eng, eng.KV_BUCKET, True)
+    ms_graph = decode_ms(eng, eng.KV_BUCKET, False)[0]
+    ms_eager, dec_eager, _ = decode_ms(eager, eng.KV_BUCKET, False)
+    rows = 15 if profile else 0
+    wall, busy = profile_breakdown(f"{label} decode, {chunks} graphed pipelined chunks of {n} steps, batch 4, "
+                                   f"position 1024, kv_len {kv}", lambda: decode_run(dec, kv, True), rows)
+    wall_e, busy_e = profile_breakdown(f"{label} decode, {chunks} eager chunks of {n} steps, batch 4, "
+                                       f"position 1024, kv_len {kv}", lambda: decode_run(dec_eager, kv, False), rows)
     bound = weight_bytes / PEAK_BYTES_S
     print(f"phase {label} prefill 1024 tokens: {prefill_s * 1e3:.1f} ms = {1024 / prefill_s:.0f} tokens/s "
-          f"(median of {[round(t * 1e3, 1) for t in prefill_runs]} ms); "
-          f"decode B=4 at position 1024: {decode_s * 1e3:.2f} ms/step = {4 / decode_s:.1f} tokens/s "
-          f"(weight-stream bound {bound * 1e3:.2f} ms/step) on {card_line()}")
+          f"(median of {[round(t * 1e3, 1) for t in prefill_runs]} ms); decode B=4 at position 1024, kv bucket "
+          f"{eng.KV_BUCKET} (kv_len {kv}): graphed and pipelined {ms_pipe:.2f} ms/step = {4e3 / ms_pipe:.1f} "
+          f"tokens/s, device busy {busy / wall:.1%} (profiled); graphed {ms_graph:.2f} ms/step; eager "
+          f"{ms_eager:.2f} ms/step, device busy {busy_e / wall_e:.1%} (profiled); graphed and pipelined by kv "
+          f"bucket {{{', '.join(f'{g}: {ms:.2f}' for g, ms in by_bucket.items())}}} ms/step; weight-stream bound "
+          f"{bound * 1e3:.2f} ms/step; on {card_line()}")
     if profile:
-        profile_breakdown(f"{label} decode chunk of 8 steps, batch 4, position 1024",
-                          lambda: eng.decode_steps(cache, cur, np.full(4, 1024, np.int64), act, 8))
         profile_breakdown(f"{label} prefill 1024 tokens", step)
-    return counts, dict(generate_s=gen_s, prefill_tok_s=1024 / prefill_s, decode_ms_step=decode_s * 1e3,
-                        decode_tok_s=4 / decode_s, weight_gb=weight_bytes / 1e9, kv_cache_gb=cache.nbytes / 1e9)
+    return counts, dict(generate_s=gen_s, generate_eager_s=eager_s, graph_stats=graphs, pipeline_stats=pipe,
+                        prefill_tok_s=1024 / prefill_s, kv_bucket=eng.KV_BUCKET, kv_len=kv,
+                        decode_ms_step=ms_pipe, decode_tok_s=4e3 / ms_pipe, decode_busy=busy / wall,
+                        decode_graphed_ms_step=ms_graph, decode_eager_ms_step=ms_eager,
+                        decode_eager_busy=busy_e / wall_e, decode_ms_step_by_bucket=by_bucket,
+                        weight_gb=weight_bytes / 1e9, kv_cache_gb=cache.nbytes / 1e9)
 
 
 def projection_bytes(params) -> int:
@@ -686,8 +760,10 @@ def phase_serving(prompts, profile):
           f"built in {time.perf_counter() - t0:.1f} s")
     head = params.lm_head.numel() * params.lm_head.element_size()
     counts, serving = serve_llama("5b", params, cfg, prompts, packed + head, profile)
-    check(counts["matmul_bf16"] > 0 and counts["flash_attention"] > 0,
-          f"serving did not launch kernels B and C: {counts}")
+    proj, flash = serve_expected(cfg)
+    check(counts["matmul_bf16"] == proj and counts["flash_attention"] == flash,
+          f"serving launched kernels B and C {counts['matmul_bf16']} and {counts['flash_attention']} times, "
+          f"not {proj} and {flash}: {counts}")
     return counts, serving
 
 
@@ -717,8 +793,10 @@ def phase_int8_serving(prompts, profile):
           f"(bf16: {kv16 / 1e9:.3f} GB)")
     head = params.lm_head.numel() * params.lm_head.element_size()
     counts, serving = serve_llama("5d", params, cfg, prompts, int8 + head, profile)
-    check(counts["int8_matmul"] > 0 and counts["flash_attention_int8"] > 0,
-          f"int8 serving did not launch kernel D and kernel C's int8 branch: {counts}")
+    proj, flash = serve_expected(cfg)
+    check(counts["int8_matmul"] == proj and counts["flash_attention_int8"] == flash,
+          f"int8 serving launched kernel D and C-int8 {counts['int8_matmul']} and "
+          f"{counts['flash_attention_int8']} times, not {proj} and {flash}: {counts}")
     check(counts["matmul_bf16"] == 0 and counts["flash_attention"] == 0,
           f"int8 serving launched a 4-bit or bf16-KV kernel: {counts}")
     check(abs(serving["kv_cache_gb"] - kv8 / 1e9) < 1e-9, "KV cache size")

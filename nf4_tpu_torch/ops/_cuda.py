@@ -5,12 +5,20 @@ into its own shared library under ``nf4_tpu_torch/_build/`` (listed in
 ``.gitignore``) at first use, then bound with ``ctypes``.  A C entry point
 launches on the stream it is given and returns ``cudaGetLastError()``.
 
+Launches are counted where the device runs them.  A wrapper called while
+a CUDA graph is being captured launches nothing yet: its launch goes into
+the tally of the :class:`CountedGraph` being captured, and every replay of
+that graph adds the tally to the counts.  A launch captured into a plain
+``torch.cuda.graph`` (a timing loop) is counted nowhere.
+
 Nothing here runs at import time: the CPU tests import every module on a
 host with no ``nvcc`` and no card.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -21,7 +29,7 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["Kernel", "KERNELS", "build", "launch_counts", "reset_launch_counts"]
+__all__ = ["Kernel", "KERNELS", "CountedGraph", "build", "launch_counts", "reset_launch_counts"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -87,7 +95,9 @@ class Kernel:
     """One C entry point of a ``csrc`` library and its launch count.
 
     ``launches`` grows by one per successful launch and nowhere else, so a
-    run can show that its main path went through the kernel."""
+    run can show that its main path went through the kernel; under graph
+    capture the launch is recorded in the capturing graph's tally instead
+    (see the module docstring)."""
 
     def __init__(self, name: str, source: str, symbol: str, argtypes):
         self.name, self.source, self.symbol = name, source, symbol
@@ -105,10 +115,42 @@ class Kernel:
         err = self._fn(*args, torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise RuntimeError(f"{self.symbol}: CUDA launch failed with error {err}")
-        self.launches += 1
+        if torch.cuda.is_current_stream_capturing():
+            if _TALLIES:
+                _TALLIES[-1][self.name] += 1
+        else:
+            self.launches += 1
 
 
 KERNELS: dict = {}
+# The tallies of the graphs being captured, innermost last.
+_TALLIES: list = []
+
+
+class CountedGraph:
+    """A CUDA graph whose replays count the kernel launches it captured.
+
+    ``capture(**kw)`` is ``torch.cuda.graph(self.graph, **kw)`` with the
+    launches recorded in ``self.tally``; :meth:`replay` replays on the
+    current stream and adds the tally to each kernel's ``launches``."""
+
+    def __init__(self):
+        self.graph = torch.cuda.CUDAGraph()
+        self.tally = collections.Counter()
+
+    @contextlib.contextmanager
+    def capture(self, **kw):
+        _TALLIES.append(self.tally)
+        try:
+            with torch.cuda.graph(self.graph, **kw):
+                yield self
+        finally:
+            _TALLIES.pop()
+
+    def replay(self) -> None:
+        self.graph.replay()
+        for name, n in self.tally.items():
+            KERNELS[name].launches += n
 
 
 def launch_counts() -> dict:

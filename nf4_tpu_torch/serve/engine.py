@@ -10,27 +10,56 @@ riding along frozen under an active-slot mask.  Params may be packed 4-bit
 or int8-recoded (``recode_params_int8``), and the cache bf16 or int8
 (``cfg.kv_quant``).
 
+Decode chunks (the JAX package's ``_decode_multi_impl``, one compiled
+``lax.scan`` per chunk length): a :class:`Decoder` runs ``n`` decode and
+argmax steps over one cache from static device buffers (tokens, positions
+and the active mask in; the chunk's tokens out).  Every step of a chunk
+reads the same ``kv_len``, :func:`kv_bucket` of the chunk's end, so the
+shapes repeat.  On CUDA every chunk of ``decode_chunk`` steps is one CUDA
+graph, captured once per (kv bucket, n) and replayed on the current
+stream; the graphs of a :class:`Decoder` share one memory pool.  Single
+steps (the budget's tail), prefill and the CPU run eagerly, with the same
+kv buckets, so graphed and eager decode give the same bits.  A failed
+capture or replay raises: nothing falls back to the eager loop
+(``cuda_graphs=False`` asks for eager chunks).
+
+Pipelined decode (``pipeline_decode=True``, the JAX package's default):
+chunk c+1 is launched from chunk c's device outputs (its last token and
+advanced positions) before chunk c is read back, so the host's read-back
+and bookkeeping overlap the device's next chunk; if chunk c ended a
+request, chunk c+1 is dropped (``pipeline_stats``).  The cache is written
+in place, unlike the JAX package's functional buffers, and a dropped chunk
+is still harmless: it wrote K/V only at positions past each slot's
+consumed position; the re-run, or a new request's prefill, rewrites each
+such position before any query can see it, because a query sees no slot
+past its own position, and a decode step writes its position before it
+attends.  So no second cache buffer is held (the JAX package holds one
+while a chunk is in flight).  On the CPU the same launch and read-back
+logic runs synchronously.
+
 :meth:`Engine.generate` hands one call to a :class:`_Scheduler`, which
-owns the per-call state.  Pipelined chunks, speculation, prefix caching,
-admission, cancellation, LoRA, tensor parallelism and non-greedy sampling
-are not ported yet.
+owns the per-call state: the cache, its :class:`Decoder` and its graphs.
+Speculation, prefix caching, admission, cancellation, LoRA, tensor
+parallelism and non-greedy sampling are not ported yet.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import time
 from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..models.llama import KVCache, LlamaConfig, LlamaParams, check_supported, decode_step, forward, init_kv_cache
+from ..ops._cuda import CountedGraph
 from ..utils.device import resolve_device
 from ..utils.shapes import bucket_len
 from .sampling import SamplingParams, check_greedy, sample
 
-__all__ = ["Engine", "GenerationResult"]
+__all__ = ["Engine", "Decoder", "GenerationResult", "kv_bucket"]
 
 
 @dataclasses.dataclass
@@ -40,13 +69,34 @@ class GenerationResult:
     finished: bool  # True if a stop token ended it (False: budget or context)
 
 
+def kv_bucket(end: int, granularity: int, max_seq_len: int) -> int:
+    """The ``kv_len`` of a decode chunk whose last step writes position
+    ``end - 1``: ``end`` rounded up to a multiple of ``granularity``, at
+    most ``max_seq_len``.  One value for the whole chunk."""
+    return min(-(-end // granularity) * granularity, max_seq_len)
+
+
 class Engine:
     """Greedy continuous-batching engine on ``device`` (default ``cuda``);
-    ``params`` must already live there."""
+    ``params`` must already live there.  On CUDA, decode chunks are CUDA
+    graph replays unless ``cuda_graphs=False``; ``pipeline_decode`` launches
+    each chunk's successor before reading the chunk back.
+
+    ``pipeline_stats`` counts the chunks launched ahead of a read-back and
+    those dropped because the chunk before them ended a request;
+    ``graph_stats`` the decode graphs captured, the seconds their captures
+    took, their replays and the largest memory pool they held (bytes)."""
 
     # Prompts longer than this prefill in segments: bounded activation
     # memory (the JAX package's value).
     PREFILL_SEGMENT = 2048
+    # The granularity of a decode chunk's kv_len (kv_bucket): a multiple of
+    # it bounds the cache slots the naive decode attention reads; each
+    # bucket is a graph of its own, captured in ~1 s per generate.  From
+    # position 1024, 256 / 512 / 1024 gave 17.1 / 18.7 / 22.8 ms per 4-bit
+    # Llama-3-8B step at batch 4 (chip_smoke.py phase 5b, NVIDIA H100 80GB
+    # HBM3, 700.00 W); 256 would capture twice as often.
+    KV_BUCKET = 512
 
     def __init__(
         self,
@@ -57,6 +107,8 @@ class Engine:
         sampling: SamplingParams = SamplingParams(),
         decode_chunk: int = 8,
         device=None,
+        pipeline_decode: bool = True,
+        cuda_graphs: bool = True,
     ):
         check_supported(cfg)
         check_greedy(sampling)
@@ -67,6 +119,28 @@ class Engine:
         self.sampling = sampling
         self.decode_chunk = decode_chunk
         self.device = resolve_device(device)
+        self.pipeline_decode = pipeline_decode
+        self.pipeline_stats = {"launched": 0, "discarded": 0}
+        self.graph_stats = {"captured": 0, "capture_s": 0.0, "replayed": 0, "pool_bytes": 0}
+        self.graph_stream = None
+        if cuda_graphs and self.device.type == "cuda":
+            self.graph_stream = torch.cuda.Stream(self.device)
+            self._warm_up()
+
+    def _warm_up(self) -> None:
+        """One eager decode step on the capture stream over a throwaway
+        cache, before any capture: whatever the decode path makes at first
+        use (the byte tables, the occupancy queries, the tile counters,
+        cuBLAS's workspace for that stream, the kernels' shared-memory
+        opt-in) then exists when a graph is captured.  Its launches count
+        as eager ones."""
+        width = min(16, self.cfg.max_seq_len)
+        cache = init_kv_cache(dataclasses.replace(self.cfg, max_seq_len=width), self.batch_size, self.device)
+        dec = Decoder(self, cache)
+        self.graph_stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(self.graph_stream):
+            dec.run_eager(1, width)
+        torch.cuda.synchronize(self.device)
 
     def generate(
         self,
@@ -120,23 +194,109 @@ class Engine:
             getattr(cache, name)[:, slots_t] = t
         return last
 
-    def decode_steps(self, cache: KVCache, tokens: np.ndarray, positions: np.ndarray, active: np.ndarray, n: int):
-        """``n`` greedy decode steps for every slot with one read-back at the
-        end; inactive slots keep their token and position.  Returns the
-        sampled tokens [n, B] on the host."""
-        dev = self.device
-        tok = torch.as_tensor(tokens, dtype=torch.int32, device=dev)
-        pos = torch.as_tensor(positions, dtype=torch.int32, device=dev)
-        act = torch.as_tensor(active, device=dev)
-        step = act.to(torch.int32)
-        top = int(positions[active].max())  # host-side bound for the live cache
+
+class Decoder:
+    """Decode chunks over one cache: ``n`` greedy steps for every slot,
+    inactive slots keeping their token and position.  Its graphs live as
+    long as it does.
+
+    The inputs live in static device buffers, ``inputs`` [3, B] int32
+    (tokens, positions, active); a chunk writes its tokens [n, B] into
+    ``toks`` and its last token and advanced positions back into the
+    inputs, so the next chunk may start from them with no host copy.
+    :meth:`launch` enqueues a chunk and the copy of its tokens into one of
+    two pinned host buffers, then records an event; :meth:`read` waits for
+    that event only, so a chunk launched after it keeps running.  The host
+    buffers alternate, so a later chunk's copy cannot overwrite tokens not
+    yet read; the device's ``toks`` needs no twin, as its copy is ordered
+    before the next chunk on the stream."""
+
+    def __init__(self, engine: Engine, cache: KVCache):
+        dev = engine.device
+        b = cache.k.shape[1]
+        n = max(engine.decode_chunk, 1)
+        self.eng, self.cache = engine, cache
+        self.inputs = torch.zeros((3, b), dtype=torch.int32, device=dev)
+        self.toks = torch.zeros((n, b), dtype=torch.int32, device=dev)
+        pinned = dev.type == "cuda"
+        self.host = [torch.zeros((n, b), dtype=torch.int32, pin_memory=pinned) for _ in range(2)]
+        self.flip = 0
+        self.graphs = {}  # (kv_len, n) -> CountedGraph
+        self.pool = torch.cuda.graph_pool_handle() if engine.graph_stream is not None else None
+
+    def launch(self, n: int, kv_len: int, tokens=None, positions=None, active=None):
+        """Enqueue ``n`` steps at ``kv_len``; returns the handle
+        :meth:`read` takes.  With host arrays ``tokens``, ``positions`` and
+        ``active`` [B] the inputs are copied from them first; without, the
+        chunk continues from the previous launch's device outputs.  On CUDA
+        a chunk of ``n > 1`` steps is a graph replay."""
+        if tokens is not None:
+            host = np.stack([np.asarray(a, dtype=np.int32) for a in (tokens, positions, active)])
+            # A pageable copy, so the host waits for the stream: it is idle
+            # or still runs a dropped chunk, which this one must follow.
+            self.inputs.copy_(torch.from_numpy(host))
+        if self.pool is not None and n > 1:
+            graph = self.graphs.get((kv_len, n)) or self._capture(n, kv_len)
+            graph.replay()
+            self.eng.graph_stats["replayed"] += 1
+        else:
+            self.run_eager(n, kv_len)
+        out = self.host[self.flip][:n]
+        self.flip ^= 1
+        out.copy_(self.toks[:n], non_blocking=True)
+        done = None
+        if self.toks.is_cuda:
+            done = torch.cuda.Event()
+            done.record()
+        return out, done
+
+    @staticmethod
+    def read(handle) -> np.ndarray:
+        """The tokens [n, B] of a launched chunk, once its copy is done."""
+        out, done = handle
+        if done is not None:
+            done.synchronize()
+        return out.numpy().copy()
+
+    def run_eager(self, n: int, kv_len: int) -> torch.Tensor:
+        """The chunk's body, eagerly (and what a graph captures): ``n``
+        decode steps and fp32 argmax from ``inputs``, the tokens into
+        ``toks[:n]``, the last token and the positions back into
+        ``inputs``.  Nothing here touches the host.  Returns the last
+        step's logits."""
+        eng = self.eng
+        tok, pos, active = self.inputs
+        act = active != 0
         out = []
-        for i in range(n):
-            logits, _ = decode_step(self.params, self.cfg, tok, cache, pos, kv_len=top + i + 1)
-            tok = torch.where(act, sample(logits, self.sampling), tok)
+        for _ in range(n):
+            logits, _ = decode_step(eng.params, eng.cfg, tok, self.cache, pos, kv_len=kv_len)
+            tok = torch.where(act, sample(logits, eng.sampling), tok)
             out.append(tok)
-            pos = pos + step
-        return torch.stack(out).cpu().numpy()
+            pos = pos + active
+        self.toks[:n] = torch.stack(out)
+        self.inputs[:2] = torch.stack((tok, pos))
+        return logits
+
+    def _capture(self, n: int, kv_len: int) -> CountedGraph:
+        """Capture the chunk body for (kv_len, n) on the engine's capture
+        stream, into this decoder's memory pool."""
+        stats = self.eng.graph_stats
+        t0 = time.perf_counter()
+        graph = CountedGraph()
+        with graph.capture(pool=self.pool, stream=self.eng.graph_stream):
+            self.run_eager(n, kv_len)
+        stats["capture_s"] += time.perf_counter() - t0
+        stats["captured"] += 1
+        stats["pool_bytes"] = max(stats["pool_bytes"], self.pool_bytes())
+        self.graphs[(kv_len, n)] = graph
+        return graph
+
+    def pool_bytes(self) -> int:
+        """Device bytes held by this decoder's graph memory pool."""
+        if self.pool is None:
+            return 0
+        pool = tuple(self.pool)
+        return sum(s["total_size"] for s in torch.cuda.memory_snapshot() if tuple(s["segment_pool_id"]) == pool)
 
 
 class _Scheduler:
@@ -153,6 +313,7 @@ class _Scheduler:
         self.results: List[Optional[GenerationResult]] = [None] * len(self.prompts)
         n = engine.batch_size
         self.cache = init_kv_cache(self.cfg, n, device=engine.device)
+        self.dec = Decoder(engine, self.cache)
         self.slot_req = [-1] * n  # request index, or -1 when idle
         self.slot_pos = np.zeros(n, dtype=np.int64)  # next position to write
         self.generated: List[List[int]] = [[] for _ in range(n)]
@@ -229,24 +390,63 @@ class _Scheduler:
             self.generated[s] = [int(first[j])]
             self.cur[s] = first[j]
 
-    def decode(self) -> None:
-        """One decode chunk when every active slot has room for it (budget
-        and context), else a single step."""
-        act = self.active()
-        idx = np.nonzero(act)[0]
-        n = self.eng.decode_chunk
-        room = min(self.budget - len(self.generated[s]) for s in idx)
-        ctx_room = self.cfg.max_seq_len - 1 - int(self.slot_pos[act].max())
-        if not (n > 1 and room >= n and ctx_room >= n):
-            n = 1
-        toks = self.eng.decode_steps(self.cache, self.cur, self.slot_pos, act, n)
+    def chunk_ok(self, idx, n: int, ahead: int) -> bool:
+        """Is a chunk of ``n`` steps launched ``ahead`` whole chunks past the
+        current host state sure to fit every active slot's budget and
+        context?"""
+        room = min(self.budget - len(self.generated[s]) for s in idx) - ahead * n
+        ctx_room = self.cfg.max_seq_len - 1 - (int(self.slot_pos[idx].max()) + ahead * n)
+        return room >= n and ctx_room >= n
+
+    def launch(self, act, n: int, ahead: int = 0):
+        """Launch ``n`` steps: from the host state, or (``ahead=1``) from the
+        device outputs of the chunk launched just before."""
+        kv_len = kv_bucket(int(self.slot_pos[act].max()) + (ahead + 1) * n, self.eng.KV_BUCKET,
+                           self.cfg.max_seq_len)
+        if ahead:
+            return self.dec.launch(n, kv_len)
+        return self.dec.launch(n, kv_len, self.cur, self.slot_pos, act)
+
+    def consume(self, handle, act, n: int) -> bool:
+        """Read a launched chunk back into the host state; True when a slot
+        hit a stop or its budget (it retires before it decodes again)."""
+        toks = self.dec.read(handle)
         self.slot_pos[act] += n
-        for s in idx:
+        finished = False
+        for s in np.nonzero(act)[0]:
             for i in range(n):
                 t = int(toks[i, s])
                 self.generated[s].append(t)
-                # Tokens after a stop or past the budget are dropped; the
-                # slot retires before it decodes again.
+                # Tokens after a stop or past the budget are dropped.
                 if t in self.stops or len(self.generated[s]) >= self.budget:
+                    finished = True
                     break
             self.cur[s] = toks[n - 1, s]
+        return finished
+
+    def decode(self) -> None:
+        """Decode chunks while every active slot has room for one (budget
+        and context), else a single step.  Pipelined, each chunk's
+        successor is launched before the chunk is read back, when the
+        successor too is sure to fit; it is dropped when the chunk ended a
+        request (the JAX package's multi-step branch of ``generate``)."""
+        act = self.active()
+        idx = np.nonzero(act)[0]
+        n = self.eng.decode_chunk
+        if not (n > 1 and self.chunk_ok(idx, n, 0)):
+            self.consume(self.launch(act, 1), act, 1)
+            return
+        stats = self.eng.pipeline_stats
+        cur = self.launch(act, n)
+        while True:
+            nxt = None
+            if self.eng.pipeline_decode and self.chunk_ok(idx, n, 1):
+                nxt = self.launch(act, n, ahead=1)
+                stats["launched"] += 1
+            finished = self.consume(cur, act, n)
+            if nxt is None:
+                return
+            if finished:
+                stats["discarded"] += 1
+                return
+            cur = nxt

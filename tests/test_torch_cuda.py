@@ -581,3 +581,138 @@ def test_matmul_backward_on_card(dev, precision, xdt):
     assert dx.dtype == xdt
     limit = (1e-5 if xdt == torch.float32 else 8e-3) * want.abs().max().item()
     assert (dx.float() - want).abs().max().item() <= limit
+
+
+# -- the Engine's decode chunks on CUDA graphs --------------------------------
+
+def _small_model(dev, int8):
+    """A 2-layer model at narrow widths (synthetic packed weights), in the
+    4-bit mode or the int8/kv8 mode."""
+    from nf4_tpu_torch.models.llama import LlamaConfig, recode_params_int8
+    from nf4_tpu_torch.models.synthetic import synthetic_params
+
+    cfg = LlamaConfig(vocab_size=512, hidden_size=256, intermediate_size=512, num_layers=2, num_heads=4,
+                      num_kv_heads=2, head_dim=128, max_seq_len=256, kv_quant=int8)
+    params = synthetic_params(cfg, seed=3, device=dev)
+    return cfg, recode_params_int8(params) if int8 else params
+
+
+def _decode_state(eng, cfg, seed=4):
+    """A cache with 4 prompts prefilled, and the host inputs of the chunk
+    that follows: tokens, positions, active (slot 3 idle)."""
+    from nf4_tpu_torch.models.llama import init_kv_cache
+
+    rng = np.random.default_rng(seed)
+    lens = np.asarray([37, 90, 5, 64], np.int32)
+    toks = np.zeros((4, 128), np.int32)
+    for i, n in enumerate(lens):
+        toks[i, :n] = rng.integers(0, cfg.vocab_size, n)
+    cache = init_kv_cache(cfg, 4)
+    logits = eng.prefill_group(cache, toks, lens, np.arange(4))
+    first = logits.argmax(-1).to(torch.int32).cpu().numpy()
+    return cache, first, lens.astype(np.int64), np.asarray([True, True, True, False])
+
+
+def _clone_cache(cache):
+    from nf4_tpu_torch.models.llama import KVCache
+
+    return KVCache(**{name: t.clone() for name, t in cache.planes().items()})
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_graphed_chunk_bit_identical_to_eager(dev, int8):
+    """A decode chunk captured as a CUDA graph and replayed gives the eager
+    chunk's logits, tokens, advanced inputs and cache writes bit for bit at
+    the same kv bucket; the next chunk, launched from the device outputs,
+    too (the Decoder's own graph)."""
+    from nf4_tpu_torch.ops._cuda import CountedGraph
+    from nf4_tpu_torch.serve.engine import Decoder, Engine, kv_bucket
+
+    cfg, params = _small_model(dev, int8)
+    eng = Engine(params, cfg, batch_size=4, eos_token=-1, decode_chunk=8)
+    plain = Engine(params, cfg, batch_size=4, eos_token=-1, decode_chunk=8, cuda_graphs=False)
+    cache, tok, pos, act = _decode_state(eng, cfg)
+    graphed, eager = Decoder(eng, cache), Decoder(plain, _clone_cache(cache))
+    host = torch.from_numpy(np.stack([tok, pos.astype(np.int32), act.astype(np.int32)])).to(dev)
+    kv = kv_bucket(int(pos[act].max()) + 8, eng.KV_BUCKET, cfg.max_seq_len)
+    eager.inputs.copy_(host)
+    want = eager.run_eager(8, kv)
+    graph = CountedGraph()
+    with graph.capture(pool=graphed.pool, stream=eng.graph_stream):
+        logits = graphed.run_eager(8, kv)
+    graphed.inputs.copy_(host)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(logits, want)
+    assert torch.equal(graphed.toks, eager.toks) and torch.equal(graphed.inputs, eager.inputs)
+    for name, t in graphed.cache.planes().items():
+        assert torch.equal(t, eager.cache.planes()[name]), name
+    kv = kv_bucket(int(pos[act].max()) + 16, eng.KV_BUCKET, cfg.max_seq_len)
+    a, b = graphed.read(graphed.launch(8, kv)), eager.read(eager.launch(8, kv))
+    assert np.array_equal(a, b) and list(graphed.graphs) == [(kv, 8)] and not eager.graphs
+    assert eng.graph_stats["captured"] == 1 and eng.graph_stats["replayed"] == 1
+
+
+def test_graph_replays_count_their_launches(dev):
+    """``launch_counts()`` after a capture and k replays equals the counts
+    of k eager chunks: the capture counts nothing, each replay counts what
+    it captured."""
+    from nf4_tpu_torch.ops import _cuda
+    from nf4_tpu_torch.serve.engine import Decoder, Engine, kv_bucket
+
+    cfg, params = _small_model(dev, False)
+    counts = []
+    for graphs in (False, True):
+        eng = Engine(params, cfg, batch_size=4, eos_token=-1, decode_chunk=8, cuda_graphs=graphs)
+        cache, tok, pos, act = _decode_state(eng, cfg)
+        dec = Decoder(eng, cache)
+        kv = kv_bucket(int(pos[act].max()) + 24, eng.KV_BUCKET, cfg.max_seq_len)
+        _cuda.reset_launch_counts()
+        handles = [dec.launch(8, kv, tok, pos, act)] + [dec.launch(8, kv) for _ in range(2)]
+        [dec.read(h) for h in handles]
+        counts.append(_cuda.launch_counts())
+    assert counts[0] == counts[1], counts
+    assert counts[1]["matmul_bf16"] == 3 * 8 * 4 * cfg.num_layers and eng.graph_stats["replayed"] == 3
+
+
+def test_discarded_chunk_leaves_tokens_identical(dev):
+    """A stop token inside a chunk drops the chunk launched ahead of it;
+    graphed and pipelined, the tokens equal eager unpipelined decode's."""
+    from nf4_tpu_torch.serve.engine import Engine
+
+    cfg, params = _small_model(dev, False)
+    rng = np.random.default_rng(6)
+    prompts = [list(map(int, rng.integers(0, cfg.vocab_size, n))) for n in (30, 70)]
+    common = dict(batch_size=2, eos_token=-1, decode_chunk=8)
+    plain = Engine(params, cfg, pipeline_decode=False, cuda_graphs=False, **common)
+    ref = plain.generate(prompts[:1], max_new_tokens=40)[0].tokens
+    i = next(i for i in range(9, 30) if i % 8 and ref[i] not in ref[:i])
+    pipe = Engine(params, cfg, **common)
+    got = pipe.generate(prompts, max_new_tokens=40, stop_tokens=[ref[i]])
+    want = plain.generate(prompts, max_new_tokens=40, stop_tokens=[ref[i]])
+    assert [r.tokens for r in got] == [r.tokens for r in want] and got[0].tokens == ref[:i]
+    assert pipe.pipeline_stats["discarded"] >= 1 and pipe.graph_stats["replayed"] > 0
+
+
+def test_capture_with_a_host_sync_raises(dev, monkeypatch):
+    """A host sync inside the chunk body makes the capture raise, and the
+    Decoder keeps no graph and runs nothing eagerly in its place.  (Last in
+    the file: a failed capture may leave its stream's allocations routed
+    to the graph's pool.)"""
+    from nf4_tpu_torch.serve import engine as engine_mod
+    from nf4_tpu_torch.serve.engine import Decoder, Engine
+
+    cfg, params = _small_model(dev, False)
+    eng = Engine(params, cfg, batch_size=4, eos_token=-1, decode_chunk=8)
+    cache, tok, pos, act = _decode_state(eng, cfg)
+    dec = Decoder(eng, cache)
+    sample = engine_mod.sample
+
+    def syncing_sample(logits, sp):
+        float(logits.max())  # a read-back to the host
+        return sample(logits, sp)
+
+    monkeypatch.setattr(engine_mod, "sample", syncing_sample)
+    with pytest.raises(RuntimeError):
+        dec.launch(8, 256, tok, pos, act)
+    assert not dec.graphs and eng.graph_stats["captured"] == 0 and eng.graph_stats["replayed"] == 0
