@@ -26,7 +26,11 @@ Phases, each of which fails the run on any error:
 4. kernel C (prefill flash attention), bf16 and int8 KV, against its plain
    version at B=1, H=32, KV=8, D=128, S=1024, T=8192, with and without a
    window, and at a ragged S=700 from position 0 and from 37; the int8
-   branch also against the bf16 branch on the dequantized cache;
+   branch also against the bf16 branch on the dequantized cache; then at
+   the further shapes of the TPU kernel's contract (``FLASH_SHAPES``: G =
+   7, 3, 96 and 1, 2, 4; D = 64, 128, 256 and 384), T=8192, both KV dtypes,
+   causal, windowed and ragged, each timed at S=1024 causal beside its
+   bound and SDPA;
 5. the main paths, each with every launch count set to 0 just before and
    read just after: (a) the dequant API on Llama-3-8B-shaped weights, exact
    and fast; (b) greedy serving of Llama-3-8B at full width and depth
@@ -35,15 +39,21 @@ Phases, each of which fails the run on any error:
    launched ahead of their read-back, every kernel launch count asserted
    exactly and the tokens held to an eager, unpipelined run of the same
    requests; (c) a small model on the card against the same model on the
-   CPU; (d) the same serving in the int8 mode: weights recoded to int8 and
-   an int8 KV cache; (e) a packed checkpoint saved by the port, loaded on
-   the card with an int8 KV cache and recoded, against the same checkpoint
-   served on the CPU.  Phases 5b and 5d also time decode at batch 4 from
-   position 1024, graphed and pipelined (at kv buckets of 256, 512 and
-   1024 positions), graphed alone and eager, with the device's busy share
-   from ``torch.profiler``; with ``--profile`` they print the device
-   kernels of a graphed and an eager decode run and a breakdown of a
-   1024-token prefill;
+   CPU, also with every field of the Llama-family variants on; (d) the
+   same serving in the int8 mode: weights recoded to int8 and an int8 KV
+   cache; (e) a packed checkpoint saved by the port, loaded on the card
+   with an int8 KV cache and recoded, against the same checkpoint served
+   on the CPU; (f) the serving of (b) for Qwen2-7B at full width and depth
+   (q/k/v biases, G = 7), every launch count asserted, tokens held to the
+   eager run, and the 1024-token prefill's last-position logits held to
+   the same prefill on the plain attention path within 2e-2 * max|logit|;
+   (g) Gemma-7B at full width (D = 256) and 8 of its 28 layers: that
+   prefill check, then 8 greedy tokens.  Phases 5b, 5d and 5f also time
+   decode at batch 4 from position 1024, graphed and pipelined, with the
+   device's busy share from ``torch.profiler``; 5b and 5d also at kv
+   buckets of 256, 512 and 1024 positions, graphed alone and eager; with
+   ``--profile`` they print the device kernels of a graphed and an eager
+   decode run and a breakdown of a 1024-token prefill;
 6. QLoRA fine-tuning: (a) the ``nf4_matmul`` backward at w_gateup, g
    [1024, 28672], against the plain fp32 product within 1e-5 * max, also
    under ``torch.set_float32_matmul_precision("high")``; (b, c) 3 AdamW
@@ -74,6 +84,7 @@ exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -438,6 +449,80 @@ def phase_flash(gen, dev, int8=False):
     return res
 
 
+# Phase 4's further shapes, the TPU kernel's contract beyond D = 128 and
+# 64 % G == 0: (model, H, KV, D).  Each at T = 8192 and B = 1.
+FLASH_SHAPES = [
+    ("qwen2-7b", 28, 4, 128),  # G = 7: one idle row per query tile
+    ("gemma-7b", 16, 16, 256),
+    ("gemma2-9b", 16, 8, 256),
+    ("gemma3-4b", 8, 4, 256),
+    ("G=3", 24, 8, 128),
+    ("G=96", 96, 1, 64),  # two head groups per position
+    ("D=384", 8, 8, 384),  # the wide kernel
+]
+
+
+def phase_flash_shapes(gen, dev):
+    """Kernel C at FLASH_SHAPES against its plain version, bf16 and int8 KV:
+    a causal 1024-token prompt, the last 1024 positions of a full 8192
+    cache under a 4096-slot window, and a ragged S = 700 from position 37,
+    each under phase 4's limit.  At S = 1024 causal: the kernel's time in
+    both KV dtypes, its plain version's, its bound and SDPA's time."""
+    import torch
+    import torch.nn.functional as F
+
+    from nf4_tpu_torch.models.llama import _quantize_kv
+    from nf4_tpu_torch.ops.attention import _flash_kernel, _flash_plain
+
+    t, s = 8192, 1024
+    res = {}
+    for name, h, kv, d in FLASH_SHAPES:
+        q = torch.randn((1, h, s, d), generator=gen, device=dev).to(torch.bfloat16)
+        k = torch.randn((1, kv, t, d), generator=gen, device=dev).to(torch.bfloat16)
+        v = torch.randn((1, kv, t, d), generator=gen, device=dev).to(torch.bfloat16)
+        (k8, ks), (v8, vs) = _quantize_kv(k), _quantize_kv(v)
+        q700 = q[:, :, :700].contiguous()
+        row, errs = {}, []
+        for int8, cache in ((False, (k, v)), (True, (k8, v8, ks, vs))):
+            def kern(pos, seq, window, qq=q, cache=cache):
+                return _flash_kernel(qq, cache[0], cache[1], pos, seq, d**-0.5, window, *cache[2:])
+
+            for case, qq, pos0, lens, window in (("causal", q, 0, s, None), ("window", q, t - s, t, t // 2),
+                                                 ("ragged", q700, 37, 737, None)):
+                pos = torch.full((1,), pos0, device=dev, dtype=torch.int32)
+                seq = torch.full((1,), lens, device=dev, dtype=torch.int32)
+                got = kern(pos, seq, window, qq).float()
+                want = _flash_plain(qq, cache[0], cache[1], pos, seq, d**-0.5, window, *cache[2:]).float()
+                torch.cuda.synchronize()
+                err = (got - want).abs().max().item()
+                limit = 2e-2 * want.abs().max().item()
+                check(err <= limit and torch.allclose(got, want, rtol=2e-2, atol=2e-2),
+                      f"kernel C {name} {'int8' if int8 else 'bf16'} KV differs from plain ({case}): max abs err "
+                      f"{err}, limit {limit}")
+                errs.append(err / limit)
+                row[f"{'int8_' if int8 else ''}{case}_max_abs_err"] = err
+            pos = torch.zeros((1,), device=dev, dtype=torch.int32)
+            seq = torch.full((1,), s, device=dev, dtype=torch.int32)
+            row["int8_ms" if int8 else "ms"] = time_ms([lambda: kern(pos, seq, None)])
+            if not int8:
+                row["plain_ms"] = time_ms([lambda: _flash_plain(q, k, v, pos, seq, d**-0.5)], iters=2, graph=False)
+        g = h // kv
+        kl, vl = k[:, :, :s].repeat_interleave(g, dim=1), v[:, :, :s].repeat_interleave(g, dim=1)
+        row["library_ms"] = time_ms([lambda: F.scaled_dot_product_attention(q, kl, vl, is_causal=True)])
+        pairs = h * s * (s + 1) // 2  # visible (query, key) pairs over all heads
+        for key, slot_bytes in (("", 2 * d), ("int8_", d + 4)):  # K and V bytes of a slot and head
+            nbytes = 2 * q.numel() * 2 + 2 * kv * s * slot_bytes
+            row[f"{key}bound_ms"] = bound_ms(nbytes, 4 * pairs * d, PEAK_BF16_S)
+            row[f"{key}bound_by"] = "bytes" if nbytes / PEAK_BYTES_S > 4 * pairs * d / PEAK_BF16_S else "operations"
+        row["tflops"] = 4 * pairs * d / row["ms"] / 1e9
+        res[name] = row
+        print(f"phase 4 kernel C {name} H={h} KV={kv} (G={g}) D={d}: causal, window and ragged S=700 from 37 in "
+              f"bf16 and int8 KV within the limit (largest err/limit {max(errs):.2f}); S=1024 causal {row['ms']:.4f} "
+              f"ms ({row['tflops']:.1f} TFLOP/s), int8 KV {row['int8_ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+              f"SDPA {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    return res
+
+
 def phase_exact(gen, dev):
     """Kernel E (fused 4-bit matmul, fp32/fp16 activations, fp32 products)
     against its plain version, and at B=4 and 1024 kernel E and cuBLAS's
@@ -543,6 +628,18 @@ def phase_exact(gen, dev):
                      device_launches_per_call=sum(launched.values()) / len(calls))
 
 
+def flash_shape_rows(res, int8) -> dict:
+    """The ``kernels`` line's ``shapes`` of a kernel C row: phase 4's
+    further shapes at S=1024 causal in this KV dtype (``res`` from
+    :func:`phase_flash_shapes`)."""
+    pre = "int8_" if int8 else ""
+    return {k: dict(ms=r[f"{pre}ms"], bound_ms=r[f"{pre}bound_ms"], bound_by=r[f"{pre}bound_by"],
+                    library_ms=None if int8 else r["library_ms"], plain_ms=None if int8 else r["plain_ms"],
+                    max_abs_err=max(v for e, v in r.items()
+                                    if e.endswith("_max_abs_err") and e.startswith("int8_") == int8))
+            for k, r in res.items()}
+
+
 def bnb_module(rng, m, n):
     """A duck-typed bitsandbytes Linear4bit with random contents."""
     import numpy as np
@@ -567,6 +664,8 @@ def params_to(params, device):
     from nf4_tpu_torch.nf4.format import PackedNF4
 
     def mv(w):
+        if w is None:
+            return None
         if isinstance(w, PackedNF4):
             return dataclasses.replace(w, packed=w.packed.to(device), scales=w.scales.to(device))
         return w.to(device)
@@ -615,23 +714,35 @@ def phase_dequant_api(dev, rng):
 # 512) and decodes 31 steps (3 chunks, the second and third launched ahead,
 # then 7 single steps); wave 2 prefills 2 groups (1024, 16) and decodes 31
 # steps the same way.  Every forward launches one projection kernel per
-# projection and layer; kernel C runs in the 3 prefills of >= 512 tokens.
-SERVE_FORWARDS, SERVE_FLASH_PREFILLS, SERVE_CHUNKS = 5 + 62, 3, 6
+# projection and layer; kernel C runs once per layer in each prefill that
+# `attention` sends to it: S >= 256 and B * H * S * T at least its
+# threshold, T the cache's max_seq_len (Llama-3-8B: the 3 prefills of >= 512
+# tokens; Qwen2-7B, 28 heads: the 2 of 1024).
+SERVE_PREFILLS = [(1, 1024), (2, 64), (1, 512), (1, 1024), (1, 16)]  # (group size, bucket)
+SERVE_FORWARDS, SERVE_CHUNKS = 5 + 62, 6
+
+
+def flash_prefills(cfg, groups) -> int:
+    """How many of the prefill ``groups`` (size, bucket) take kernel C."""
+    from nf4_tpu_torch.ops.attention import _CHUNKED_MIN_SCORE_ELEMS
+
+    return sum(s >= 256 and g * cfg.num_heads * s * cfg.max_seq_len >= _CHUNKED_MIN_SCORE_ELEMS for g, s in groups)
 
 
 def serve_expected(cfg) -> tuple:
     """(projection-kernel launches, kernel-C launches) of the serving run."""
-    return SERVE_FORWARDS * 4 * cfg.num_layers, SERVE_FLASH_PREFILLS * cfg.num_layers
+    return SERVE_FORWARDS * 4 * cfg.num_layers, flash_prefills(cfg, SERVE_PREFILLS) * cfg.num_layers
 
 
-def serve_llama(label, params, cfg, prompts, weight_bytes, profile):
+def serve_llama(label, params, cfg, prompts, weight_bytes, profile, by_bucket=True):
     """Greedy serving at batch 4 on the graphed, pipelined decode path: the
     requests with every launch count set to 0 just before and read just
     after, then the same requests eager and unpipelined, token for token;
     then the prefill of the 1024-token prompt, and decode chunks from
-    position 1024 timed alone: graphed and pipelined at kv buckets of 256,
-    512 and 1024 positions, graphed alone and eager at the engine's, each
-    eager and graphed chunk with its device-busy share."""
+    position 1024 timed alone: graphed and pipelined at the engine's kv
+    bucket with its device-busy share and, with ``by_bucket``, at kv
+    buckets of 256, 512 and 1024 positions, graphed alone and eager (with
+    its busy share)."""
     import numpy as np
     import torch
 
@@ -713,31 +824,35 @@ def serve_llama(label, params, cfg, prompts, weight_bytes, profile):
         check(out.shape == (n, 4) and ((out >= 0) & (out < cfg.vocab_size)).all(), "decode tokens")
         return ms, dec, kv
 
-    by_bucket = {g: decode_ms(eng, g, True)[0] for g in (256, 512, 1024)}
     ms_pipe, dec, kv = decode_ms(eng, eng.KV_BUCKET, True)
-    ms_graph = decode_ms(eng, eng.KV_BUCKET, False)[0]
-    ms_eager, dec_eager, _ = decode_ms(eager, eng.KV_BUCKET, False)
     rows = 15 if profile else 0
     wall, busy = profile_breakdown(f"{label} decode, {chunks} graphed pipelined chunks of {n} steps, batch 4, "
                                    f"position 1024, kv_len {kv}", lambda: decode_run(dec, kv, True), rows)
-    wall_e, busy_e = profile_breakdown(f"{label} decode, {chunks} eager chunks of {n} steps, batch 4, "
-                                       f"position 1024, kv_len {kv}", lambda: decode_run(dec_eager, kv, False), rows)
     bound = weight_bytes / PEAK_BYTES_S
+    res = dict(generate_s=gen_s, generate_eager_s=eager_s, graph_stats=graphs, pipeline_stats=pipe,
+               prefill_tok_s=1024 / prefill_s, kv_bucket=eng.KV_BUCKET, kv_len=kv,
+               decode_ms_step=ms_pipe, decode_tok_s=4e3 / ms_pipe, decode_busy=busy / wall,
+               weight_gb=weight_bytes / 1e9, kv_cache_gb=cache.nbytes / 1e9)
+    more = ""
+    if by_bucket:
+        res["decode_ms_step_by_bucket"] = {g: decode_ms(eng, g, True)[0] for g in (256, 512, 1024)}
+        res["decode_graphed_ms_step"] = decode_ms(eng, eng.KV_BUCKET, False)[0]
+        res["decode_eager_ms_step"], dec_eager, _ = decode_ms(eager, eng.KV_BUCKET, False)
+        wall_e, busy_e = profile_breakdown(f"{label} decode, {chunks} eager chunks of {n} steps, batch 4, "
+                                           f"position 1024, kv_len {kv}", lambda: decode_run(dec_eager, kv, False),
+                                           rows)
+        res["decode_eager_busy"] = busy_e / wall_e
+        more = (f"; graphed {res['decode_graphed_ms_step']:.2f} ms/step; eager {res['decode_eager_ms_step']:.2f} "
+                f"ms/step, device busy {busy_e / wall_e:.1%} (profiled); graphed and pipelined by kv bucket "
+                f"{{{', '.join(f'{g}: {ms:.2f}' for g, ms in res['decode_ms_step_by_bucket'].items())}}} ms/step")
     print(f"phase {label} prefill 1024 tokens: {prefill_s * 1e3:.1f} ms = {1024 / prefill_s:.0f} tokens/s "
           f"(median of {[round(t * 1e3, 1) for t in prefill_runs]} ms); decode B=4 at position 1024, kv bucket "
           f"{eng.KV_BUCKET} (kv_len {kv}): graphed and pipelined {ms_pipe:.2f} ms/step = {4e3 / ms_pipe:.1f} "
-          f"tokens/s, device busy {busy / wall:.1%} (profiled); graphed {ms_graph:.2f} ms/step; eager "
-          f"{ms_eager:.2f} ms/step, device busy {busy_e / wall_e:.1%} (profiled); graphed and pipelined by kv "
-          f"bucket {{{', '.join(f'{g}: {ms:.2f}' for g, ms in by_bucket.items())}}} ms/step; weight-stream bound "
+          f"tokens/s, device busy {busy / wall:.1%} (profiled){more}; weight-stream bound "
           f"{bound * 1e3:.2f} ms/step; on {card_line()}")
     if profile:
         profile_breakdown(f"{label} prefill 1024 tokens", step)
-    return counts, dict(generate_s=gen_s, generate_eager_s=eager_s, graph_stats=graphs, pipeline_stats=pipe,
-                        prefill_tok_s=1024 / prefill_s, kv_bucket=eng.KV_BUCKET, kv_len=kv,
-                        decode_ms_step=ms_pipe, decode_tok_s=4e3 / ms_pipe, decode_busy=busy / wall,
-                        decode_graphed_ms_step=ms_graph, decode_eager_ms_step=ms_eager,
-                        decode_eager_busy=busy_e / wall_e, decode_ms_step_by_bucket=by_bucket,
-                        weight_gb=weight_bytes / 1e9, kv_cache_gb=cache.nbytes / 1e9)
+    return counts, res
 
 
 def projection_bytes(params) -> int:
@@ -803,28 +918,154 @@ def phase_int8_serving(prompts, profile):
     return counts, dict(serving, recode_s=recode_s)
 
 
+@contextlib.contextmanager
+def plain_attention():
+    """Within it, kernel C's wrapper runs its plain version on the card, so a
+    forward's attention takes the plain path with the same dispatch."""
+    from nf4_tpu_torch.ops import attention
+
+    saved, attention._flash_kernel = attention._flash_kernel, attention._flash_plain
+    try:
+        yield
+    finally:
+        attention._flash_kernel = saved
+
+
+def prefill_against_plain(label, eng, prompt) -> float:
+    """The last-position logits of ``prompt``'s prefill through the engine,
+    against the same prefill with kernel C replaced by its plain version on
+    the card: max abs diff at most 2e-2 * max|logit| (bf16 attention
+    outputs summed in another order, through every layer).  Kernel C runs
+    once per layer in the first, never in the second."""
+    import numpy as np
+    import torch
+
+    from nf4_tpu_torch.models.llama import init_kv_cache
+    from nf4_tpu_torch.ops import _cuda
+
+    cfg = eng.cfg
+    toks, lens, slots = np.asarray([prompt], np.int32), np.asarray([len(prompt)], np.int32), np.asarray([0])
+    runs = []
+    for plain in (False, True):
+        cache = init_kv_cache(cfg, 1)
+        _cuda.reset_launch_counts()
+        if plain:
+            with plain_attention():
+                logits = eng.prefill_group(cache, toks, lens, slots)
+        else:
+            logits = eng.prefill_group(cache, toks, lens, slots)
+        torch.cuda.synchronize()
+        runs.append((logits.float(), _cuda.launch_counts()["flash_attention"]))
+    (got, n_kernel), (want, n_plain) = runs
+    check(n_kernel == cfg.num_layers and n_plain == 0,
+          f"{label}: kernel C launched {n_kernel} / {n_plain} times, not {cfg.num_layers} / 0")
+    diff = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    check(bool(torch.isfinite(got).all()) and diff <= 2e-2 * scale,
+          f"{label}: prefill logits against the plain attention path {diff} at scale {scale}")
+    print(f"phase {label} prefill of {len(prompt)} tokens, last-position logits against the plain attention path "
+          f"on the card: max abs diff {diff:.2e} (limit 2e-2 x max |logit| {scale:.2f}); kernel C launched "
+          f"{n_kernel} times (once per layer), 0 on the plain path")
+    return diff
+
+
+def phase_qwen2_serving(prompts, profile):
+    """Main path (f): greedy serving of Qwen2-7B at full width and depth
+    (28 heads over 4 KV heads: G = 7; q/k/v biases), as phase 5b."""
+    import torch
+
+    from nf4_tpu_torch.models import configs
+    from nf4_tpu_torch.models.synthetic import synthetic_params
+    from nf4_tpu_torch.serve.engine import Engine
+
+    cfg = configs.QWEN2_7B
+    params = synthetic_params(cfg, seed=3)
+    torch.cuda.synchronize()
+    packed = projection_bytes(params)
+    print(f"phase 5f Qwen2-7B synthetic params (full width and depth, attn_bias): {packed / 1e9:.3f} GB "
+          f"packed+scales")
+    head = params.lm_head.numel() * params.lm_head.element_size()
+    counts, serving = serve_llama("5f", params, cfg, prompts, packed + head, profile, by_bucket=False)
+    proj, flash = serve_expected(cfg)
+    check(counts["matmul_bf16"] == proj and counts["flash_attention"] == flash,
+          f"Qwen2-7B serving launched kernels B and C {counts['matmul_bf16']} and {counts['flash_attention']} "
+          f"times, not {proj} and {flash}: {counts}")
+    serving["prefill_logits_diff"] = prefill_against_plain("5f Qwen2-7B", Engine(params, cfg, cuda_graphs=False),
+                                                           prompts[0])
+    return counts, serving
+
+
+GEMMA_LAYERS = 8
+
+
+def phase_gemma(rng):
+    """Main path (g): Gemma-7B at full width (D = 256, GeGLU, (1 + w) norms,
+    scaled embeddings) and GEMMA_LAYERS of its 28 layers: a 1024-token
+    prefill through kernel C against the plain attention path, then 8
+    greedy tokens from the engine with every kernel-C launch counted."""
+    import dataclasses
+
+    import torch
+
+    from nf4_tpu_torch.models import configs
+    from nf4_tpu_torch.models.synthetic import synthetic_params
+    from nf4_tpu_torch.ops import _cuda
+    from nf4_tpu_torch.serve.engine import Engine
+
+    cfg = dataclasses.replace(configs.GEMMA_7B, num_layers=GEMMA_LAYERS)
+    params = synthetic_params(cfg, seed=4)
+    prompt = list(map(int, rng.integers(0, cfg.vocab_size, 1024)))
+    print(f"phase 5g Gemma-7B synthetic params: full width (hidden {cfg.hidden_size}, {cfg.num_heads} heads of "
+          f"D={cfg.head_dim}, ffn {cfg.intermediate_size}, vocab {cfg.vocab_size}), depth cut to "
+          f"{cfg.num_layers} of 28 layers")
+    eng = Engine(params, cfg, batch_size=1, eos_token=-1)
+    diff = prefill_against_plain("5g Gemma-7B", eng, prompt)
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = eng.generate([prompt], max_new_tokens=8)[0]
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    counts = _cuda.launch_counts()
+    check(len(out.tokens) == 8 and all(0 <= t < cfg.vocab_size for t in out.tokens), "8 Gemma tokens")
+    check(counts["flash_attention"] == cfg.num_layers and counts["matmul_bf16"] > 0,
+          f"Gemma-7B generate launched kernel C {counts['flash_attention']} times, not {cfg.num_layers}: {counts}")
+    print(f"phase 5g Gemma-7B generate: 1 request x 8 tokens in {gen_s:.2f} s; launches {counts}")
+    return counts, dict(prefill_logits_diff=diff, generate_s=gen_s, layers=cfg.num_layers)
+
+
 SMALL = dict(vocab_size=512, hidden_size=256, intermediate_size=512, num_layers=2,
              num_heads=4, num_kv_heads=2, head_dim=128, max_seq_len=256)
 
 
+# Phase 5c's variants of the small model: every field of the Llama-family
+# variants on.
+SMALL_VARIANTS = {
+    "bias, qk_norm, llama3 rope": dict(attn_bias=True, qk_norm=True, rope_scaling=("llama3", 8.0, 1.0, 4.0, 64)),
+    "Gemma flags, D=256": dict(head_dim=256, activation="gelu_tanh", rmsnorm_one_plus=True, scale_embeddings=True),
+}
+
+
 def phase_small_model(dev, rng):
     """Main path (c): a small model on the card against the same weights on
-    the CPU."""
+    the CPU, plain and with the variants' fields on."""
     import torch
 
     from nf4_tpu_torch.models.llama import LlamaConfig, prefill
     from nf4_tpu_torch.models.synthetic import synthetic_params
 
-    small = LlamaConfig(**SMALL)
-    p_gpu = synthetic_params(small, seed=1)
-    p_cpu = params_to(p_gpu, "cpu")
-    tk = torch.as_tensor(rng.integers(0, 512, (2, 100)), dtype=torch.int32)
-    lg, _ = prefill(p_gpu, small, tk.to(dev))
-    lc, _ = prefill(p_cpu, small, tk)
-    diff = (lg.cpu() - lc).abs().max().item()
-    scale = lc.abs().max().item()
-    check(bool(torch.isfinite(lg).all()) and diff <= 2e-2 * scale, f"small model: card vs CPU {diff} at scale {scale}")
-    print(f"phase 5c small model logits, card vs CPU plain path: max abs diff {diff:.2e} (max |logit| {scale:.2f})")
+    for name, fields in {"": {}, **SMALL_VARIANTS}.items():
+        small = LlamaConfig(**{**SMALL, **fields})
+        p_gpu = synthetic_params(small, seed=1)
+        p_cpu = params_to(p_gpu, "cpu")
+        tk = torch.as_tensor(rng.integers(0, 512, (2, 100)), dtype=torch.int32)
+        lg, _ = prefill(p_gpu, small, tk.to(dev))
+        lc, _ = prefill(p_cpu, small, tk)
+        diff = (lg.cpu() - lc).abs().max().item()
+        scale = lc.abs().max().item()
+        check(bool(torch.isfinite(lg).all()) and diff <= 2e-2 * scale,
+              f"small model {name}: card vs CPU {diff} at scale {scale}")
+        print(f"phase 5c small model{f' ({name})' if name else ''} logits, card vs CPU plain path: max abs diff "
+              f"{diff:.2e} (max |logit| {scale:.2f})")
 
 
 def phase_checkpoint(dev, rng):
@@ -1110,6 +1351,7 @@ def main() -> int:
     ex, ex_decode = phase_exact(gen, dev)
     fl = phase_flash(gen, dev)
     fl8 = phase_flash(gen, dev, int8=True)
+    fls = phase_flash_shapes(gen, dev)
 
     import numpy as np
 
@@ -1122,6 +1364,8 @@ def main() -> int:
     phase_small_model(dev, rng)
     int8_counts, serving8 = phase_int8_serving(prompts, args.profile)
     phase_checkpoint(dev, rng)
+    qwen_counts, serving_qwen = phase_qwen2_serving(prompts, args.profile)
+    gemma_counts, gemma = phase_gemma(rng)
     phase_backward(gen, dev)
     # 7 examples of 60-200 tokens that pack into 2 x 512 slots (97.8% full).
     examples = sft_examples(np.random.default_rng(0), LLAMA3_8B.vocab_size, 7, 60, 200)
@@ -1148,14 +1392,14 @@ def main() -> int:
                        prefill_library_ms=sum(r["library_ms"] for r in pre))
         return row
 
-    def flash_row(name, res, launches):
+    def flash_row(name, res, launches, int8=False, **more):
         return dict(name=name, route="cuda", source="nf4_tpu_torch/csrc/flash_attn.cu",
                     replaces="nf4_tpu/ops/attention.py:371", launches=launches,
                     max_abs_err=max(r["max_abs_err"] for r in res.values()), ms=res["causal"]["ms"],
                     plain_ms=res["causal"]["plain_ms"], bound_ms=res["causal"]["bound_ms"],
                     bound_by="operations", library_ms=res["causal"]["library_ms"],
                     window_ms=res["window"]["ms"], window_bound_ms=res["window"]["bound_ms"],
-                    window_library_ms=res["window"]["library_ms"])
+                    window_library_ms=res["window"]["library_ms"], shapes=flash_shape_rows(fls, int8), **more)
 
     kernels = [
         dict(name="dequant_t", route="cuda", source="nf4_tpu_torch/csrc/dequant.cu",
@@ -1164,8 +1408,9 @@ def main() -> int:
              bound_ms=deq["w_down"]["bound_ms"], bound_by="bytes", library_ms=None),
         matmul_row("matmul_bf16", "nf4_tpu_torch/csrc/matmul.cu", "nf4_tpu/ops/matmul.py:148", mm,
                    serve_counts["matmul_bf16"], prefill=True),
-        flash_row("flash_attention", fl, serve_counts["flash_attention"]),
-        flash_row("flash_attention_int8", fl8, int8_counts["flash_attention_int8"]),
+        flash_row("flash_attention", fl, serve_counts["flash_attention"],
+                  qwen2_7b_launches=qwen_counts["flash_attention"], gemma_7b_launches=gemma_counts["flash_attention"]),
+        flash_row("flash_attention_int8", fl8, int8_counts["flash_attention_int8"], int8=True),
         matmul_row("int8_matmul", "nf4_tpu_torch/csrc/int8_matmul.cu", "nf4_tpu/ops/int8_serve.py:151", mm8,
                    int8_counts["int8_matmul"], prefill=True),
         dict(name="dequant_t_fast", route="cuda", source="nf4_tpu_torch/csrc/dequant.cu",
@@ -1193,7 +1438,8 @@ def main() -> int:
                            matmul={f"{k[0]} B={k[1]}": v for k, v in mm.items()},
                            int8_matmul={f"{k[0]} B={k[1]}": v for k, v in mm8.items()},
                            exact_matmul={f"{k[0]} B={k[1]}": v for k, v in ex.items()}, exact_decode=ex_decode,
-                           flash=fl, flash_int8=fl8, serving=serving, serving_int8=serving8,
+                           flash=fl, flash_int8=fl8, flash_shapes=fls, serving=serving, serving_int8=serving8,
+                           serving_qwen2_7b=serving_qwen, gemma_7b=gemma,
                            training_bf16=train16, training_fp32=train32, kernels=kernels), f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -4,7 +4,17 @@ from __future__ import annotations
 
 from .llama import LlamaConfig
 
-__all__ = ["TINY_TEST", "TINYLLAMA_1_1B", "LLAMA3_8B", "get_config"]
+__all__ = [
+    "TINY_TEST",
+    "TINYLLAMA_1_1B",
+    "MISTRAL_7B",
+    "GEMMA_7B",
+    "QWEN2_7B",
+    "LLAMA3_8B",
+    "LLAMA3_1_8B",
+    "QWEN3_8B",
+    "get_config",
+]
 
 # A miniature config for unit tests.
 TINY_TEST = LlamaConfig(
@@ -31,6 +41,52 @@ TINYLLAMA_1_1B = LlamaConfig(
     max_seq_len=2048,
 )
 
+# Mistral-7B v0.1: Llama architecture + sliding-window attention.
+MISTRAL_7B = LlamaConfig(
+    vocab_size=32000,
+    hidden_size=4096,
+    intermediate_size=14336,
+    num_layers=32,
+    num_heads=32,
+    num_kv_heads=8,
+    head_dim=128,
+    rope_theta=10000.0,
+    max_seq_len=8192,
+    sliding_window=4096,
+)
+
+# Gemma-7B: GeGLU activation, (1+w) RMSNorm, sqrt(hidden) embedding scale.
+GEMMA_7B = LlamaConfig(
+    vocab_size=256000,
+    hidden_size=3072,
+    intermediate_size=24576,
+    num_layers=28,
+    num_heads=16,
+    num_kv_heads=16,
+    head_dim=256,
+    rope_theta=10000.0,
+    rms_norm_eps=1e-6,
+    max_seq_len=8192,
+    activation="gelu_tanh",
+    rmsnorm_one_plus=True,
+    scale_embeddings=True,
+)
+
+# Qwen2-7B: Llama architecture + q/k/v projection biases.
+QWEN2_7B = LlamaConfig(
+    vocab_size=152064,
+    hidden_size=3584,
+    intermediate_size=18944,
+    num_layers=28,
+    num_heads=28,
+    num_kv_heads=4,
+    head_dim=128,
+    rope_theta=1_000_000.0,
+    rms_norm_eps=1e-6,
+    max_seq_len=8192,
+    attn_bias=True,
+)
+
 # Llama-3-8B.
 LLAMA3_8B = LlamaConfig(
     vocab_size=128256,
@@ -44,10 +100,43 @@ LLAMA3_8B = LlamaConfig(
     max_seq_len=8192,
 )
 
+# Llama-3.1-8B: Llama-3 + llama3 RoPE scaling to a 128k context.
+LLAMA3_1_8B = LlamaConfig(
+    vocab_size=128256,
+    hidden_size=4096,
+    intermediate_size=14336,
+    num_layers=32,
+    num_heads=32,
+    num_kv_heads=8,
+    head_dim=128,
+    rope_theta=500000.0,
+    rope_scaling=("llama3", 8.0, 1.0, 4.0, 8192),
+    max_seq_len=131072,
+)
+
+# Qwen3-8B (Qwen2-style GQA without biases + per-head q/k RMSNorm).
+QWEN3_8B = LlamaConfig(
+    vocab_size=151936,
+    hidden_size=4096,
+    intermediate_size=12288,
+    num_layers=36,
+    num_heads=32,
+    num_kv_heads=8,
+    head_dim=128,
+    rope_theta=1000000.0,
+    max_seq_len=32768,
+    qk_norm=True,
+)
+
 _REGISTRY = {
     "tiny-test": TINY_TEST,
     "tinyllama-1.1b": TINYLLAMA_1_1B,
+    "mistral-7b": MISTRAL_7B,
+    "gemma-7b": GEMMA_7B,
+    "qwen2-7b": QWEN2_7B,
     "llama3-8b": LLAMA3_8B,
+    "llama3.1-8b": LLAMA3_1_8B,
+    "qwen3-8b": QWEN3_8B,
 }
 
 

@@ -6,8 +6,9 @@ attribute only: ``embed``, ``final_norm``, ``lm_head`` and the stacked
 ``[L, ...]`` ``layers.{wqkv, wo, w_gateup, w_down}`` (each with ``packed``,
 ``scales``, ``shape``, ``padded_shape``, ``dtype``, ``shards`` and
 ``quant_type``; an int8-recoded one with ``values`` and ``scales``; or a
-dense array) and ``layers.{input_norm, post_attn_norm}``.  It returns the
-port's params with the layers split.  The packed bytes, int8 values and
+dense array), ``layers.{input_norm, post_attn_norm}`` and, where present,
+``layers.{qkv_bias, q_norm, k_norm}``.  It returns the port's params with
+the layers split.  The packed bytes, int8 values and
 scales are copied as they are: the layouts are shared.
 
 :func:`config_to_dict` / :func:`config_from_dict` are the JAX package's
@@ -80,9 +81,10 @@ def params_from_numpy(tree, cfg: LlamaConfig, device=None) -> LlamaParams:
     package's numpy-leaved params."""
     dev = resolve_device(device)
     lt = tree.layers
-    for extra in ("qkv_bias", "router", "q_norm", "k_norm", "post_attn_out_norm", "post_ffw_norm"):
+    for extra in ("router", "post_attn_out_norm", "post_ffw_norm"):
         if getattr(lt, extra, None) is not None:
             raise NotImplementedError(f"not ported yet: layer weights {extra!r}")
+    optional = [n for n in ("qkv_bias", "q_norm", "k_norm") if getattr(lt, n, None) is not None]
     layers = [
         LayerParams(
             wqkv=_weight(lt.wqkv, i, dev),
@@ -91,6 +93,7 @@ def params_from_numpy(tree, cfg: LlamaConfig, device=None) -> LlamaParams:
             w_down=_weight(lt.w_down, i, dev),
             input_norm=_tensor(lt.input_norm[i], dev),
             post_attn_norm=_tensor(lt.post_attn_norm[i], dev),
+            **{n: _tensor(getattr(lt, n)[i], dev) for n in optional},
         )
         for i in range(cfg.num_layers)
     ]

@@ -2,7 +2,11 @@
 and the fine-tuning forward.
 
 The counterpart of the JAX package's ``models/llama.py``: RMSNorm, rotary
-embeddings, GQA attention over a KV cache, SwiGLU MLP.  Every projection
+embeddings, GQA attention over a KV cache, a gated MLP, and the fields of
+the Llama-family variants: fused q/k/v biases (Qwen2), per-head q/k
+RMSNorm (Qwen3), RoPE scaling (linear, llama3, longrope), GeLU MLPs,
+``(1 + w)`` RMSNorm and scaled embeddings (Gemma), a sliding window
+(Mistral).  Every projection
 goes through one call site, :func:`_matmul`: the fused 4-bit matmul for
 :class:`PackedNF4` weights, the int8 matmul for weights recoded by
 :func:`recode_params_int8`.  With ``kv_quant`` the KV cache is int8 with
@@ -20,6 +24,8 @@ new cache); it returns the same cache object for a like-for-like signature.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import math
 from typing import List, Optional, Tuple, Union
 
 import torch
@@ -103,26 +109,32 @@ class LlamaConfig:
         return self.num_kv_heads * self.head_dim
 
 
+# The MLP's gate activations, on fp32 (``activation``).
+_ACTIVATIONS = {
+    "silu": F.silu,
+    "gelu_tanh": lambda t: F.gelu(t, approximate="tanh"),
+    "gelu": F.gelu,
+}
+
+
 def check_supported(cfg: LlamaConfig) -> None:
     """Raise for configuration features this port does not serve yet."""
     missing = {
         "quantize=False (dense projections)": not cfg.quantize,
         "num_experts > 1": cfg.num_experts > 1,
-        "attn_bias": cfg.attn_bias,
-        "qk_norm": cfg.qk_norm,
         "attn_logit_softcapping": cfg.attn_logit_softcapping is not None,
         "final_logit_softcapping": cfg.final_logit_softcapping is not None,
-        "rope_scaling": cfg.rope_scaling is not None,
         "rope_local_theta": cfg.rope_local_theta is not None,
         "tp_shards > 1": cfg.tp_shards > 1,
-        "rmsnorm_one_plus": cfg.rmsnorm_one_plus,
-        "scale_embeddings": cfg.scale_embeddings,
         "sliding_window_pattern > 1": cfg.sliding_window_pattern > 1,
-        f"activation={cfg.activation!r}": cfg.activation != "silu",
     }
     bad = [name for name, on in missing.items() if on]
     if bad:
         raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
+    if cfg.activation not in _ACTIVATIONS:
+        raise ValueError(f"unknown activation {cfg.activation!r}; {'|'.join(_ACTIVATIONS)}")
+    if cfg.rope_scaling is not None and cfg.rope_scaling[0] not in ("linear", "llama3", "longrope"):
+        raise ValueError(f"unknown rope_scaling kind {cfg.rope_scaling[0]!r}; llama3|linear|longrope")
 
 
 Weight = Union[PackedNF4, PackedInt8]
@@ -138,6 +150,9 @@ class LayerParams:
     w_down: Weight  # [hidden, intermediate]
     input_norm: torch.Tensor  # fp32 [hidden]
     post_attn_norm: torch.Tensor  # fp32 [hidden]
+    qkv_bias: Optional[torch.Tensor] = None  # fp32 [q_dim + 2*kv_dim] (cfg.attn_bias)
+    q_norm: Optional[torch.Tensor] = None  # fp32 [head_dim] (cfg.qk_norm)
+    k_norm: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass
@@ -243,19 +258,67 @@ def recode_params_int8(params: LlamaParams) -> LlamaParams:
     return dataclasses.replace(params, layers=layers, lm_head=recode(params.lm_head))
 
 
-def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float, one_plus: bool = False) -> torch.Tensor:
+    """RMSNorm over the last axis in fp32; ``one_plus`` scales by ``1 +
+    weight`` (Gemma)."""
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps) * weight).to(x.dtype)
+    return (xf * torch.rsqrt(var + eps) * (1.0 + weight if one_plus else weight)).to(x.dtype)
+
+
+def _scaled_inv_freq(cfg: LlamaConfig, device) -> torch.Tensor:
+    """fp32 [head_dim / 2] inverse wavelengths, with HF's ``rope_scaling``:
+    "linear" divides them all by the factor; "llama3" (Llama-3.1/3.2)
+    divides the low frequencies by ``factor``, keeps the high ones and
+    interpolates between (HF's ``_compute_llama3_parameters``); "longrope"
+    (Phi-3) divides by the long or the short per-frequency factors."""
+    half = cfg.head_dim // 2
+    exps = torch.arange(0, half, dtype=torch.float32, device=device) / half
+    inv_freq = 1.0 / (cfg.rope_theta ** exps)
+    if cfg.rope_scaling is None:
+        return inv_freq
+    kind = cfg.rope_scaling[0]
+    if kind == "linear":
+        return inv_freq / cfg.rope_scaling[1]
+    if kind == "llama3":
+        _, factor, lo_f, hi_f, orig = cfg.rope_scaling
+        wavelen = 2.0 * math.pi / inv_freq
+        scaled = inv_freq / factor
+        smooth = (orig / wavelen - lo_f) / (hi_f - lo_f)
+        mid = (1.0 - smooth) * scaled + smooth * inv_freq
+        return torch.where(wavelen < orig / hi_f, inv_freq, torch.where(wavelen > orig / lo_f, scaled, mid))
+    _, short, long, orig = cfg.rope_scaling[:4]  # longrope
+    return inv_freq / _longrope_factors(tuple(long if cfg.max_seq_len > orig else short), device)
+
+
+@functools.lru_cache(maxsize=None)
+def _longrope_factors(factors: tuple, device: torch.device) -> torch.Tensor:
+    """Longrope's per-frequency factors on ``device``, copied there at
+    their first use: a host-to-device copy cannot run inside a CUDA graph
+    capture (the Engine's warm-up step is the first use)."""
+    return torch.tensor(factors, dtype=torch.float32, device=device)
+
+
+def _rope_attn_scale(cfg: LlamaConfig) -> float:
+    """Longrope's multiplier of cos and sin: the checkpoint's attention
+    factor (tuple entry 5) when given, else sqrt(1 + ln(scale) / ln(orig))
+    from ``max_seq_len``; 1.0 for every other scheme."""
+    if cfg.rope_scaling is None or cfg.rope_scaling[0] != "longrope":
+        return 1.0
+    if len(cfg.rope_scaling) > 4:
+        return float(cfg.rope_scaling[4])
+    orig = cfg.rope_scaling[3]
+    scale = cfg.max_seq_len / orig
+    return 1.0 if scale <= 1.0 else math.sqrt(1.0 + math.log(scale) / math.log(orig))
 
 
 def rope_tables(cfg: LlamaConfig, positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """cos/sin [..., D] for the HF 'rotate_half' convention (default rope)."""
-    half = cfg.head_dim // 2
-    exps = torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
-    inv_freq = 1.0 / (cfg.rope_theta ** exps)
-    angles = positions.float()[..., None] * inv_freq
+    """cos/sin [..., D] for the HF 'rotate_half' convention."""
+    angles = positions.float()[..., None] * _scaled_inv_freq(cfg, positions.device)
     emb = torch.cat([angles, angles], dim=-1)
+    m = _rope_attn_scale(cfg)
+    if m != 1.0:
+        return torch.cos(emb) * m, torch.sin(emb) * m
     return torch.cos(emb), torch.sin(emb)
 
 
@@ -331,11 +394,18 @@ def _layer_forward(cfg, x, lp: LayerParams, layer_cache: Optional[KVCache], posi
     def delta(t, name):
         return None if ll is None else _lora_delta(t, getattr(ll, name))
 
-    attn_in = rms_norm(x, lp.input_norm, cfg.rms_norm_eps)
+    one_plus = cfg.rmsnorm_one_plus
+    attn_in = rms_norm(x, lp.input_norm, cfg.rms_norm_eps, one_plus)
     qkv = _add_delta(_matmul(attn_in, lp.wqkv), delta(attn_in, "qkv"))  # one kernel for q+k+v
+    if lp.qkv_bias is not None:
+        qkv = qkv + lp.qkv_bias.to(qkv.dtype)
     qk, v = split_fused(qkv, (cfg.q_dim + cfg.kv_dim, cfg.kv_dim))
+    qk = qk.reshape(b, s, cfg.num_heads + cfg.num_kv_heads, cfg.head_dim)
+    if lp.q_norm is not None:  # per-head RMSNorm of q and k before RoPE (Qwen3), one pass
+        w = torch.cat((lp.q_norm.expand(cfg.num_heads, -1), lp.k_norm.expand(cfg.num_kv_heads, -1)))
+        qk = rms_norm(qk, w, cfg.rms_norm_eps, one_plus)
     # RoPE of the q and k heads in one pass.
-    qk = apply_rope(qk.reshape(b, s, cfg.num_heads + cfg.num_kv_heads, cfg.head_dim).transpose(1, 2), cos, sin)
+    qk = apply_rope(qk.transpose(1, 2), cos, sin)
     q, k = qk.split((cfg.num_heads, cfg.num_kv_heads), dim=1)
     v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2)
     if train:
@@ -365,10 +435,10 @@ def _layer_forward(cfg, x, lp: LayerParams, layer_cache: Optional[KVCache], posi
     o_proj = _add_delta(_matmul(attn, lp.wo, out_dtype=torch.float32), delta(attn, "o"))
     x = x + o_proj.to(x.dtype)
 
-    mlp_in = rms_norm(x, lp.post_attn_norm, cfg.rms_norm_eps)
+    mlp_in = rms_norm(x, lp.post_attn_norm, cfg.rms_norm_eps, one_plus)
     gateup = _add_delta(_matmul(mlp_in, lp.w_gateup), delta(mlp_in, "gateup"))  # one kernel for gate+up
     gate, up = split_fused(gateup, (cfg.intermediate_size, cfg.intermediate_size))
-    h = F.silu(gate.float()).to(up.dtype) * up
+    h = _ACTIVATIONS[cfg.activation](gate.float()).to(up.dtype) * up
     down = _add_delta(_matmul(h, lp.w_down, out_dtype=torch.float32), delta(h, "down"))
     return x + down.to(x.dtype)
 
@@ -390,7 +460,7 @@ def forward(
     ``lora`` is an optional unmerged ``train.lora.LoraParams``."""
     check_supported(cfg)
     b, s = tokens.shape
-    x = params.embed[tokens.long()]
+    x = _embed(params, cfg, tokens)
     cos, sin = rope_tables(cfg, positions)
     index = _cache_index(positions)
     for i, lp in enumerate(params.layers):
@@ -403,8 +473,17 @@ def forward(
     return _logits(params, cfg, x), cache
 
 
+def _embed(params: LlamaParams, cfg: LlamaConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """The tokens' embedding rows; scaled by sqrt(hidden) in fp32 with
+    ``scale_embeddings`` (Gemma)."""
+    x = params.embed[tokens.long()]
+    if cfg.scale_embeddings:
+        x = (x.float() * cfg.hidden_size**0.5).to(x.dtype)
+    return x
+
+
 def _logits(params: LlamaParams, cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
-    x = rms_norm(x, params.final_norm, cfg.rms_norm_eps)
+    x = rms_norm(x, params.final_norm, cfg.rms_norm_eps, cfg.rmsnorm_one_plus)
     if isinstance(params.lm_head, (PackedNF4, PackedInt8)):
         return _matmul(x, params.lm_head, out_dtype=torch.float32)
     return _dense_logits(x, params.lm_head.to(x.dtype))
@@ -433,7 +512,7 @@ def train_forward(
     indices."""
     check_supported(cfg)
     b, s = tokens.shape
-    x = params.embed[tokens.long()]
+    x = _embed(params, cfg, tokens)
     slot_ids = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
     seq_lens = torch.full((b,), s, dtype=torch.int32, device=tokens.device)
     cos, sin = rope_tables(cfg, slot_ids if positions is None else positions)

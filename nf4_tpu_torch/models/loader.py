@@ -6,7 +6,8 @@ in the JAX package's ``models/loader.py``, with the same schema and the same
 
 * ``layers.<name>.packed`` / ``.scales`` for the packed projections
   (``wqkv``, ``wo``, ``w_gateup``, ``w_down``), stacked over the layer axis;
-  ``layers.<name>`` for dense projections and the two norms; top-level
+  ``layers.<name>`` for dense projections, the two norms and, where the
+  model has them, ``qkv_bias``, ``q_norm`` and ``k_norm``; top-level
   ``embed``, ``final_norm`` and ``lm_head`` (or ``lm_head.packed`` /
   ``.scales``).
 * metadata: each packed weight's logical ``shapes``, ``shards`` and
@@ -15,8 +16,8 @@ in the JAX package's ``models/loader.py``, with the same schema and the same
 
 ``.npz`` always works: bf16 tensors are stored as uint16 bit patterns and
 read back through a torch view.  ``.safetensors`` needs the ``safetensors``
-package.  Dense-Llama fields only: a checkpoint with another layer field
-(``qkv_bias``, ``router``, ``q_norm``, ...) raises.
+package.  A checkpoint with a layer field of the variants not ported yet
+(``router``, ``post_attn_out_norm``, ``post_ffw_norm``) raises.
 """
 
 from __future__ import annotations
@@ -39,7 +40,8 @@ __all__ = ["save_packed", "load_packed", "load_packed_auto"]
 
 _LINEAR_FIELDS = ("wqkv", "wo", "w_gateup", "w_down")
 _NORM_FIELDS = ("input_norm", "post_attn_norm")
-_UNPORTED_FIELDS = ("qkv_bias", "router", "post_attn_out_norm", "post_ffw_norm", "q_norm", "k_norm")
+_OPTIONAL_FIELDS = ("qkv_bias", "q_norm", "k_norm")
+_UNPORTED_FIELDS = ("router", "post_attn_out_norm", "post_ffw_norm")
 
 
 def _safetensors(module: str):
@@ -80,8 +82,9 @@ def save_packed(path: str, params: LlamaParams, cfg: LlamaConfig) -> None:
     _put_weight(tensors, meta, "lm_head", "lm_head", [params.lm_head], stacked=False)
     for name in _LINEAR_FIELDS:
         _put_weight(tensors, meta, f"layers.{name}", name, [getattr(lp, name) for lp in params.layers], True)
-    for name in _NORM_FIELDS:
-        tensors[f"layers.{name}"] = torch.stack([getattr(lp, name) for lp in params.layers])
+    for name in _NORM_FIELDS + _OPTIONAL_FIELDS:
+        if getattr(params.layers[0], name) is not None:
+            tensors[f"layers.{name}"] = torch.stack([getattr(lp, name) for lp in params.layers])
     tensors = {k: t.detach().cpu().contiguous() for k, t in tensors.items()}
 
     if path.endswith(".safetensors"):
@@ -142,10 +145,11 @@ def _assemble(data: Dict[str, torch.Tensor], meta: dict, cfg: LlamaConfig, devic
             quant_type=str(quant_types.get(name, "nf4")),
         )
 
+    vectors = [name for name in _NORM_FIELDS + _OPTIONAL_FIELDS if f"layers.{name}" in data]
     layers = [
         LayerParams(
             **{name: weight(f"layers.{name}", name, i) for name in _LINEAR_FIELDS},
-            **{name: data[f"layers.{name}"][i].to(dev) for name in _NORM_FIELDS},
+            **{name: data[f"layers.{name}"][i].to(dev) for name in vectors},
         )
         for i in range(cfg.num_layers)
     ]

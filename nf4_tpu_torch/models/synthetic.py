@@ -3,8 +3,11 @@
 The counterpart of ``synthetic_params`` in the JAX package's
 ``benchmarks/benchmark_serving.py``: structurally exact params (packed
 bytes uniform over 0..255, block scales uniform in [0.001, 0.02]) with the
-compute and memory traffic of a real model.  The outputs are not a
-language model's; use them to drive and time the serving path.
+compute and memory traffic of a real model.  The variants' layer vectors
+come from the same seed: q/k/v biases (``attn_bias``) normal with std
+0.02, as the JAX package's ``init_params`` draws them, and q/k head norms
+(``qk_norm``) 1 + normal with std 0.1.  The outputs are not a language
+model's; use them to drive and time the serving path.
 """
 
 from __future__ import annotations
@@ -39,6 +42,16 @@ def synthetic_params(cfg: LlamaConfig, seed: int = 0, device=None) -> LlamaParam
     def normal(shape, std):
         return (torch.randn(shape, generator=gen, device=dev) * std).to(cfg.dtype)
 
+    def vectors():
+        """The layer's optional fp32 vectors, drawn after its weights."""
+        out = {}
+        if cfg.attn_bias:
+            out["qkv_bias"] = torch.randn(cfg.q_dim + 2 * cfg.kv_dim, generator=gen, device=dev) * 0.02
+        if cfg.qk_norm:
+            for name in ("q_norm", "k_norm"):
+                out[name] = 1.0 + torch.randn(cfg.head_dim, generator=gen, device=dev) * 0.1
+        return out
+
     h, inter = cfg.hidden_size, cfg.intermediate_size
     layers = [
         LayerParams(
@@ -48,6 +61,7 @@ def synthetic_params(cfg: LlamaConfig, seed: int = 0, device=None) -> LlamaParam
             w_down=packed(h, inter),
             input_norm=torch.ones(h, device=dev),
             post_attn_norm=torch.ones(h, device=dev),
+            **vectors(),
         )
         for _ in range(cfg.num_layers)
     ]

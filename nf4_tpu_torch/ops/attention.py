@@ -14,6 +14,11 @@ in serving), and probabilities round to it before the P.V product.
   prefills where the kernel does not apply).
 * ``flash_attention`` runs the hand-written kernel ``csrc/flash_attn.cu``
   on CUDA tensors and its plain version :func:`_flash_plain` on CPU ones.
+  Its shape contract is the TPU kernel's: head size D = 64 or any multiple
+  of 128, any GQA group G = H / KV, any S and T (ragged edges masked in
+  the kernel).  A 64-row query tile packs sc = floor(64 / G) positions of
+  all G heads of a KV head (one position of 64 heads for G > 64, several
+  tiles per position); the key tiles have 64 slots, 32 at D = 256.
 
 Every caller passes per-row contiguous positions (``pos0 + arange(S)``),
 which the flash kernel needs.
@@ -48,10 +53,25 @@ __all__ = ["attention", "naive_attention", "chunked_attention", "flash_attention
 
 _NEG = -1e30
 # Query rows per kernel query tile (one warpgroup): the GQA-packed [G, sc]
-# rows, sc = 64 / G; cache slots per key tile, which the plain version's
-# key chunks mirror.
+# rows, sc = floor(64 / G) positions (1 for G > 64, the tile then holding 64
+# heads of one position); rows G * sc .. 63 are idle.
 _FLASH_ROWS = 64
-_FLASH_TILE = 64
+
+
+def _flash_sc(g: int) -> int:
+    """Positions per kernel query tile for a GQA group of ``g`` heads."""
+    return max(1, _FLASH_ROWS // g)
+
+
+def _flash_tile(d: int) -> int:
+    """Cache slots per kernel key tile, which the plain version's key chunks
+    mirror: 64, or 32 at D = 256 (the kernel's registers)."""
+    return 32 if d == 256 else 64
+
+
+def _flash_head_dim(d: int) -> bool:
+    """The head sizes kernel C takes: the TPU kernel's."""
+    return d == 64 or d % 128 == 0
 
 _KERNEL = Kernel(
     "flash_attention", "flash_attn", "flash_attention_bf16",
@@ -162,12 +182,13 @@ def chunked_attention(
 
 
 def _flash_plain(q, k, v, pos0, seq_lens, scale, sliding_window=None, k_scale=None, v_scale=None):
-    """The plain version of kernel C: the same online softmax over key
-    tiles of the kernel's 64 slots, for all query rows at once.  pos0 [B]."""
-    s = q.shape[2]
+    """The plain version of kernel C: the same online softmax over the
+    kernel's key tiles (:func:`_flash_tile`), for all query rows at once.
+    Any shape.  pos0 [B]."""
+    s, d = q.shape[2], q.shape[3]
     positions = pos0[:, None] + torch.arange(s, device=q.device)[None, :]
     return chunked_attention(q, k, v, positions, seq_lens, scale=scale, sliding_window=sliding_window,
-                             k_scale=k_scale, v_scale=v_scale, q_chunk=s, kv_chunk=_FLASH_TILE)
+                             k_scale=k_scale, v_scale=v_scale, q_chunk=s, kv_chunk=_flash_tile(d))
 
 
 def _check_scale_plane(sp, k) -> None:
@@ -186,8 +207,8 @@ def _flash_kernel(q, k, v, pos0, seq_lens, scale, sliding_window=None, k_scale=N
     kv_dtype = torch.int8 if int8_kv else torch.bfloat16
     if q.dtype != torch.bfloat16 or k.dtype != kv_dtype or v.dtype != kv_dtype:
         raise TypeError("kernel C takes bf16 q and bf16 k, v, or int8 k, v with k_scale and v_scale")
-    if d not in (64, 128) or nh % nkv or _FLASH_ROWS % (nh // nkv):
-        raise ValueError(f"kernel C needs D in (64, 128) and 64 % (H/KV) == 0; got D={d}, H={nh}, KV={nkv}")
+    if not _flash_head_dim(d) or nh % nkv:
+        raise ValueError(f"kernel C needs D = 64 or a multiple of 128 and KV | H; got D={d}, H={nh}, KV={nkv}")
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"bad k/v shapes {tuple(k.shape)} / {tuple(v.shape)}")
     if k.stride(3) != 1 or k.stride(2) != d or v.stride(3) != 1 or v.stride(2) != d:
@@ -198,7 +219,7 @@ def _flash_kernel(q, k, v, pos0, seq_lens, scale, sliding_window=None, k_scale=N
     pos0 = pos0.to(device=q.device, dtype=torch.int32).contiguous()
     lens = seq_lens.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty_like(q)
-    tail = (_FLASH_ROWS // (nh // nkv), int(sliding_window or 0), float(scale))
+    tail = (_flash_sc(nh // nkv), int(sliding_window or 0), float(scale))
     if int8_kv:
         _check_scale_plane(k_scale, k)
         _check_scale_plane(v_scale, v)
@@ -229,17 +250,11 @@ def flash_attention(
 _CHUNKED_MIN_SCORE_ELEMS = 1 << 27
 
 
-def _flash_eligible(q, k, s: int, d: int) -> bool:
-    """Kernel C applies: a CUDA bf16 tensor, a head size the kernel has,
-    GQA groups that pack into its 64-row blocks, and enough rows."""
-    g = q.shape[1] // k.shape[1]
-    return (
-        q.is_cuda
-        and q.dtype == torch.bfloat16
-        and d in (64, 128)
-        and _FLASH_ROWS % g == 0
-        and s >= 256
-    )
+def _flash_eligible(q, s: int, d: int) -> bool:
+    """Kernel C applies: a CUDA bf16 tensor, a head size the kernel takes
+    (D = 64 or any multiple of 128, the TPU kernel's condition; any GQA
+    group) and enough rows."""
+    return q.is_cuda and q.dtype == torch.bfloat16 and _flash_head_dim(d) and s >= 256
 
 
 def attention(
@@ -259,7 +274,7 @@ def attention(
     t_max = k.shape[2]
     opts = dict(k_scale=k_scale, v_scale=v_scale, segment_ids=segment_ids)
     large = s > 1 and b * nh * s * t_max >= _CHUNKED_MIN_SCORE_ELEMS
-    if large and not differentiable and segment_ids is None and _flash_eligible(q, k, s, d):
+    if large and not differentiable and segment_ids is None and _flash_eligible(q, s, d):
         return flash_attention(
             q, k, v, positions, seq_lens, scale=scale, sliding_window=sliding_window,
             k_scale=k_scale, v_scale=v_scale,

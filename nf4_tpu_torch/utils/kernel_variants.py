@@ -18,7 +18,8 @@ with fp32 x, at 4 rows, padded to 16; the
 variants of kernels B, D and E at w_gateup and w_down with 1024 rows),
 kernel C at B=1, H=32, KV=8, D=128, S=1024 (causal from position 0,
 and the last 1024 positions of an 8192-slot cache under a 4096-slot
-window), bf16 and int8 KV.
+window), bf16 and int8 KV, and its D = 256 variants at Gemma-7B's heads,
+S=1024 causal, bf16 KV, B=1 and 2.
 """
 
 from __future__ import annotations
@@ -216,6 +217,21 @@ FLASH_VARIANTS = [
     ("expf instead of __expf", [("__expf(", "expf(")], True),
     ("two query tiles per block for bf16 KV too", [("constexpr int QT = INT8 ? 2 : 1;", "constexpr int QT = 2;")],
      True),
+    ("Q.K^T's column loop unrolled by 2", [("#pragma unroll(KD > 128 ? 2 : KD / 16)", "#pragma unroll 2")], True),
+]
+
+# Kernel C at D = 256 (Gemma-7B's heads), bf16 KV: its key tiles, query
+# tiles per block and the unrolling of Q.K^T's column loop (registers,
+# spills).
+# Tiles of another size change where the online softmax rescales, so
+# they are not the same function to the last bit.
+FLASH_D256_VARIANTS = [
+    ("as is", [], True),
+    ("two query tiles per block", [("constexpr int QT = INT8 ? 2 : 1;", "constexpr int QT = 2;")], True),
+    ("64-slot key tiles", [("constexpr int BC = D >= 256 ? 32 : 64;", "constexpr int BC = 64;")], False),
+    ("16-slot key tiles", [("constexpr int BC = D >= 256 ? 32 : 64;", "constexpr int BC = D >= 256 ? 16 : 64;")],
+     False),
+    ("Q.K^T's column loop unrolled fully", [("#pragma unroll(KD > 128 ? 2 : KD / 16)", "#pragma unroll")], True),
 ]
 
 VARIANTS = {"matmul": MATMUL_VARIANTS, "int8_matmul": INT8_VARIANTS, "matmul_exact": EXACT_VARIANTS,
@@ -473,6 +489,24 @@ def flash(out_dir) -> None:
                     return _time([call]), call()
 
             _report(f"kernel C {'int8' if int8 else 'bf16'} KV {case}", FLASH_VARIANTS, run)
+
+    # Gemma-7B's heads (H = KV = 16, D = 256), bf16 KV, causal from 0: one
+    # sequence (256 blocks for the card's 132 SMs), and two, per sequence.
+    libs = _build("flash_attn", FLASH_D256_VARIANTS, out_dir, tag="_d256")
+    h, kv, d = 16, 16, 256
+    for b in (1, 2):
+        q = torch.randn((b, h, s, d), generator=gen, device=dev).to(torch.bfloat16)
+        k = torch.randn((b, kv, s, d), generator=gen, device=dev).to(torch.bfloat16)
+        v = torch.randn((b, kv, s, d), generator=gen, device=dev).to(torch.bfloat16)
+        pos = torch.zeros((b,), device=dev, dtype=torch.int32)
+        seq = torch.full((b,), s, device=dev, dtype=torch.int32)
+
+        def run(name):
+            with _library("flash_attn", libs[name]):
+                call = lambda: _flash_kernel(q, k, v, pos, seq, d**-0.5)
+                return _time([call]) / b, call()
+
+        _report(f"kernel C bf16 KV D=256 H=16 causal, per sequence of B={b}", FLASH_D256_VARIANTS, run)
 
 
 def main() -> None:

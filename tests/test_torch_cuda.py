@@ -414,6 +414,53 @@ def test_flash_kernel_int8_kv_close(dev, window, pos0, g, d):
     np.testing.assert_allclose(got[1, :, : s - 50].cpu().numpy(), want[1, :, : s - 50].cpu().numpy(), rtol=2e-2, atol=2e-2)
 
 
+# Kernel C's shapes beyond D in (64, 128) with 64 % G == 0: GQA groups with
+# idle query rows (G = 3, 5, 7), more than one head group per position (G =
+# 96), D = 256 (32-slot key tiles) and D = 384, 512 (the wide kernel).
+_FLASH_SHAPES = [(3, 128), (7, 128), (5, 64), (96, 64), (1, 256), (2, 256), (7, 256), (1, 384), (3, 512)]
+
+
+@pytest.mark.parametrize("window,pos0", [(None, 0), (None, 37), (100, 37)])
+@pytest.mark.parametrize("g,d", _FLASH_SHAPES)
+@pytest.mark.parametrize("int8", [False, True])
+def test_flash_kernel_shapes_close(dev, window, pos0, g, d, int8):
+    """As test_flash_kernel_ragged_close at every shape the TPU kernel
+    takes: S = 700, at and off position 0, a window edge inside a key tile,
+    a shorter second sequence."""
+    from nf4_tpu_torch.ops.attention import _flash_kernel, _flash_plain
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    b, kv, s, t = 2, 2, 700, 1024
+    q, k, v, sc = _flash_inputs(gen, dev, b, g, kv, s, t, d, int8)
+    pos = torch.full((b,), pos0, device=dev, dtype=torch.int32)
+    lens = torch.tensor([pos0 + s, pos0 + s - 50], device=dev, dtype=torch.int32)
+    got = _flash_kernel(q, k, v, pos, lens, d**-0.5, window, *sc).float()
+    want = _flash_plain(q, k, v, pos, lens, d**-0.5, window, *sc).float()
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got[0].cpu().numpy(), want[0].cpu().numpy(), rtol=2e-2, atol=2e-2)
+    np.testing.assert_allclose(got[1, :, : s - 50].cpu().numpy(), want[1, :, : s - 50].cpu().numpy(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("h,kv,d", [(28, 4, 128), (16, 16, 256), (96, 1, 64), (8, 8, 384)])
+def test_flash_dispatch_takes_every_shape(dev, h, kv, d):
+    """``attention`` sends a large prefill to kernel C at any G and at D = 64
+    or a multiple of 128: one launch, the plain version's result."""
+    from nf4_tpu_torch.ops import _cuda
+    from nf4_tpu_torch.ops.attention import _flash_plain, attention
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    s, t = 512, (1 << 27) // (h * 512) + 64
+    q, k, v, _ = _flash_inputs(gen, dev, 1, h // kv, kv, s, t, d, False)
+    positions = torch.arange(s, device=dev, dtype=torch.int32)[None]
+    lens = torch.full((1,), s, device=dev, dtype=torch.int32)
+    _cuda.reset_launch_counts()
+    got = attention(q, k, v, positions, lens, scale=d**-0.5).float()
+    assert _cuda.launch_counts()["flash_attention"] == 1
+    want = _flash_plain(q, k, v, positions[:, 0], lens, d**-0.5).float()
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=2e-2, atol=2e-2)
+
+
 _EXACT_LIMIT = {torch.float32: 1e-5, torch.float16: 2e-3, torch.bfloat16: 8e-3}
 
 
@@ -585,14 +632,14 @@ def test_matmul_backward_on_card(dev, precision, xdt):
 
 # -- the Engine's decode chunks on CUDA graphs --------------------------------
 
-def _small_model(dev, int8):
+def _small_model(dev, int8, **fields):
     """A 2-layer model at narrow widths (synthetic packed weights), in the
-    4-bit mode or the int8/kv8 mode."""
+    4-bit mode or the int8/kv8 mode, with further config ``fields``."""
     from nf4_tpu_torch.models.llama import LlamaConfig, recode_params_int8
     from nf4_tpu_torch.models.synthetic import synthetic_params
 
     cfg = LlamaConfig(vocab_size=512, hidden_size=256, intermediate_size=512, num_layers=2, num_heads=4,
-                      num_kv_heads=2, head_dim=128, max_seq_len=256, kv_quant=int8)
+                      num_kv_heads=2, head_dim=128, max_seq_len=256, kv_quant=int8, **fields)
     params = synthetic_params(cfg, seed=3, device=dev)
     return cfg, recode_params_int8(params) if int8 else params
 
@@ -625,10 +672,28 @@ def test_graphed_chunk_bit_identical_to_eager(dev, int8):
     chunk's logits, tokens, advanced inputs and cache writes bit for bit at
     the same kv bucket; the next chunk, launched from the device outputs,
     too (the Decoder's own graph)."""
+    _check_graphed_chunk(dev, *_small_model(dev, int8))
+
+
+# Every field of the Llama-family variants on, two RoPE scalings: none
+# reads the host, so the decode chunk captures.
+_VARIANT_FIELDS = {
+    "longrope": dict(attn_bias=True, qk_norm=True, activation="gelu_tanh", rmsnorm_one_plus=True,
+                     scale_embeddings=True, rope_scaling=("longrope", (1.0,) * 64, (2.0,) * 64, 64)),
+    "llama3": dict(attn_bias=True, qk_norm=True, activation="gelu", sliding_window=48,
+                   rope_scaling=("llama3", 8.0, 1.0, 4.0, 64)),
+}
+
+
+@pytest.mark.parametrize("variant", list(_VARIANT_FIELDS))
+def test_graphed_chunk_with_variant_fields(dev, variant):
+    _check_graphed_chunk(dev, *_small_model(dev, False, **_VARIANT_FIELDS[variant]))
+
+
+def _check_graphed_chunk(dev, cfg, params):
     from nf4_tpu_torch.ops._cuda import CountedGraph
     from nf4_tpu_torch.serve.engine import Decoder, Engine, kv_bucket
 
-    cfg, params = _small_model(dev, int8)
     eng = Engine(params, cfg, batch_size=4, eos_token=-1, decode_chunk=8)
     plain = Engine(params, cfg, batch_size=4, eos_token=-1, decode_chunk=8, cuda_graphs=False)
     cache, tok, pos, act = _decode_state(eng, cfg)

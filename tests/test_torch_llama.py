@@ -160,20 +160,32 @@ def test_quantize_kv_identical(rng):
     np.testing.assert_array_equal(ts.numpy().view(np.uint32), np.asarray(js).view(np.uint32))
 
 
-@pytest.mark.parametrize(
-    "field,value",
-    [("quantize", False), ("num_experts", 4), ("attn_bias", True), ("qk_norm", True),
-     ("final_logit_softcapping", 30.0), ("rope_scaling", ("linear", 2.0)), ("tp_shards", 2),
-     ("rmsnorm_one_plus", True), ("activation", "gelu_tanh")],
-)
-def test_unported_config_fields_raise(models, field, value):
+def _forward_with(tcfg, tparams, **fields):
     import dataclasses
 
-    _, _, tcfg, tparams = models
-    cfg = dataclasses.replace(tcfg, **{field: value})
+    cfg = dataclasses.replace(tcfg, **fields)
     toks = torch.zeros((1, 4), dtype=torch.int32)
     cache = llama.KVCache(k=torch.zeros(2, 1, 2, 64, 32, dtype=torch.bfloat16),
                           v=torch.zeros(2, 1, 2, 64, 32, dtype=torch.bfloat16))
+    llama.forward(tparams, cfg, toks, cache, torch.zeros((1, 4), dtype=torch.int32),
+                  torch.full((1,), 4, dtype=torch.int32))
+
+
+@pytest.mark.parametrize(
+    "field,value",
+    [("quantize", False), ("num_experts", 4), ("attn_logit_softcapping", 50.0),
+     ("final_logit_softcapping", 30.0), ("rope_local_theta", 10000.0), ("tp_shards", 2),
+     ("sliding_window_pattern", 2)],
+)
+def test_unported_config_fields_raise(models, field, value):
+    _, _, tcfg, tparams = models
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        llama.forward(tparams, cfg, toks, cache, torch.zeros((1, 4), dtype=torch.int32),
-                      torch.full((1,), 4, dtype=torch.int32))
+        _forward_with(tcfg, tparams, **{field: value})
+
+
+@pytest.mark.parametrize("field,value", [("activation", "relu"), ("rope_scaling", ("yarn", 4.0))])
+def test_unknown_config_values_raise(models, field, value):
+    """An activation or a RoPE scaling the JAX package does not know either."""
+    _, _, tcfg, tparams = models
+    with pytest.raises(ValueError, match="unknown"):
+        _forward_with(tcfg, tparams, **{field: value})
