@@ -38,7 +38,18 @@ Phases, each of which fails the run on any error:
    tokens, one prompt of 1024 tokens, its decode chunks CUDA graph replays
    launched ahead of their read-back, every kernel launch count asserted
    exactly and the tokens held to an eager, unpipelined run of the same
-   requests; (c) a small model on the card against the same model on the
+   requests, then the same requests again on the same Engine: no capture,
+   every chunk a replay, the same launches and tokens (so in 5d and 5f);
+   (h) sampled serving over HTTP: a ``CompletionServer`` on 127.0.0.1 over
+   an Engine at batch 4 with 5b's weights answers 9 concurrent requests of
+   32 tokens (greedy, seeded top-p/top-k, penalties with a banned token,
+   streamed with top-5 logprobs, min_tokens, guided choice, one client
+   that hangs up after its first event), each answer checked (greedy equal
+   to 5b's tokens, seeded and streamed equal to their runs alone, the
+   hang-up retired within one decode chunk), graphs captured once per
+   feature mix, kernels B and C only; then a decode step with every row
+   stochastic against the greedy one, and one request's HTTP round trip
+   against ``Engine.generate``; (c) a small model on the card against the same model on the
    CPU, also with every field of the Llama-family variants on; (d) the
    same serving in the int8 mode: weights recoded to int8 and an int8 KV
    cache; (e) a packed checkpoint saved by the port, loaded on the card
@@ -766,6 +777,18 @@ def serve_llama(label, params, cfg, prompts, weight_bytes, profile, by_bucket=Tr
     graphs, pipe = dict(eng.graph_stats), dict(eng.pipeline_stats)
     check(graphs["replayed"] == SERVE_CHUNKS and pipe == {"launched": 4, "discarded": 0},
           f"every chunk a graph replay, 2 per wave launched ahead: {graphs}, {pipe}")
+    # Call 2 on the same Engine: its cache, Decoder and graphs are kept, so
+    # it captures nothing, replays every chunk and launches what call 1 did.
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    again = eng.generate(prompts, max_new_tokens=32)
+    torch.cuda.synchronize()
+    gen2_s = time.perf_counter() - t0
+    check(eng.graph_stats["captured"] == graphs["captured"]
+          and eng.graph_stats["replayed"] == graphs["replayed"] + SERVE_CHUNKS,
+          f"call 2 captured a graph or ran a chunk eagerly: {graphs} -> {eng.graph_stats}")
+    check([r.tokens for r in again] == [r.tokens for r in results], "call 2's tokens differ from call 1's")
+    check(_cuda.launch_counts() == counts, f"call 2 launched {_cuda.launch_counts()}, call 1 {counts}")
     eager = Engine(params, cfg, batch_size=4, eos_token=-1, decode_chunk=8, pipeline_decode=False,
                    cuda_graphs=False)
     t0 = time.perf_counter()
@@ -774,8 +797,9 @@ def serve_llama(label, params, cfg, prompts, weight_bytes, profile, by_bucket=Tr
     eager_s = time.perf_counter() - t0
     check([r.tokens for r in results] == [r.tokens for r in want],
           "graphed, pipelined tokens differ from eager, unpipelined decode")
-    print(f"phase {label} generate (graphed, pipelined): {len(prompts)} requests x 32 tokens in {gen_s:.2f} s "
-          f"(eager, unpipelined: {eager_s:.2f} s; tokens identical); launches {counts}; graphs captured "
+    print(f"phase {label} generate (graphed, pipelined): {len(prompts)} requests x 32 tokens in {gen_s:.2f} s, "
+          f"again on the same Engine {gen2_s:.2f} s (0 captures, the same tokens and launches; eager, "
+          f"unpipelined: {eager_s:.2f} s; tokens identical); launches {counts}; graphs captured "
           f"{graphs['captured']} in {graphs['capture_s']:.2f} s, pool {graphs['pool_bytes'] / 1e6:.1f} MB, "
           f"replays {graphs['replayed']}; pipeline {pipe}; peak memory {peak / 1e9:.1f} GB")
 
@@ -829,7 +853,8 @@ def serve_llama(label, params, cfg, prompts, weight_bytes, profile, by_bucket=Tr
     wall, busy = profile_breakdown(f"{label} decode, {chunks} graphed pipelined chunks of {n} steps, batch 4, "
                                    f"position 1024, kv_len {kv}", lambda: decode_run(dec, kv, True), rows)
     bound = weight_bytes / PEAK_BYTES_S
-    res = dict(generate_s=gen_s, generate_eager_s=eager_s, graph_stats=graphs, pipeline_stats=pipe,
+    res = dict(generate_s=gen_s, generate_again_s=gen2_s, generate_eager_s=eager_s, graph_stats=graphs,
+               pipeline_stats=pipe, tokens=[r.tokens for r in results],
                prefill_tok_s=1024 / prefill_s, kv_bucket=eng.KV_BUCKET, kv_len=kv,
                decode_ms_step=ms_pipe, decode_tok_s=4e3 / ms_pipe, decode_busy=busy / wall,
                weight_gb=weight_bytes / 1e9, kv_cache_gb=cache.nbytes / 1e9)
@@ -879,7 +904,258 @@ def phase_serving(prompts, profile):
     check(counts["matmul_bf16"] == proj and counts["flash_attention"] == flash,
           f"serving launched kernels B and C {counts['matmul_bf16']} and {counts['flash_attention']} times, "
           f"not {proj} and {flash}: {counts}")
-    return counts, serving
+    return counts, serving, params
+
+
+def http_post(port, body, timeout=600):
+    """POST a completion request to the server on ``port``; (status, JSON
+    body) of the reply, or (200, [tokens]) of a streamed one."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/v1/completions", data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"}, method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            raw = resp.read()
+            if not body.get("stream"):
+                return resp.status, json.loads(raw)
+            events = [line[6:] for line in raw.decode().split("\n") if line.startswith("data: ")]
+            check(events and events[-1] == "[DONE]", f"stream ends with [DONE]: {events[-3:]}")
+            return resp.status, [json.loads(e)["token"] for e in events[:-1]]
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def stream_and_hang_up(port, body, before_close, timeout=600):
+    """Send a streamed request on a raw socket, read its first SSE event and
+    close the connection; returns what ``before_close()`` returned just
+    before the close."""
+    import socket
+
+    data = json.dumps(body).encode()
+    with socket.create_connection(("127.0.0.1", port), timeout=timeout) as sock:
+        sock.sendall(b"POST /v1/completions HTTP/1.1\r\nHost: 127.0.0.1\r\nContent-Type: application/json\r\n"
+                     b"Content-Length: %d\r\n\r\n" % len(data) + data)
+        buf = b""
+        while b"data: " not in buf or not buf.split(b"data: ", 1)[1].count(b"\n\n"):
+            chunk = sock.recv(4096)
+            check(chunk, "the server closed the stream before its first event")
+            buf += chunk
+        seen = before_close()
+    return seen
+
+
+# Phase 5h's requests, in the order they reach the server (one wave of 9
+# on 4 slots, 32 new tokens each): prompt index into main()'s prompt set,
+# and the request's fields.  The greedy ones (A, B) prefill alone as in
+# phase 5b's first wave; the seeded (S1, S2) and streamed (T) ones, which
+# are sent again alone later, prefill alone here too: no request that
+# refills beside them has their prompt bucket (16, 1024, 512).
+HTTP_REQUESTS = [
+    ("A", 0, dict()),
+    ("B", 2, dict()),
+    ("P", 1, dict(repetition_penalty=1.2, presence_penalty=0.5, frequency_penalty=0.5)),
+    ("M", 3, dict(min_tokens=8)),
+    ("S1", 5, dict(temperature=0.8, top_p=0.95, top_k=50, seed=7)),
+    ("S2", 4, dict(temperature=0.8, top_p=0.95, top_k=50, seed=7)),
+    ("T", 2, dict(stream=True, logprobs=True, top_logprobs=5)),
+    ("C", 1, dict()),
+    ("X", 3, dict(stream=True)),
+]
+
+
+def phase_http_serving(params, prompts, want, profile):
+    """Main path (h): sampled serving of Llama-3-8B over HTTP.  A
+    ``CompletionServer`` on 127.0.0.1 (any free port) over an Engine at
+    batch 4 with phase 5b's weights; HTTP_REQUESTS sent concurrently from
+    client threads, with every launch count set to 0 just before and read
+    just after; checks on each answer; then the seeded and streamed
+    requests again alone, the stochastic decode step timed against the
+    greedy one, and one request's HTTP round trip against
+    ``Engine.generate``.
+
+    The Engine runs at its default kv bucket: decode attention reads fixed
+    key blocks, so a request's logits do not depend on its batchmates'
+    positions or the chunk, and the equality checks hold whatever kv_len a
+    chunk reads.  What they can depend on is the size of the group a
+    prompt prefilled in, so the queue order is fixed and the compared
+    requests prefill alone, in here and in their reruns (HTTP_REQUESTS)."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from nf4_tpu_torch.models import configs
+    from nf4_tpu_torch.models.llama import init_kv_cache
+    from nf4_tpu_torch.ops import _cuda
+    from nf4_tpu_torch.serve.api import CompletionServer
+    from nf4_tpu_torch.serve.engine import ChunkKind, Decoder, Engine
+    from nf4_tpu_torch.serve.sampling import SamplingParams
+
+    cfg = configs.LLAMA3_8B
+    n_chunk, budget = 8, 32
+    eng = Engine(params, cfg, batch_size=4, eos_token=-1, decode_chunk=n_chunk)
+    window = 3.0  # one wave collects every request
+    server = CompletionServer(eng, batch_window=window)
+    pendings = []
+    submit = server.submit
+    server.submit = lambda *a, **k: pendings.append(submit(*a, **k)) or pendings[-1]
+    port = server.start("127.0.0.1", 0)
+    banned = want[1][0]  # P's first greedy token
+    stop = want[3][1]  # M's second greedy token
+    choices = [[want[1][5], want[1][6]], [want[3][4]], [11, 12, 13]]
+    bodies = {}
+    for name, i, fields in HTTP_REQUESTS:
+        body = dict(prompt=prompts[i], max_tokens=budget, **fields)
+        if name == "P":
+            body["logit_bias"] = {str(banned): -100.0}
+        if name == "M":
+            body["stop"] = [stop]
+        if name == "C":
+            body["guided_choice"] = choices
+        bodies[name] = body
+    try:
+        answers, hung_up = {}, {}
+        names = [name for name, _, _ in HTTP_REQUESTS]
+
+        def client(name):
+            if name == "X":  # the tokens X has been given when its client closes
+                hung_up[name] = stream_and_hang_up(port, bodies[name], lambda: pendings[names.index(name)].emitted)
+            else:
+                answers[name] = http_post(port, bodies[name])
+
+        _cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        threads = []
+        for name, _, _ in HTTP_REQUESTS:  # arrival order = queue order
+            threads.append(threading.Thread(target=client, args=(name,)))
+            threads[-1].start()
+            time.sleep(0.1)
+        for t in threads:
+            t.join(timeout=900)
+            check(not t.is_alive(), "an HTTP client did not finish")
+        while server.stats["waves"] < 1 or not all(p.done.is_set() for p in pendings):
+            time.sleep(0.05)
+        torch.cuda.synchronize()
+        wave_s = time.perf_counter() - t0
+        counts = _cuda.launch_counts()
+        check(server.stats["waves"] == 1 and len(pendings) == len(HTTP_REQUESTS),
+              f"one wave of {len(HTTP_REQUESTS)} requests: {server.stats}")
+        got = {}
+        for name, (code, a) in answers.items():
+            check(code == 200, f"{name}: HTTP {code} {a}")
+            got[name] = a if bodies[name].get("stream") else a["choices"][0]["tokens"]
+            check(all(0 <= t < cfg.vocab_size for t in got[name]), f"{name}: tokens in the vocabulary")
+        for name, i in (("A", 0), ("B", 2)):
+            check(got[name] == want[i], f"greedy {name} differs from phase 5b's tokens for prompt {i}")
+        check(banned not in got["P"] and len(got["P"]) == budget, f"P emitted the banned token {banned}")
+        check(len(got["M"]) >= 8 and stop not in got["M"][:8], f"M stopped before min_tokens: {got['M']}")
+        check(got["C"] in choices, f"C's answer {got['C']} is not one of {choices}")
+        check([p.tokens for p in pendings] == [prompts[i] for _, i, _ in HTTP_REQUESTS], "arrival order")
+        x = pendings[names.index("X")]
+        check(x.cancelled and not x.result.finished and server.stats["cancelled"] == 1,
+              f"X was not cancelled: {server.stats}")
+        past = len(x.result.tokens) - hung_up["X"]
+        check(past <= n_chunk, f"X took {past} tokens after its client closed the connection, more than one chunk")
+        # Each feature mix's graphs are captured once: every capture made
+        # a key of its own.
+        check(eng.graph_stats["captured"] == len(eng.state()[1].graphs), f"a graph captured twice: {eng.graph_stats}")
+        only = {"matmul_bf16", "flash_attention"}
+        check(all(counts[k] > 0 for k in only) and all(v == 0 for k, v in counts.items() if k not in only),
+              f"sampled HTTP serving must launch kernels B and C only: {counts}")
+
+        # The seeded requests again, each alone in a wave of its own; the
+        # streamed one again unstreamed.  From here on a wave starts as soon
+        # as its request arrives.
+        server.batch_window = 0.01
+        for name in ("S1", "S2"):
+            code, a = http_post(port, bodies[name])
+            check(code == 200 and a["choices"][0]["tokens"] == got[name], f"seeded {name} alone differs")
+        code, t_alone = http_post(port, dict(bodies["T"], stream=False))
+        check(code == 200 and t_alone["choices"][0]["tokens"] == got["T"], "streamed T differs from unstreamed")
+        lp = t_alone["choices"][0]["logprobs"]
+        check(len(lp["top_logprobs"]) == budget and all(len(row) == 5 for row in lp["top_logprobs"])
+              and all(abs(max(row.values()) - v) < 1e-5 for row, v in zip(lp["top_logprobs"], lp["token_logprobs"])),
+              "T: 5 top logprobs per position, the greedy token's the largest")
+        print(f"phase 5h sampled HTTP serving, Llama-3-8B, batch 4: {len(HTTP_REQUESTS)} concurrent requests x "
+              f"{budget} tokens in one wave, {wave_s:.2f} s from the first send to the last answer ({window} s "
+              f"of batch window); greedy A, B equal phase 5b's tokens; seeded S1, S2 equal their runs alone; "
+              f"streamed T equals its unstreamed run; banned token absent; M gave {len(got['M'])} tokens (at least "
+              f"8 before its stop); C answered {got['C']}; X took {past} tokens after its client hung up; graphs {eng.graph_stats['captured']} captured "
+              f"(keys {len(eng.state()[1].graphs)}); launches {counts}")
+
+        # A 32-token greedy request over HTTP, after one warm-up, against
+        # Engine.generate of the same request (the server stopped).
+        one = dict(prompt=prompts[1], max_tokens=budget)
+        http_post(port, one)
+        http_runs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            code, a = http_post(port, one)
+            http_runs.append(time.perf_counter() - t0)
+        check(code == 200 and len(a["choices"][0]["tokens"]) == budget, "HTTP round trip")
+        http_s = sorted(http_runs)[1]
+        wall_h, busy_h = profile_breakdown("5h HTTP round trip, 32 greedy tokens", lambda: http_post(port, one), 0)
+    finally:
+        server.stop()
+    direct = lambda: eng.generate([prompts[1]], max_new_tokens=budget)
+    direct_runs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        out = direct()
+        torch.cuda.synchronize()
+        direct_runs.append(time.perf_counter() - t0)
+    check(out[0].tokens == a["choices"][0]["tokens"], "Engine.generate differs from the HTTP answer")
+    direct_s = sorted(direct_runs)[1]
+    wall_d, busy_d = profile_breakdown("5h Engine.generate, 32 greedy tokens", direct, 0)
+
+    # Decode at batch 4 from position 1024 (kv_len 1536), graphed and
+    # pipelined: the greedy body, then every row stochastic (top-p, top-k,
+    # penalties on a counts mask, top_logprobs 5).
+    cache = init_kv_cache(cfg, 4)
+    eng.prefill_group(cache, np.asarray([prompts[0]], np.int32), np.asarray([1024], np.int32), np.asarray([0]))
+    pos, act, cur = np.full(4, 1024, np.int64), np.ones(4, bool), np.zeros(4, np.int32)
+    stoch = SamplingParams(temperature=0.8, top_p=0.95, top_k=50, presence_penalty=0.5, frequency_penalty=0.5,
+                           top_logprobs=5, seed=7)
+    chunks = 4
+
+    def run(dec, kind):
+        h = dec.launch(n_chunk, 1536, cur, pos, act, steps=np.zeros(4), kind=kind)
+        for _ in range(chunks - 1):
+            nxt = dec.launch(n_chunk, 1536, kind=kind)
+            dec.read(h)
+            h = nxt
+        return dec.read_all(h)
+
+    steps_ms = {}
+    for label, kind in (("greedy", None), ("stochastic", ChunkKind(5, "counts", False))):
+        dec = Decoder(eng, cache)
+        dec.prepare(kind)
+        dec.set_sampling([stoch] * 4)
+        run(dec, kind)  # captures
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks, lps, tops = run(dec, kind)
+        steps_ms[label] = (time.perf_counter() - t0) * 1e3 / (chunks * n_chunk)
+        check(toks.shape == (n_chunk, 4) and ((toks >= 0) & (toks < cfg.vocab_size)).all(), f"{label} tokens")
+        if kind is not None:
+            check(bool(np.isfinite(lps).all()) and tops[0].shape == (n_chunk, 4, 5), "stochastic logprobs")
+        if label == "stochastic":
+            wall_s, busy_s = profile_breakdown("5h decode, every row stochastic, 4 graphed pipelined chunks of 8 "
+                                               "steps, batch 4, position 1024, kv_len 1536",
+                                               lambda: run(dec, kind), 15 if profile else 0)
+    print(f"phase 5h decode B=4 at position 1024 (kv_len 1536), graphed and pipelined: greedy "
+          f"{steps_ms['greedy']:.2f} ms/step, every row stochastic (top-p, top-k, counts, top-5 logprobs) "
+          f"{steps_ms['stochastic']:.2f} ms/step (+{steps_ms['stochastic'] - steps_ms['greedy']:.2f}), device busy "
+          f"{busy_s / wall_s:.1%}; one 32-token greedy request: HTTP round trip {http_s * 1e3:.1f} ms (median of "
+          f"{[round(t * 1e3, 1) for t in http_runs]} ms), Engine.generate {direct_s * 1e3:.1f} ms (median of "
+          f"{[round(t * 1e3, 1) for t in direct_runs]} ms), device busy "
+          f"{busy_h / wall_h:.1%} over HTTP, {busy_d / wall_d:.1%} direct; on {card_line()}")
+    return counts, dict(wave_s=wave_s, graph_stats=dict(eng.graph_stats), graph_keys=len(eng.state()[1].graphs),
+                        decode_ms_step_greedy=steps_ms["greedy"], decode_ms_step_stochastic=steps_ms["stochastic"],
+                        decode_stochastic_busy=busy_s / wall_s, http_round_trip_s=http_s, generate_s=direct_s,
+                        http_busy=busy_h / wall_h, generate_busy=busy_d / wall_d)
 
 
 def phase_int8_serving(prompts, profile):
@@ -1360,7 +1636,9 @@ def main() -> int:
     from nf4_tpu_torch.models.configs import LLAMA3_8B
 
     prompts = [list(map(int, rng.integers(0, LLAMA3_8B.vocab_size, n))) for n in (1024, 37, 300, 64, 700, 9)]
-    serve_counts, serving = phase_serving(prompts, args.profile)
+    serve_counts, serving, params = phase_serving(prompts, args.profile)
+    http_counts, http = phase_http_serving(params, prompts, serving["tokens"], args.profile)
+    del params
     phase_small_model(dev, rng)
     int8_counts, serving8 = phase_int8_serving(prompts, args.profile)
     phase_checkpoint(dev, rng)
@@ -1379,9 +1657,9 @@ def main() -> int:
     def decode_layer(res):  # one decode layer's four projections at B=4
         return [res[(name, 4)] for name in LLAMA3_8B_PROJ]
 
-    def matmul_row(name, source, replaces, res, launches, prefill=False):
+    def matmul_row(name, source, replaces, res, launches, prefill=False, **more):
         rows = decode_layer(res)
-        row = dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches,
+        row = dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches, **more,
                    max_abs_err=max(r["max_abs_err"] for r in res.values()),
                    ms=sum(r["ms"] for r in rows), plain_ms=sum(r["plain_ms"] for r in rows),
                    bound_ms=sum(r["bound_ms"] for r in rows), bound_by="bytes",
@@ -1407,9 +1685,10 @@ def main() -> int:
              max_abs_err=deq["max_abs_err"], ms=deq["w_down"]["ms"], plain_ms=deq["w_down"]["plain_ms"],
              bound_ms=deq["w_down"]["bound_ms"], bound_by="bytes", library_ms=None),
         matmul_row("matmul_bf16", "nf4_tpu_torch/csrc/matmul.cu", "nf4_tpu/ops/matmul.py:148", mm,
-                   serve_counts["matmul_bf16"], prefill=True),
+                   serve_counts["matmul_bf16"], prefill=True, http_launches=http_counts["matmul_bf16"]),
         flash_row("flash_attention", fl, serve_counts["flash_attention"],
-                  qwen2_7b_launches=qwen_counts["flash_attention"], gemma_7b_launches=gemma_counts["flash_attention"]),
+                  qwen2_7b_launches=qwen_counts["flash_attention"], gemma_7b_launches=gemma_counts["flash_attention"],
+                  http_launches=http_counts["flash_attention"]),
         flash_row("flash_attention_int8", fl8, int8_counts["flash_attention_int8"], int8=True),
         matmul_row("int8_matmul", "nf4_tpu_torch/csrc/int8_matmul.cu", "nf4_tpu/ops/int8_serve.py:151", mm8,
                    int8_counts["int8_matmul"], prefill=True),
@@ -1439,7 +1718,7 @@ def main() -> int:
                            int8_matmul={f"{k[0]} B={k[1]}": v for k, v in mm8.items()},
                            exact_matmul={f"{k[0]} B={k[1]}": v for k, v in ex.items()}, exact_decode=ex_decode,
                            flash=fl, flash_int8=fl8, flash_shapes=fls, serving=serving, serving_int8=serving8,
-                           serving_qwen2_7b=serving_qwen, gemma_7b=gemma,
+                           serving_qwen2_7b=serving_qwen, gemma_7b=gemma, http_serving=http,
                            training_bf16=train16, training_fp32=train32, kernels=kernels), f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -7,8 +7,11 @@ accumulation are fp32; q, k, v and the output are the working dtype (bf16
 in serving), and probabilities round to it before the P.V product.
 
 * ``naive_attention`` materializes the [B, KV, G, S, T] fp32 scores.  It
-  serves decode and short prefills; decode attention is plain tensor code
-  in the JAX package too.
+  serves short prefills.
+* ``decode_attention`` serves decode (one query per row) over fixed key
+  blocks of ``DECODE_KV_BLOCK`` slots, so a row's output does not depend
+  on how far past its position the cache is read; decode attention is
+  plain tensor code in the JAX package too.
 * ``chunked_attention`` streams the softmax over query and key chunks and
   skips key chunks a query chunk cannot see (bounded memory for long
   prefills where the kernel does not apply).
@@ -49,9 +52,13 @@ import torch
 
 from ._cuda import Kernel
 
-__all__ = ["attention", "naive_attention", "chunked_attention", "flash_attention"]
+__all__ = ["attention", "naive_attention", "decode_attention", "chunked_attention", "flash_attention"]
 
 _NEG = -1e30
+# Key slots per block of decode_attention: the Engine's kv bucket
+# (serve/engine.py, Engine.KV_BUCKET) is a multiple of it, so a decode
+# chunk reads whole blocks.
+DECODE_KV_BLOCK = 512
 # Query rows per kernel query tile (one warpgroup): the GQA-packed [G, sc]
 # rows, sc = floor(64 / G) positions (1 for G > 64, the tile then holding 64
 # heads of one position); rows G * sc .. 63 are idle.
@@ -131,6 +138,58 @@ def naive_attention(
     probs = probs.to(q.dtype).float()
     out = torch.matmul(probs, v.float()[:, :, None])
     return out.reshape(b, nh, s, d).to(q.dtype)
+
+
+def decode_attention(
+    q, k, v, positions, seq_lens, *, scale: float, sliding_window: Optional[int] = None,
+    k_scale=None, v_scale=None, kv_len: Optional[int] = None,
+):
+    """Decode attention: q [B, H, 1, D], k/v [B, KV, T, D] as in
+    :func:`naive_attention`, reading the key blocks ``[t0, t0 +
+    DECODE_KV_BLOCK)`` (cut at T) for ``t0 < kv_len``.
+
+    Each block's scores, sums and P.V product are computed with the same
+    shapes whatever ``kv_len``; the softmax takes the maximum over every
+    block read (exact in any order), and a block wholly past a row's
+    position adds exact zeros to that row's sums.  So a row's output is a
+    function of its query and the cache up to its own position: it does
+    not depend on ``kv_len``, and so not on its batchmates' positions or
+    the decode chunk it runs in.  No host read."""
+    b, nh, s, d = q.shape
+    nkv, t_max = k.shape[1], k.shape[2]
+    if s != 1:
+        raise ValueError(f"decode_attention takes one query per row, got S={s}")
+    kv_len = t_max if kv_len is None else min(kv_len, t_max)
+    bk, g = b * nkv, nh // nkv
+    qg = q.reshape(bk, g, d).float()
+    block = DECODE_KV_BLOCK
+    read = min(-(-kv_len // block) * block, t_max)
+    t_ids = torch.arange(read, device=q.device)
+    vis = _visibility(t_ids, positions, seq_lens, sliding_window)  # [B, 1, read]
+    bias = torch.where(vis, 0.0, _NEG).expand(b, nkv, read).reshape(bk, 1, read)
+    scores, m = [], None
+    for t0 in range(0, read, block):
+        t1 = min(t0 + block, t_max)
+        kc = k[:, :, t0:t1].float().reshape(bk, t1 - t0, d)
+        if k_scale is None:
+            sc = torch.baddbmm(bias[:, :, t0:t1], qg, kc.transpose(1, 2), alpha=scale)
+        else:
+            factor = (k_scale[:, :, t0:t1] * (scale / 127.0)).reshape(bk, 1, t1 - t0)
+            sc = torch.bmm(qg, kc.transpose(1, 2)) * factor + bias[:, :, t0:t1]
+        top = sc.amax(dim=-1, keepdim=True)
+        m = top if m is None else torch.maximum(m, top)
+        scores.append(sc)
+    l = o = None
+    for t0, sc in zip(range(0, read, block), scores):
+        t1 = min(t0 + block, t_max)
+        p = torch.exp(sc - m)
+        part = p.sum(dim=-1, keepdim=True)
+        l = part if l is None else l + part
+        if v_scale is not None:
+            p = p * (v_scale[:, :, t0:t1] * (1.0 / 127.0)).reshape(bk, 1, t1 - t0)
+        pv = torch.bmm(p.to(q.dtype).float(), v[:, :, t0:t1].float().reshape(bk, t1 - t0, d))
+        o = pv if o is None else o + pv
+    return (o / l).reshape(b, nh, 1, d).to(q.dtype)
 
 
 def chunked_attention(
@@ -267,11 +326,15 @@ def attention(
     bound: no query sees a slot at or past it, so the plain paths read only
     ``k[:, :, :kv_len]`` (the JAX package's chunk-skipping decode path reads
     only the live prefix the same way; here the caller knows its length).
-    The dispatch thresholds use the full cache length, as the JAX package's
-    do.  ``differentiable=True`` (training) and ``segment_ids`` (packed
-    rows) keep to the plain paths."""
+    One query per row is decode: :func:`decode_attention`, whose output
+    does not depend on ``kv_len``.  The dispatch thresholds use the full
+    cache length, as the JAX package's do.  ``differentiable=True``
+    (training) and ``segment_ids`` (packed rows) keep to the plain paths."""
     b, nh, s, d = q.shape
     t_max = k.shape[2]
+    if s == 1 and not differentiable and segment_ids is None:
+        return decode_attention(q, k, v, positions, seq_lens, scale=scale, sliding_window=sliding_window,
+                                k_scale=k_scale, v_scale=v_scale, kv_len=kv_len)
     opts = dict(k_scale=k_scale, v_scale=v_scale, segment_ids=segment_ids)
     large = s > 1 and b * nh * s * t_max >= _CHUNKED_MIN_SCORE_ELEMS
     if large and not differentiable and segment_ids is None and _flash_eligible(q, s, d):

@@ -207,3 +207,59 @@ def test_differentiable_dispatch_and_gradients(rng):
     torch.testing.assert_close(out, tattn.naive_attention(q, k, v, pos, lens, scale=D**-0.5, segment_ids=tseg))
     out.sum().backward()
     assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in (q, k, v))
+
+
+def _decode_inputs(rng, int8):
+    """One query per row at positions 40 and 1300 over a cache of three
+    512-slot key blocks, bf16 or int8 K/V."""
+    t = 3 * tattn.DECODE_KV_BLOCK
+    q = rng.standard_normal((B, H, 1, D)).astype(np.float32)
+    if int8:
+        k, v = (rng.integers(-127, 128, (B, KV, t, D)).astype(np.int8) for _ in range(2))
+        ks, vs = (rng.uniform(0.5, 4.0, (B, KV, t)).astype(np.float32) for _ in range(2))
+        jkv, tkv = [jnp.asarray(k), jnp.asarray(v)], [torch.from_numpy(k), torch.from_numpy(v)]
+        jsc = dict(k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs))
+        tsc = dict(k_scale=torch.from_numpy(ks), v_scale=torch.from_numpy(vs))
+    else:
+        k, v = (rng.standard_normal((B, KV, t, D)).astype(np.float32) for _ in range(2))
+        jkv = [jnp.asarray(a, jnp.bfloat16) for a in (k, v)]
+        tkv = [torch.from_numpy(a).to(torch.bfloat16) for a in (k, v)]
+        jsc, tsc = {}, {}
+    positions = np.asarray([[40], [1300]], np.int32)
+    lens = positions[:, 0] + 1
+    jx = [jnp.asarray(q, jnp.bfloat16), *jkv, jnp.asarray(positions), jnp.asarray(lens)]
+    tx = [torch.from_numpy(q).to(torch.bfloat16), *tkv, torch.from_numpy(positions), torch.from_numpy(lens)]
+    return jx, jsc, tx, tsc
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("window", [None, 1000])
+def test_decode_attention_matches_jax(rng, int8, window):
+    """Decode over three key blocks (a window edge inside the second, the
+    second row's position in the third) against the JAX package's naive
+    attention, directly and through the dispatcher: TOL."""
+    jx, jsc, tx, tsc = _decode_inputs(rng, int8)
+    want = np.asarray(jattn.naive_attention(*jx, scale=D**-0.5, sliding_window=window, **jsc), np.float32)
+    got = tattn.decode_attention(*tx, scale=D**-0.5, sliding_window=window, **tsc)
+    assert got.shape == (B, H, 1, D) and got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, **TOL)
+    routed = tattn.attention(*tx, scale=D**-0.5, sliding_window=window, kv_len=1400, **tsc)
+    np.testing.assert_allclose(routed.float().numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_decode_attention_independent_of_kv_len(rng, int8):
+    """A row's decode output is the same bits whatever ``kv_len`` reads
+    past its position (whole blocks, a partial last block, the full
+    cache): the property that keeps a request's logits independent of its
+    batchmates' positions and the decode chunk."""
+    _, _, tx, tsc = _decode_inputs(rng, int8)
+    outs = [tattn.decode_attention(*tx, scale=D**-0.5, kv_len=n, **tsc).float().numpy()
+            for n in (1400, 1536, None)]
+    for o in outs[1:]:
+        np.testing.assert_array_equal(o, outs[0])
+    # Row 0 (position 40) sees only the first block.
+    first = tattn.decode_attention(*tx, scale=D**-0.5, kv_len=512, **tsc).float().numpy()
+    np.testing.assert_array_equal(first[0], outs[0][0])
+    with pytest.raises(ValueError, match="one query"):
+        tattn.decode_attention(tx[0].expand(B, H, 2, D), *tx[1:], scale=D**-0.5)

@@ -698,7 +698,8 @@ def _check_graphed_chunk(dev, cfg, params):
     plain = Engine(params, cfg, batch_size=4, eos_token=-1, decode_chunk=8, cuda_graphs=False)
     cache, tok, pos, act = _decode_state(eng, cfg)
     graphed, eager = Decoder(eng, cache), Decoder(plain, _clone_cache(cache))
-    host = torch.from_numpy(np.stack([tok, pos.astype(np.int32), act.astype(np.int32)])).to(dev)
+    steps = np.zeros(4, np.int32)
+    host = torch.from_numpy(np.stack([tok, pos.astype(np.int32), act.astype(np.int32), steps])).to(dev)
     kv = kv_bucket(int(pos[act].max()) + 8, eng.KV_BUCKET, cfg.max_seq_len)
     eager.inputs.copy_(host)
     want = eager.run_eager(8, kv)
@@ -714,8 +715,201 @@ def _check_graphed_chunk(dev, cfg, params):
         assert torch.equal(t, eager.cache.planes()[name]), name
     kv = kv_bucket(int(pos[act].max()) + 16, eng.KV_BUCKET, cfg.max_seq_len)
     a, b = graphed.read(graphed.launch(8, kv)), eager.read(eager.launch(8, kv))
-    assert np.array_equal(a, b) and list(graphed.graphs) == [(kv, 8)] and not eager.graphs
+    assert np.array_equal(a, b) and list(graphed.graphs) == [(kv, 8, None)] and not eager.graphs
     assert eng.graph_stats["captured"] == 1 and eng.graph_stats["replayed"] == 1
+
+
+# The per-request chunk bodies: top logprobs, the emitted-token state and
+# the bias rows in each combination the Engine captures.
+_SAMPLED_KINDS = {"plain": (0, None, False), "counts_bias_top5": (5, "counts", True), "bool_top3": (3, "bool", False)}
+
+
+@pytest.mark.parametrize("kind", list(_SAMPLED_KINDS))
+def test_graphed_sampled_chunk_bit_identical_to_eager(dev, kind):
+    """A per-request chunk (greedy, unseeded and seeded stochastic rows,
+    penalties, bias rows, an idle slot) captured as a CUDA graph and
+    replayed gives the eager chunk's tokens, logprobs, top logprobs,
+    emitted-token state, advanced inputs and cache writes bit for bit; so
+    does the next chunk, launched from the device outputs."""
+    from nf4_tpu_torch.serve.engine import ChunkKind, Decoder, Engine, kv_bucket
+    from nf4_tpu_torch.serve.sampling import SamplingParams
+
+    kind = ChunkKind(*_SAMPLED_KINDS[kind])
+    cfg, params = _small_model(dev, False)
+    eng = Engine(params, cfg, batch_size=4, eos_token=-1, decode_chunk=8)
+    plain = Engine(params, cfg, batch_size=4, eos_token=-1, decode_chunk=8, cuda_graphs=False)
+    cache, tok, pos, act = _decode_state(eng, cfg)
+    graphed, eager = Decoder(eng, cache), Decoder(plain, _clone_cache(cache))
+    sps = [SamplingParams(),
+           SamplingParams(temperature=0.9, top_k=40, top_p=0.9, repetition_penalty=1.3, presence_penalty=0.4),
+           SamplingParams(temperature=1.1, min_p=0.05, frequency_penalty=0.3, seed=11),
+           SamplingParams(temperature=0.7)]
+    rng = np.random.default_rng(8)
+    rows = (rng.standard_normal((4, cfg.vocab_size)) * 2).astype(np.float32)
+    first = torch.as_tensor(tok, device=dev)
+    for dec in (graphed, eager):
+        dec.prepare(kind)
+        dec.set_sampling(sps)
+        if kind.mask is not None:
+            dec.reset_mask(kind.mask, np.arange(4), first)
+        if kind.bias:
+            dec.set_bias(np.arange(4), rows)
+    steps = np.asarray([1, 7, 3, 0])
+    kv = kv_bucket(int(pos[act].max()) + 8, eng.KV_BUCKET, cfg.max_seq_len)
+    outs = []
+    for dec in (graphed, eager):
+        h = dec.launch(8, kv, tok, pos, act, steps=steps, kind=kind)
+        outs.append(dec.read_all(h))
+    kv = kv_bucket(int(pos[act].max()) + 16, eng.KV_BUCKET, cfg.max_seq_len)
+    for dec in (graphed, eager):
+        outs.append(dec.read_all(dec.launch(8, kv, kind=kind)))
+    torch.cuda.synchronize()
+    for a, b in ((outs[0], outs[1]), (outs[2], outs[3])):
+        assert np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+        assert (a[2] is None) == (b[2] is None) and (a[2] is None or all(map(np.array_equal, a[2], b[2])))
+    assert torch.equal(graphed.inputs, eager.inputs) and torch.equal(eng.keys.counter, plain.keys.counter)
+    for name in graphed.masks:
+        assert torch.equal(graphed.masks[name], eager.masks[name]), name
+    for name, t in graphed.cache.planes().items():
+        assert torch.equal(t, eager.cache.planes()[name]), name
+    assert list(graphed.graphs) == [(kv, 8, kind)] and eng.graph_stats["replayed"] == 2 and not eager.graphs
+    assert not (outs[0][0][:, 3] != tok[3]).any()  # the idle slot keeps its token
+
+
+def test_second_generate_captures_nothing(dev):
+    """A second generate of the same sampled requests on one Engine captures
+    no graph and replays every chunk; graphed and pipelined, both calls
+    give the tokens, logprobs and top logprobs of an eager Engine's (greedy,
+    seeded and unseeded rows alike: the key streams advance alike)."""
+    from nf4_tpu_torch.serve.engine import Engine
+    from nf4_tpu_torch.serve.sampling import SamplingParams
+
+    cfg, params = _small_model(dev, False)
+    rng = np.random.default_rng(9)
+    prompts = [list(map(int, rng.integers(0, cfg.vocab_size, n))) for n in (30, 70, 9, 50, 12)]
+    sps = [SamplingParams(), SamplingParams(temperature=0.8, top_p=0.9, seed=5, top_logprobs=2),
+           SamplingParams(temperature=1.0, top_k=20, presence_penalty=0.5), SamplingParams(repetition_penalty=1.3),
+           SamplingParams(temperature=0.6, logit_bias=((7, -100.0),))]
+    common = dict(batch_size=4, eos_token=-1, decode_chunk=8)
+    eng = Engine(params, cfg, **common)
+    plain = Engine(params, cfg, cuda_graphs=False, **common)
+    kw = dict(max_new_tokens=40, sampling=sps, return_logprobs=True)
+    first = eng.generate(prompts, **kw)
+    captured, replayed = eng.graph_stats["captured"], eng.graph_stats["replayed"]
+    second = eng.generate(prompts, **kw)
+    assert captured > 0 and eng.graph_stats["captured"] == captured and eng.graph_stats["replayed"] > replayed
+    for got in (first, second):
+        want = plain.generate(prompts, **kw)
+        for g, w in zip(got, want):
+            assert g.tokens == w.tokens and g.logprobs == w.logprobs and g.top_logprobs == w.top_logprobs
+    assert second[1].tokens == first[1].tokens and second[3].tokens == first[3].tokens  # seeded, greedy
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_decode_attention_independent_of_kv_len(dev, int8):
+    """Decode attention at Llama-3-8B's head shapes (B 4, H 32, KV 8, D 128,
+    T 2048): each row's output is the same bits at every kv_len past its
+    position (512 to 2048, one key block to four), and within 2e-2 of the
+    plain naive attention over the whole cache."""
+    from nf4_tpu_torch.ops.attention import decode_attention, naive_attention
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    b, h, kv, t, d = 4, 32, 8, 2048, 128
+    q = torch.randn((b, h, 1, d), generator=gen, device=dev).to(torch.bfloat16)
+    if int8:
+        k, v = (torch.randint(-127, 128, (b, kv, t, d), generator=gen, device=dev, dtype=torch.int8) for _ in "kv")
+        scales = dict(k_scale=torch.rand((b, kv, t), generator=gen, device=dev) * 0.05,
+                      v_scale=torch.rand((b, kv, t), generator=gen, device=dev) * 0.05)
+    else:
+        k, v = (torch.randn((b, kv, t, d), generator=gen, device=dev).to(torch.bfloat16) for _ in "kv")
+        scales = {}
+    pos = torch.tensor([[100], [500], [900], [1500]], device=dev, dtype=torch.int32)
+    lens = pos[:, 0] + 1
+    outs = {n: decode_attention(q, k, v, pos, lens, scale=d**-0.5, kv_len=n, **scales).float().cpu()
+            for n in (512, 1024, 1536, 2048)}
+    for r, p in enumerate((100, 500, 900, 1500)):
+        for n, out in outs.items():
+            if n > p:
+                assert torch.equal(out[r], outs[2048][r]), (r, n)
+    want = naive_attention(q, k, v, pos, lens, scale=d**-0.5, **scales).float().cpu()
+    np.testing.assert_allclose(outs[2048].numpy(), want.numpy(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("mate_len, kv", [(1100, 1536), (1600, 2048)])
+def test_seeded_request_independent_of_batchmates(dev, monkeypatch, mate_len, kv):
+    """A seeded request decoding from position 900 reads kv_len 1024 alone;
+    a batchmate with a longer prompt raises every chunk's kv_len to 1536
+    or 2048, where a softmax over the whole row takes another reduction
+    (plain naive attention's row at 900 changes its bits there).  The
+    seeded request's tokens and logprobs stay the same bits as alone,
+    graphed at decode_chunk 8 pipelined and 4 not."""
+    from nf4_tpu_torch.serve.engine import Decoder, Engine
+    from nf4_tpu_torch.serve.sampling import SamplingParams
+
+    from nf4_tpu_torch.models.llama import LlamaConfig
+    from nf4_tpu_torch.models.synthetic import synthetic_params
+
+    # Llama-3-8B's heads (32 query, 8 KV, D 128) on a narrow 2-layer model.
+    cfg = LlamaConfig(vocab_size=512, hidden_size=256, intermediate_size=512, num_layers=2, num_heads=32,
+                      num_kv_heads=8, head_dim=128, max_seq_len=2048)
+    params = synthetic_params(cfg, seed=3, device=dev)
+    seen = []
+    launch = Decoder.launch
+
+    def spy(self, n, kv_len, *a, **kw):
+        seen.append(kv_len)
+        return launch(self, n, kv_len, *a, **kw)
+
+    monkeypatch.setattr(Decoder, "launch", spy)
+    rng = np.random.default_rng(11)
+    mine = [int(t) for t in rng.integers(0, cfg.vocab_size, 900)]
+    mate = [int(t) for t in rng.integers(0, cfg.vocab_size, mate_len)]
+    seeded = SamplingParams(temperature=1.2, top_p=0.95, seed=123)
+
+    def run(prompts, chunk, pipelined):
+        seen.clear()
+        eng = Engine(params, cfg, batch_size=2, eos_token=-1, decode_chunk=chunk, pipeline_decode=pipelined)
+        sps = [seeded, SamplingParams(temperature=0.7)][: len(prompts)]
+        res = eng.generate(prompts, max_new_tokens=24, sampling=sps, return_logprobs=True)[0]
+        assert eng.graph_stats["replayed"] > 0
+        return res, max(seen)
+
+    alone, kv_alone = run([mine], 8, True)
+    assert kv_alone == 1024
+    for chunk, pipelined in ((8, True), (4, False)):
+        beside, kv_beside = run([mine, mate], chunk, pipelined)
+        assert kv_beside == kv
+        assert beside.tokens == alone.tokens and beside.logprobs == alone.logprobs
+
+
+def test_prefill_group_first_logits(dev):
+    """A prompt's first logits against its prefill group's size (1, 2 or 4
+    prompts of one bucket): the same bits at buckets 16 and 64; at 512,
+    where the naive prefill attention's batched products span the group,
+    within 2e-2 of the largest logit (the bits may differ, so a seeded
+    request is reproduced bit for bit when it prefills in a group of the
+    same size)."""
+    import dataclasses
+
+    from nf4_tpu_torch.models.llama import init_kv_cache
+    from nf4_tpu_torch.serve.engine import Engine
+
+    cfg, params = _small_model(dev, False)
+    cfg = dataclasses.replace(cfg, max_seq_len=1024)
+    eng = Engine(params, cfg, batch_size=4, eos_token=-1, cuda_graphs=False)
+    rng = np.random.default_rng(0)
+    for bucket in (16, 64, 512):
+        toks = rng.integers(0, cfg.vocab_size, (4, bucket)).astype(np.int32)
+        lens = np.full(4, bucket - 3, np.int32)
+        first = {}
+        for g in (1, 2, 4):
+            cache = init_kv_cache(cfg, 4)
+            first[g] = eng.prefill_group(cache, toks[:g], lens[:g], np.arange(g))[0].float().cpu()
+        for g in (2, 4):
+            if bucket < 512:
+                assert torch.equal(first[g], first[1]), (bucket, g)
+            else:
+                assert (first[g] - first[1]).abs().max() <= 2e-2 * first[1].abs().max(), (bucket, g)
 
 
 def test_graph_replays_count_their_launches(dev):

@@ -26,7 +26,7 @@ from nf4_tpu.serve.engine import Engine as JaxEngine
 from nf4_tpu_torch.models import llama
 from nf4_tpu_torch.models.convert import config_from_dict, params_from_numpy
 from nf4_tpu_torch.serve.engine import Engine
-from nf4_tpu_torch.serve.sampling import SamplingParams, sample
+from nf4_tpu_torch.serve.sampling import BatchedSampling, KeyStream, SamplingParams, sample, sample_batched
 
 LOGIT_TOL = 0.2
 
@@ -166,7 +166,15 @@ def test_stop_tokens_budget_and_bad_prompts(models):
 
 
 def test_greedy_only():
+    """Greedy rows take the first index on ties; a stochastic draw needs a
+    key, and a seeded row's draw depends on (seed, step) only, not on the
+    engine's key stream."""
     logits = torch.tensor([[0.1, 2.0, 2.0], [3.0, -1.0, 0.0]])
     assert sample(logits, SamplingParams()).tolist() == [1, 0]  # first index on ties
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(ValueError, match="requires a key"):
         sample(logits, SamplingParams(temperature=0.7))
+    bp = BatchedSampling.stack([SamplingParams(temperature=0.7, seed=3)] * 2, "cpu")
+    steps = torch.tensor([5, 5])
+    draws = [sample_batched(logits, bp, KeyStream(seed, "cpu").next(), step_idx=steps).tolist() for seed in (0, 9)]
+    assert draws[0] == draws[1]
+    assert all(0 <= t < 3 for t in draws[0])

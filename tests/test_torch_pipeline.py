@@ -138,9 +138,9 @@ def _record_launches(monkeypatch):
     seen = []
     launch = Decoder.launch
 
-    def spy(self, n, kv_len, tokens=None, positions=None, active=None):
+    def spy(self, n, kv_len, tokens=None, positions=None, active=None, **kw):
         seen.append((n, kv_len, tokens is not None))
-        return launch(self, n, kv_len, tokens, positions, active)
+        return launch(self, n, kv_len, tokens, positions, active, **kw)
 
     monkeypatch.setattr(Decoder, "launch", spy)
     return seen
