@@ -39,7 +39,10 @@ Phases, each of which fails the run on any error:
    launched ahead of their read-back, every kernel launch count asserted
    exactly and the tokens held to an eager, unpipelined run of the same
    requests, then the same requests again on the same Engine: no capture,
-   every chunk a replay, the same launches and tokens (so in 5d and 5f);
+   every chunk a replay, the same launches and tokens; then the requests
+   eagerly for 2 tokens with every kernel B, C and D call held to its
+   plain version on the same operands (``kernels_held_to_plain``) (so in
+   5d, 5f, 5i, 5j and 5k);
    (h) sampled serving over HTTP: a ``CompletionServer`` on 127.0.0.1 over
    an Engine at batch 4 with 5b's weights answers 9 concurrent requests of
    32 tokens (greedy, seeded top-p/top-k, penalties with a banned token,
@@ -59,7 +62,27 @@ Phases, each of which fails the run on any error:
    eager run, and the 1024-token prefill's last-position logits held to
    the same prefill on the plain attention path within 2e-2 * max|logit|;
    (g) Gemma-7B at full width (D = 256) and 8 of its 28 layers: that
-   prefill check, then 8 greedy tokens.  Phases 5b, 5d and 5f also time
+   prefill check, then 8 greedy tokens; (i) Gemma-2-9B at full width and
+   depth (softcaps, a 4096 window on every other layer, four-norm blocks)
+   as (b), kernel C never launched (the softcap keeps prefills plain), then
+   a prompt of 4608 tokens past the window, its tokens held to eager
+   decode, and the 1024-token prefill held to the plain attention and
+   projection path; (j) Gemma-3-4B at full width and depth (max_seq_len
+   cut to 8192) as (b), then a 1536-token prompt (kernel C on every layer,
+   windowed on the local ones), its tokens held to eager decode in which
+   every kernel call is held to its plain version, and 4 2048-token
+   prefills' logits through kernel C, the plain path and the plain path
+   in fp32, printed; (k) Mixtral-8x7B at full width and depth (8 experts,
+   top-2; max_seq_len 8192) as (b), 18 projection launches per layer; (l)
+   Qwen3-30B-A3B at full width (128 experts, top-8) and 4 of its 48
+   layers, in the 4-bit and the int8 mode, every launch count exact,
+   tokens held to eager decode in which every kernel call is held to its
+   plain version, and the 1024-token prefill held to the plain attention
+   and projection path (kernel D's in the int8 mode).  Phase (c) also
+   runs Gemma-2 and Gemma-3 small models, dense projections and MoE (fp32
+   activations) card against CPU, and the MoE MLP alone in bf16 with 4-bit
+   and int8 experts.  Every phase's weights are freed before the next.
+   Phases 5b, 5d, 5f, 5i, 5j and 5k also time
    decode at batch 4 from position 1024, graphed and pipelined, with the
    device's busy share from ``torch.profiler``; 5b and 5d also at kv
    buckets of 256, 512 and 1024 positions, graphed alone and eager; with
@@ -673,12 +696,15 @@ def bnb_module(rng, m, n):
 def params_to(params, device):
     """A copy of the port's params on ``device``."""
     from nf4_tpu_torch.nf4.format import PackedNF4
+    from nf4_tpu_torch.ops.int8_serve import PackedInt8
 
     def mv(w):
         if w is None:
             return None
         if isinstance(w, PackedNF4):
             return dataclasses.replace(w, packed=w.packed.to(device), scales=w.scales.to(device))
+        if isinstance(w, PackedInt8):
+            return dataclasses.replace(w, values=w.values.to(device), scales=w.scales.to(device))
         return w.to(device)
 
     layers = [type(lp)(**{f.name: mv(getattr(lp, f.name)) for f in dataclasses.fields(lp)}) for lp in params.layers]
@@ -734,15 +760,26 @@ SERVE_FORWARDS, SERVE_CHUNKS = 5 + 62, 6
 
 
 def flash_prefills(cfg, groups) -> int:
-    """How many of the prefill ``groups`` (size, bucket) take kernel C."""
+    """How many of the prefill ``groups`` (size, bucket) take kernel C (none
+    under an attention softcap, which kernel C does not take)."""
     from nf4_tpu_torch.ops.attention import _CHUNKED_MIN_SCORE_ELEMS
 
+    if cfg.attn_logit_softcapping is not None:
+        return 0
     return sum(s >= 256 and g * cfg.num_heads * s * cfg.max_seq_len >= _CHUNKED_MIN_SCORE_ELEMS for g, s in groups)
 
 
-def serve_expected(cfg) -> tuple:
-    """(projection-kernel launches, kernel-C launches) of the serving run."""
-    return SERVE_FORWARDS * 4 * cfg.num_layers, flash_prefills(cfg, SERVE_PREFILLS) * cfg.num_layers
+def projections_per_layer(cfg) -> int:
+    """Projection-kernel launches of one layer's forward: wqkv, wo, and
+    gate+up and down once per expert (once for a dense MLP)."""
+    return 2 + 2 * cfg.num_experts
+
+
+def serve_expected(cfg, forwards=SERVE_FORWARDS, groups=SERVE_PREFILLS) -> tuple:
+    """(projection-kernel launches, kernel-C launches) of a serving run of
+    ``forwards`` forwards whose prefill ``groups`` are (size, bucket) (by
+    default the serving run's)."""
+    return forwards * projections_per_layer(cfg) * cfg.num_layers, flash_prefills(cfg, groups) * cfg.num_layers
 
 
 def serve_llama(label, params, cfg, prompts, weight_bytes, profile, by_bucket=True):
@@ -797,6 +834,8 @@ def serve_llama(label, params, cfg, prompts, weight_bytes, profile, by_bucket=Tr
     eager_s = time.perf_counter() - t0
     check([r.tokens for r in results] == [r.tokens for r in want],
           "graphed, pipelined tokens differ from eager, unpipelined decode")
+    with kernels_held_to_plain(label, cfg.num_experts) as held:  # the same prefills and 1 decode step
+        eager.generate(prompts, max_new_tokens=2)
     print(f"phase {label} generate (graphed, pipelined): {len(prompts)} requests x 32 tokens in {gen_s:.2f} s, "
           f"again on the same Engine {gen2_s:.2f} s (0 captures, the same tokens and launches; eager, "
           f"unpipelined: {eager_s:.2f} s; tokens identical); launches {counts}; graphs captured "
@@ -853,7 +892,7 @@ def serve_llama(label, params, cfg, prompts, weight_bytes, profile, by_bucket=Tr
     wall, busy = profile_breakdown(f"{label} decode, {chunks} graphed pipelined chunks of {n} steps, batch 4, "
                                    f"position 1024, kv_len {kv}", lambda: decode_run(dec, kv, True), rows)
     bound = weight_bytes / PEAK_BYTES_S
-    res = dict(generate_s=gen_s, generate_again_s=gen2_s, generate_eager_s=eager_s, graph_stats=graphs,
+    res = dict(generate_s=gen_s, generate_again_s=gen2_s, generate_eager_s=eager_s, graph_stats=graphs, held=held,
                pipeline_stats=pipe, tokens=[r.tokens for r in results],
                prefill_tok_s=1024 / prefill_s, kv_bucket=eng.KV_BUCKET, kv_len=kv,
                decode_ms_step=ms_pipe, decode_tok_s=4e3 / ms_pipe, decode_busy=busy / wall,
@@ -882,6 +921,22 @@ def serve_llama(label, params, cfg, prompts, weight_bytes, profile, by_bucket=Tr
 
 def projection_bytes(params) -> int:
     return sum(w.nbytes for lp in params.layers for w in (lp.wqkv, lp.wo, lp.w_gateup, lp.w_down))
+
+
+def in_vocab(prompts, cfg):
+    """main()'s prompts (drawn over Llama-3's vocabulary) mapped into a
+    smaller one."""
+    return [[t % cfg.vocab_size for t in p] for p in prompts]
+
+
+def free_memory():
+    """Drop what the last phase left (its params, engines, graphs' pools)."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def phase_serving(prompts, profile):
@@ -1195,24 +1250,97 @@ def phase_int8_serving(prompts, profile):
 
 
 @contextlib.contextmanager
-def plain_attention():
+def plain_attention(matmul=False, fp32=False):
     """Within it, kernel C's wrapper runs its plain version on the card, so a
-    forward's attention takes the plain path with the same dispatch."""
+    forward's attention takes the plain path with the same dispatch (with
+    ``fp32``, on q, k and v in fp32, its output rounded to bf16); with
+    ``matmul`` kernels B's and D's wrappers run their plain versions too."""
     from nf4_tpu_torch.ops import attention
+    from nf4_tpu_torch.ops import int8_serve as i8
+    from nf4_tpu_torch.ops import matmul as mm
 
-    saved, attention._flash_kernel = attention._flash_kernel, attention._flash_plain
+    saved = attention._flash_kernel, mm._matmul_bf16_kernel, i8._int8_matmul_kernel
+    if fp32:
+        attention._flash_kernel = lambda q, k, v, *a: attention._flash_plain(q.float(), k.float(), v.float(),
+                                                                              *a).to(q.dtype)
+    else:
+        attention._flash_kernel = attention._flash_plain
+    if matmul:
+        mm._matmul_bf16_kernel, i8._int8_matmul_kernel = mm._matmul_bf16_plain, i8._int8_matmul_plain
     try:
         yield
     finally:
-        attention._flash_kernel = saved
+        attention._flash_kernel, mm._matmul_bf16_kernel, i8._int8_matmul_kernel = saved
 
 
-def prefill_against_plain(label, eng, prompt) -> float:
+@contextlib.contextmanager
+def kernels_held_to_plain(label, experts=0):
+    """Within it (eager work only: each check reads its result on the
+    host), kernel B, C and D calls are held to their plain versions on
+    the same operands, the main path's own (expert views of a stacked
+    weight, padded K, each layer's window and cache): B and D within 2e-2
+    * max|out| per call, as phase 3, each operand shape on its first
+    2 * max(experts, 1) calls (every expert of two layers); C on every call
+    within 2e-2 * max|out| of each query position (over heads and dims),
+    so that a wrong window at a late position, whose outputs average many
+    values and are small, still shows.  The kernel's output goes on, so
+    the tokens are the kernel path's.  Yields {kernel: [calls held,
+    largest err / limit]}, printed at the end."""
+    from nf4_tpu_torch.ops import attention
+    from nf4_tpu_torch.ops import int8_serve as i8
+    from nf4_tpu_torch.ops import matmul as mm
+
+    saved = attention._flash_kernel, mm._matmul_bf16_kernel, i8._int8_matmul_kernel
+    held = {"B": [0, 0.0], "C": [0, 0.0], "D": [0, 0.0]}
+    seen = {}
+
+    def note(name, err, limit, where):
+        check(err <= limit, f"{label}: kernel {name} {where} against its plain version: max abs err {err}, "
+                            f"limit {limit}")
+        held[name][0] += 1
+        held[name][1] = max(held[name][1], err / limit)
+
+    def projection(name, kern, plain):
+        def run(x_pad, w, scales, out_dtype, *more):
+            out = kern(x_pad, w, scales, out_dtype, *more)
+            key = (tuple(x_pad.shape), tuple(w.shape), out_dtype)
+            seen[name, key] = seen.get((name, key), 0) + 1
+            if seen[name, key] <= 2 * max(experts, 1):
+                want = plain(x_pad, w, scales, out_dtype).float()
+                note(name, (out.float() - want).abs().max().item(), 2e-2 * want.abs().max().item(),
+                     f"x {key[0]} w {key[1]}")
+            return out
+        return run
+
+    def flash(q, k, v, pos0, seq_lens, scale, sliding_window=None, k_scale=None, v_scale=None):
+        out = saved[0](q, k, v, pos0, seq_lens, scale, sliding_window, k_scale, v_scale)
+        want = attention._flash_plain(q, k, v, pos0, seq_lens, scale, sliding_window, k_scale, v_scale).float()
+        err = (out.float() - want).abs().amax(dim=(1, 3)).flatten()  # each (row, query position)
+        limit = 2e-2 * want.abs().amax(dim=(1, 3)).flatten()
+        at = int((err / limit.clamp_min(1e-30)).argmax())
+        note("C", err[at].item(), limit[at].item(), f"q {tuple(q.shape)} window {sliding_window} at query {at}")
+        return out
+
+    attention._flash_kernel = flash
+    mm._matmul_bf16_kernel = projection("B", saved[1], mm._matmul_bf16_plain)
+    i8._int8_matmul_kernel = projection("D", saved[2], i8._int8_matmul_plain)
+    try:
+        yield held
+    finally:
+        attention._flash_kernel, mm._matmul_bf16_kernel, i8._int8_matmul_kernel = saved
+    print(f"phase {label} kernel calls held to their plain versions on the same operands (calls, largest err / "
+          f"limit): {', '.join(f'{k} {n} {r:.3f}' for k, (n, r) in held.items() if n)}")
+
+
+def prefill_against_plain(label, eng, prompt, matmul=False, int8=False) -> float:
     """The last-position logits of ``prompt``'s prefill through the engine,
-    against the same prefill with kernel C replaced by its plain version on
-    the card: max abs diff at most 2e-2 * max|logit| (bf16 attention
-    outputs summed in another order, through every layer).  Kernel C runs
-    once per layer in the first, never in the second."""
+    against the same prefill with kernel C (and with ``matmul`` kernel B,
+    or with ``int8`` kernel D) replaced by its plain version on the card:
+    max abs diff at most 2e-2 * max|logit| (bf16 outputs summed in another
+    order, through every layer).  Kernel C runs once per layer in the first
+    where the prompt's prefill takes it (``flash_prefills``), never in the
+    second; with ``matmul`` the projection kernel runs once per projection
+    and layer in the first, never in the second."""
     import numpy as np
     import torch
 
@@ -1220,28 +1348,38 @@ def prefill_against_plain(label, eng, prompt) -> float:
     from nf4_tpu_torch.ops import _cuda
 
     cfg = eng.cfg
+    c_name = "flash_attention_int8" if cfg.kv_quant else "flash_attention"
+    p_name, p_label = ("int8_matmul", "D") if int8 else ("matmul_bf16", "B")
+    flash_layers = flash_prefills(cfg, [(1, len(prompt))]) * cfg.num_layers
     toks, lens, slots = np.asarray([prompt], np.int32), np.asarray([len(prompt)], np.int32), np.asarray([0])
     runs = []
     for plain in (False, True):
         cache = init_kv_cache(cfg, 1)
         _cuda.reset_launch_counts()
         if plain:
-            with plain_attention():
+            with plain_attention(matmul):
                 logits = eng.prefill_group(cache, toks, lens, slots)
         else:
             logits = eng.prefill_group(cache, toks, lens, slots)
         torch.cuda.synchronize()
-        runs.append((logits.float(), _cuda.launch_counts()["flash_attention"]))
-    (got, n_kernel), (want, n_plain) = runs
-    check(n_kernel == cfg.num_layers and n_plain == 0,
-          f"{label}: kernel C launched {n_kernel} / {n_plain} times, not {cfg.num_layers} / 0")
+        counts = _cuda.launch_counts()
+        runs.append((logits.float(), counts[c_name], counts[p_name]))
+    (got, n_kernel, b_kernel), (want, n_plain, b_plain) = runs
+    check(n_kernel == flash_layers and n_plain == 0,
+          f"{label}: kernel C launched {n_kernel} / {n_plain} times, not {flash_layers} / 0")
+    if matmul:
+        b_want = projections_per_layer(cfg) * cfg.num_layers
+        check(b_kernel == b_want and b_plain == 0,
+              f"{label}: kernel {p_label} launched {b_kernel} / {b_plain} times, not {b_want} / 0")
     diff = (got - want).abs().max().item()
     scale = want.abs().max().item()
+    what = "attention and projections" if matmul else "attention"
     check(bool(torch.isfinite(got).all()) and diff <= 2e-2 * scale,
-          f"{label}: prefill logits against the plain attention path {diff} at scale {scale}")
-    print(f"phase {label} prefill of {len(prompt)} tokens, last-position logits against the plain attention path "
+          f"{label}: prefill logits against the plain {what} path {diff} at scale {scale}")
+    print(f"phase {label} prefill of {len(prompt)} tokens, last-position logits against the plain {what} path "
           f"on the card: max abs diff {diff:.2e} (limit 2e-2 x max |logit| {scale:.2f}); kernel C launched "
-          f"{n_kernel} times (once per layer), 0 on the plain path")
+          f"{n_kernel} times, 0 on the plain path" + (f"; kernel {p_label} {b_kernel} times, 0 on the plain path"
+                                                       if matmul else ""))
     return diff
 
 
@@ -1309,27 +1447,285 @@ def phase_gemma(rng):
     return counts, dict(prefill_logits_diff=diff, generate_s=gen_s, layers=cfg.num_layers)
 
 
+def attention_drift(label, eng, prompts) -> list:
+    """The last-position logits of each prompt's prefill through the engine
+    three ways on the card: through kernel C, through its plain version,
+    and through its plain version on q, k, v in fp32 (the output rounded
+    to bf16).  Printed, not checked (``kernels_held_to_plain`` holds each
+    kernel C call): the distance between the two plain paths, which differ
+    only in the rounding of attention, witnesses how far such a difference
+    alone carries through the model's layers."""
+    import numpy as np
+    import torch
+
+    from nf4_tpu_torch.models.llama import init_kv_cache
+
+    out = []
+    for prompt in prompts:
+        toks, lens, slots = np.asarray([prompt], np.int32), np.asarray([len(prompt)], np.int32), np.asarray([0])
+        runs = []
+        for how in ("kernel", "plain", "fp32"):
+            with plain_attention(fp32=how == "fp32") if how != "kernel" else contextlib.nullcontext():
+                runs.append(eng.prefill_group(init_kv_cache(eng.cfg, 1), toks, lens, slots).float())
+            torch.cuda.synchronize()
+        got, plain, fp32 = runs
+        check(all(bool(torch.isfinite(r).all()) for r in runs), f"{label}: finite prefill logits")
+        out.append(dict(kernel_vs_plain=(got - plain).abs().max().item(),
+                        kernel_vs_fp32=(got - fp32).abs().max().item(),
+                        plain_vs_fp32=(plain - fp32).abs().max().item(), scale=fp32.abs().max().item()))
+    print(f"phase {label} prefills of {len(prompts[0])} tokens, last-position logits, max abs diff (kernel C path "
+          f"vs plain, vs plain in fp32; plain vs plain in fp32; max |logit|): "
+          + "; ".join(f"{r['kernel_vs_plain']:.3f}, {r['kernel_vs_fp32']:.3f}; {r['plain_vs_fp32']:.3f}; "
+                      f"{r['scale']:.2f}" for r in out))
+    return out
+
+
+def generate_counted(label, eng, prompts, forwards, groups, budget=32, eager=None, int8=False):
+    """One ``generate`` of ``prompts`` on ``eng`` with every launch count set
+    to 0 just before and read just after, held to exactly ``forwards``
+    forwards' projection launches and kernel C's launches for the prefill
+    ``groups``; with ``eager`` (an Engine without graphs) the tokens are
+    held to its unpipelined run of the same requests, in which every kernel
+    call is held to its plain version (``kernels_held_to_plain``).
+    Returns (counts, results, seconds, {kernel: [calls held, largest err /
+    limit]} or None)."""
+    import torch
+
+    from nf4_tpu_torch.ops import _cuda
+
+    cfg = eng.cfg
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    results = eng.generate(prompts, max_new_tokens=budget)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = _cuda.launch_counts()
+    check(all(len(r.tokens) == budget and all(0 <= t < cfg.vocab_size for t in r.tokens) for r in results),
+          f"{label}: {budget} tokens in the vocabulary per request")
+    proj, flash = serve_expected(cfg, forwards, groups)
+    b_name, c_name = ("int8_matmul", "flash_attention_int8") if int8 else ("matmul_bf16", "flash_attention")
+    check(counts[b_name] == proj and counts[c_name] == flash,
+          f"{label}: launched {b_name} {counts[b_name]} and {c_name} {counts[c_name]} times, not {proj} and "
+          f"{flash}: {counts}")
+    held = None
+    if eager is not None:
+        with kernels_held_to_plain(label, cfg.num_experts) as held:
+            want = eager.generate(prompts, max_new_tokens=budget)
+        check([r.tokens for r in results] == [r.tokens for r in want],
+              f"{label}: graphed, pipelined tokens differ from eager, unpipelined decode")
+    return counts, results, secs, held
+
+
+# Phase 5i's long prompt: past Gemma-2-9B's 4096-slot window, so the local
+# layers mask; bucket 8192, prefilled in 4 segments of 2048, then 31
+# decode steps: 35 forwards, all on the plain attention paths (softcap).
+GEMMA2_LONG = 4608
+
+
+def phase_gemma2_serving(prompts, rng, profile):
+    """Main path (i): greedy serving of Gemma-2-9B at full width and depth
+    (42 layers, D = 256, attention and final softcaps, a 4096 window on
+    every other layer, four-norm blocks) as phase 5b, every launch count
+    exact (kernel C never: the softcap keeps every prefill plain); one
+    prompt of GEMMA2_LONG tokens, its tokens held to eager decode; the
+    1024-token prefill held to the plain attention and projection path."""
+    import torch
+
+    from nf4_tpu_torch.models import configs
+    from nf4_tpu_torch.models.synthetic import synthetic_params
+    from nf4_tpu_torch.serve.engine import Engine
+
+    cfg = configs.GEMMA2_9B
+    params = synthetic_params(cfg, seed=6)
+    torch.cuda.synchronize()
+    packed = projection_bytes(params)
+    head = params.lm_head.numel() * params.lm_head.element_size()
+    print(f"phase 5i Gemma-2-9B synthetic params (full width and depth: {cfg.num_layers} layers, D={cfg.head_dim}, "
+          f"softcaps {cfg.attn_logit_softcapping} / {cfg.final_logit_softcapping}, window {cfg.sliding_window} on "
+          f"every other layer): {packed / 1e9:.3f} GB packed+scales, lm_head {head / 1e9:.3f} GB")
+    prompts = in_vocab(prompts, cfg)
+    counts, serving = serve_llama("5i", params, cfg, prompts, packed + head, profile, by_bucket=False)
+    proj, flash = serve_expected(cfg)
+    check(flash == 0 and counts["matmul_bf16"] == proj and counts["flash_attention"] == 0,
+          f"Gemma-2-9B serving launched kernels B and C {counts['matmul_bf16']} and {counts['flash_attention']} "
+          f"times, not {proj} and 0: {counts}")
+    common = dict(batch_size=4, eos_token=-1, decode_chunk=8)
+    eng = Engine(params, cfg, **common)
+    plain = Engine(params, cfg, pipeline_decode=False, cuda_graphs=False, **common)
+    long_prompt = [int(t) for t in rng.integers(0, cfg.vocab_size, GEMMA2_LONG)]
+    long_counts, _, long_s, _ = generate_counted("5i long prompt", eng, [long_prompt], 35, [(1, 2048)] * 4,
+                                                 eager=plain)
+    print(f"phase 5i Gemma-2-9B prompt of {GEMMA2_LONG} tokens (bucket 8192, 4 segments), 32 tokens: "
+          f"{long_s:.2f} s, tokens equal to eager decode; launches {long_counts}")
+    serving["prefill_logits_diff"] = prefill_against_plain(
+        "5i Gemma-2-9B", Engine(params, cfg, cuda_graphs=False), prompts[0], matmul=True)
+    serving["long_prompt_s"] = long_s
+    return {k: counts[k] + long_counts[k] for k in counts}, serving
+
+
+DRIFT_PROMPTS = 4  # phase 5j's 2048-token prompts for attention_drift
+
+
+def phase_gemma3_serving(prompts, rng, profile):
+    """Main path (j): greedy serving of Gemma-3-4B at full width and depth
+    (34 layers: 5 local of window 1024 with their own RoPE to 1 global, q/k
+    norms, D = 256), max_seq_len cut from 32768 to 8192, as phase 5b; a
+    prompt of 1536 tokens (bucket 2048: kernel C on every layer, windowed on
+    the local ones), its tokens held to eager decode in which each layer's
+    kernel C call is held to its plain version; the logits of
+    DRIFT_PROMPTS 2048-token prefills through kernel C, the plain path and
+    the plain path in fp32 (``attention_drift``)."""
+    import torch
+
+    from nf4_tpu_torch.models import configs
+    from nf4_tpu_torch.models.synthetic import synthetic_params
+    from nf4_tpu_torch.serve.engine import Engine
+
+    cfg = dataclasses.replace(configs.GEMMA3_4B, max_seq_len=8192)
+    params = synthetic_params(cfg, seed=7)
+    torch.cuda.synchronize()
+    packed = projection_bytes(params)
+    head = params.lm_head.numel() * params.lm_head.element_size()
+    print(f"phase 5j Gemma-3-4B synthetic params (full width and depth, max_seq_len cut to {cfg.max_seq_len}): "
+          f"{packed / 1e9:.3f} GB packed+scales, lm_head {head / 1e9:.3f} GB")
+    prompts = in_vocab(prompts, cfg)
+    counts, serving = serve_llama("5j", params, cfg, prompts, packed + head, profile, by_bucket=False)
+    proj, flash = serve_expected(cfg)
+    check(counts["matmul_bf16"] == proj and counts["flash_attention"] == flash,
+          f"Gemma-3-4B serving launched kernels B and C {counts['matmul_bf16']} and {counts['flash_attention']} "
+          f"times, not {proj} and {flash}: {counts}")
+    eng = Engine(params, cfg, batch_size=4, eos_token=-1, decode_chunk=8)
+    plain = Engine(params, cfg, batch_size=4, eos_token=-1, decode_chunk=8, pipeline_decode=False, cuda_graphs=False)
+    long_prompt = [int(t) for t in rng.integers(0, cfg.vocab_size, 1536)]
+    long_counts, _, long_s, held = generate_counted("5j 1536-token prompt", eng, [long_prompt], 32, [(1, 2048)],
+                                                    eager=plain)
+    check(long_counts["flash_attention"] == held["C"][0] == cfg.num_layers,
+          f"kernel C on every layer of the 2048 bucket, each call held to its plain version: {held}")
+    print(f"phase 5j Gemma-3-4B prompt of 1536 tokens (bucket 2048), 32 tokens: {long_s:.2f} s, tokens equal to "
+          f"eager decode; launches {long_counts}")
+    drift_prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, 2048)] for _ in range(DRIFT_PROMPTS)]
+    serving["held_1536"] = held
+    serving["attention_drift"] = attention_drift("5j Gemma-3-4B", plain, drift_prompts)
+    return {k: counts[k] + long_counts[k] for k in counts}, serving
+
+
+def phase_mixtral_serving(prompts, profile):
+    """Main path (k): greedy serving of Mixtral-8x7B at full width and
+    depth (32 layers, 8 experts, top-2), max_seq_len cut from 32768 to
+    8192, as phase 5b: 18 projection launches per layer and forward."""
+    import torch
+
+    from nf4_tpu_torch.models import configs
+    from nf4_tpu_torch.models.synthetic import synthetic_params
+
+    cfg = dataclasses.replace(configs.MIXTRAL_8X7B, max_seq_len=8192)
+    t0 = time.perf_counter()
+    params = synthetic_params(cfg, seed=8)
+    torch.cuda.synchronize()
+    packed = projection_bytes(params)
+    experts = sum(w.nbytes for lp in params.layers for w in (lp.w_gateup, lp.w_down))
+    head = params.lm_head.numel() * params.lm_head.element_size()
+    print(f"phase 5k Mixtral-8x7B synthetic params (full width and depth, {cfg.num_experts} experts, top-"
+          f"{cfg.experts_per_token}; max_seq_len cut to {cfg.max_seq_len}): {packed / 1e9:.3f} GB packed+scales "
+          f"({experts / 1e9:.3f} GB of it experts), lm_head {head / 1e9:.3f} GB, built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    prompts = in_vocab(prompts, cfg)
+    counts, serving = serve_llama("5k", params, cfg, prompts, packed + head, profile, by_bucket=False)
+    proj, flash = serve_expected(cfg)
+    check(counts["matmul_bf16"] == proj and counts["flash_attention"] == flash,
+          f"Mixtral-8x7B serving launched kernels B and C {counts['matmul_bf16']} and {counts['flash_attention']} "
+          f"times, not {proj} and {flash}: {counts}")
+    return counts, dict(serving, weight_gb=packed / 1e9)
+
+
+QWEN3_MOE_LAYERS = 4
+
+
+def phase_qwen3_moe(prompts):
+    """Main path (l): Qwen3-30B-A3B at full width (128 experts, top-8, q/k
+    norms, expert width 768, K padded to 1024) and QWEN3_MOE_LAYERS of its
+    48 layers: phase 5b's requests in the 4-bit mode and in the int8 mode
+    (every expert recoded, an int8 KV cache), graphed and pipelined, every
+    launch count exact (258 projection launches per layer and forward),
+    tokens held to eager, unpipelined decode in which each kernel call is
+    held to its plain version; the 1024-token prefill's logits held to the
+    plain attention and projection path."""
+    import torch
+
+    from nf4_tpu_torch.models import configs
+    from nf4_tpu_torch.models.llama import recode_params_int8
+    from nf4_tpu_torch.models.synthetic import synthetic_params
+    from nf4_tpu_torch.serve.engine import Engine
+
+    res, all_counts = {}, {}
+    for mode in ("4-bit", "int8"):
+        cfg = dataclasses.replace(configs.QWEN3_MOE_A3B, num_layers=QWEN3_MOE_LAYERS, kv_quant=mode == "int8")
+        params = synthetic_params(cfg, seed=9)
+        if mode == "int8":
+            params = recode_params_int8(params)
+        torch.cuda.synchronize()
+        nbytes = projection_bytes(params)
+        common = dict(batch_size=4, eos_token=-1, decode_chunk=8)
+        eng = Engine(params, cfg, **common)
+        plain = Engine(params, cfg, pipeline_decode=False, cuda_graphs=False, **common)
+        label, int8 = f"5l Qwen3-30B-A3B {mode}", mode == "int8"
+        counts, _, secs, held = generate_counted(label, eng, in_vocab(prompts, cfg), SERVE_FORWARDS, SERVE_PREFILLS,
+                                                 eager=plain, int8=int8)
+        other = "matmul_bf16" if int8 else "int8_matmul"
+        check(counts[other] == 0, f"5l {mode} launched {other}: {counts}")
+        check(held["D" if int8 else "B"][0] > 0 and held["B" if int8 else "D"][0] == 0,
+              f"5l {mode}: the projection kernel held {held}")
+        diff = prefill_against_plain(label, plain, in_vocab(prompts, cfg)[0], matmul=True, int8=int8)
+        print(f"phase 5l Qwen3-30B-A3B {mode} ({cfg.num_layers} of 48 layers, {cfg.num_experts} experts, top-"
+              f"{cfg.experts_per_token}; {nbytes / 1e9:.3f} GB of projections): {len(prompts)} requests x 32 tokens in "
+              f"{secs:.2f} s, tokens equal to eager decode; graphs {eng.graph_stats['captured']} captured in "
+              f"{eng.graph_stats['capture_s']:.2f} s; launches {counts}")
+        res[mode] = dict(generate_s=secs, graph_stats=dict(eng.graph_stats), weight_gb=nbytes / 1e9, held=held,
+                         prefill_logits_diff=diff)
+        all_counts[mode] = counts
+        del params, eng, plain
+        free_memory()
+    return all_counts, res
+
+
 SMALL = dict(vocab_size=512, hidden_size=256, intermediate_size=512, num_layers=2,
              num_heads=4, num_kv_heads=2, head_dim=128, max_seq_len=256)
 
 
+_GEMMA = dict(head_dim=256, activation="gelu_tanh", rmsnorm_one_plus=True, scale_embeddings=True)
+_MOE = dict(num_experts=4, experts_per_token=2)
 # Phase 5c's variants of the small model: every field of the Llama-family
-# variants on.
+# variants, Gemma-2's and Gemma-3's on; dense projections; MoE both ways of
+# renormalizing, in fp32 activations (kernel E on the experts: a bf16
+# route can flip between two programs whose sums differ in order; the bf16
+# MoE MLP is held at module level, phase_small_model).
 SMALL_VARIANTS = {
     "bias, qk_norm, llama3 rope": dict(attn_bias=True, qk_norm=True, rope_scaling=("llama3", 8.0, 1.0, 4.0, 64)),
-    "Gemma flags, D=256": dict(head_dim=256, activation="gelu_tanh", rmsnorm_one_plus=True, scale_embeddings=True),
+    "Gemma flags, D=256": _GEMMA,
+    "Gemma-2: softcaps, output norms, window on every other layer": dict(
+        _GEMMA, attn_logit_softcapping=50.0, final_logit_softcapping=30.0, query_pre_attn_scalar=256.0,
+        sliding_window=48, sliding_window_pattern=2),
+    "Gemma-3: local RoPE, qk_norm, windows": dict(
+        _GEMMA, qk_norm=True, rope_theta=1e6, rope_local_theta=1e4, rope_scaling=("linear", 8.0), sliding_window=48,
+        sliding_window_pattern=2),
+    "quantize=False (dense projections)": dict(quantize=False),
+    "MoE, moe_norm_topk, fp32": dict(_MOE, dtype="float32"),
+    "MoE, moe_norm_topk=False, fp32": dict(_MOE, moe_norm_topk=False, dtype="float32"),
 }
 
 
 def phase_small_model(dev, rng):
     """Main path (c): a small model on the card against the same weights on
-    the CPU, plain and with the variants' fields on."""
+    the CPU, plain and with the variants' fields on; the MoE MLP alone in
+    bf16 (4-bit and int8 experts), card against CPU on the same input."""
     import torch
 
-    from nf4_tpu_torch.models.llama import LlamaConfig, prefill
+    from nf4_tpu_torch.models.llama import LlamaConfig, _moe_mlp, prefill, recode_params_int8
     from nf4_tpu_torch.models.synthetic import synthetic_params
 
     for name, fields in {"": {}, **SMALL_VARIANTS}.items():
+        if isinstance(fields.get("dtype"), str):
+            fields = dict(fields, dtype=getattr(torch, fields["dtype"]))
         small = LlamaConfig(**{**SMALL, **fields})
         p_gpu = synthetic_params(small, seed=1)
         p_cpu = params_to(p_gpu, "cpu")
@@ -1342,6 +1738,20 @@ def phase_small_model(dev, rng):
               f"small model {name}: card vs CPU {diff} at scale {scale}")
         print(f"phase 5c small model{f' ({name})' if name else ''} logits, card vs CPU plain path: max abs diff "
               f"{diff:.2e} (max |logit| {scale:.2f})")
+    for int8 in (False, True):
+        for norm in (True, False):
+            small = LlamaConfig(**{**SMALL, **_MOE, "moe_norm_topk": norm})
+            p_gpu = synthetic_params(small, seed=2)
+            if int8:
+                p_gpu = recode_params_int8(p_gpu)
+            p_cpu = params_to(p_gpu, "cpu")
+            x = torch.randn((2, 100, small.hidden_size)).to(torch.bfloat16)
+            got = _moe_mlp(small, x.to(dev), p_gpu.layers[0]).cpu()
+            want = _moe_mlp(small, x, p_cpu.layers[0])
+            diff, scale = (got - want).abs().max().item(), want.abs().max().item()
+            check(diff <= 2e-2 * scale, f"MoE MLP {'int8' if int8 else '4-bit'} norm {norm}: card vs CPU {diff}")
+            print(f"phase 5c MoE MLP alone, bf16 x [2, 100], {'int8' if int8 else '4-bit'} experts, moe_norm_topk "
+                  f"{norm}: card vs CPU max abs diff {diff:.2e} (max |out| {scale:.2e})")
 
 
 def phase_checkpoint(dev, rng):
@@ -1643,7 +2053,17 @@ def main() -> int:
     int8_counts, serving8 = phase_int8_serving(prompts, args.profile)
     phase_checkpoint(dev, rng)
     qwen_counts, serving_qwen = phase_qwen2_serving(prompts, args.profile)
+    free_memory()
     gemma_counts, gemma = phase_gemma(rng)
+    free_memory()
+    gemma2_counts, gemma2 = phase_gemma2_serving(prompts, rng, args.profile)
+    free_memory()
+    gemma3_counts, gemma3 = phase_gemma3_serving(prompts, rng, args.profile)
+    free_memory()
+    mixtral_counts, mixtral = phase_mixtral_serving(prompts, args.profile)
+    free_memory()
+    moe_counts, qwen3_moe = phase_qwen3_moe(prompts)
+    free_memory()
     phase_backward(gen, dev)
     # 7 examples of 60-200 tokens that pack into 2 x 512 slots (97.8% full).
     examples = sft_examples(np.random.default_rng(0), LLAMA3_8B.vocab_size, 7, 60, 200)
@@ -1685,13 +2105,21 @@ def main() -> int:
              max_abs_err=deq["max_abs_err"], ms=deq["w_down"]["ms"], plain_ms=deq["w_down"]["plain_ms"],
              bound_ms=deq["w_down"]["bound_ms"], bound_by="bytes", library_ms=None),
         matmul_row("matmul_bf16", "nf4_tpu_torch/csrc/matmul.cu", "nf4_tpu/ops/matmul.py:148", mm,
-                   serve_counts["matmul_bf16"], prefill=True, http_launches=http_counts["matmul_bf16"]),
+                   serve_counts["matmul_bf16"], prefill=True, http_launches=http_counts["matmul_bf16"],
+                   gemma2_9b_launches=gemma2_counts["matmul_bf16"], gemma3_4b_launches=gemma3_counts["matmul_bf16"],
+                   mixtral_8x7b_launches=mixtral_counts["matmul_bf16"],
+                   qwen3_30b_a3b_launches=moe_counts["4-bit"]["matmul_bf16"]),
         flash_row("flash_attention", fl, serve_counts["flash_attention"],
                   qwen2_7b_launches=qwen_counts["flash_attention"], gemma_7b_launches=gemma_counts["flash_attention"],
-                  http_launches=http_counts["flash_attention"]),
-        flash_row("flash_attention_int8", fl8, int8_counts["flash_attention_int8"], int8=True),
+                  http_launches=http_counts["flash_attention"], gemma2_9b_launches=gemma2_counts["flash_attention"],
+                  gemma3_4b_launches=gemma3_counts["flash_attention"],
+                  mixtral_8x7b_launches=mixtral_counts["flash_attention"],
+                  qwen3_30b_a3b_launches=moe_counts["4-bit"]["flash_attention"]),
+        flash_row("flash_attention_int8", fl8, int8_counts["flash_attention_int8"], int8=True,
+                  qwen3_30b_a3b_launches=moe_counts["int8"]["flash_attention_int8"]),
         matmul_row("int8_matmul", "nf4_tpu_torch/csrc/int8_matmul.cu", "nf4_tpu/ops/int8_serve.py:151", mm8,
-                   int8_counts["int8_matmul"], prefill=True),
+                   int8_counts["int8_matmul"], prefill=True,
+                   qwen3_30b_a3b_launches=moe_counts["int8"]["int8_matmul"]),
         dict(name="dequant_t_fast", route="cuda", source="nf4_tpu_torch/csrc/dequant.cu",
              replaces="nf4_tpu/ops/dequant.py:147", launches=fast_counts["dequant_t_fast"],
              max_abs_err=fast["max_abs_err"], ms=fast["w_down"]["ms"], plain_ms=fast["w_down"]["plain_ms"],
@@ -1719,6 +2147,8 @@ def main() -> int:
                            exact_matmul={f"{k[0]} B={k[1]}": v for k, v in ex.items()}, exact_decode=ex_decode,
                            flash=fl, flash_int8=fl8, flash_shapes=fls, serving=serving, serving_int8=serving8,
                            serving_qwen2_7b=serving_qwen, gemma_7b=gemma, http_serving=http,
+                           serving_gemma2_9b=gemma2, serving_gemma3_4b=gemma3, serving_mixtral_8x7b=mixtral,
+                           qwen3_30b_a3b=qwen3_moe,
                            training_bf16=train16, training_fp32=train32, kernels=kernels), f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -6,10 +6,13 @@ attribute only: ``embed``, ``final_norm``, ``lm_head`` and the stacked
 ``[L, ...]`` ``layers.{wqkv, wo, w_gateup, w_down}`` (each with ``packed``,
 ``scales``, ``shape``, ``padded_shape``, ``dtype``, ``shards`` and
 ``quant_type``; an int8-recoded one with ``values`` and ``scales``; or a
-dense array), ``layers.{input_norm, post_attn_norm}`` and, where present,
-``layers.{qkv_bias, q_norm, k_norm}``.  It returns the port's params with
-the layers split.  The packed bytes, int8 values and
-scales are copied as they are: the layouts are shared.
+dense array; an MoE model's ``w_gateup`` and ``w_down`` expert-stacked,
+``[L, E, ...]``), ``layers.{input_norm, post_attn_norm}`` and, where
+present, ``layers.{qkv_bias, q_norm, k_norm, router, post_attn_out_norm,
+post_ffw_norm}``.  It returns the port's params with the layers split (an
+expert-stacked weight stays one weight with a leading ``[E]`` axis).  The
+packed bytes, int8 values and scales are copied as they are: the layouts
+are shared.
 
 :func:`config_to_dict` / :func:`config_from_dict` are the JAX package's
 configuration dicts (its ``models/loader.py``), as packed checkpoints
@@ -76,15 +79,16 @@ def _weight(w, i, device):
     return _tensor(pick(w), device)
 
 
+# The layer vectors a model may have (fp32, one per layer).
+_OPTIONAL_LAYER_FIELDS = ("qkv_bias", "q_norm", "k_norm", "router", "post_attn_out_norm", "post_ffw_norm")
+
+
 def params_from_numpy(tree, cfg: LlamaConfig, device=None) -> LlamaParams:
     """The port's params on ``device`` (default ``cuda``) from the JAX
     package's numpy-leaved params."""
     dev = resolve_device(device)
     lt = tree.layers
-    for extra in ("router", "post_attn_out_norm", "post_ffw_norm"):
-        if getattr(lt, extra, None) is not None:
-            raise NotImplementedError(f"not ported yet: layer weights {extra!r}")
-    optional = [n for n in ("qkv_bias", "q_norm", "k_norm") if getattr(lt, n, None) is not None]
+    optional = [n for n in _OPTIONAL_LAYER_FIELDS if getattr(lt, n, None) is not None]
     layers = [
         LayerParams(
             wqkv=_weight(lt.wqkv, i, dev),

@@ -1,19 +1,30 @@
-"""Llama over packed 4-bit weights (dense Llama, single device): inference
-and the fine-tuning forward.
+"""Llama over packed 4-bit weights (single device): inference and the
+fine-tuning forward.
 
 The counterpart of the JAX package's ``models/llama.py``: RMSNorm, rotary
 embeddings, GQA attention over a KV cache, a gated MLP, and the fields of
 the Llama-family variants: fused q/k/v biases (Qwen2), per-head q/k
 RMSNorm (Qwen3), RoPE scaling (linear, llama3, longrope), GeLU MLPs,
 ``(1 + w)`` RMSNorm and scaled embeddings (Gemma), a sliding window
-(Mistral).  Every projection
-goes through one call site, :func:`_matmul`: the fused 4-bit matmul for
-:class:`PackedNF4` weights, the int8 matmul for weights recoded by
-:func:`recode_params_int8`.  With ``kv_quant`` the KV cache is int8 with
+(Mistral); Gemma-2/3's four-norm blocks, attention and final softcaps,
+alternating local/global layers (a host window per layer) and the local
+layers' own RoPE; and the mixture-of-experts MLP (Mixtral, Qwen3-MoE),
+every token through every expert in expert order, weighted by its routing
+weights.  Every projection goes through one call site, :func:`_matmul`:
+the fused 4-bit matmul for :class:`PackedNF4` weights, the int8 matmul for
+weights recoded by :func:`recode_params_int8`, a plain product for dense
+weights (``quantize=False``).  With ``kv_quant`` the KV cache is int8 with
 per-slot absmax scales.  :func:`train_forward` is the cache-free,
 differentiable forward of QLoRA fine-tuning: LoRA deltas
 (``train.lora``) on the adapted projections, gradients to the adapters
 through the packed weights' backward.
+
+Where the dispatch differs from the JAX package's: there a layer's window
+is a traced value of the layer scan, which keeps every windowed
+alternating-layer model off the flash kernel; here it is a host int, so
+Gemma-3's long prefills reach kernel C (D = 256, windowed on its local
+layers), with the same results within the attention tolerance.  Gemma-2
+stays on the plain paths, as there: kernel C takes no softcap.
 
 PyTorch idiom in place of the JAX one: layers are a Python list iterated by
 a loop (the JAX package scans stacked layers), and :func:`forward` writes
@@ -33,9 +44,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..nf4.format import PackedNF4
-from ..ops.attention import attention
+from ..ops.attention import _softcap, attention
 from ..ops.int8_serve import PackedInt8, int8_matmul, recode_int8_weight
-from ..ops.matmul import nf4_matmul
+from ..ops.matmul import _ieee_fp32, nf4_matmul
 from ..utils.device import resolve_device
 
 __all__ = [
@@ -51,6 +62,7 @@ __all__ = [
     "forward",
     "train_forward",
     "prefill",
+    "prefill_chunked",
     "decode_step",
     "recode_params_int8",
 ]
@@ -59,7 +71,7 @@ __all__ = [
 @dataclasses.dataclass(frozen=True)
 class LlamaConfig:
     """The JAX package's configuration fields, so its configuration dicts
-    load unchanged; :func:`forward` raises for the ones this port does not
+    load unchanged; :func:`forward` raises for the one this port does not
     serve yet (see :func:`check_supported`)."""
 
     vocab_size: int = 32000
@@ -117,42 +129,61 @@ _ACTIVATIONS = {
 }
 
 
-def check_supported(cfg: LlamaConfig) -> None:
-    """Raise for configuration features this port does not serve yet."""
-    missing = {
-        "quantize=False (dense projections)": not cfg.quantize,
-        "num_experts > 1": cfg.num_experts > 1,
-        "attn_logit_softcapping": cfg.attn_logit_softcapping is not None,
-        "final_logit_softcapping": cfg.final_logit_softcapping is not None,
-        "rope_local_theta": cfg.rope_local_theta is not None,
-        "tp_shards > 1": cfg.tp_shards > 1,
-        "sliding_window_pattern > 1": cfg.sliding_window_pattern > 1,
-    }
+def _raise_unported(missing: dict, what: str = "") -> None:
     bad = [name for name, on in missing.items() if on]
     if bad:
-        raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
+        raise NotImplementedError(f"not ported yet: {what}{', '.join(bad)}")
+
+
+def check_supported(cfg: LlamaConfig) -> None:
+    """Raise for configuration features this port does not serve yet."""
+    _raise_unported({"tp_shards > 1": cfg.tp_shards > 1})
     if cfg.activation not in _ACTIVATIONS:
         raise ValueError(f"unknown activation {cfg.activation!r}; {'|'.join(_ACTIVATIONS)}")
     if cfg.rope_scaling is not None and cfg.rope_scaling[0] not in ("linear", "llama3", "longrope"):
         raise ValueError(f"unknown rope_scaling kind {cfg.rope_scaling[0]!r}; llama3|linear|longrope")
 
 
-Weight = Union[PackedNF4, PackedInt8]
+def check_trainable(cfg: LlamaConfig) -> None:
+    """Raise for the configurations :func:`train_forward` does not train
+    yet (they serve)."""
+    check_supported(cfg)
+    _raise_unported({
+        "quantize=False (dense projections)": not cfg.quantize,
+        "num_experts > 1": cfg.num_experts > 1,
+        "attn_logit_softcapping": cfg.attn_logit_softcapping is not None,
+        "final_logit_softcapping": cfg.final_logit_softcapping is not None,
+        "sliding_window_pattern > 1": cfg.sliding_window_pattern > 1,
+        "rope_local_theta": cfg.rope_local_theta is not None,
+    }, "training with ")
+
+
+# A packed weight, or a dense cfg.dtype tensor [out, in] (quantize=False).
+Weight = Union[PackedNF4, PackedInt8, torch.Tensor]
 
 
 @dataclasses.dataclass
 class LayerParams:
-    """One decoder layer.  q+k+v and gate+up are fused, one matmul each."""
+    """One decoder layer.  q+k+v and gate+up are fused, one matmul each.
+    An MoE layer's ``w_gateup`` and ``w_down`` are expert-stacked: one
+    weight whose tensors gain a leading ``[E]`` axis (packed ``[E, n_pad/2,
+    m_pad]``, int8 values ``[E, n_pad, m_pad]``, dense ``[E, out, in]``);
+    its ``shape`` stays one expert's."""
 
     wqkv: Weight  # [q_dim + 2*kv_dim, hidden]
     wo: Weight  # [hidden, q_dim]
     w_gateup: Weight  # [2*intermediate, hidden]
     w_down: Weight  # [hidden, intermediate]
     input_norm: torch.Tensor  # fp32 [hidden]
-    post_attn_norm: torch.Tensor  # fp32 [hidden]
+    post_attn_norm: torch.Tensor  # fp32 [hidden], the MLP's input norm
     qkv_bias: Optional[torch.Tensor] = None  # fp32 [q_dim + 2*kv_dim] (cfg.attn_bias)
     q_norm: Optional[torch.Tensor] = None  # fp32 [head_dim] (cfg.qk_norm)
     k_norm: Optional[torch.Tensor] = None
+    router: Optional[torch.Tensor] = None  # fp32 [E, hidden] (cfg.num_experts > 1)
+    # Gemma-2/3's norms of the attention and MLP outputs, fp32 [hidden],
+    # applied before each residual add.
+    post_attn_out_norm: Optional[torch.Tensor] = None
+    post_ffw_norm: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass
@@ -235,18 +266,33 @@ def _dense_logits(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _matmul(x: torch.Tensor, w: Weight, out_dtype=None) -> torch.Tensor:
-    """The one call site of every projection."""
+    """The one call site of every projection.  A dense weight: the JAX
+    package's ``jnp.dot`` with fp32 accumulation and output (full fp32
+    products), then cast."""
     out_dtype = out_dtype or x.dtype
     if isinstance(w, PackedInt8):
         return int8_matmul(x, w, out_dtype=out_dtype)
-    return nf4_matmul(x, w, out_dtype=out_dtype)
+    if isinstance(w, PackedNF4):
+        return nf4_matmul(x, w, out_dtype=out_dtype)
+    with _ieee_fp32():
+        return _dense_logits(x, w.to(x.dtype)).to(out_dtype)
+
+
+def _experts(w: Weight) -> list:
+    """An expert-stacked weight's per-expert weights: views of its tensors
+    (no copy, so the pointers a CUDA graph captures stay put)."""
+    if isinstance(w, PackedNF4):
+        return [dataclasses.replace(w, packed=p, scales=sc) for p, sc in zip(w.packed.unbind(0), w.scales.unbind(0))]
+    if isinstance(w, PackedInt8):
+        return [dataclasses.replace(w, values=v, scales=sc) for v, sc in zip(w.values.unbind(0), w.scales.unbind(0))]
+    return list(w.unbind(0))
 
 
 def recode_params_int8(params: LlamaParams) -> LlamaParams:
     """Every packed 4-bit projection recoded to int8 (see
-    :mod:`~nf4_tpu_torch.ops.int8_serve`): twice the weight bytes, values on
-    the 4-bit grid up to the int8 rounding of the codebook.  A dense bf16
-    lm_head stays as it is."""
+    :mod:`~nf4_tpu_torch.ops.int8_serve`), the experts' too: twice the
+    weight bytes, values on the 4-bit grid up to the int8 rounding of the
+    codebook.  A dense bf16 lm_head stays as it is."""
 
     def recode(w):
         return recode_int8_weight(w) if isinstance(w, PackedNF4) else w
@@ -310,6 +356,40 @@ def _rope_attn_scale(cfg: LlamaConfig) -> float:
     orig = cfg.rope_scaling[3]
     scale = cfg.max_seq_len / orig
     return 1.0 if scale <= 1.0 else math.sqrt(1.0 + math.log(scale) / math.log(orig))
+
+
+def _layer_is_local(cfg: LlamaConfig, i: int) -> bool:
+    """Layer ``i`` is a local (windowed) layer of an alternating pattern:
+    every ``sliding_window_pattern``-th layer is global."""
+    pat = cfg.sliding_window_pattern
+    return pat > 1 and i % pat != pat - 1
+
+
+def _layer_window(cfg: LlamaConfig, i: int) -> Optional[int]:
+    """Layer ``i``'s sliding window, a host int: ``sliding_window`` on every
+    layer, or under an alternating pattern on its local layers only (a
+    global layer takes none, the visibility of the JAX package's window of
+    ``max_seq_len + 1``)."""
+    if cfg.sliding_window_pattern <= 1 or _layer_is_local(cfg, i):
+        return cfg.sliding_window
+    return None
+
+
+def local_rope_tables(cfg: LlamaConfig, positions: torch.Tensor):
+    """Gemma-3's local-layer cos/sin: ``rope_local_theta``, unscaled
+    (global layers keep ``rope_theta`` and ``rope_scaling``); None without
+    a local theta."""
+    if cfg.rope_local_theta is None:
+        return None
+    return rope_tables(dataclasses.replace(cfg, rope_theta=cfg.rope_local_theta, rope_scaling=None), positions)
+
+
+def _layer_tables(cfg: LlamaConfig, positions: torch.Tensor):
+    """Each layer's (cos, sin): the global tables, or the local ones on
+    Gemma-3's local layers (each table computed once)."""
+    tables = rope_tables(cfg, positions)
+    local = local_rope_tables(cfg, positions)
+    return [local if local is not None and _layer_is_local(cfg, i) else tables for i in range(cfg.num_layers)]
 
 
 def rope_tables(cfg: LlamaConfig, positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -381,11 +461,18 @@ def _add_delta(y: torch.Tensor, delta: Optional[torch.Tensor]) -> torch.Tensor:
     return y if delta is None else y + delta.to(y.dtype)
 
 
+def _post(cfg: LlamaConfig, t: torch.Tensor, w: Optional[torch.Tensor]) -> torch.Tensor:
+    """Gemma-2/3's RMSNorm of a sublayer's fp32 output before its residual
+    add; ``t`` itself without the norm."""
+    return t if w is None else rms_norm(t, w, cfg.rms_norm_eps, cfg.rmsnorm_one_plus)
+
+
 def _layer_forward(cfg, x, lp: LayerParams, layer_cache: Optional[KVCache], positions, seq_lens, cos, sin,
-                   kv_len=None, ll=None, train: bool = False, segment_ids=None, cache_index=None):
+                   kv_len=None, ll=None, train: bool = False, segment_ids=None, cache_index=None, window=None):
     """One decoder layer; x [B, S, hidden]; writes this call's K/V into the
     layer's cache views in place at ``cache_index`` (the positions'
-    :func:`_cache_index`).  ``ll`` is the layer's LoRA adapters
+    :func:`_cache_index`).  ``window`` is the layer's sliding window
+    (:func:`_layer_window`).  ``ll`` is the layer's LoRA adapters
     (``train.lora.LoraLayer``) or None; ``train=True`` uses no cache
     (attention over this call's own K/V, differentiable paths only, with
     ``segment_ids`` for packed rows)."""
@@ -412,7 +499,7 @@ def _layer_forward(cfg, x, lp: LayerParams, layer_cache: Optional[KVCache], posi
         attn = attention(
             q, k, v, positions, seq_lens,
             scale=cfg.attn_scale,
-            sliding_window=cfg.sliding_window,
+            sliding_window=window,
             differentiable=True,
             segment_ids=segment_ids,
         )
@@ -426,21 +513,54 @@ def _layer_forward(cfg, x, lp: LayerParams, layer_cache: Optional[KVCache], posi
         attn = attention(
             q, layer_cache.k, layer_cache.v, positions, seq_lens,
             scale=cfg.attn_scale,
-            sliding_window=cfg.sliding_window,
+            sliding_window=window,
             k_scale=layer_cache.k_scale,
             v_scale=layer_cache.v_scale,
             kv_len=kv_len,
+            logit_softcap=cfg.attn_logit_softcapping,
         )
     attn = attn.transpose(1, 2).reshape(b, s, cfg.q_dim)
     o_proj = _add_delta(_matmul(attn, lp.wo, out_dtype=torch.float32), delta(attn, "o"))
-    x = x + o_proj.to(x.dtype)
+    x = x + _post(cfg, o_proj, lp.post_attn_out_norm).to(x.dtype)
 
     mlp_in = rms_norm(x, lp.post_attn_norm, cfg.rms_norm_eps, one_plus)
+    if lp.router is not None:
+        return x + _post(cfg, _moe_mlp(cfg, mlp_in, lp), lp.post_ffw_norm).to(x.dtype)
     gateup = _add_delta(_matmul(mlp_in, lp.w_gateup), delta(mlp_in, "gateup"))  # one kernel for gate+up
-    gate, up = split_fused(gateup, (cfg.intermediate_size, cfg.intermediate_size))
-    h = _ACTIVATIONS[cfg.activation](gate.float()).to(up.dtype) * up
+    h = _gated(cfg, gateup)
     down = _add_delta(_matmul(h, lp.w_down, out_dtype=torch.float32), delta(h, "down"))
-    return x + down.to(x.dtype)
+    return x + _post(cfg, down, lp.post_ffw_norm).to(x.dtype)
+
+
+def _gated(cfg: LlamaConfig, gateup: torch.Tensor) -> torch.Tensor:
+    """act(gate) * up of a fused gate+up output, the activation in fp32."""
+    gate, up = split_fused(gateup, (cfg.intermediate_size, cfg.intermediate_size))
+    return _ACTIVATIONS[cfg.activation](gate.float()).to(up.dtype) * up
+
+
+def _moe_mlp(cfg: LlamaConfig, mlp_in: torch.Tensor, lp: LayerParams) -> torch.Tensor:
+    """The mixture-of-experts MLP (the JAX package's ``_moe_mlp``): fp32
+    router logits (full fp32 products: TF32 could flip a route), the top
+    ``experts_per_token`` experts of each token, ties to the lower index as
+    ``lax.top_k`` breaks them (a stable descending sort), their weights
+    renormalized (``moe_norm_topk``) or the full softmax's; then every token
+    through every expert in expert order, each expert's fp32 output
+    weighted by the token's weight for it (0 where not chosen) into an fp32
+    sum.  No shape depends on the routes, so decode chunks capture."""
+    with _ieee_fp32():
+        logits = mlp_in.float() @ lp.router.float().t()  # [B, S, E]
+    order = torch.sort(logits, dim=-1, descending=True, stable=True)
+    top_v, top_i = order.values[..., : cfg.experts_per_token], order.indices[..., : cfg.experts_per_token]
+    if cfg.moe_norm_topk:
+        weights = torch.softmax(top_v, dim=-1)
+    else:
+        weights = torch.softmax(logits, dim=-1).gather(-1, top_i)
+    per_expert = torch.zeros_like(logits).scatter(-1, top_i, weights)  # [B, S, E], the chosen experts' weights
+    acc = torch.zeros(mlp_in.shape, dtype=torch.float32, device=mlp_in.device)
+    for e, (gu, dn) in enumerate(zip(_experts(lp.w_gateup), _experts(lp.w_down))):
+        out = _matmul(_gated(cfg, _matmul(mlp_in, gu)), dn, out_dtype=torch.float32)
+        acc = acc + per_expert[..., e : e + 1] * out
+    return acc
 
 
 def forward(
@@ -461,12 +581,12 @@ def forward(
     check_supported(cfg)
     b, s = tokens.shape
     x = _embed(params, cfg, tokens)
-    cos, sin = rope_tables(cfg, positions)
+    tables = _layer_tables(cfg, positions)
     index = _cache_index(positions)
     for i, lp in enumerate(params.layers):
         ll = None if lora is None else lora.layers[i]
-        x = _layer_forward(cfg, x, lp, cache.layer(i), positions, seq_lens, cos, sin, kv_len, ll=ll,
-                           cache_index=index)
+        x = _layer_forward(cfg, x, lp, cache.layer(i), positions, seq_lens, *tables[i], kv_len, ll=ll,
+                           cache_index=index, window=_layer_window(cfg, i))
     if last_only:
         last_idx = torch.clamp(seq_lens - 1 - positions[:, 0], 0, s - 1).long()
         x = x[torch.arange(b, device=x.device), last_idx]
@@ -483,10 +603,14 @@ def _embed(params: LlamaParams, cfg: LlamaConfig, tokens: torch.Tensor) -> torch
 
 
 def _logits(params: LlamaParams, cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
+    """fp32 logits of the final norm of ``x``, softcapped with
+    ``final_logit_softcapping`` (Gemma-2)."""
     x = rms_norm(x, params.final_norm, cfg.rms_norm_eps, cfg.rmsnorm_one_plus)
     if isinstance(params.lm_head, (PackedNF4, PackedInt8)):
-        return _matmul(x, params.lm_head, out_dtype=torch.float32)
-    return _dense_logits(x, params.lm_head.to(x.dtype))
+        logits = _matmul(x, params.lm_head, out_dtype=torch.float32)
+    else:
+        logits = _dense_logits(x, params.lm_head.to(x.dtype))
+    return _softcap(logits, cfg.final_logit_softcapping)
 
 
 def train_forward(
@@ -509,8 +633,9 @@ def train_forward(
     packed weights are frozen.  For packed rows (``train.data.pack_sft``)
     ``segment_ids`` makes attention block-diagonal and ``positions`` carries
     the segment-relative rotary phases; the causal mask runs on slot
-    indices."""
-    check_supported(cfg)
+    indices.  Gemma-2/3, MoE and dense-projection configurations are not
+    trained yet (:func:`check_trainable`)."""
+    check_trainable(cfg)
     b, s = tokens.shape
     x = _embed(params, cfg, tokens)
     slot_ids = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
@@ -521,7 +646,7 @@ def train_forward(
 
         def layer(x, lp=lp, ll=ll):
             return _layer_forward(cfg, x, lp, None, slot_ids, seq_lens, cos, sin,
-                                  ll=ll, train=True, segment_ids=segment_ids)
+                                  ll=ll, train=True, segment_ids=segment_ids, window=cfg.sliding_window)
 
         x = checkpoint(layer, x, use_reentrant=False) if remat else layer(x)
     return _logits(params, cfg, x)
@@ -536,6 +661,24 @@ def prefill(params, cfg: LlamaConfig, tokens: torch.Tensor, cache: Optional[KVCa
     positions = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
     seq_lens = torch.full((b,), s, dtype=torch.int32, device=tokens.device)
     return forward(params, cfg, tokens, cache, positions, seq_lens, kv_len=s)
+
+
+def prefill_chunked(params, cfg: LlamaConfig, tokens: torch.Tensor, cache: Optional[KVCache] = None,
+                    chunk: int = 2048):
+    """Prefill full prompts [B, S] from position 0 in segments of ``chunk``
+    tokens, each attending to the cache the earlier ones wrote (bounded
+    activation memory); returns (last-token logits [B, V], cache)."""
+    b, s = tokens.shape
+    if cache is None:
+        cache = init_kv_cache(cfg, b, device=tokens.device)
+    logits = None
+    for off in range(0, s, chunk):
+        seg = tokens[:, off : off + chunk]
+        width = seg.shape[1]
+        positions = (off + torch.arange(width, dtype=torch.int32, device=tokens.device)).expand(b, width)
+        seq_lens = torch.full((b,), off + width, dtype=torch.int32, device=tokens.device)
+        logits, cache = forward(params, cfg, seg, cache, positions, seq_lens, last_only=True, kv_len=off + width)
+    return logits, cache
 
 
 def decode_step(params, cfg: LlamaConfig, token, cache: KVCache, positions, kv_len: Optional[int] = None):

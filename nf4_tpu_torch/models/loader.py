@@ -5,9 +5,11 @@ in the JAX package's ``models/loader.py``, with the same schema and the same
 ``"nf4_tpu"`` metadata key, so either package reads what the other wrote:
 
 * ``layers.<name>.packed`` / ``.scales`` for the packed projections
-  (``wqkv``, ``wo``, ``w_gateup``, ``w_down``), stacked over the layer axis;
-  ``layers.<name>`` for dense projections, the two norms and, where the
-  model has them, ``qkv_bias``, ``q_norm`` and ``k_norm``; top-level
+  (``wqkv``, ``wo``, ``w_gateup``, ``w_down``), stacked over the layer axis
+  (an MoE model's expert-stacked ``w_gateup`` and ``w_down`` as ``[L, E,
+  ...]``); ``layers.<name>`` for dense projections, the two norms and,
+  where the model has them, ``qkv_bias``, ``q_norm``, ``k_norm``,
+  ``router``, ``post_attn_out_norm`` and ``post_ffw_norm``; top-level
   ``embed``, ``final_norm`` and ``lm_head`` (or ``lm_head.packed`` /
   ``.scales``).
 * metadata: each packed weight's logical ``shapes``, ``shards`` and
@@ -16,8 +18,7 @@ in the JAX package's ``models/loader.py``, with the same schema and the same
 
 ``.npz`` always works: bf16 tensors are stored as uint16 bit patterns and
 read back through a torch view.  ``.safetensors`` needs the ``safetensors``
-package.  A checkpoint with a layer field of the variants not ported yet
-(``router``, ``post_attn_out_norm``, ``post_ffw_norm``) raises.
+package.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ import torch
 from ..nf4.format import PackedNF4
 from ..ops.int8_serve import PackedInt8
 from ..utils.device import resolve_device
+from .convert import _OPTIONAL_LAYER_FIELDS as _OPTIONAL_FIELDS
 from .convert import config_from_dict, config_to_dict
 from .llama import LayerParams, LlamaConfig, LlamaParams
 
@@ -40,8 +42,6 @@ __all__ = ["save_packed", "load_packed", "load_packed_auto"]
 
 _LINEAR_FIELDS = ("wqkv", "wo", "w_gateup", "w_down")
 _NORM_FIELDS = ("input_norm", "post_attn_norm")
-_OPTIONAL_FIELDS = ("qkv_bias", "q_norm", "k_norm")
-_UNPORTED_FIELDS = ("router", "post_attn_out_norm", "post_ffw_norm")
 
 
 def _safetensors(module: str):
@@ -122,9 +122,6 @@ def _read_packed(path: str) -> Tuple[Dict[str, torch.Tensor], dict]:
 
 def _assemble(data: Dict[str, torch.Tensor], meta: dict, cfg: LlamaConfig, device) -> LlamaParams:
     dev = resolve_device(device)
-    extra = [n for n in _UNPORTED_FIELDS if f"layers.{n}" in data]
-    if extra:
-        raise NotImplementedError(f"not ported yet: layer weights {', '.join(extra)}")
     # Checkpoints from before the "shards" / "quant_types" fields were all
     # written with shards=1 and NF4.
     shards, quant_types = meta.get("shards", {}), meta.get("quant_types", {})

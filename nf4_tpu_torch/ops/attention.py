@@ -40,7 +40,11 @@ asks for ``differentiable=True``, which never takes kernel C (it has no
 backward): the plain paths run under autograd, as the JAX package's XLA
 paths do under ``jax.grad``.
 
-Logit softcapping is not ported yet.
+Logit softcapping (Gemma-2, ``logit_softcap=cap``): every plain path maps
+the scores to ``tanh(s / cap) * cap`` after the scale and the int8
+``k_scale / 127`` factor and before the mask, in the JAX package's order.
+Kernel C takes no softcap, as the TPU kernel takes none: a softcapped
+prefill stays on the plain paths.
 """
 
 from __future__ import annotations
@@ -106,6 +110,11 @@ def _visibility(t_ids, positions, seq_lens, sliding_window, q_seg=None, k_seg=No
     return vis
 
 
+def _softcap(scores, cap: Optional[float]):
+    """``tanh(scores / cap) * cap``; the scores themselves when ``cap`` is None."""
+    return scores if cap is None else torch.tanh(scores / cap) * cap
+
+
 def _int8_factor(kv_scale):
     """[B, KV, C] absmax scales -> the [B, KV, 1, 1, C] factor scale / 127."""
     return (kv_scale * (1.0 / 127.0))[:, :, None, None, :]
@@ -118,7 +127,7 @@ def _check_segments(segment_ids, s, t_max):
 
 def naive_attention(
     q, k, v, positions, seq_lens, *, scale: float, sliding_window: Optional[int] = None,
-    k_scale=None, v_scale=None, segment_ids=None,
+    k_scale=None, v_scale=None, segment_ids=None, logit_softcap: Optional[float] = None,
 ):
     """q [B, H, S, D], k/v [B, KV, T, D] (bf16, or int8 with k_scale/v_scale
     [B, KV, T]), positions [B, S], seq_lens [B], segment_ids [B, S]."""
@@ -129,6 +138,7 @@ def naive_attention(
     scores = torch.matmul(qg, k.float()[:, :, None].transpose(-1, -2)) * scale
     if k_scale is not None:
         scores = scores * _int8_factor(k_scale)
+    scores = _softcap(scores, logit_softcap)
     t_ids = torch.arange(t_max, device=q.device)
     vis = _visibility(t_ids, positions, seq_lens, sliding_window, segment_ids, segment_ids)
     scores = torch.where(vis[:, None, None], scores, torch.full_like(scores, _NEG))
@@ -142,7 +152,7 @@ def naive_attention(
 
 def decode_attention(
     q, k, v, positions, seq_lens, *, scale: float, sliding_window: Optional[int] = None,
-    k_scale=None, v_scale=None, kv_len: Optional[int] = None,
+    k_scale=None, v_scale=None, kv_len: Optional[int] = None, logit_softcap: Optional[float] = None,
 ):
     """Decode attention: q [B, H, 1, D], k/v [B, KV, T, D] as in
     :func:`naive_attention`, reading the key blocks ``[t0, t0 +
@@ -154,7 +164,8 @@ def decode_attention(
     position adds exact zeros to that row's sums.  So a row's output is a
     function of its query and the cache up to its own position: it does
     not depend on ``kv_len``, and so not on its batchmates' positions or
-    the decode chunk it runs in.  No host read."""
+    the decode chunk it runs in.  No host read.  The mask's bias is added
+    after the softcap: capped, a masked slot would be visible."""
     b, nh, s, d = q.shape
     nkv, t_max = k.shape[1], k.shape[2]
     if s != 1:
@@ -171,11 +182,11 @@ def decode_attention(
     for t0 in range(0, read, block):
         t1 = min(t0 + block, t_max)
         kc = k[:, :, t0:t1].float().reshape(bk, t1 - t0, d)
-        if k_scale is None:
+        if k_scale is None and logit_softcap is None:
             sc = torch.baddbmm(bias[:, :, t0:t1], qg, kc.transpose(1, 2), alpha=scale)
         else:
-            factor = (k_scale[:, :, t0:t1] * (scale / 127.0)).reshape(bk, 1, t1 - t0)
-            sc = torch.bmm(qg, kc.transpose(1, 2)) * factor + bias[:, :, t0:t1]
+            factor = scale if k_scale is None else (k_scale[:, :, t0:t1] * (scale / 127.0)).reshape(bk, 1, t1 - t0)
+            sc = _softcap(torch.bmm(qg, kc.transpose(1, 2)) * factor, logit_softcap) + bias[:, :, t0:t1]
         top = sc.amax(dim=-1, keepdim=True)
         m = top if m is None else torch.maximum(m, top)
         scores.append(sc)
@@ -195,6 +206,7 @@ def decode_attention(
 def chunked_attention(
     q, k, v, positions, seq_lens, *, scale: float, sliding_window: Optional[int] = None,
     k_scale=None, v_scale=None, q_chunk: int = 512, kv_chunk: int = 512, segment_ids=None,
+    logit_softcap: Optional[float] = None,
 ):
     """Streaming softmax over (query chunk, key chunk) pairs; key chunks a
     query chunk cannot see are skipped (one host read of the chunk's
@@ -224,6 +236,7 @@ def chunked_attention(
             sct = torch.matmul(qt, kc[:, :, None].transpose(-1, -2)) * scale
             if k_scale is not None:
                 sct = sct * _int8_factor(k_scale[:, :, t0 : t0 + kv_chunk])
+            sct = _softcap(sct, logit_softcap)
             t_ids = torch.arange(t0, t0 + kc.shape[2], device=q.device)
             seg_c = None if segment_ids is None else segment_ids[:, t0 : t0 + kv_chunk]
             vis = _visibility(t_ids, pos_t, seq_lens, sliding_window, seg_t, seg_c)
@@ -319,7 +332,7 @@ def _flash_eligible(q, s: int, d: int) -> bool:
 def attention(
     q, k, v, positions, seq_lens, *, scale, sliding_window=None,
     k_scale=None, v_scale=None, kv_len: Optional[int] = None,
-    differentiable: bool = False, segment_ids=None,
+    differentiable: bool = False, segment_ids=None, logit_softcap: Optional[float] = None,
 ):
     """Dispatching entry point; see the module docstring for the contract
     (``positions[b]`` must be ``pos0_b + arange(S)``).  ``kv_len`` is an optional host-side
@@ -329,15 +342,17 @@ def attention(
     One query per row is decode: :func:`decode_attention`, whose output
     does not depend on ``kv_len``.  The dispatch thresholds use the full
     cache length, as the JAX package's do.  ``differentiable=True``
-    (training) and ``segment_ids`` (packed rows) keep to the plain paths."""
+    (training), ``segment_ids`` (packed rows) and ``logit_softcap`` keep to
+    the plain paths."""
     b, nh, s, d = q.shape
     t_max = k.shape[2]
     if s == 1 and not differentiable and segment_ids is None:
         return decode_attention(q, k, v, positions, seq_lens, scale=scale, sliding_window=sliding_window,
-                                k_scale=k_scale, v_scale=v_scale, kv_len=kv_len)
-    opts = dict(k_scale=k_scale, v_scale=v_scale, segment_ids=segment_ids)
+                                k_scale=k_scale, v_scale=v_scale, kv_len=kv_len, logit_softcap=logit_softcap)
+    opts = dict(k_scale=k_scale, v_scale=v_scale, segment_ids=segment_ids, logit_softcap=logit_softcap)
     large = s > 1 and b * nh * s * t_max >= _CHUNKED_MIN_SCORE_ELEMS
-    if large and not differentiable and segment_ids is None and _flash_eligible(q, s, d):
+    plain_only = differentiable or segment_ids is not None or logit_softcap is not None
+    if large and not plain_only and _flash_eligible(q, s, d):
         return flash_attention(
             q, k, v, positions, seq_lens, scale=scale, sliding_window=sliding_window,
             k_scale=k_scale, v_scale=v_scale,

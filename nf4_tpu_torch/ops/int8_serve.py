@@ -88,7 +88,13 @@ def recode_int8_weight(pw: PackedNF4) -> PackedInt8:
 
     K-chunked (``shards > 1``) weights need nothing special: chunk c's byte
     row j sits at global row c*half + j and expands to K rows 2(c*half + j)
-    and 2(c*half + j) + 1, the global K order."""
+    and 2(c*half + j) + 1, the global K order.  An expert-stacked weight
+    (a leading ``[E]`` axis) recodes one expert at a time."""
+    if pw.packed.dim() == 3:
+        parts = [recode_int8_weight(dataclasses.replace(pw, packed=p, scales=sc))
+                 for p, sc in zip(pw.packed.unbind(0), pw.scales.unbind(0))]
+        return dataclasses.replace(parts[0], values=torch.stack([q.values for q in parts]),
+                                   scales=torch.stack([q.scales for q in parts]))
     lut8 = _lut8(pw.quant_type, pw.packed.device)
     kh = pw.packed.shape[0]
     if pw.packed.numel() > _RECODE_CHUNK_BYTES:

@@ -23,7 +23,7 @@ from typing import Optional
 
 import torch
 
-from ..models.llama import LlamaConfig, LlamaParams, train_forward
+from ..models.llama import LlamaConfig, LlamaParams, check_trainable, train_forward
 from .lora import LoraParams
 
 __all__ = ["lm_loss", "make_train_step"]
@@ -80,6 +80,7 @@ def make_train_step(
     package's does."""
     if mesh is not None or cfg.tp_shards > 1:
         raise NotImplementedError("not ported yet: data- and tensor-parallel training (multi-GPU)")
+    check_trainable(cfg)
 
     def step(params, lora, tokens, loss_mask=None, positions=None, segment_ids=None):
         optimizer.zero_grad(set_to_none=True)

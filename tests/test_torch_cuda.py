@@ -690,6 +690,62 @@ def test_graphed_chunk_with_variant_fields(dev, variant):
     _check_graphed_chunk(dev, *_small_model(dev, False, **_VARIANT_FIELDS[variant]))
 
 
+# Gemma-2 (softcaps, output norms, a window on every other layer), Gemma-3
+# (local RoPE, q/k norms, windows) and MoE (4 experts, top-2; int8 too):
+# each layer's window, softcap and tables are host values baked into the
+# graph, and no route reads the host.
+_GEMMA_MOE_FIELDS = {
+    "gemma2": (False, dict(activation="gelu_tanh", rmsnorm_one_plus=True, scale_embeddings=True,
+                           attn_logit_softcapping=50.0, final_logit_softcapping=30.0, query_pre_attn_scalar=128.0,
+                           sliding_window=48, sliding_window_pattern=2)),
+    "gemma3": (False, dict(activation="gelu_tanh", rmsnorm_one_plus=True, qk_norm=True, rope_theta=1e6,
+                           rope_local_theta=1e4, rope_scaling=("linear", 8.0), sliding_window=48,
+                           sliding_window_pattern=2)),
+    "moe": (False, dict(num_experts=4, experts_per_token=2)),
+    "moe int8": (True, dict(num_experts=4, experts_per_token=2, moe_norm_topk=False)),
+}
+
+
+@pytest.mark.parametrize("variant", list(_GEMMA_MOE_FIELDS))
+def test_graphed_chunk_gemma_and_moe(dev, variant):
+    int8, fields = _GEMMA_MOE_FIELDS[variant]
+    _check_graphed_chunk(dev, *_small_model(dev, int8, **fields))
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_moe_launch_counts(dev, int8):
+    """An MoE forward launches one projection kernel for wqkv, one for wo
+    and two per expert in every layer (2 + 2 E), at decode (16-row decode
+    kernel) and at prefill (200 rows: the prefill kernel), eagerly and in a
+    graph replay; the experts' weights are views of one stacked tensor."""
+    from nf4_tpu_torch.models.llama import _experts, decode_step, init_kv_cache, prefill
+    from nf4_tpu_torch.ops import _cuda
+
+    cfg, params = _small_model(dev, int8, num_experts=4, experts_per_token=2)
+    name, other = ("int8_matmul", "matmul_bf16") if int8 else ("matmul_bf16", "int8_matmul")
+    per_forward = cfg.num_layers * (2 + 2 * cfg.num_experts)
+    w = params.layers[0].w_gateup
+    stacked = w.values if int8 else w.packed
+    views = [e.values if int8 else e.packed for e in _experts(w)]
+    assert all(v.data_ptr() == stacked[i].data_ptr() for i, v in enumerate(views))
+    toks = torch.as_tensor(np.random.default_rng(2).integers(0, cfg.vocab_size, (1, 200)), dtype=torch.int32,
+                           device=dev)
+    _cuda.reset_launch_counts()
+    _, cache = prefill(params, cfg, toks, init_kv_cache(cfg, 1))
+    torch.cuda.synchronize()
+    assert _cuda.launch_counts()[name] == per_forward and _cuda.launch_counts()[other] == 0
+    tok, pos = toks[:, -1].clone(), torch.full((1,), 200, dtype=torch.int32, device=dev)
+    decode_step(params, cfg, tok, cache, pos, kv_len=cfg.max_seq_len)
+    g = _cuda.CountedGraph()
+    with g.capture():
+        decode_step(params, cfg, tok, cache, pos, kv_len=cfg.max_seq_len)
+    _cuda.reset_launch_counts()
+    g.replay()
+    g.replay()
+    torch.cuda.synchronize()
+    assert _cuda.launch_counts()[name] == 2 * per_forward
+
+
 def _check_graphed_chunk(dev, cfg, params):
     from nf4_tpu_torch.ops._cuda import CountedGraph
     from nf4_tpu_torch.serve.engine import Decoder, Engine, kv_bucket
@@ -884,11 +940,10 @@ def test_seeded_request_independent_of_batchmates(dev, monkeypatch, mate_len, kv
 
 def test_prefill_group_first_logits(dev):
     """A prompt's first logits against its prefill group's size (1, 2 or 4
-    prompts of one bucket): the same bits at buckets 16 and 64; at 512,
-    where the naive prefill attention's batched products span the group,
+    prompts of one bucket): the same bits at buckets 16 and 64; at 512
     within 2e-2 of the largest logit (the bits may differ, so a seeded
     request is reproduced bit for bit when it prefills in a group of the
-    same size)."""
+    same size; the next test finds where they start to differ)."""
     import dataclasses
 
     from nf4_tpu_torch.models.llama import init_kv_cache
@@ -910,6 +965,89 @@ def test_prefill_group_first_logits(dev):
                 assert torch.equal(first[g], first[1]), (bucket, g)
             else:
                 assert (first[g] - first[1]).abs().max() <= 2e-2 * first[1].abs().max(), (bucket, g)
+
+
+# The model's computations, by the name the forward calls them through.
+_WATCHED = ("rms_norm", "_matmul", "apply_rope", "_quantize_kv", "attention", "_gated", "_logits")
+
+
+def _first_group_difference(eng, toks, lens, ksplit1):
+    """Prefill row 0 of ``toks`` alone and in a group of 2, recording row 0
+    of the output of every ``_WATCHED`` call and kernel B's prefill K
+    splits; with ``ksplit1`` every prefill launch takes K split 1.  Returns
+    the first recorded op whose bits differ between the two runs (index,
+    name, max abs diff) or None, and the K splits of each run."""
+    from nf4_tpu_torch.models import llama
+    from nf4_tpu_torch.models.llama import init_kv_cache
+    from nf4_tpu_torch.ops import matmul
+
+    saved, saved_split = {name: getattr(llama, name) for name in _WATCHED}, matmul._prefill_ksplit
+    runs = []
+    for g in (1, 2):
+        log, splits = [], []
+
+        def wrap(name, fn):
+            def inner(*a, **k):
+                out = fn(*a, **k)
+                first = out[0] if isinstance(out, tuple) else out
+                log.append((f"{name} {list(first[0].shape)}", first[0].clone()))
+                return out
+            return inner
+
+        def split(*a):
+            splits.append(1 if ksplit1 else saved_split(*a))
+            return splits[-1]
+
+        for name, fn in saved.items():
+            setattr(llama, name, wrap(name, fn))
+        matmul._prefill_ksplit = split
+        try:
+            eng.prefill_group(init_kv_cache(eng.cfg, 2, device=eng.device), toks[:g], lens[:g], np.arange(g))
+        finally:
+            for name, fn in saved.items():
+                setattr(llama, name, fn)
+            matmul._prefill_ksplit = saved_split
+        runs.append((log, splits))
+    (one, s1), (two, s2) = runs
+    assert [n for n, _ in one] == [n for n, _ in two]
+    first = next(((i, n, (a.float() - b.float()).abs().max().item())
+                  for i, ((n, a), (_, b)) in enumerate(zip(one, two)) if not torch.equal(a, b)), None)
+    return first, s1, s2
+
+
+@pytest.mark.parametrize("model", ["small", "llama3-8b-width"])
+def test_prefill_group_difference_starts_at_kernel_b_ksplit(dev, model):
+    """Where the prefill-group limit of the test above starts, at bucket
+    512: the first op of the forward whose bits differ between a group of
+    1 and a group of 2 is a projection (kernel B), whose prefill K split
+    (``ops/matmul.py`` ``_prefill_ksplit``, sized from the row tiles)
+    differs between the two; with every K split forced to 1 no op differs.
+    Models: the test above's (its bucket-512 prompts) and Llama-3-8B at
+    full width and 2 of its 32 layers (synthetic weights)."""
+    import dataclasses
+
+    from nf4_tpu_torch.models import configs
+    from nf4_tpu_torch.models.synthetic import synthetic_params
+    from nf4_tpu_torch.serve.engine import Engine
+
+    if model == "small":
+        cfg, params = _small_model(dev, False)
+        cfg = dataclasses.replace(cfg, max_seq_len=1024)
+        rng = np.random.default_rng(0)
+        toks = [rng.integers(0, cfg.vocab_size, (4, b)).astype(np.int32) for b in (16, 64, 512)][-1][:2]
+    else:
+        cfg = dataclasses.replace(configs.LLAMA3_8B, num_layers=2, max_seq_len=1024)
+        params = synthetic_params(cfg, seed=0, device=dev)
+        toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 512)).astype(np.int32)
+    eng = Engine(params, cfg, batch_size=2, eos_token=-1, cuda_graphs=False)
+    lens = np.full(2, 509, np.int32)
+    first, s1, s2 = _first_group_difference(eng, toks, lens, ksplit1=False)
+    print(f"{model}, bucket 512: first differing op {first}; kernel B prefill K splits, group of 1 {s1}, "
+          f"group of 2 {s2}")
+    assert first is not None and first[1].startswith("_matmul") and s1 != s2, (first, s1, s2)
+    forced = _first_group_difference(eng, toks, lens, ksplit1=True)[0]
+    print(f"{model}, bucket 512, every K split 1: first differing op {forced}")
+    assert forced is None, forced
 
 
 def test_graph_replays_count_their_launches(dev):

@@ -171,6 +171,17 @@ def _forward_with(tcfg, tparams, **fields):
                   torch.full((1,), 4, dtype=torch.int32))
 
 
+# What each config field needs beside it to act in TINY_TEST: a window for
+# the alternating pattern and the local RoPE, fp32 activations for MoE (a
+# route is a discrete choice that bf16 rounding noise can flip, so the two
+# packages agree on every route only in fp32; tests/test_torch_moe.py).
+_FIELD_COMPANIONS = {
+    "num_experts": dict(dtype=jnp.float32),
+    "rope_local_theta": dict(sliding_window=8, sliding_window_pattern=2),
+    "sliding_window_pattern": dict(sliding_window=8),
+}
+
+
 @pytest.mark.parametrize(
     "field,value",
     [("quantize", False), ("num_experts", 4), ("attn_logit_softcapping", 50.0),
@@ -178,9 +189,27 @@ def _forward_with(tcfg, tparams, **fields):
      ("sliding_window_pattern", 2)],
 )
 def test_unported_config_fields_raise(models, field, value):
+    """Every field of the JAX package's config: ``tp_shards > 1`` (multi-GPU)
+    still raises; each other one serves, its prefill logits held to
+    nf4_tpu's on TINY_TEST with that field (and what it needs beside it)
+    set, the norms redrawn, within LOGIT_TOL."""
+    import dataclasses
+
+    from test_torch_variants import _redraw
+
     _, _, tcfg, tparams = models
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        _forward_with(tcfg, tparams, **{field: value})
+    if field == "tp_shards":
+        with pytest.raises(NotImplementedError, match="not ported yet: tp_shards"):
+            _forward_with(tcfg, tparams, **{field: value})
+        return
+    cfg = dataclasses.replace(jconfigs.TINY_TEST, **{field: value}, **_FIELD_COMPANIONS.get(field, {}))
+    params = _redraw(jllama.init_params(cfg, seed=0), cfg, np.random.default_rng(100))
+    fcfg = config_from_dict(config_to_dict(cfg))
+    fparams = params_from_numpy(jax.tree.map(np.asarray, params), fcfg, device="cpu")
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 24)).astype(np.int32)
+    want, _ = jllama.prefill(params, cfg, jnp.asarray(toks))
+    got, _ = llama.prefill(fparams, fcfg, torch.from_numpy(toks))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=LOGIT_TOL, rtol=0)
 
 
 @pytest.mark.parametrize("field,value", [("activation", "relu"), ("rope_scaling", ("yarn", 4.0))])

@@ -130,11 +130,24 @@ def test_loaded_checkpoint_serves_int8_kv8(models, tmp_path):
 
 
 def test_unported_layer_fields_raise(tmp_path):
-    cfg = dataclasses.replace(jconfigs.TINY_TEST, num_experts=4)
-    path = str(tmp_path / "moe.npz")
-    jloader.save_packed(path, jllama.init_params(cfg, seed=0), cfg)
-    with pytest.raises(NotImplementedError, match="not ported yet: layer weights router"):
-        loader.load_packed_auto(path, device="cpu")
+    """The layer fields of MoE and Gemma-2 (``router``, expert-stacked
+    ``[L, E, ...]`` projections, ``post_attn_out_norm``, ``post_ffw_norm``)
+    load: a JAX-written checkpoint with all of them, read by the port and
+    written back, gives nf4_tpu the same leaves, bit for bit."""
+    cfg = dataclasses.replace(jconfigs.TINY_TEST, num_experts=4, sliding_window=8, sliding_window_pattern=2)
+    params = jllama.init_params(cfg, seed=0)
+    assert params.layers.router is not None and params.layers.post_ffw_norm is not None
+    path, back = str(tmp_path / "moe.npz"), str(tmp_path / "back.npz")
+    jloader.save_packed(path, params, cfg)
+    got, tcfg = loader.load_packed_auto(path, device="cpu")
+    assert got.layers[0].w_gateup.packed.shape[0] == 4 and got.layers[1].router.shape == (4, cfg.hidden_size)
+    loader.save_packed(back, got, tcfg)
+    jp, jcfg = jloader.load_packed_auto(back)
+    assert jcfg == cfg
+    want, have = jax.tree.leaves(params), jax.tree.leaves(jp)
+    assert len(want) == len(have)
+    for a, b in zip(want, have):
+        np.testing.assert_array_equal(np.asarray(a).view(np.uint8), np.asarray(b).view(np.uint8))
 
 
 def test_int8_params_and_missing_safetensors_raise(models, tmp_path, monkeypatch):

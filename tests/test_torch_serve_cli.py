@@ -3,7 +3,7 @@ in-process on the CPU (``--device cpu``), the cases of
 ``tests/test_serve_cli.py``: a packed checkpoint the test saves (from the
 JAX package's ``init_params``, so both packages serve the same weights),
 in the 4-bit and the ``--int8 --kv8`` modes, and ``--model tiny-test
---synthetic``; answers over localhost equal a twin Engine's, and a
+--synthetic`` (also ``tiny-gemma2`` and ``tiny-moe``); answers over localhost equal a twin Engine's, and a
 checkpoint the JAX package saves is served as its own CLI serves it;
 flags of machinery not ported yet exit with a clear message."""
 
@@ -117,6 +117,26 @@ def test_synthetic_model_serves():
         assert len(body["choices"][0]["tokens"]) == 4
     finally:
         server.stop()
+
+
+@pytest.mark.parametrize("model", ["tiny-gemma2", "tiny-moe"])
+def test_synthetic_gemma2_and_moe_serve(model):
+    """``--model tiny-gemma2 --synthetic`` and ``--model tiny-moe
+    --synthetic`` answer a greedy completion on the CPU: the tokens a twin
+    Engine on the same synthetic weights gives."""
+    from nf4_tpu_torch.models import configs
+    from nf4_tpu_torch.models.synthetic import synthetic_params
+
+    server = main(["--model", model, "--synthetic", "--port", "0", "--batch-size", "2", "--eos", "-1",
+                   "--device", "cpu", "--decode-chunk", "4"], block=False)
+    try:
+        body = _complete(server.port, {"prompt": [5, 9, 2, 7], "max_tokens": 6})
+    finally:
+        server.stop()
+    cfg = configs.get_config(model)
+    twin = Engine(synthetic_params(cfg, seed=0, device="cpu"), cfg, batch_size=2, eos_token=-1, device="cpu")
+    tokens = body["choices"][0]["tokens"]
+    assert len(tokens) == 6 and tokens == twin.generate([[5, 9, 2, 7]], max_new_tokens=6)[0].tokens
 
 
 def test_tokenizer_unavailable_falls_back_to_token_ids(checkpoint, tmp_path, capsys, monkeypatch):

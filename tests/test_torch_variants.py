@@ -57,15 +57,16 @@ VARIANTS = {
 
 def _redraw(params, cfg, rng):
     """The JAX params with every norm's scale 1 + N(0, 0.3) (the weight
-    itself with ``rmsnorm_one_plus``) and the q/k/v biases N(0, 0.5)."""
+    itself with ``rmsnorm_one_plus``; Gemma-2/3's output norms too) and the
+    q/k/v biases N(0, 0.5)."""
     base = 0.0 if cfg.rmsnorm_one_plus else 1.0
 
     def norm(shape):
         return jnp.asarray(base + rng.standard_normal(shape).astype(np.float32) * 0.3)
 
     lay = params.layers
-    new = {name: norm(getattr(lay, name).shape) for name in ("input_norm", "post_attn_norm", "q_norm", "k_norm")
-           if getattr(lay, name) is not None}
+    names = ("input_norm", "post_attn_norm", "q_norm", "k_norm", "post_attn_out_norm", "post_ffw_norm")
+    new = {name: norm(getattr(lay, name).shape) for name in names if getattr(lay, name) is not None}
     if lay.qkv_bias is not None:
         new["qkv_bias"] = jnp.asarray(rng.standard_normal(lay.qkv_bias.shape).astype(np.float32) * 0.5)
     return params.replace(layers=lay.replace(**new), final_norm=norm(params.final_norm.shape))
