@@ -78,7 +78,20 @@ Phases, each of which fails the run on any error:
    layers, in the 4-bit and the int8 mode, every launch count exact,
    tokens held to eager decode in which every kernel call is held to its
    plain version, and the 1024-token prefill held to the plain attention
-   and projection path (kernel D's in the int8 mode).  Phase (c) also
+   and projection path (kernel D's in the int8 mode); (m) Llama-3-8B at
+   full width and 4 of its 32 layers from an HF checkpoint directory
+   written here: a dense bf16 one (two safetensors files, layer 1 across
+   them, an untied lm_head) quantized on the card as it loads
+   (``load_hf_llama``), its load time, the quantizer's GB/s and ms per
+   layer, ``peak_dense_bytes`` at most one layer's, layers 0-1 byte for
+   byte the NumPy oracle's on the same fused weights; a bnb NF4 one of the
+   same weights' layers 0-1 (double-quantized per projection by the
+   oracle, as Hub checkpoints are; groups across two files) repacked on
+   load, its bytes the card's and its scales the oracle's; the midpoint
+   stress tensor (4096 x 4096, NF4 and FP4) on the card against the
+   oracle; then phase 5b's requests on the loaded params in the 4-bit and
+   the int8 mode as (b), every kernel call of the eager run held to its
+   plain version.  Phase (c) also
    runs Gemma-2 and Gemma-3 small models, dense projections and MoE (fp32
    activations) card against CPU, and the MoE MLP alone in bf16 with 4-bit
    and int8 experts.  Every phase's weights are freed before the next.
@@ -1688,6 +1701,284 @@ def phase_qwen3_moe(prompts):
     return all_counts, res
 
 
+# Phase 5m: Llama-3-8B at full width from HF checkpoint directories written
+# here, depth cut to CKPT_LAYERS of its 32 layers (disk and time); the bnb
+# directory holds the first BNB_LAYERS of the same layers.
+CKPT_LAYERS, BNB_LAYERS = 4, 2
+# An HF Llama layer's tensors (their shapes from the config), by HF name.
+HF_PROJ = ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj", "self_attn.o_proj", "mlp.gate_proj",
+           "mlp.up_proj", "mlp.down_proj")
+
+
+def hf_config(cfg, num_layers, bnb=False) -> dict:
+    """``cfg`` as an HF ``config.json`` (HF field names); ``bnb`` adds the
+    quantization_config transformers writes for a bnb NF4 checkpoint."""
+    hf = dict(model_type="llama", architectures=["LlamaForCausalLM"], vocab_size=cfg.vocab_size,
+              hidden_size=cfg.hidden_size, intermediate_size=cfg.intermediate_size, num_hidden_layers=num_layers,
+              num_attention_heads=cfg.num_heads, num_key_value_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+              rope_theta=cfg.rope_theta, rms_norm_eps=cfg.rms_norm_eps, max_position_embeddings=cfg.max_seq_len,
+              hidden_act="silu", tie_word_embeddings=False, torch_dtype="bfloat16")
+    if bnb:
+        hf["quantization_config"] = dict(quant_method="bitsandbytes", load_in_4bit=True, load_in_8bit=False,
+                                         bnb_4bit_quant_type="nf4", bnb_4bit_use_double_quant=True,
+                                         bnb_4bit_compute_dtype="bfloat16")
+    return hf
+
+
+def hf_layer_shapes(cfg) -> dict:
+    h, inter = cfg.hidden_size, cfg.intermediate_size
+    shapes = [(cfg.q_dim, h), (cfg.kv_dim, h), (cfg.kv_dim, h), (h, cfg.q_dim), (inter, h), (inter, h), (h, inter)]
+    out = {f"{name}.weight": shape for name, shape in zip(HF_PROJ, shapes)}
+    out.update({"input_layernorm.weight": (h,), "post_attention_layernorm.weight": (h,)})
+    return out
+
+
+def write_dense_hf(path, cfg, seed) -> int:
+    """A dense bf16 HF checkpoint directory of ``cfg`` (``CKPT_LAYERS``
+    layers, an untied lm_head) drawn on the card from ``seed``, in two
+    safetensors files with layer 1 split across them (its attention in the
+    first, its MLP in the second).  Returns one layer's dense bytes."""
+    import os
+
+    import torch
+    from safetensors.torch import save_file
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def draw(shape, std=0.02, mean=0.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * std + mean).to(torch.bfloat16).cpu()
+
+    h = cfg.hidden_size
+    first = {"model.embed_tokens.weight": draw((cfg.vocab_size, h))}
+    second = {"lm_head.weight": draw((cfg.vocab_size, h)), "model.norm.weight": draw((h,), 0.1, 1.0)}
+    for i in range(CKPT_LAYERS):
+        for name, shape in hf_layer_shapes(cfg).items():
+            t = draw(shape, 0.1, 1.0) if len(shape) == 1 else draw(shape)
+            into_first = i < 1 or (i == 1 and (name.startswith("self_attn") or name.startswith("input")))
+            (first if into_first else second)[f"model.layers.{i}.{name}"] = t
+    for k, part in enumerate((first, second)):
+        save_file(part, os.path.join(path, f"model-{k + 1:05d}-of-00002.safetensors"), metadata={"format": "pt"})
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(hf_config(cfg, CKPT_LAYERS), f)
+    return sum(math.prod(s) * 2 for s in hf_layer_shapes(cfg).values())
+
+
+def bnb_tensors(prefix, state) -> dict:
+    """One QuantState as transformers serializes a bnb ``Linear4bit``
+    (``QuantState.as_dict(packed=True)``): the packed weight, absmax, the
+    4-bit and the nested code tables, nested absmax and the JSON blob."""
+    import numpy as np
+    import torch
+
+    from nf4_tpu_torch.nf4.lut import dynamic_code, get_code
+
+    meta = dict(quant_type=state.quant_type, blocksize=int(state.blocksize), dtype="bfloat16",
+                shape=list(state.shape), nested_blocksize=int(state.blocksize2), nested_dtype="float32",
+                nested_offset=float(state.offset))
+    arrays = {
+        prefix: np.asarray(state.packed, np.uint8).reshape(-1, 1),
+        f"{prefix}.absmax": np.asarray(state.absmax_u8, np.uint8),
+        f"{prefix}.nested_absmax": np.asarray(state.absmax32, np.float32),
+        f"{prefix}.nested_quant_map": dynamic_code().astype(np.float32),
+        f"{prefix}.quant_map": get_code(state.quant_type).astype(np.float32),
+        f"{prefix}.quant_state.bitsandbytes__{state.quant_type}": np.frombuffer(json.dumps(meta).encode(), np.uint8),
+    }
+    return {k: torch.from_numpy(np.array(a)) for k, a in arrays.items()}
+
+
+def _same_packed(a, b) -> bool:
+    import torch
+
+    return (a.shape == b.shape and a.padded_shape == b.padded_shape and torch.equal(a.packed.cpu(), b.packed.cpu())
+            and torch.equal(a.scales.cpu().view(torch.int32), b.scales.cpu().view(torch.int32)))
+
+
+def phase_hf_checkpoint(prompts):
+    """Main path (m): Llama-3-8B at full width and CKPT_LAYERS of its 32
+    layers from an HF checkpoint directory: a dense bf16 one (two files,
+    layer 1 across them) quantized on the card as it loads, its layers 0-1
+    held against the NumPy oracle on the same fused weights byte for byte,
+    ``peak_dense_bytes`` at most one layer's; a bnb NF4 one of the same
+    weights for layers 0-1, quantized per projection by the oracle with
+    double-quantized statistics as Hub checkpoints are, repacked on load:
+    every packed byte equal to the card's, every scale to the oracle's; the
+    midpoint stress tensor on the card against the oracle, NF4 and FP4;
+    then phase 5b's requests on the loaded params in the 4-bit and the int8
+    mode, every launch count exact, tokens held to eager decode in which
+    every kernel call is held to its plain version."""
+    import os
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+    from safetensors import safe_open
+    from safetensors.torch import save_file
+
+    from nf4_tpu_torch.models import configs
+    from nf4_tpu_torch.models import loader
+    from nf4_tpu_torch.models.llama import fuse_rows, recode_params_int8
+    from nf4_tpu_torch.nf4 import fast_quant
+    from nf4_tpu_torch.nf4.fast_quant import midpoint_stress
+    from nf4_tpu_torch.nf4.format import pack_codes_for_tpu, qdense_from_state, quantize_for_tpu
+    from nf4_tpu_torch.nf4.reference import quantize_nf4
+    from nf4_tpu_torch.serve.engine import Engine
+
+    card = card_line()
+    want_cfg = dataclasses.replace(configs.LLAMA3_8B, num_layers=CKPT_LAYERS)
+    res = {}
+    pool = ThreadPoolExecutor(max_workers=7)
+    with tempfile.TemporaryDirectory() as tmp:
+        dense_dir, bnb_dir = os.path.join(tmp, "dense"), os.path.join(tmp, "bnb")
+        os.mkdir(dense_dir)
+        os.mkdir(bnb_dir)
+        t0 = time.perf_counter()
+        layer_bytes = write_dense_hf(dense_dir, want_cfg, seed=14)
+        res["write_s"] = time.perf_counter() - t0
+        disk = sum(os.path.getsize(os.path.join(dense_dir, f)) for f in os.listdir(dense_dir))
+
+        # Load and quantize on the card, each layer's quantize timed and,
+        # within it, the host statistics (the oracle's functions).
+        layer_s, host_s, quantize = [], [], loader.quantize_layer
+        host_fns = fast_quant.quantize_blockwise_u8, fast_quant.dequantize_absmax
+
+        def on_host(fn):
+            def run(*a):
+                t = time.perf_counter()
+                out = fn(*a)
+                host_s[-1] += time.perf_counter() - t
+                return out
+            return run
+
+        def timed(lw, cfg, device=None):
+            torch.cuda.synchronize()
+            host_s.append(0.0)
+            t = time.perf_counter()
+            out = quantize(lw, cfg, device)
+            torch.cuda.synchronize()
+            layer_s.append(time.perf_counter() - t)
+            return out
+
+        stats = {}
+        loader.quantize_layer = timed
+        fast_quant.quantize_blockwise_u8, fast_quant.dequantize_absmax = map(on_host, host_fns)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, cfg = loader.load_hf_llama(dense_dir, stats=stats)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+        finally:
+            loader.quantize_layer = quantize
+            fast_quant.quantize_blockwise_u8, fast_quant.dequantize_absmax = host_fns
+        check(cfg == want_cfg, f"5m: config.json read as {cfg}, not Llama-3-8B at {CKPT_LAYERS} layers")
+        check(len(layer_s) == CKPT_LAYERS and stats["peak_dense_bytes"] <= layer_bytes,
+              f"5m: peak_dense_bytes {stats['peak_dense_bytes']} over one layer's {layer_bytes}")
+        check(params.layers[0].wqkv.packed.is_cuda and params.embed.is_cuda, "5m: params on the card")
+        res.update(load_s=load_s, disk_gb=disk / 1e9, layer_ms=[t * 1e3 for t in layer_s],
+                   host_statistics_ms=[t * 1e3 for t in host_s],
+                   quantize_gb_s=layer_bytes / (sum(layer_s) / len(layer_s)) / 1e9, **stats,
+                   layer_dense_bytes=layer_bytes)
+        print(f"phase 5m Llama-3-8B HF directory ({CKPT_LAYERS} of 32 layers, full width; {disk / 1e9:.2f} GB bf16 in 2 "
+              f"files, written in {res['write_s']:.1f} s): load_hf_llama on the card {load_s:.2f} s; quantize per "
+              f"layer {', '.join(f'{t * 1e3:.1f}' for t in layer_s)} ms ({res['quantize_gb_s']:.2f} GB/s of dense "
+              f"bf16), of which the host statistics {', '.join(f'{t * 1e3:.1f}' for t in host_s)} ms; "
+              f"peak_dense_bytes {stats['peak_dense_bytes']} (one layer {layer_bytes}); {card}")
+
+        # The bnb directory and the oracle on the same weights, layers 0-1.
+        dense = {}
+        for fname in sorted(os.listdir(dense_dir)):
+            if fname.endswith(".safetensors"):
+                with safe_open(os.path.join(dense_dir, fname), framework="pt") as f:
+                    dense.update({k: f.get_tensor(k) for k in f.keys()})
+        per_proj = {f"model.layers.{i}.{p}.weight": dense[f"model.layers.{i}.{p}.weight"]
+                    for i in range(BNB_LAYERS) for p in HF_PROJ}
+
+        def oracle_state(t):
+            return quantize_nf4(t.float().numpy(), dtype=np.float16)
+
+        t0 = time.perf_counter()
+        states = dict(zip(per_proj, pool.map(oracle_state, per_proj.values())))
+        res["oracle_per_projection_s"] = time.perf_counter() - t0
+        tensors = {k: v for k, v in dense.items() if not k.startswith("model.layers.")
+                   or int(k.split(".")[2]) < BNB_LAYERS and k not in per_proj}
+        for key, st in states.items():
+            tensors.update(bnb_tensors(key, st))
+        keys = sorted(tensors)
+        for k, part in enumerate((keys[: len(keys) // 2], keys[len(keys) // 2:])):  # groups across the files
+            save_file({n: tensors[n] for n in part}, os.path.join(bnb_dir, f"model-{k + 1:05d}-of-00002.safetensors"))
+        with open(os.path.join(bnb_dir, "config.json"), "w") as f:
+            json.dump(hf_config(want_cfg, BNB_LAYERS, bnb=True), f)
+        del tensors
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params_b, cfg_b = loader.load_hf_llama(bnb_dir)
+        torch.cuda.synchronize()
+        res["repack_load_s"] = time.perf_counter() - t0
+        check(cfg_b == dataclasses.replace(want_cfg, num_layers=BNB_LAYERS), f"5m: bnb config {cfg_b}")
+
+        # The oracle on the fused weights the card quantized.
+        fused = {}
+        for i in range(BNB_LAYERS):
+            w = lambda p: dense[f"model.layers.{i}.{p}.weight"]  # noqa: E731
+            fused.update({(i, "wqkv"): fuse_rows([w("self_attn.q_proj"), w("self_attn.k_proj"), w("self_attn.v_proj")]),
+                          (i, "wo"): w("self_attn.o_proj"),
+                          (i, "w_gateup"): fuse_rows([w("mlp.gate_proj"), w("mlp.up_proj")]),
+                          (i, "w_down"): w("mlp.down_proj")})
+        t0 = time.perf_counter()
+        oracle = dict(zip(fused, pool.map(lambda t: quantize_for_tpu(t, method="oracle", device="cpu"),
+                                          fused.values())))
+        res["oracle_fused_s"] = time.perf_counter() - t0
+        del dense, fused
+        for (i, name), want in oracle.items():
+            got = getattr(params.layers[i], name)
+            check(_same_packed(got, want), f"5m: the card quantizer differs from the oracle at layer {i} {name} "
+                                           f"{got.shape}")
+            rep = getattr(params_b.layers[i], name)
+            check(rep.shape == got.shape and torch.equal(rep.packed, got.packed),
+                  f"5m: the bnb repack's bytes differ from the card's at layer {i} {name}")
+        for i in range(BNB_LAYERS):
+            qd = lambda p: qdense_from_state(states[f"model.layers.{i}.{p}.weight"])  # noqa: E731
+            for name, parts in (("wqkv", ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj")),
+                                ("wo", ("self_attn.o_proj",)), ("w_gateup", ("mlp.gate_proj", "mlp.up_proj")),
+                                ("w_down", ("mlp.down_proj",))):
+                q = fuse_rows([qd(p) for p in parts])
+                check(_same_packed(getattr(params_b.layers[i], name), pack_codes_for_tpu(q.codes, q.scales)),
+                      f"5m: the bnb repack differs from the oracle's states at layer {i} {name}")
+        del params_b, oracle, states
+        print(f"phase 5m bnb NF4 directory (layers 0-{BNB_LAYERS - 1}, double-quantized statistics, groups across 2 "
+              f"files): oracle per projection {res['oracle_per_projection_s']:.1f} s and on the fused weights "
+              f"{res['oracle_fused_s']:.1f} s (7 threads); repack load {res['repack_load_s']:.2f} s; the card's "
+              f"packed bytes and scales equal the oracle's at wqkv, wo, w_gateup, w_down of layers 0-1, the "
+              f"repack's bytes equal the card's and its scales the oracle's per projection; {card}")
+
+    # The midpoint stress tensor: normalized values on every decision
+    # midpoint and one ulp either side.
+    for qt in ("nf4", "fp4"):
+        w = torch.from_numpy(midpoint_stress(4096, 4096, qt, seed=1))
+        check(_same_packed(quantize_for_tpu(w, quant_type=qt), quantize_for_tpu(w, method="oracle", quant_type=qt,
+                                                                                device="cpu")),
+              f"5m: the card quantizer differs from the oracle on the {qt} midpoint stress tensor")
+    pool.shutdown()
+    print("phase 5m midpoint stress 4096 x 4096, NF4 and FP4: the card's bytes equal the oracle's")
+
+    counts = {}
+    for mode in ("4-bit", "int8"):
+        p, c = (params, cfg) if mode == "4-bit" else (recode_params_int8(params), dataclasses.replace(cfg, kv_quant=True))
+        common = dict(batch_size=4, eos_token=-1, decode_chunk=8)
+        eng = Engine(p, c, **common)
+        plain = Engine(p, c, pipeline_decode=False, cuda_graphs=False, **common)
+        label = f"5m Llama-3-8B from HF {mode}"
+        counts[mode], _, secs, held = generate_counted(label, eng, prompts, SERVE_FORWARDS, SERVE_PREFILLS,
+                                                       eager=plain, int8=mode == "int8")
+        print(f"phase {label} ({CKPT_LAYERS} layers): {len(prompts)} requests x 32 tokens in {secs:.2f} s, tokens "
+              f"equal to eager decode; launches {counts[mode]}")
+        res[f"generate_s_{mode}"] = secs
+        del eng, plain, p
+        free_memory()
+    return counts, res
+
+
 SMALL = dict(vocab_size=512, hidden_size=256, intermediate_size=512, num_layers=2,
              num_heads=4, num_kv_heads=2, head_dim=128, max_seq_len=256)
 
@@ -2064,6 +2355,8 @@ def main() -> int:
     free_memory()
     moe_counts, qwen3_moe = phase_qwen3_moe(prompts)
     free_memory()
+    hf_counts, hf_ckpt = phase_hf_checkpoint(prompts)
+    free_memory()
     phase_backward(gen, dev)
     # 7 examples of 60-200 tokens that pack into 2 x 512 slots (97.8% full).
     examples = sft_examples(np.random.default_rng(0), LLAMA3_8B.vocab_size, 7, 60, 200)
@@ -2108,7 +2401,8 @@ def main() -> int:
                    serve_counts["matmul_bf16"], prefill=True, http_launches=http_counts["matmul_bf16"],
                    gemma2_9b_launches=gemma2_counts["matmul_bf16"], gemma3_4b_launches=gemma3_counts["matmul_bf16"],
                    mixtral_8x7b_launches=mixtral_counts["matmul_bf16"],
-                   qwen3_30b_a3b_launches=moe_counts["4-bit"]["matmul_bf16"]),
+                   qwen3_30b_a3b_launches=moe_counts["4-bit"]["matmul_bf16"],
+                   hf_checkpoint_launches=hf_counts["4-bit"]["matmul_bf16"]),
         flash_row("flash_attention", fl, serve_counts["flash_attention"],
                   qwen2_7b_launches=qwen_counts["flash_attention"], gemma_7b_launches=gemma_counts["flash_attention"],
                   http_launches=http_counts["flash_attention"], gemma2_9b_launches=gemma2_counts["flash_attention"],
@@ -2119,7 +2413,8 @@ def main() -> int:
                   qwen3_30b_a3b_launches=moe_counts["int8"]["flash_attention_int8"]),
         matmul_row("int8_matmul", "nf4_tpu_torch/csrc/int8_matmul.cu", "nf4_tpu/ops/int8_serve.py:151", mm8,
                    int8_counts["int8_matmul"], prefill=True,
-                   qwen3_30b_a3b_launches=moe_counts["int8"]["int8_matmul"]),
+                   qwen3_30b_a3b_launches=moe_counts["int8"]["int8_matmul"],
+                   hf_checkpoint_launches=hf_counts["int8"]["int8_matmul"]),
         dict(name="dequant_t_fast", route="cuda", source="nf4_tpu_torch/csrc/dequant.cu",
              replaces="nf4_tpu/ops/dequant.py:147", launches=fast_counts["dequant_t_fast"],
              max_abs_err=fast["max_abs_err"], ms=fast["w_down"]["ms"], plain_ms=fast["w_down"]["plain_ms"],
@@ -2148,7 +2443,7 @@ def main() -> int:
                            flash=fl, flash_int8=fl8, flash_shapes=fls, serving=serving, serving_int8=serving8,
                            serving_qwen2_7b=serving_qwen, gemma_7b=gemma, http_serving=http,
                            serving_gemma2_9b=gemma2, serving_gemma3_4b=gemma3, serving_mixtral_8x7b=mixtral,
-                           qwen3_30b_a3b=qwen3_moe,
+                           qwen3_30b_a3b=qwen3_moe, hf_checkpoint=hf_ckpt,
                            training_bf16=train16, training_fp32=train32, kernels=kernels), f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card_line())

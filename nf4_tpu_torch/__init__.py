@@ -9,8 +9,11 @@ rather than fall back.
 
 * :func:`dequantize_nf4_module` -- dequantize a bitsandbytes-style
   ``Linear4bit`` module (duck-typed), bit-exact.
-* :class:`PackedNF4`, :func:`pack_for_tpu` -- the packed layout (the name
-  is the JAX package's; the layout is the same here).
+* :func:`quantize_nf4` / :func:`dequantize_nf4` -- the bit-exact NumPy
+  oracle of bitsandbytes' flat 4-bit format (the JAX package's code).
+* :class:`PackedNF4`, :func:`quantize_for_tpu`, :func:`pack_for_tpu` -- the
+  packed layout (the names are the JAX package's; the layout is the same
+  here); ``quantize_for_tpu`` quantizes on the card, the oracle's bytes.
 * :func:`dequantize` / :func:`dequantize_t` -- exact dequant (kernel
   ``csrc/dequant.cu``).
 * :func:`dequantize_fast` / :func:`dequantize_t_fast` -- bf16 dequant
@@ -19,14 +22,14 @@ rather than fall back.
   ``csrc/matmul.cu``, fp32/fp16 on ``csrc/matmul_exact.cu``;
   differentiable in the activations (the weight stays frozen).
 
-Serving lives in ``models/`` (Llama, packed checkpoints in
-``models/loader.py``, the int8 recode ``recode_params_int8``) and
+Serving lives in ``models/`` (Llama; HF checkpoint directories and packed
+checkpoints in ``models/loader.py``; the int8 recode ``recode_params_int8``) and
 ``serve/engine.py``; QLoRA fine-tuning in ``train/``.
 """
 
-from .nf4.format import PackedNF4, pack_for_tpu
+from .nf4.format import PackedNF4, pack_for_tpu, quantize_for_tpu
 from .nf4.lut import FP4_CODE, NF4_CODE, dynamic_code, get_code
-from .nf4.reference import QuantState
+from .nf4.reference import QuantState, dequantize_nf4, quantize_nf4
 from .ops.dequant import dequantize, dequantize_fast, dequantize_t, dequantize_t_fast
 from .ops.matmul import nf4_matmul
 
@@ -38,7 +41,10 @@ __all__ = [
     "get_code",
     "dynamic_code",
     "QuantState",
+    "quantize_nf4",
+    "dequantize_nf4",
     "PackedNF4",
+    "quantize_for_tpu",
     "pack_for_tpu",
     "dequantize",
     "dequantize_t",

@@ -39,11 +39,12 @@ import functools
 import math
 from typing import List, Optional, Tuple, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..nf4.format import PackedNF4
+from ..nf4.format import PackedNF4, QDense, pack_codes_for_tpu, quantize_for_tpu
 from ..ops.attention import _softcap, attention
 from ..ops.int8_serve import PackedInt8, int8_matmul, recode_int8_weight
 from ..ops.matmul import _ieee_fp32, nf4_matmul
@@ -65,6 +66,9 @@ __all__ = [
     "prefill_chunked",
     "decode_step",
     "recode_params_int8",
+    "fuse_rows",
+    "quantize_layer",
+    "quantize_dense_params",
 ]
 
 
@@ -266,14 +270,17 @@ def _dense_logits(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _matmul(x: torch.Tensor, w: Weight, out_dtype=None) -> torch.Tensor:
-    """The one call site of every projection.  A dense weight: the JAX
-    package's ``jnp.dot`` with fp32 accumulation and output (full fp32
-    products), then cast."""
+    """The one call site of every projection.  ``x`` [B, S, in] with S > 1
+    holds prompt tokens, which take the prefill kernels whatever B * S (a
+    row's sum then does not follow what shares its call).  A dense weight:
+    the JAX package's ``jnp.dot`` with fp32 accumulation and output (full
+    fp32 products), then cast."""
     out_dtype = out_dtype or x.dtype
+    prompt = x.dim() == 3 and x.shape[1] > 1
     if isinstance(w, PackedInt8):
-        return int8_matmul(x, w, out_dtype=out_dtype)
+        return int8_matmul(x, w, out_dtype=out_dtype, prefill=prompt)
     if isinstance(w, PackedNF4):
-        return nf4_matmul(x, w, out_dtype=out_dtype)
+        return nf4_matmul(x, w, out_dtype=out_dtype, prefill=prompt)
     with _ieee_fp32():
         return _dense_logits(x, w.to(x.dtype)).to(out_dtype)
 
@@ -302,6 +309,130 @@ def recode_params_int8(params: LlamaParams) -> LlamaParams:
         for lp in params.layers
     ]
     return dataclasses.replace(params, layers=layers, lm_head=recode(params.lm_head))
+
+
+# ---------------------------------------------------------------------------
+# Parameter construction from dense or pre-quantized (bnb) host weights
+
+
+def _host(w) -> torch.Tensor:
+    """A dense host weight (torch tensor or numpy array) as a torch tensor."""
+    return w.detach() if isinstance(w, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(w))
+
+
+def fuse_rows(ws, groups: int = 1):
+    """Fuse [m_i, n] weights along the out dim, ``[w0; w1; ...]``: all
+    dense (torch tensors or numpy arrays) or all :class:`QDense` (codes and
+    per-block scales fused with the same rows, so separately quantized
+    projections fuse exactly).  Mixing the two in one group raises: a dense
+    minority quantized here would hide a checkpoint inconsistency.
+    ``groups > 1`` (the JAX package's per-shard interleave for tensor
+    parallelism) is not ported yet."""
+    if groups != 1:
+        raise NotImplementedError("not ported yet: fuse_rows groups > 1 (tensor-parallel interleave)")
+    n_q = sum(isinstance(w, QDense) for w in ws)
+    if n_q:
+        if n_q != len(ws):
+            raise ValueError("cannot fuse pre-quantized and dense weights in one group")
+        qt = {w.quant_type for w in ws}
+        if len(qt) > 1:
+            raise ValueError(f"mixed quant_types in fused group: {qt}")
+        return QDense(np.concatenate([w.codes for w in ws]), np.concatenate([w.scales for w in ws]),
+                      ws[0].quant_type)
+    return torch.cat([_host(w) for w in ws])
+
+
+def _linear(w, cfg: LlamaConfig, device) -> Weight:
+    """One projection on ``device``: a :class:`QDense` repacked (its codes
+    untouched), a dense weight quantized (``cfg.quantize``) or cast to
+    ``cfg.dtype``."""
+    if isinstance(w, QDense):
+        if not cfg.quantize:
+            raise ValueError("pre-quantized (bnb) weights require cfg.quantize=True")
+        if w.quant_type != cfg.quant_type:
+            raise ValueError(f"checkpoint quant_type {w.quant_type!r} != config quant_type {cfg.quant_type!r}")
+        return pack_codes_for_tpu(w.codes, w.scales, dtype=cfg.dtype, quant_type=w.quant_type, device=device)
+    if cfg.quantize:
+        return quantize_for_tpu(w, dtype=cfg.dtype, quant_type=cfg.quant_type, device=device)
+    return _host(w).to(device, cfg.dtype)
+
+
+def _lm_head(w, cfg: LlamaConfig, device) -> Weight:
+    """The lm_head: a checkpoint's quantized one kept packed (bnb quantizes
+    it unless it is in ``llm_int8_skip_modules``), a dense one quantized
+    with ``quantize_lm_head``, else ``cfg.dtype``."""
+    if isinstance(w, QDense):
+        return pack_codes_for_tpu(w.codes, w.scales, dtype=cfg.dtype, quant_type=w.quant_type, device=device)
+    if cfg.quantize_lm_head:
+        return quantize_for_tpu(w, dtype=cfg.dtype, quant_type=cfg.quant_type, device=device)
+    return _host(w).to(device, cfg.dtype)
+
+
+def _stack(ws: list) -> Weight:
+    """Per-expert weights stacked on a leading [E] axis (one weight)."""
+    if isinstance(ws[0], PackedNF4):
+        return dataclasses.replace(ws[0], packed=torch.stack([w.packed for w in ws]),
+                                   scales=torch.stack([w.scales for w in ws]))
+    return torch.stack(ws)
+
+
+def quantize_layer(lw: dict, cfg: LlamaConfig, device=None) -> LayerParams:
+    """ONE layer's dense (or bnb :class:`QDense`) weight dict as a
+    :class:`LayerParams` on ``device`` (default ``cuda``): the streaming
+    loader's unit, so a layer's dense tensors can be freed as soon as this
+    returns.  Keys: ``wq wk wv wo`` and ``w_gate w_up w_down`` (or, with
+    experts, ``expert{e}.w_gate`` etc. and ``router``), ``input_norm``,
+    ``post_attn_norm`` and, where the model has them, ``bq bk bv``,
+    ``q_norm k_norm``, ``post_attn_out_norm post_ffw_norm``.  An MoE
+    layer's experts are stacked in expert order; a quantized router is
+    dequantized exactly to fp32."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+
+    def vector(name):
+        return _host(lw[name]).to(dev, torch.float32) if name in lw else None
+
+    qkv_bias = None
+    if cfg.attn_bias:
+        qkv_bias = fuse_rows([lw["bq"], lw["bk"], lw["bv"]]).to(dev, torch.float32)
+    router = None
+    if cfg.num_experts > 1:
+        experts = range(cfg.num_experts)
+        gu = _stack([_linear(fuse_rows([lw[f"expert{e}.w_gate"], lw[f"expert{e}.w_up"]]), cfg, dev) for e in experts])
+        dn = _stack([_linear(lw[f"expert{e}.w_down"], cfg, dev) for e in experts])
+        router = lw["router"]
+        router = _host(router.to_dense() if isinstance(router, QDense) else router).to(dev, torch.float32)
+    else:
+        gu = _linear(fuse_rows([lw["w_gate"], lw["w_up"]]), cfg, dev)
+        dn = _linear(lw["w_down"], cfg, dev)
+    return LayerParams(
+        wqkv=_linear(fuse_rows([lw["wq"], lw["wk"], lw["wv"]]), cfg, dev),
+        wo=_linear(lw["wo"], cfg, dev),
+        w_gateup=gu,
+        w_down=dn,
+        input_norm=vector("input_norm"),
+        post_attn_norm=vector("post_attn_norm"),
+        qkv_bias=qkv_bias,
+        router=router,
+        post_attn_out_norm=vector("post_attn_out_norm"),
+        post_ffw_norm=vector("post_ffw_norm"),
+        q_norm=vector("q_norm"),
+        k_norm=vector("k_norm"),
+    )
+
+
+def quantize_dense_params(dense_layers: list, cfg: LlamaConfig, embed, final_norm, lm_head,
+                          device=None) -> LlamaParams:
+    """Params on ``device`` (default ``cuda``) from host dense per-layer
+    weight dicts (:func:`quantize_layer`'s keys), the embedding, the final
+    norm and the lm_head."""
+    dev = resolve_device(device)
+    return LlamaParams(
+        embed=_host(embed).to(dev, cfg.dtype),
+        layers=[quantize_layer(lw, cfg, dev) for lw in dense_layers],
+        final_norm=_host(final_norm).to(dev, torch.float32),
+        lm_head=_lm_head(lm_head, cfg, dev),
+    )
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float, one_plus: bool = False) -> torch.Tensor:

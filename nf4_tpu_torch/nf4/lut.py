@@ -10,7 +10,7 @@ import functools
 
 import numpy as np
 
-__all__ = ["NF4_CODE", "FP4_CODE", "get_code", "dynamic_code"]
+__all__ = ["NF4_CODE", "FP4_CODE", "get_code", "dynamic_code", "code_midpoints", "fp4_order_and_mids"]
 
 # The fixed NF4 codebook, index 0..15 -> fp32 value (bitsandbytes' constants).
 NF4_CODE = np.array(
@@ -61,6 +61,30 @@ FP4_CODE = np.array(
 )
 
 _CODES = {"nf4": NF4_CODE, "fp4": FP4_CODE}
+
+
+def fp4_order_and_mids(code):
+    """Sign-magnitude quantization constants for a 16-entry fp4-layout
+    table: ``(order, mids)`` where ``order[p]`` is the table index of the
+    p-th smallest non-negative magnitude and ``mids`` are the 7 decision
+    midpoints between sorted magnitudes.  Quantize as
+    ``order[#{mids < |x|}] + 8*(x < 0)``: the one definition the oracle
+    and the device quantizer share, so their codes cannot drift apart."""
+    code = np.asarray(code, dtype=np.float32)
+    mags = code[:8]
+    if not (np.array_equal(-mags, code[8:]) and (mags >= 0).all()):
+        raise ValueError("non-monotone codebooks must be sign-magnitude (fp4 layout)")
+    order = np.argsort(mags, kind="stable").astype(np.uint8)
+    return order, code_midpoints(mags[order])
+
+
+def code_midpoints(code: np.ndarray) -> np.ndarray:
+    """Decision thresholds between adjacent codebook entries: ``x`` goes
+    to index ``i`` iff ``mid[i-1] < x <= mid[i]`` (strictly greater at a
+    threshold, the comparison direction of bitsandbytes' quantizer trees),
+    each midpoint computed in float64 and rounded to fp32."""
+    code = np.asarray(code, dtype=np.float32)
+    return ((code[:-1].astype(np.float64) + code[1:].astype(np.float64)) / 2.0).astype(np.float32)
 
 
 def get_code(quant_type: str) -> np.ndarray:

@@ -167,7 +167,7 @@ def _int8_matmul_kernel(x_pad, values, scales, out_dtype, rows=None) -> torch.Te
         counters = _tile_counters(dev, _decode_tiles(b_pad, m_pad, dev, _D_DECODE)).data_ptr()
     else:
         bm = rows or _prefill_rows(b_pad, m_pad)
-        ksplit = _prefill_ksplit(b_pad, m_pad, n_pad // NF4_BLOCK, bm, dev)
+        ksplit = _prefill_ksplit(m_pad, n_pad // NF4_BLOCK, dev)
     return _launch_d(x_pad, values, scales, out_dtype, bm, counters, ksplit)
 
 
@@ -184,9 +184,11 @@ def _launch_d(x_pad, values, scales, out_dtype, bm, counters, ksplit) -> torch.T
     return out
 
 
-def int8_matmul(x: torch.Tensor, p8: PackedInt8, out_dtype=None) -> torch.Tensor:
+def int8_matmul(x: torch.Tensor, p8: PackedInt8, out_dtype=None, prefill: bool = False) -> torch.Tensor:
     """``x @ W^T`` for an int8-recoded weight of logical shape [m, n]; ``x``
-    has any leading batch shape and trailing dim n."""
+    has any leading batch shape and trailing dim n.  ``prefill``: the rows
+    are prompt tokens, which take the prefill kernel whatever their count
+    (see :func:`~nf4_tpu_torch.ops.matmul._pick_bm`)."""
     m, n = p8.shape
     m_pad, n_pad = p8.padded_shape
     *batch, xn = x.shape
@@ -196,7 +198,7 @@ def int8_matmul(x: torch.Tensor, p8: PackedInt8, out_dtype=None) -> torch.Tensor
     for d in batch:
         B *= d
     x2 = x.reshape(B, n)
-    b_pad = pad_to(max(B, 1), _pick_bm(B) if x2.is_cuda else 16)
+    b_pad = pad_to(max(B, 1), _pick_bm(B, prefill) if x2.is_cuda else 16)
     if n_pad != n:
         # Pad per K chunk: each chunk's rows are padded on their own.
         s = p8.shards

@@ -75,11 +75,13 @@ def _matmul_exact_plain(x_pad, packed, scales, out_dtype, quant_type="nf4") -> t
         return (x_pad.float() @ wt).to(out_dtype)
 
 
-def _pick_bm(b: int) -> int:
+def _pick_bm(b: int, prefill: bool = False) -> int:
     """The multiple the batch rows are padded to: 16 for decode-sized
     batches (the decode kernels of B, D and E), else 64 (their prefill
-    blocks of 128 or 256 rows mask their ragged last tile)."""
-    return 16 if b <= 16 else 64
+    blocks of 128 or 256 rows mask their ragged last tile).  A prompt's
+    rows (``prefill``) always take the prefill kernel, so a prompt of 16
+    tokens alone is summed as it is beside others."""
+    return 16 if b <= 16 and not prefill else 64
 
 
 def _even_splits(nkb: int, ksplit: int) -> int:
@@ -167,9 +169,20 @@ def _wave_ksplit(tiles: int, nsteps: int, device, blocks_per_sm: int = 1) -> int
     return _even_splits(nsteps, max(1, min(nsteps, sms * blocks_per_sm // tiles)))
 
 
-def _prefill_ksplit(b_pad: int, m_pad: int, nkb: int, rows: int, device) -> int:
-    """K splits for kernel B's (and D's) prefill blocks of ``rows`` rows."""
-    return _wave_ksplit(-(-b_pad // rows) * (m_pad // _PREFILL_COLS[rows]), nkb, device)
+# The prompt rows the prefill K split is sized for, in 256-row blocks.
+_KSPLIT_ROWS = 1024
+
+
+def _prefill_ksplit(m_pad: int, nkb: int, device) -> int:
+    """K splits for kernel B's (and D's) prefill blocks: the wave split of
+    one 1024-row prompt (``_KSPLIT_ROWS``) in 256 x 128 blocks, whatever
+    rows the call has.  A function of the weight and the card only, so a
+    row's sum is taken in the same order whatever other rows share its
+    call: a prompt's logits do not follow the size of its prefill group
+    (the JAX package's kernel B accumulates K in grid order per output
+    tile).  Shorter prompts give up the extra splits their fewer row tiles
+    would allow."""
+    return _wave_ksplit(-(-_KSPLIT_ROWS // 256) * (m_pad // _PREFILL_COLS[256]), nkb, device)
 
 
 # Kernel E's prefill blocks: 128 rows x 128 columns, K steps of 32 rows.
@@ -229,7 +242,7 @@ def _matmul_bf16_kernel(x_pad, packed, scales, out_dtype, quant_type="nf4", rows
         counters = _tile_counters(x_pad.device, _decode_tiles(b_pad, m_pad, x_pad.device)).data_ptr()
     else:
         bm = rows or _prefill_rows(b_pad, m_pad)
-        ksplit = _prefill_ksplit(b_pad, m_pad, n_pad // NF4_BLOCK, bm, x_pad.device)
+        ksplit = _prefill_ksplit(m_pad, n_pad // NF4_BLOCK, x_pad.device)
         counters = None
     return _launch(_KERNEL, x_pad, packed, scales, out_dtype, bm, table.data_ptr(), counters, ksplit=ksplit)
 
@@ -258,7 +271,7 @@ def _matmul_exact_kernel(x_pad, packed, scales, out_dtype, quant_type="nf4") -> 
                    _X_KIND[x_pad.dtype], xsplit.data_ptr(), None, ksplit=ksplit)
 
 
-def _nf4_matmul_impl(x: torch.Tensor, pw: PackedNF4, out_dtype) -> torch.Tensor:
+def _nf4_matmul_impl(x: torch.Tensor, pw: PackedNF4, out_dtype, prefill: bool = False) -> torch.Tensor:
     """The single-shard forward: pad, flatten the batch, dispatch."""
     m, n = pw.shape
     m_pad, n_pad = pw.padded_shape
@@ -268,7 +281,7 @@ def _nf4_matmul_impl(x: torch.Tensor, pw: PackedNF4, out_dtype) -> torch.Tensor:
     for d in batch:
         B *= d
     x2 = x.reshape(B, n)
-    b_pad = pad_to(max(B, 1), _pick_bm(B) if x2.is_cuda else 16)
+    b_pad = pad_to(max(B, 1), _pick_bm(B, prefill) if x2.is_cuda else 16)
     if b_pad != B or n_pad != n:
         x2 = torch.nn.functional.pad(x2, (0, n_pad - n, 0, b_pad - B))
     if x2.dtype == torch.bfloat16:
@@ -284,34 +297,36 @@ class _NF4Matmul(torch.autograd.Function):
     ``_nf4_matmul_vjp``)."""
 
     @staticmethod
-    def forward(ctx, x, pw, out_dtype):
+    def forward(ctx, x, pw, out_dtype, prefill):
         ctx.pw, ctx.x_dtype = pw, x.dtype  # the packed weight, no activations
-        return _nf4_matmul_impl(x, pw, out_dtype)
+        return _nf4_matmul_impl(x, pw, out_dtype, prefill)
 
     @staticmethod
     def backward(ctx, g):
         if not ctx.needs_input_grad[0]:
-            return None, None, None
+            return None, None, None, None
         wt = dequantize_t(ctx.pw, torch.float32)  # [n, m], kernel A on CUDA
         with _ieee_fp32():
             dx = g.float() @ wt.T
-        return dx.to(ctx.x_dtype), None, None
+        return dx.to(ctx.x_dtype), None, None, None
 
 
-def nf4_matmul(x: torch.Tensor, pw: PackedNF4, out_dtype=None) -> torch.Tensor:
+def nf4_matmul(x: torch.Tensor, pw: PackedNF4, out_dtype=None, prefill: bool = False) -> torch.Tensor:
     """``x @ W^T`` for packed ``W`` of logical shape [m, n]; ``x`` has any
     leading batch shape and trailing dim n.  ``shards > 1`` sums the
     per-chunk partial products (autograd sums their gradients).
-    Differentiable with respect to ``x``; ``W`` is frozen."""
+    Differentiable with respect to ``x``; ``W`` is frozen.  ``prefill``:
+    the rows are prompt tokens, which take the prefill kernel whatever
+    their count (see :func:`_pick_bm`)."""
     m, n = pw.shape
     if pw.shards > 1:
         n_chunk = n // pw.shards
         parts = [
-            nf4_matmul(x[..., s * n_chunk : (s + 1) * n_chunk], v, out_dtype=out_dtype)
+            nf4_matmul(x[..., s * n_chunk : (s + 1) * n_chunk], v, out_dtype=out_dtype, prefill=prefill)
             for s, v in enumerate(chunk_views(pw))
         ]
         return sum(parts[1:], parts[0])
     out_dtype = out_dtype if out_dtype is not None else x.dtype
     if torch.is_grad_enabled() and x.requires_grad:
-        return _NF4Matmul.apply(x, pw, out_dtype)
-    return _nf4_matmul_impl(x, pw, out_dtype)
+        return _NF4Matmul.apply(x, pw, out_dtype, prefill)
+    return _nf4_matmul_impl(x, pw, out_dtype, prefill)

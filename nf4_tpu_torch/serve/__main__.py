@@ -6,14 +6,18 @@
     # the int8 serving mode: weights recoded to int8, an int8 KV cache
     python -m nf4_tpu_torch.serve --packed llama-nf4.npz --int8 --kv8
 
+    # an HF checkpoint directory, quantized on the card as it loads (a
+    # "*-bnb-4bit" one repacked); its tokenizer files, if any, serve too
+    python -m nf4_tpu_torch.serve --hf-dir /path/to/llama
+
     # registry config with random weights (load test / smoke)
     python -m nf4_tpu_torch.serve --model llama3-8b --synthetic
 
 Endpoints (``serve/api.py``): ``/v1/completions``,
 ``/v1/chat/completions`` (incl. ``"stream": true`` SSE), ``/v1/models``,
 ``/health``, ``/metrics`` (Prometheus).  A tokenizer directory
-(``--tokenizer``) enables string prompts and chat templating; without one
-the API accepts token-id lists.  The server runs on the CUDA card;
+(``--tokenizer``, by default ``--hf-dir``) enables string prompts and chat
+templating; without one the API accepts token-id lists.  The server runs on the CUDA card;
 ``--device cpu`` runs the plain PyTorch path (tests).
 """
 
@@ -21,13 +25,13 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import sys
 import time
 
 # Flags of the JAX package's CLI whose machinery is not ported yet: each
 # parses, and exits with a clear message when set.
 _UNPORTED = {
-    "hf_dir": "--hf-dir (loading HF checkpoint directories)",
     "spec_k": "--spec-k (speculative decoding)",
     "draft_packed": "--draft-packed (draft-model speculation)",
     "draft_model": "--draft-model (draft-model speculation)",
@@ -39,7 +43,7 @@ def build_engine(args):
     """Construct (engine, tokenizer) from parsed CLI args."""
     from ..models import configs
     from ..models.llama import recode_params_int8
-    from ..models.loader import load_packed_auto
+    from ..models.loader import hf_config_to_llama, load_hf_llama, load_packed_auto
     from ..models.synthetic import synthetic_params
     from .engine import Engine
     from .sampling import SamplingParams
@@ -49,8 +53,8 @@ def build_engine(args):
             raise SystemExit(f"{what} is not ported yet")
     if args.tp > 1 or args.dp > 1:
         raise SystemExit("--tp / --dp > 1 (multi-GPU serving) is not ported yet")
-    if sum(map(bool, (args.packed, args.synthetic))) != 1:
-        raise SystemExit("pick exactly one weight source: --packed PATH, or --model NAME --synthetic")
+    if sum(map(bool, (args.packed, args.hf_dir, args.synthetic))) != 1:
+        raise SystemExit("pick exactly one weight source: --packed PATH, --hf-dir DIR, or --model NAME --synthetic")
 
     overrides = {}
     if args.kv8:
@@ -62,6 +66,14 @@ def build_engine(args):
     if args.packed:
         params, cfg = load_packed_auto(args.packed, device=args.device, **overrides)
         src = args.packed
+    elif args.hf_dir:
+        # Quantized on load, on the serving device.
+        if args.model:
+            cfg = dataclasses.replace(configs.get_config(args.model), **overrides)
+        else:
+            cfg = hf_config_to_llama(os.path.join(args.hf_dir, "config.json"), **overrides)
+        params, cfg = load_hf_llama(args.hf_dir, cfg, device=args.device)
+        src = args.hf_dir
     else:
         if not args.model:
             raise SystemExit("--synthetic requires --model NAME")
@@ -77,11 +89,12 @@ def build_engine(args):
               file=sys.stderr)
 
     tokenizer = None
-    if args.tokenizer:
+    tok_dir = args.tokenizer or args.hf_dir
+    if tok_dir:
         try:
             from transformers import AutoTokenizer
 
-            tokenizer = AutoTokenizer.from_pretrained(args.tokenizer)
+            tokenizer = AutoTokenizer.from_pretrained(tok_dir)
         except (ImportError, OSError, ValueError) as e:  # no transformers / no tokenizer files
             print(f"tokenizer unavailable ({e}); token-id API only", file=sys.stderr)
 
@@ -107,13 +120,16 @@ def main(argv=None, block=True):
     ap = argparse.ArgumentParser(prog="python -m nf4_tpu_torch.serve")
     src = ap.add_argument_group("weights (pick one)")
     src.add_argument("--packed", help="packed checkpoint (.npz/.safetensors) from save_packed")
-    src.add_argument("--hf-dir", help="HF checkpoint dir (not ported yet)")
+    src.add_argument("--hf-dir", help="HF checkpoint dir (dense: quantized on load; *-bnb-4bit: repacked)")
     src.add_argument("--synthetic", action="store_true",
                      help="random packed weights for --model (smoke/load test): models/synthetic.py's "
                      "synthetic_params, whose draws differ from the JAX package's init_params")
-    ap.add_argument("--model", default=None, help="registry config name (models/configs.py); required with --synthetic")
+    ap.add_argument("--model", default=None,
+                    help="registry config name (models/configs.py); required with --synthetic; with --hf-dir it "
+                    "replaces config.json")
     ap.add_argument("--tokenizer", default=None,
-                    help="tokenizer dir (needs transformers); enables string prompts + chat templates")
+                    help="tokenizer dir (needs transformers; default --hf-dir); enables string prompts + chat "
+                    "templates")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8000)
     ap.add_argument("--model-name", default="nf4-tpu", help="model id reported by /v1/models")

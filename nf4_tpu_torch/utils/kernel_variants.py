@@ -1,8 +1,18 @@
 """Time what a kernel's time is made of, in one process on one card: the two
-prefill layouts of kernels B and D at each prompt size, and text-edited
-variants of a CUDA source beside the source as it is.
+prefill layouts of kernels B and D at each prompt size, the prefill K split
+policy against its parent's, and text-edited variants of a CUDA source
+beside the source as it is.
 
-    python -m nf4_tpu_torch.utils.kernel_variants [--only layouts|decode|matmul|int8_matmul|matmul_exact|flash]
+    python -m nf4_tpu_torch.utils.kernel_variants [--only layouts|ksplit|decode|matmul|int8_matmul|matmul_exact|flash]
+
+``--only ksplit`` times Llama-3-8B's prefills (full width and depth,
+synthetic weights; one prompt of 1024, 64 and 16 tokens, and 4 of 512) and
+kernels B's and D's prefill at 1024 rows (one layer's four projections)
+under the K split of ``ops/matmul.py`` ``_prefill_ksplit`` (a function of
+the weight) and under its parent's (sized from the call's row tiles, with
+the decode kernel for calls of at most 16 rows), in turns: parent, new,
+new, parent; each prefill the median of 5 host-clock runs ending in a
+synchronize.
 
 A variant is the source and its headers with a few lines replaced (a step
 skipped, an intrinsic swapped); it is built with the port's nvcc flags into
@@ -380,6 +390,98 @@ def layouts() -> None:
         del ws
 
 
+@contextlib.contextmanager
+def _parent_ksplit():
+    """Kernels B's and D's prefill K split as it was before it depended on
+    the weight alone: sized from the call's row tiles (``_wave_ksplit`` of
+    the layout's tiles), and every call of at most 16 rows on the decode
+    kernel, prompt rows too."""
+    from ..ops import int8_serve as i8
+    from ..ops import matmul as mm
+    from ..ops.lut_eval import byte_word_table
+
+    saved = mm._pick_bm, i8._pick_bm, mm._matmul_bf16_kernel, i8._int8_matmul_kernel
+
+    def split(x_pad, m_pad, rows):
+        return mm._wave_ksplit(-(-x_pad.shape[0] // rows) * (m_pad // mm._PREFILL_COLS[rows]),
+                               x_pad.shape[1] // 64, x_pad.device)
+
+    def b_kernel(x_pad, packed, scales, out_dtype, quant_type="nf4", rows=None):
+        if x_pad.shape[0] <= 16:
+            return saved[2](x_pad, packed, scales, out_dtype, quant_type)
+        rows = rows or mm._prefill_rows(x_pad.shape[0], packed.shape[1])
+        table = byte_word_table(quant_type, x_pad.device)
+        return mm._launch(mm._KERNEL, x_pad, packed, scales, out_dtype, rows, table.data_ptr(), None,
+                          ksplit=split(x_pad, packed.shape[1], rows))
+
+    def d_kernel(x_pad, values, scales, out_dtype, rows=None):
+        if x_pad.shape[0] <= 16:
+            return saved[3](x_pad, values, scales, out_dtype)
+        rows = rows or mm._prefill_rows(x_pad.shape[0], values.shape[1])
+        return i8._launch_d(x_pad, values, scales, out_dtype, rows, None, split(x_pad, values.shape[1], rows))
+
+    pick = lambda b, prefill=False: saved[0](b)  # noqa: E731
+    mm._pick_bm, i8._pick_bm, mm._matmul_bf16_kernel, i8._int8_matmul_kernel = pick, pick, b_kernel, d_kernel
+    try:
+        yield
+    finally:
+        mm._pick_bm, i8._pick_bm, mm._matmul_bf16_kernel, i8._int8_matmul_kernel = saved
+
+
+def ksplit() -> None:
+    """The prefill K split policy against its parent's, in turns."""
+    import dataclasses
+    import time
+
+    import numpy as np
+
+    from ..models import configs
+    from ..models.llama import init_kv_cache
+    from ..models.synthetic import synthetic_params
+    from ..ops import int8_serve as i8
+    from ..ops import matmul as mm
+    from ..serve.engine import Engine
+
+    dev = torch.device("cuda")
+    policies = {"parent": _parent_ksplit, "new": contextlib.nullcontext}
+    order = ("parent", "new", "new", "parent")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for label, int8 in (("B", False), ("D", True)):
+        ws = _weights(gen, dev, int8)
+        xs = {p: torch.randn((1024, n), generator=gen, device=dev).to(torch.bfloat16) for p, (_, n, _) in _PROJ.items()}
+        times = {k: [] for k in policies}
+        for name in order:
+            with policies[name]():
+                kern = i8._int8_matmul_kernel if int8 else mm._matmul_bf16_kernel
+                times[name].append(sum(_time([lambda x=xs[p], w=w, s=s, od=od: kern(x, w, s, od) for w, s in ws[p]])
+                                       for p, (_, _, od) in _PROJ.items()))
+        print(f"kernel {label} prefill, four projections, B=1024: "
+              + "; ".join(f"{k} {', '.join(f'{t:.4f}' for t in v)} ms" for k, v in times.items()), flush=True)
+        del ws
+
+    cfg = dataclasses.replace(configs.LLAMA3_8B, max_seq_len=2048)
+    params = synthetic_params(cfg, seed=0)
+    eng = Engine(params, cfg, batch_size=4, eos_token=-1, cuda_graphs=False)
+    cache = init_kv_cache(cfg, 4)
+    rng = np.random.default_rng(0)
+    for g, bucket in ((1, 1024), (1, 64), (1, 16), (4, 512)):
+        toks = rng.integers(0, cfg.vocab_size, (g, bucket)).astype(np.int32)
+        lens, slots = np.full(g, bucket, np.int32), np.arange(g)
+        times = {k: [] for k in policies}
+        for name in order:
+            with policies[name]():
+                runs = []
+                for _ in range(6):  # a warm-up, then 5
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    eng.prefill_group(cache, toks, lens, slots)
+                    torch.cuda.synchronize()
+                    runs.append((time.perf_counter() - t0) * 1e3)
+                times[name].append(float(np.median(runs[1:])))
+        print(f"Llama-3-8B prefill, {g} x {bucket} tokens (median of 5, ms): "
+              + "; ".join(f"{k} {', '.join(f'{t:.2f}' for t in v)}" for k, v in times.items()), flush=True)
+
+
 def decode(out_dir) -> None:
     """The variants of the decode kernel with kernel B's and kernel D's Dec,
     and of kernel E's decode kernel (fp32 x): one layer's four projections
@@ -511,7 +613,8 @@ def flash(out_dir) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("layouts", "decode", "matmul", "int8_matmul", "matmul_exact", "flash"))
+    ap.add_argument("--only", choices=("layouts", "ksplit", "decode", "matmul", "int8_matmul", "matmul_exact",
+                                       "flash"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_variants: no CUDA device")
@@ -521,6 +624,8 @@ def main() -> None:
     print(f"{card}; torch {torch.__version__}", flush=True)
     if args.only in (None, "layouts"):
         layouts()
+    if args.only in (None, "ksplit"):
+        ksplit()
     if args.only in (None, "decode"):
         decode(out_dir)
     for source in ("matmul", "int8_matmul", "matmul_exact"):

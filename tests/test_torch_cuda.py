@@ -940,43 +940,43 @@ def test_seeded_request_independent_of_batchmates(dev, monkeypatch, mate_len, kv
 
 def test_prefill_group_first_logits(dev):
     """A prompt's first logits against its prefill group's size (1, 2 or 4
-    prompts of one bucket): the same bits at buckets 16 and 64; at 512
-    within 2e-2 of the largest logit (the bits may differ, so a seeded
-    request is reproduced bit for bit when it prefills in a group of the
-    same size; the next test finds where they start to differ)."""
+    prompts of one bucket): the same bits at buckets 16, 64, 512 and 1024,
+    on the 4-bit weights and in the int8 mode.  Kernels B's and D's
+    prefill K split is a function of the weight (``ops/matmul.py``
+    ``_prefill_ksplit``) and a prompt's rows take the prefill kernel at
+    every count, so a row is summed in one order whatever shares its
+    call."""
     import dataclasses
 
     from nf4_tpu_torch.models.llama import init_kv_cache
     from nf4_tpu_torch.serve.engine import Engine
 
-    cfg, params = _small_model(dev, False)
-    cfg = dataclasses.replace(cfg, max_seq_len=1024)
-    eng = Engine(params, cfg, batch_size=4, eos_token=-1, cuda_graphs=False)
-    rng = np.random.default_rng(0)
-    for bucket in (16, 64, 512):
-        toks = rng.integers(0, cfg.vocab_size, (4, bucket)).astype(np.int32)
-        lens = np.full(4, bucket - 3, np.int32)
-        first = {}
-        for g in (1, 2, 4):
-            cache = init_kv_cache(cfg, 4)
-            first[g] = eng.prefill_group(cache, toks[:g], lens[:g], np.arange(g))[0].float().cpu()
-        for g in (2, 4):
-            if bucket < 512:
-                assert torch.equal(first[g], first[1]), (bucket, g)
-            else:
-                assert (first[g] - first[1]).abs().max() <= 2e-2 * first[1].abs().max(), (bucket, g)
+    for int8 in (False, True):
+        cfg, params = _small_model(dev, int8)
+        cfg = dataclasses.replace(cfg, max_seq_len=1024)
+        eng = Engine(params, cfg, batch_size=4, eos_token=-1, cuda_graphs=False)
+        rng = np.random.default_rng(0)
+        for bucket in (16, 64, 512, 1024):
+            toks = rng.integers(0, cfg.vocab_size, (4, bucket)).astype(np.int32)
+            lens = np.full(4, bucket - 3, np.int32)
+            first = {}
+            for g in (1, 2, 4):
+                cache = init_kv_cache(cfg, 4)
+                first[g] = eng.prefill_group(cache, toks[:g], lens[:g], np.arange(g))[0].float().cpu()
+            for g in (2, 4):
+                assert torch.equal(first[g], first[1]), (int8, bucket, g)
 
 
 # The model's computations, by the name the forward calls them through.
 _WATCHED = ("rms_norm", "_matmul", "apply_rope", "_quantize_kv", "attention", "_gated", "_logits")
 
 
-def _first_group_difference(eng, toks, lens, ksplit1):
+def _first_group_difference(eng, toks, lens):
     """Prefill row 0 of ``toks`` alone and in a group of 2, recording row 0
     of the output of every ``_WATCHED`` call and kernel B's prefill K
-    splits; with ``ksplit1`` every prefill launch takes K split 1.  Returns
-    the first recorded op whose bits differ between the two runs (index,
-    name, max abs diff) or None, and the K splits of each run."""
+    splits.  Returns the first recorded op whose bits differ between the
+    two runs (index, name, max abs diff) or None, and the K splits of each
+    run."""
     from nf4_tpu_torch.models import llama
     from nf4_tpu_torch.models.llama import init_kv_cache
     from nf4_tpu_torch.ops import matmul
@@ -995,7 +995,7 @@ def _first_group_difference(eng, toks, lens, ksplit1):
             return inner
 
         def split(*a):
-            splits.append(1 if ksplit1 else saved_split(*a))
+            splits.append(saved_split(*a))
             return splits[-1]
 
         for name, fn in saved.items():
@@ -1017,13 +1017,13 @@ def _first_group_difference(eng, toks, lens, ksplit1):
 
 @pytest.mark.parametrize("model", ["small", "llama3-8b-width"])
 def test_prefill_group_difference_starts_at_kernel_b_ksplit(dev, model):
-    """Where the prefill-group limit of the test above starts, at bucket
-    512: the first op of the forward whose bits differ between a group of
-    1 and a group of 2 is a projection (kernel B), whose prefill K split
-    (``ops/matmul.py`` ``_prefill_ksplit``, sized from the row tiles)
-    differs between the two; with every K split forced to 1 no op differs.
-    Models: the test above's (its bucket-512 prompts) and Llama-3-8B at
-    full width and 2 of its 32 layers (synthetic weights)."""
+    """At bucket 512, no op of the forward differs in its bits between a
+    group of 1 and a group of 2, and kernel B's prefill K splits are the
+    same in both (``ops/matmul.py`` ``_prefill_ksplit`` depends on the
+    weight only; it was sized from the group's row tiles, and the first
+    difference was a projection).  Models: the test above's (its
+    bucket-512 prompts) and Llama-3-8B at full width and 2 of its 32
+    layers (synthetic weights)."""
     import dataclasses
 
     from nf4_tpu_torch.models import configs
@@ -1041,13 +1041,34 @@ def test_prefill_group_difference_starts_at_kernel_b_ksplit(dev, model):
         toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 512)).astype(np.int32)
     eng = Engine(params, cfg, batch_size=2, eos_token=-1, cuda_graphs=False)
     lens = np.full(2, 509, np.int32)
-    first, s1, s2 = _first_group_difference(eng, toks, lens, ksplit1=False)
+    first, s1, s2 = _first_group_difference(eng, toks, lens)
     print(f"{model}, bucket 512: first differing op {first}; kernel B prefill K splits, group of 1 {s1}, "
           f"group of 2 {s2}")
-    assert first is not None and first[1].startswith("_matmul") and s1 != s2, (first, s1, s2)
-    forced = _first_group_difference(eng, toks, lens, ksplit1=True)[0]
-    print(f"{model}, bucket 512, every K split 1: first differing op {forced}")
-    assert forced is None, forced
+    assert first is None and s1 == s2 and s1, (first, s1, s2)
+
+
+@pytest.mark.parametrize("quant_type", ["nf4", "fp4"])
+@pytest.mark.parametrize("case", ["wo", "w_down", "midpoints"])
+def test_card_quantizer_equals_the_oracle(dev, quant_type, case):
+    """The card quantizer (``quantize_for_tpu``'s default, ``nf4/fast_quant.py``)
+    against the NumPy oracle on the host: the same packed bytes and scale
+    bits, at Llama-3-8B's wo (4096 x 4096) and w_down (4096 x 14336) from
+    bf16, and on the 4096 x 4096 midpoint stress tensor (normalized values
+    on every decision midpoint and one ulp either side) from fp32."""
+    from nf4_tpu_torch.nf4.fast_quant import midpoint_stress
+    from nf4_tpu_torch.nf4.format import quantize_for_tpu
+
+    if case == "midpoints":
+        w = torch.from_numpy(midpoint_stress(4096, 4096, quant_type, seed=1))
+    else:
+        shape = (4096, 4096) if case == "wo" else (4096, 14336)
+        w = torch.from_numpy((np.random.default_rng(2).standard_normal(shape) * 0.02).astype(np.float32))
+        w = w.to(torch.bfloat16)
+    got = quantize_for_tpu(w, quant_type=quant_type)
+    want = quantize_for_tpu(w, method="oracle", quant_type=quant_type, device="cpu")
+    assert got.packed.is_cuda and got.padded_shape == want.padded_shape
+    assert torch.equal(got.packed.cpu(), want.packed)
+    assert torch.equal(got.scales.cpu().view(torch.int32), want.scales.view(torch.int32))
 
 
 def test_graph_replays_count_their_launches(dev):

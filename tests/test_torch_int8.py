@@ -163,9 +163,11 @@ LLAMA3_8B = {"wqkv": (6144, 4096), "wo": (4096, 4096), "w_gateup": (28672, 4096)
 @pytest.mark.parametrize(
     "b_pad,want",
     [
-        # 128 x 256 blocks up to 128 rows; K split to fill one wave of 132 SMs.
-        (64, {"wqkv": (128, 5), "wo": (128, 8), "w_gateup": (128, 1), "w_down": (128, 8)}),
-        (320, {"wqkv": (256, 1), "wo": (256, 2), "w_gateup": (256, 1), "w_down": (256, 2)}),
+        # 128 x 256 blocks up to 128 rows; the K split fills one wave of 132
+        # SMs with a 1024-row prompt's tiles whatever the rows (ops/matmul.py
+        # _prefill_ksplit): 1 at each of Llama-3-8B's projections.
+        (64, {"wqkv": (128, 1), "wo": (128, 1), "w_gateup": (128, 1), "w_down": (128, 1)}),
+        (320, {"wqkv": (256, 1), "wo": (256, 1), "w_gateup": (256, 1), "w_down": (256, 1)}),
         (1024, {"wqkv": (256, 1), "wo": (256, 1), "w_gateup": (256, 1), "w_down": (256, 1)}),
     ],
 )

@@ -93,27 +93,33 @@ def test_byte_table_matches_jax(rng):
 
 
 @pytest.mark.parametrize(
-    "b_pad,m_pad,nkb,want",
+    "m_pad,nkb,want",
     [
-        (1024, 28672, 64, 1),  # w_gateup at B=1024: 4 x 224 tiles of 256 x 128 fill the card
-        (1024, 4096, 224, 1),  # w_down: 4 x 32 = 128 tiles, one wave without a split
-        (64, 6144, 64, 5),  # wqkv of a 64-row prompt: 24 tiles of 128 x 256 x 5 splits of 13 K steps
-        (320, 6144, 64, 1),  # wqkv of a 320-row prompt: 2 x 48 tiles of 256 x 128, one wave
-        (320, 640, 48, 12),  # 256 x 128 where m_pad is not a multiple of 256: 10 tiles x 12 splits
+        (28672, 64, 1),  # w_gateup: 4 x 224 tiles of 256 x 128 (one 1024-row prompt) fill the card
+        (4096, 224, 1),  # w_down: 4 x 32 = 128 tiles, one wave without a split
+        (6144, 64, 1),  # wqkv: 4 x 48 tiles, one wave (a 64-row prompt took 5 splits before)
+        (1024, 16, 4),  # the card tests' small model's wqkv: 4 x 8 tiles x 4 splits of 4 K steps
+        (640, 48, 6),  # m_pad not a multiple of 256: 4 x 5 tiles x 6 splits of 8 K steps
     ],
 )
-def test_prefill_ksplit(monkeypatch, b_pad, m_pad, nkb, want):
-    """Kernel B's prefill kernel splits K only as far as one wave of the
-    layout's tiles (see ``_prefill_rows``) allows on a 132-SM card, with no
-    empty split."""
+def test_prefill_ksplit(monkeypatch, m_pad, nkb, want):
+    """Kernel B's (and D's) prefill kernel splits K as far as one wave of a
+    1024-row prompt's 256 x 128 tiles allows on a 132-SM card, with no
+    empty split, whatever rows the call has and whatever layout
+    ``_prefill_rows`` picks for them: the split is a function of the
+    weight, so a row is summed in the same order whatever shares its call."""
     import types
 
     from nf4_tpu_torch.ops import matmul as tm
 
     monkeypatch.setattr(torch.cuda, "get_device_properties", lambda dev: types.SimpleNamespace(multi_processor_count=132))
-    ksplit = tm._prefill_ksplit(b_pad, m_pad, nkb, tm._prefill_rows(b_pad, m_pad), "cuda")
+    ksplit = tm._prefill_ksplit(m_pad, nkb, "cuda")
     per = -(-nkb // ksplit)
     assert ksplit == want and (ksplit - 1) * per < nkb
+    # Prompt rows take the prefill kernel at every count; other calls of
+    # at most 16 rows the decode kernel.
+    assert [tm._pick_bm(b, prefill=True) for b in (1, 16, 17)] == [64, 64, 64]
+    assert [tm._pick_bm(b) for b in (1, 16, 17)] == [16, 16, 64]
 
 
 def _tf32_rna(t: torch.Tensor) -> torch.Tensor:

@@ -4,8 +4,9 @@ in-process on the CPU (``--device cpu``), the cases of
 JAX package's ``init_params``, so both packages serve the same weights),
 in the 4-bit and the ``--int8 --kv8`` modes, and ``--model tiny-test
 --synthetic`` (also ``tiny-gemma2`` and ``tiny-moe``); answers over localhost equal a twin Engine's, and a
-checkpoint the JAX package saves is served as its own CLI serves it;
-flags of machinery not ported yet exit with a clear message."""
+checkpoint the JAX package saves is served as its own CLI serves it; an
+HF directory (``--hf-dir``) is quantized as it loads and served; flags of
+machinery not ported yet exit with a clear message."""
 
 import dataclasses
 import json
@@ -153,8 +154,32 @@ def test_tokenizer_unavailable_falls_back_to_token_ids(checkpoint, tmp_path, cap
     assert "token-id API only" in capsys.readouterr().err
 
 
+def test_hf_dir_serves(tmp_path, capsys, monkeypatch):
+    """``--hf-dir DIR --device cpu`` quantizes the directory as it loads,
+    builds the Engine and answers a request: the tokens of a twin Engine
+    on ``load_hf_llama`` of the same directory.  The directory has no
+    tokenizer files (and transformers is hidden): the token-id API."""
+    from test_torch_hf_loader import write_checkpoint
+
+    from nf4_tpu_torch.models.loader import load_hf_llama
+
+    path = write_checkpoint(tmp_path / "hf", "llama3", np.float16, shards=2)
+    monkeypatch.setitem(sys.modules, "transformers", None)
+    server = main(["--hf-dir", path, "--port", "0", "--batch-size", "2", "--eos", "-1", "--device", "cpu",
+                   "--decode-chunk", "4"], block=False)
+    try:
+        assert server.tokenizer is None and server.engine.cfg.num_layers == 2
+        body = _complete(server.port, {"prompt": [3, 1, 4, 1, 5], "max_tokens": 6})
+    finally:
+        server.stop()
+    assert "token-id API only" in capsys.readouterr().err
+    params, cfg = load_hf_llama(path, device="cpu")
+    twin = Engine(params, cfg, batch_size=2, eos_token=-1, device="cpu")
+    assert body["choices"][0]["tokens"] == twin.generate([[3, 1, 4, 1, 5]], max_new_tokens=6)[0].tokens
+
+
 @pytest.mark.parametrize("flags, what", [
-    (["--hf-dir", "/nowhere"], "--hf-dir"), (["--spec-k", "2"], "--spec-k"), (["--draft-packed", "x.npz"], "--draft"),
+    (["--spec-k", "2"], "--spec-k"), (["--draft-packed", "x.npz"], "--draft"),
     (["--draft-model", "tiny-test"], "--draft"), (["--prefix-cache"], "--prefix-cache"), (["--tp", "2"], "--tp"),
     (["--dp", "2"], "--dp"),
 ])
