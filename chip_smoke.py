@@ -52,7 +52,18 @@ Phases, each of which fails the run on any error:
    hang-up retired within one decode chunk), graphs captured once per
    feature mix, kernels B and C only; then a decode step with every row
    stochastic against the greedy one, and one request's HTTP round trip
-   against ``Engine.generate``; (c) a small model on the card against the same model on the
+   against ``Engine.generate``; (n) speculative decoding on 5b's weights (``phase_spec``): 5b's
+   requests and a 1024-token prompt of one 256-token span repeated four times, 32 tokens each, at
+   batch 4, graphed and pipelined, with the adaptive controller on, by prompt lookup at spec_k 3
+   (16 verify rows: kernel B's decode kernel) and 7 (32 rows: its prefill kernel) and by a draft
+   model (Llama-3-8B's config at 2 layers, views of 5b's tensors), greedy and, for spec_k 3 and
+   the draft, stochastic requests through the sampled chunks; every kernel launch count held to
+   the forwards the run launched, every chunk a graph replay, greedy tokens held to a plain
+   Engine's (any difference must start at a near-tie, whose top-2 gap is printed), a second call
+   capturing nothing with the same tokens and launches, one eager verify round of each spec_k
+   with every kernel call held to its plain version and its rows counted, and a graphed verify
+   round timed at kv_len 1536 against 5b's step; the same in the int8 mode of (d) at spec_k 3;
+   (c) a small model on the card against the same model on the
    CPU, also with every field of the Llama-family variants on; (d) the
    same serving in the int8 mode: weights recoded to int8 and an int8 KV
    cache; (e) a packed checkpoint saved by the port, loaded on the card
@@ -1226,6 +1237,305 @@ def phase_http_serving(params, prompts, want, profile):
                         http_busy=busy_h / wall_h, generate_busy=busy_d / wall_d)
 
 
+# Phase 5n: speculative decoding.  Its seventh request is a 1024-token
+# prompt of one 256-token span repeated four times (text that re-emits its
+# input is where prompt lookup pays); a token difference from plain decode
+# must start where the plain path's top-2 logit gap is at most NEAR_TIE x
+# max |logit| (the verify forward sums attention in another shape).
+SPEC_SPAN, NEAR_TIE = 256, 2e-2
+
+
+@contextlib.contextmanager
+def forward_tally(eng):
+    """Within it, count the forwards ``eng`` launches, by what launches
+    them: a decode chunk or step of n steps is n forwards of the target; a
+    speculative chunk of n rounds n verify forwards and, with a draft
+    model, n (k + 1) draft decode steps; a host-stepped verify one verify
+    forward and k draft steps; a prefill (the target's, or the draft's at
+    a refill or a catch-up) one forward per segment, kernel C on every
+    layer of each segment attention sends to it (``flash_prefills``).
+    Also counts the chunks (``chunks``: each a graph replay on CUDA), the
+    speculative ones and the host-stepped verifies.  Yields the counter."""
+    import collections
+
+    from nf4_tpu_torch.serve import engine as engine_mod
+
+    tally = collections.Counter()
+    _, dec = eng.state()
+    launch, launch_spec, single = dec.launch, dec.launch_spec, engine_mod._Scheduler.spec_single
+    seg = eng.PREFILL_SEGMENT
+
+    def on_launch(n, *a, **kw):
+        tally["target"] += n
+        tally["chunks"] += n > 1
+        return launch(n, *a, **kw)
+
+    def on_launch_spec(n, kv_len, kind, *a, **kw):
+        tally["target"] += n
+        tally["draft"] += n * (kind.k + 1) if kind.draft else 0
+        tally["chunks"] += 1
+        tally["spec_chunks"] += 1
+        return launch_spec(n, kv_len, kind, *a, **kw)
+
+    def on_single(sched, act, idx, kind, samples):
+        tally["target"] += 1
+        tally["draft"] += kind.k if kind.draft else 0
+        tally["host_verifies"] += 1
+        return single(sched, act, idx, kind, samples)
+
+    def counted(who, fn, cfg):
+        def run(cache, tokens, *a, **kw):
+            g, bucket = tokens.shape
+            widths = [min(seg, bucket - t0) for t0 in range(0, bucket, seg)]
+            tally[who] += len(widths)
+            tally[f"flash_{who}"] += flash_prefills(cfg, [(g, w) for w in widths])
+            return fn(cache, tokens, *a, **kw)
+        return run
+
+    dec.launch, dec.launch_spec = on_launch, on_launch_spec
+    eng.prefill_group = counted("target", eng.prefill_group, eng.cfg)
+    if eng._draft is not None:
+        eng.prefill_draft = counted("draft", eng.prefill_draft, eng._draft[1])
+    engine_mod._Scheduler.spec_single = on_single
+    try:
+        yield tally
+    finally:
+        engine_mod._Scheduler.spec_single = single
+        del dec.launch, dec.launch_spec, eng.prefill_group
+        if eng._draft is not None:
+            del eng.prefill_draft
+
+
+def spec_generate(label, eng, prompts, sampling=None, int8=False, budget=32):
+    """One ``generate`` of ``prompts`` on ``eng`` with every launch count set
+    to 0 just before and read just after, held to exactly the launches of
+    the forwards it ran (``forward_tally``): kernel B (or D) once per
+    projection and layer of every target and draft forward, kernel C on
+    every layer of each prefill segment attention sends to it, no kernel
+    of the other mode; every chunk a graph replay.  Returns (results,
+    launch counts, tally, seconds)."""
+    import torch
+
+    from nf4_tpu_torch.ops import _cuda
+
+    cfg = eng.cfg
+    dcfg = eng._draft[1] if eng._draft is not None else None
+    replayed = eng.graph_stats["replayed"]
+    with forward_tally(eng) as tally:
+        _cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        results = eng.generate(prompts, max_new_tokens=budget, sampling=sampling)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = _cuda.launch_counts()
+    check(len(results) == len(prompts) and all(
+        len(r.tokens) == budget and all(0 <= t < cfg.vocab_size for t in r.tokens) for r in results),
+        f"{label}: {budget} tokens in the vocabulary per request")
+    proj = projections_per_layer(cfg) * cfg.num_layers * tally["target"]
+    flash = cfg.num_layers * tally["flash_target"]
+    if dcfg is not None:
+        proj += projections_per_layer(dcfg) * dcfg.num_layers * tally["draft"]
+        flash += dcfg.num_layers * tally["flash_draft"]
+    names = ("int8_matmul", "flash_attention_int8") if int8 else ("matmul_bf16", "flash_attention")
+    others = ("matmul_bf16", "flash_attention") if int8 else ("int8_matmul", "flash_attention_int8")
+    check(counts[names[0]] == proj and counts[names[1]] == flash and counts[others[0]] == counts[others[1]] == 0,
+          f"{label}: launched {counts}, not {names[0]} {proj} and {names[1]} {flash} for the forwards {dict(tally)}")
+    check(eng.graph_stats["replayed"] - replayed == tally["chunks"],
+          f"{label}: {eng.graph_stats['replayed'] - replayed} graph replays for {tally['chunks']} chunks")
+    return results, counts, dict(tally), secs
+
+
+def tokens_held(label, eng, got, want) -> list:
+    """``got``'s tokens equal ``want``'s for every request, or the first
+    difference comes where the plain prefill path's top-2 logit gap after
+    ``want``'s tokens is at most NEAR_TIE x max |logit|.  Returns [(request,
+    token index, gap, max |logit|)] of the differences, printed."""
+    import numpy as np
+
+    from nf4_tpu_torch.models.llama import init_kv_cache
+    from nf4_tpu_torch.utils.shapes import bucket_len
+
+    cfg = eng.cfg
+    diffs = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g.tokens == w.tokens:
+            continue
+        at = next(j for j, (a, b) in enumerate(zip(g.tokens, w.tokens)) if a != b)
+        seq = list(w.prompt) + list(w.tokens[:at])
+        toks = np.zeros((1, min(bucket_len(len(seq)), cfg.max_seq_len)), np.int32)
+        toks[0, : len(seq)] = seq
+        logits = eng.prefill_group(init_kv_cache(cfg, 1), toks, np.asarray([len(seq)], np.int32), np.asarray([0]))
+        top = logits[0].float().topk(2).values
+        gap, scale = (top[0] - top[1]).item(), logits.abs().max().item()
+        diffs.append((i, at, gap, scale))
+        check(gap <= NEAR_TIE * scale, f"{label}: request {i} differs from plain decode at token {at}, where the "
+                                       f"top-2 gap is {gap} (max |logit| {scale}): not a near-tie")
+    print(f"phase {label} tokens: {len(got) - len(diffs)} of {len(got)} requests equal plain decode's; "
+          f"differences (request, token, top-2 gap, max |logit|): {diffs}")
+    return diffs
+
+
+def verify_round_ms(eng, cfg, prompt, kind, chunks=4, n=8) -> float:
+    """ms per speculative round of ``kind`` at batch 4 from position 1024
+    (kv_len 1536), graphed and pipelined: ``chunks`` chunks of ``n`` rounds
+    on a Decoder of ``eng`` over a scratch cache with ``prompt`` prefilled
+    in slot 0, after one untimed chunk (its capture)."""
+    import numpy as np
+    import torch
+
+    from nf4_tpu_torch.models.llama import init_kv_cache
+    from nf4_tpu_torch.serve.engine import Decoder, kv_bucket
+
+    cache = init_kv_cache(cfg, 4)
+    eng.prefill_group(cache, np.asarray([prompt], np.int32), np.asarray([len(prompt)], np.int32), np.asarray([0]))
+    dcache = init_kv_cache(eng._draft[1], 4) if kind.draft else None
+    dec = Decoder(eng, cache, dcache)
+    pos, act, cur = np.full(4, 1024, np.int64), np.ones(4, bool), np.zeros(4, np.int32)
+    kv = kv_bucket(1024 + (chunks + 1) * n * (kind.k + 1), eng.KV_BUCKET, cfg.max_seq_len)
+    dec.read_spec(dec.launch_spec(n, kv, kind, cur, pos, act))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    h = dec.launch_spec(n, kv, kind, cur, pos, act)
+    for _ in range(chunks - 1):
+        nxt = dec.launch_spec(n, kv, kind)
+        dec.read_spec(h)
+        h = nxt
+    targets, acc, lps = dec.read_spec(h)
+    ms = (time.perf_counter() - t0) * 1e3 / (chunks * n)
+    check(kv == 1536 and bool(np.isfinite(lps).all()) and ((targets >= 0) & (targets < cfg.vocab_size)).all(),
+          "verify rounds' outputs")
+    return ms
+
+
+def phase_spec(params, cfg, prompts, want, step_ms, int8=False):
+    """Main path (n): speculative decoding of Llama-3-8B at full width and
+    depth at batch 4, graphed and pipelined, on the phase's own weights
+    (5b's, or 5d's int8 ones): the phase's requests and a 1024-token
+    repeated span, 32 tokens each, by prompt lookup at spec_k 3 (16 verify
+    rows: kernel B's or D's decode kernel) and 7 (32 rows: its prefill
+    kernel) and by a draft model (Llama-3-8B's config at 2 layers, views
+    of the first two layers and the embedding, final norm and lm_head),
+    with the adaptive controller on.  Each: every launch count exact
+    (``spec_generate``), greedy tokens held to a plain Engine's
+    (``tokens_held``; the plain Engine's to the phase's own for its
+    requests), a second call on the same Engine capturing nothing with the
+    same tokens and launches; stochastic requests through the sampled
+    chunks; one eager host-stepped verify round of each spec_k with every
+    kernel call held to its plain version and the verify's rows counted; a
+    graphed verify round timed at kv_len 1536 against ``step_ms``, 5b's (or
+    5d's) plain step.  The int8 mode: prompt lookup at spec_k 3."""
+    import collections
+
+    import numpy as np
+    import torch
+
+    from nf4_tpu_torch.ops import int8_serve as i8
+    from nf4_tpu_torch.ops import matmul as mm
+    from nf4_tpu_torch.serve.engine import Engine, SpecKind
+    from nf4_tpu_torch.serve.sampling import SamplingParams
+
+    label = "5n int8" if int8 else "5n"
+    rng = np.random.default_rng(5)
+    span = list(map(int, rng.integers(0, cfg.vocab_size, SPEC_SPAN)))
+    requests = list(prompts) + [span * 4]
+    common = dict(batch_size=4, eos_token=-1, decode_chunk=8)
+    t_phase = time.perf_counter()
+
+    plain = Engine(params, cfg, **common)
+    plain.generate(requests, max_new_tokens=32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = plain.generate(requests, max_new_tokens=32)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    ref_diffs = tokens_held(f"{label} plain Engine on the phase's requests, against the phase's own tokens", plain,
+                            ref[: len(want)], [dataclasses.replace(r, tokens=t) for r, t in zip(ref, want)])
+    del plain
+    free_memory()
+
+    dcfg = dataclasses.replace(cfg, num_layers=2)
+    draft = (dataclasses.replace(params, layers=params.layers[:2]), dcfg)  # views: no copy
+    runs = [("prompt lookup k=3", dict(spec_k=3), True)]
+    if not int8:
+        runs += [("prompt lookup k=7", dict(spec_k=7), False), ("draft model k=3", dict(spec_k=3, draft=draft), True)]
+    stoch = SamplingParams(temperature=0.8, top_p=0.95)
+    res, launches = {}, collections.Counter()
+    for name, kw, sampled in runs:
+        eng = Engine(params, cfg, **common, **kw)
+        kind = SpecKind(kw["spec_k"], "draft" in kw, True)
+        got, counts, tally, secs = spec_generate(f"{label} {name}", eng, requests, int8=int8)
+        stats, captured = dict(eng.spec_stats), eng.graph_stats["captured"]
+        check(tally["spec_chunks"] > 0 and stats["steps"] > 0, f"{label} {name}: no speculative chunk ran: {tally}")
+        check(any(isinstance(key[2], SpecKind) and key[2].greedy for key in eng.state()[1].graphs),
+              f"{label} {name}: no greedy speculative graph")
+        diffs = tokens_held(f"{label} {name}", eng, got, ref)
+        # Call 2 from the controller's starting state: the same schedule.
+        eng._spec_pause = eng._spec_backoff = 0
+        again, counts2, _, secs2 = spec_generate(f"{label} {name} call 2", eng, requests, int8=int8)
+        check(eng.graph_stats["captured"] == captured, f"{label} {name}: call 2 captured a graph")
+        check([r.tokens for r in again] == [r.tokens for r in got] and counts2 == counts,
+              f"{label} {name}: call 2's tokens or launches differ from call 1's")
+        for key, v in counts.items():
+            launches[key] += v
+        row = dict(tokens_per_round=stats["emitted"] / stats["steps"], spec_stats=stats, forwards=tally,
+                   generate_s=secs, generate_again_s=secs2, generate_plain_again_s=plain_s, launches=counts,
+                   graphs=dict(eng.graph_stats), token_diffs=diffs)
+        if sampled:  # stochastic requests: the sampled chunks
+            eng._spec_pause = eng._spec_backoff = 0
+            steps0 = eng.spec_stats["steps"]
+            _, counts_s, tally_s, secs_s = spec_generate(f"{label} {name} sampled", eng, requests,
+                                                         sampling=stoch, int8=int8)
+            check(eng.spec_stats["steps"] > steps0 and any(
+                isinstance(key[2], SpecKind) and not key[2].greedy for key in eng.state()[1].graphs),
+                f"{label} {name}: stochastic requests ran no sampled speculative chunk")
+            for key, v in counts_s.items():
+                launches[key] += v
+            row.update(sampled_generate_s=secs_s, sampled_spec_steps=eng.spec_stats["steps"] - steps0,
+                       sampled_forwards=tally_s)
+        row["verify_round_ms"] = verify_round_ms(eng, cfg, prompts[0], kind)
+        res[name] = row
+        print(f"phase {label} {name}: {len(requests)} requests x 32 tokens, warm generate {secs2:.2f} s "
+              f"(plain Engine {plain_s:.2f} s; first call {secs:.2f} s); {row['tokens_per_round']:.2f} tokens per "
+              f"verify round over the batch ({stats['emitted']} in {stats['steps']} rounds), controller pauses "
+              f"{stats['pauses']}; forwards {tally}; graphed verify round at kv_len 1536 "
+              f"{row['verify_round_ms']:.2f} ms against the plain step's {step_ms:.2f} ms "
+              f"({row['verify_round_ms'] / step_ms:.2f}x)"
+              + (f"; sampled: {row['sampled_spec_steps']} rounds in {secs_s:.2f} s" if sampled else "")
+              + f"; on {card_line()}")
+        del eng
+        free_memory()
+
+    # One eager host-stepped verify round (a budget of 2) of each spec_k,
+    # every kernel call held to its plain version; the verify's rows go to
+    # the decode kernel (16 rows, bm 16) at spec_k 3, the prefill kernel
+    # (32 rows, padded to 64) at 7.
+    held = {}
+    for k in (3,) if int8 else (3, 7):
+        eager = Engine(params, cfg, batch_size=4, eos_token=-1, decode_chunk=8, pipeline_decode=False,
+                       cuda_graphs=False, spec_k=k)
+        eager.spec_min_accept = 0.0
+        rows = collections.Counter()
+        with kernels_held_to_plain(f"{label} eager verify k={k}") as held[k]:
+            mod, attr = (i8, "_int8_matmul_kernel") if int8 else (mm, "_matmul_bf16_kernel")
+            inner = getattr(mod, attr)
+            setattr(mod, attr, lambda x_pad, *a: rows.update([x_pad.shape[0]]) or inner(x_pad, *a))
+            try:
+                eager.generate(requests[:4], max_new_tokens=2)
+            finally:
+                setattr(mod, attr, inner)
+        verify = 4 * cfg.num_layers
+        want_rows = 16 if k == 3 else 64
+        check(eager.spec_stats["steps"] == 1 and rows[want_rows] == verify,
+              f"{label}: the eager verify at spec_k {k} sent {dict(rows)} rows to the kernel, not {verify} calls of "
+              f"{want_rows}")
+        held[k] = dict(held=held[k], rows=dict(rows))
+        del eager
+        free_memory()
+    print(f"phase {label}: done in {time.perf_counter() - t_phase:.1f} s; verify rows per kernel call "
+          f"{ {k: v['rows'] for k, v in held.items()} }")
+    return dict(launches), dict(runs=res, eager_held=held, plain_token_diffs=ref_diffs)
+
+
 def phase_int8_serving(prompts, profile):
     """Main path (d): the same serving with every projection recoded to int8
     (kernel D) and an int8 KV cache (kernel C's int8 branch)."""
@@ -1259,7 +1569,8 @@ def phase_int8_serving(prompts, profile):
     check(counts["matmul_bf16"] == 0 and counts["flash_attention"] == 0,
           f"int8 serving launched a 4-bit or bf16-KV kernel: {counts}")
     check(abs(serving["kv_cache_gb"] - kv8 / 1e9) < 1e-9, "KV cache size")
-    return counts, dict(serving, recode_s=recode_s)
+    spec_counts, spec = phase_spec(params, cfg, prompts, serving["tokens"], serving["decode_ms_step"], int8=True)
+    return counts, dict(serving, recode_s=recode_s, spec=spec), spec_counts
 
 
 @contextlib.contextmanager
@@ -2339,9 +2650,11 @@ def main() -> int:
     prompts = [list(map(int, rng.integers(0, LLAMA3_8B.vocab_size, n))) for n in (1024, 37, 300, 64, 700, 9)]
     serve_counts, serving, params = phase_serving(prompts, args.profile)
     http_counts, http = phase_http_serving(params, prompts, serving["tokens"], args.profile)
+    spec_counts, spec = phase_spec(params, LLAMA3_8B, prompts, serving["tokens"], serving["decode_ms_step"])
     del params
+    free_memory()
     phase_small_model(dev, rng)
-    int8_counts, serving8 = phase_int8_serving(prompts, args.profile)
+    int8_counts, serving8, spec8_counts = phase_int8_serving(prompts, args.profile)
     phase_checkpoint(dev, rng)
     qwen_counts, serving_qwen = phase_qwen2_serving(prompts, args.profile)
     free_memory()
@@ -2399,6 +2712,7 @@ def main() -> int:
              bound_ms=deq["w_down"]["bound_ms"], bound_by="bytes", library_ms=None),
         matmul_row("matmul_bf16", "nf4_tpu_torch/csrc/matmul.cu", "nf4_tpu/ops/matmul.py:148", mm,
                    serve_counts["matmul_bf16"], prefill=True, http_launches=http_counts["matmul_bf16"],
+                   spec_launches=spec_counts["matmul_bf16"],
                    gemma2_9b_launches=gemma2_counts["matmul_bf16"], gemma3_4b_launches=gemma3_counts["matmul_bf16"],
                    mixtral_8x7b_launches=mixtral_counts["matmul_bf16"],
                    qwen3_30b_a3b_launches=moe_counts["4-bit"]["matmul_bf16"],
@@ -2406,13 +2720,15 @@ def main() -> int:
         flash_row("flash_attention", fl, serve_counts["flash_attention"],
                   qwen2_7b_launches=qwen_counts["flash_attention"], gemma_7b_launches=gemma_counts["flash_attention"],
                   http_launches=http_counts["flash_attention"], gemma2_9b_launches=gemma2_counts["flash_attention"],
+                  spec_launches=spec_counts["flash_attention"],
                   gemma3_4b_launches=gemma3_counts["flash_attention"],
                   mixtral_8x7b_launches=mixtral_counts["flash_attention"],
                   qwen3_30b_a3b_launches=moe_counts["4-bit"]["flash_attention"]),
         flash_row("flash_attention_int8", fl8, int8_counts["flash_attention_int8"], int8=True,
+                  spec_launches=spec8_counts["flash_attention_int8"],
                   qwen3_30b_a3b_launches=moe_counts["int8"]["flash_attention_int8"]),
         matmul_row("int8_matmul", "nf4_tpu_torch/csrc/int8_matmul.cu", "nf4_tpu/ops/int8_serve.py:151", mm8,
-                   int8_counts["int8_matmul"], prefill=True,
+                   int8_counts["int8_matmul"], prefill=True, spec_launches=spec8_counts["int8_matmul"],
                    qwen3_30b_a3b_launches=moe_counts["int8"]["int8_matmul"],
                    hf_checkpoint_launches=hf_counts["int8"]["int8_matmul"]),
         dict(name="dequant_t_fast", route="cuda", source="nf4_tpu_torch/csrc/dequant.cu",
@@ -2441,7 +2757,7 @@ def main() -> int:
                            int8_matmul={f"{k[0]} B={k[1]}": v for k, v in mm8.items()},
                            exact_matmul={f"{k[0]} B={k[1]}": v for k, v in ex.items()}, exact_decode=ex_decode,
                            flash=fl, flash_int8=fl8, flash_shapes=fls, serving=serving, serving_int8=serving8,
-                           serving_qwen2_7b=serving_qwen, gemma_7b=gemma, http_serving=http,
+                           serving_qwen2_7b=serving_qwen, gemma_7b=gemma, http_serving=http, speculative=spec,
                            serving_gemma2_9b=gemma2, serving_gemma3_4b=gemma3, serving_mixtral_8x7b=mixtral,
                            qwen3_30b_a3b=qwen3_moe, hf_checkpoint=hf_ckpt,
                            training_bf16=train16, training_fp32=train32, kernels=kernels), f, indent=1)

@@ -269,14 +269,17 @@ def _dense_logits(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y.reshape(*x.shape[:-1], w.shape[0])
 
 
-def _matmul(x: torch.Tensor, w: Weight, out_dtype=None) -> torch.Tensor:
+def _matmul(x: torch.Tensor, w: Weight, out_dtype=None, decode: bool = False) -> torch.Tensor:
     """The one call site of every projection.  ``x`` [B, S, in] with S > 1
     holds prompt tokens, which take the prefill kernels whatever B * S (a
-    row's sum then does not follow what shares its call).  A dense weight:
-    the JAX package's ``jnp.dot`` with fp32 accumulation and output (full
-    fp32 products), then cast."""
+    row's sum then does not follow what shares its call), unless
+    ``decode`` says they are decode rows (a speculative verify window):
+    those route by count, as one decode row per sequence does (up to 16
+    rows the decode kernel, whose rows do not share their sums).  A dense
+    weight: the JAX package's ``jnp.dot`` with fp32 accumulation and
+    output (full fp32 products), then cast."""
     out_dtype = out_dtype or x.dtype
-    prompt = x.dim() == 3 and x.shape[1] > 1
+    prompt = x.dim() == 3 and x.shape[1] > 1 and not decode
     if isinstance(w, PackedInt8):
         return int8_matmul(x, w, out_dtype=out_dtype, prefill=prompt)
     if isinstance(w, PackedNF4):
@@ -599,11 +602,13 @@ def _post(cfg: LlamaConfig, t: torch.Tensor, w: Optional[torch.Tensor]) -> torch
 
 
 def _layer_forward(cfg, x, lp: LayerParams, layer_cache: Optional[KVCache], positions, seq_lens, cos, sin,
-                   kv_len=None, ll=None, train: bool = False, segment_ids=None, cache_index=None, window=None):
+                   kv_len=None, ll=None, train: bool = False, segment_ids=None, cache_index=None, window=None,
+                   decode: bool = False):
     """One decoder layer; x [B, S, hidden]; writes this call's K/V into the
     layer's cache views in place at ``cache_index`` (the positions'
     :func:`_cache_index`).  ``window`` is the layer's sliding window
-    (:func:`_layer_window`).  ``ll`` is the layer's LoRA adapters
+    (:func:`_layer_window`); ``decode`` marks the rows as decode rows (see
+    :func:`forward`).  ``ll`` is the layer's LoRA adapters
     (``train.lora.LoraLayer``) or None; ``train=True`` uses no cache
     (attention over this call's own K/V, differentiable paths only, with
     ``segment_ids`` for packed rows)."""
@@ -614,7 +619,7 @@ def _layer_forward(cfg, x, lp: LayerParams, layer_cache: Optional[KVCache], posi
 
     one_plus = cfg.rmsnorm_one_plus
     attn_in = rms_norm(x, lp.input_norm, cfg.rms_norm_eps, one_plus)
-    qkv = _add_delta(_matmul(attn_in, lp.wqkv), delta(attn_in, "qkv"))  # one kernel for q+k+v
+    qkv = _add_delta(_matmul(attn_in, lp.wqkv, decode=decode), delta(attn_in, "qkv"))  # one kernel for q+k+v
     if lp.qkv_bias is not None:
         qkv = qkv + lp.qkv_bias.to(qkv.dtype)
     qk, v = split_fused(qkv, (cfg.q_dim + cfg.kv_dim, cfg.kv_dim))
@@ -649,17 +654,18 @@ def _layer_forward(cfg, x, lp: LayerParams, layer_cache: Optional[KVCache], posi
             v_scale=layer_cache.v_scale,
             kv_len=kv_len,
             logit_softcap=cfg.attn_logit_softcapping,
+            decode=decode,
         )
     attn = attn.transpose(1, 2).reshape(b, s, cfg.q_dim)
-    o_proj = _add_delta(_matmul(attn, lp.wo, out_dtype=torch.float32), delta(attn, "o"))
+    o_proj = _add_delta(_matmul(attn, lp.wo, out_dtype=torch.float32, decode=decode), delta(attn, "o"))
     x = x + _post(cfg, o_proj, lp.post_attn_out_norm).to(x.dtype)
 
     mlp_in = rms_norm(x, lp.post_attn_norm, cfg.rms_norm_eps, one_plus)
     if lp.router is not None:
-        return x + _post(cfg, _moe_mlp(cfg, mlp_in, lp), lp.post_ffw_norm).to(x.dtype)
-    gateup = _add_delta(_matmul(mlp_in, lp.w_gateup), delta(mlp_in, "gateup"))  # one kernel for gate+up
+        return x + _post(cfg, _moe_mlp(cfg, mlp_in, lp, decode), lp.post_ffw_norm).to(x.dtype)
+    gateup = _add_delta(_matmul(mlp_in, lp.w_gateup, decode=decode), delta(mlp_in, "gateup"))  # one kernel for gate+up
     h = _gated(cfg, gateup)
-    down = _add_delta(_matmul(h, lp.w_down, out_dtype=torch.float32), delta(h, "down"))
+    down = _add_delta(_matmul(h, lp.w_down, out_dtype=torch.float32, decode=decode), delta(h, "down"))
     return x + _post(cfg, down, lp.post_ffw_norm).to(x.dtype)
 
 
@@ -669,7 +675,7 @@ def _gated(cfg: LlamaConfig, gateup: torch.Tensor) -> torch.Tensor:
     return _ACTIVATIONS[cfg.activation](gate.float()).to(up.dtype) * up
 
 
-def _moe_mlp(cfg: LlamaConfig, mlp_in: torch.Tensor, lp: LayerParams) -> torch.Tensor:
+def _moe_mlp(cfg: LlamaConfig, mlp_in: torch.Tensor, lp: LayerParams, decode: bool = False) -> torch.Tensor:
     """The mixture-of-experts MLP (the JAX package's ``_moe_mlp``): fp32
     router logits (full fp32 products: TF32 could flip a route), the top
     ``experts_per_token`` experts of each token, ties to the lower index as
@@ -677,7 +683,8 @@ def _moe_mlp(cfg: LlamaConfig, mlp_in: torch.Tensor, lp: LayerParams) -> torch.T
     renormalized (``moe_norm_topk``) or the full softmax's; then every token
     through every expert in expert order, each expert's fp32 output
     weighted by the token's weight for it (0 where not chosen) into an fp32
-    sum.  No shape depends on the routes, so decode chunks capture."""
+    sum.  No shape depends on the routes, so decode chunks capture.
+    ``decode``: the rows are decode rows (see :func:`forward`)."""
     with _ieee_fp32():
         logits = mlp_in.float() @ lp.router.float().t()  # [B, S, E]
     order = torch.sort(logits, dim=-1, descending=True, stable=True)
@@ -689,7 +696,7 @@ def _moe_mlp(cfg: LlamaConfig, mlp_in: torch.Tensor, lp: LayerParams) -> torch.T
     per_expert = torch.zeros_like(logits).scatter(-1, top_i, weights)  # [B, S, E], the chosen experts' weights
     acc = torch.zeros(mlp_in.shape, dtype=torch.float32, device=mlp_in.device)
     for e, (gu, dn) in enumerate(zip(_experts(lp.w_gateup), _experts(lp.w_down))):
-        out = _matmul(_gated(cfg, _matmul(mlp_in, gu)), dn, out_dtype=torch.float32)
+        out = _matmul(_gated(cfg, _matmul(mlp_in, gu, decode=decode)), dn, out_dtype=torch.float32, decode=decode)
         acc = acc + per_expert[..., e : e + 1] * out
     return acc
 
@@ -704,11 +711,19 @@ def forward(
     last_only: bool = False,
     kv_len: Optional[int] = None,
     lora=None,
+    decode: bool = False,
 ) -> Tuple[torch.Tensor, KVCache]:
     """Embed, run every layer, return fp32 logits ([B, S, V], or [B, V] for
     each row's last valid token with ``last_only``) and the cache, written
     in place.  ``kv_len`` (host int) bounds the slots any query can see.
-    ``lora`` is an optional unmerged ``train.lora.LoraParams``."""
+    ``lora`` is an optional unmerged ``train.lora.LoraParams``.
+
+    ``decode=True`` marks the S positions of each row as decode rows, not a
+    prompt: a speculative verify window of S <= 16 consecutive positions
+    on a live cache.  Their projections route by row count as decode's do
+    (``_matmul``) and their attention is :func:`~nf4_tpu_torch.ops.
+    attention.decode_attention`, so a row's logits follow its own tokens
+    and cache only, as a decode step's do.  Prompts pass no marker."""
     check_supported(cfg)
     b, s = tokens.shape
     x = _embed(params, cfg, tokens)
@@ -717,11 +732,11 @@ def forward(
     for i, lp in enumerate(params.layers):
         ll = None if lora is None else lora.layers[i]
         x = _layer_forward(cfg, x, lp, cache.layer(i), positions, seq_lens, *tables[i], kv_len, ll=ll,
-                           cache_index=index, window=_layer_window(cfg, i))
+                           cache_index=index, window=_layer_window(cfg, i), decode=decode)
     if last_only:
         last_idx = torch.clamp(seq_lens - 1 - positions[:, 0], 0, s - 1).long()
         x = x[torch.arange(b, device=x.device), last_idx]
-    return _logits(params, cfg, x), cache
+    return _logits(params, cfg, x, decode), cache
 
 
 def _embed(params: LlamaParams, cfg: LlamaConfig, tokens: torch.Tensor) -> torch.Tensor:
@@ -733,12 +748,12 @@ def _embed(params: LlamaParams, cfg: LlamaConfig, tokens: torch.Tensor) -> torch
     return x
 
 
-def _logits(params: LlamaParams, cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
+def _logits(params: LlamaParams, cfg: LlamaConfig, x: torch.Tensor, decode: bool = False) -> torch.Tensor:
     """fp32 logits of the final norm of ``x``, softcapped with
-    ``final_logit_softcapping`` (Gemma-2)."""
+    ``final_logit_softcapping`` (Gemma-2); ``decode`` as in :func:`forward`."""
     x = rms_norm(x, params.final_norm, cfg.rms_norm_eps, cfg.rmsnorm_one_plus)
     if isinstance(params.lm_head, (PackedNF4, PackedInt8)):
-        logits = _matmul(x, params.lm_head, out_dtype=torch.float32)
+        logits = _matmul(x, params.lm_head, out_dtype=torch.float32, decode=decode)
     else:
         logits = _dense_logits(x, params.lm_head.to(x.dtype))
     return _softcap(logits, cfg.final_logit_softcapping)

@@ -8,10 +8,12 @@ in serving), and probabilities round to it before the P.V product.
 
 * ``naive_attention`` materializes the [B, KV, G, S, T] fp32 scores.  It
   serves short prefills.
-* ``decode_attention`` serves decode (one query per row) over fixed key
-  blocks of ``DECODE_KV_BLOCK`` slots, so a row's output does not depend
-  on how far past its position the cache is read; decode attention is
-  plain tensor code in the JAX package too.
+* ``decode_attention`` serves decode rows over fixed key blocks of
+  ``DECODE_KV_BLOCK`` slots, so a row's output does not depend on how far
+  past its position the cache is read: one query per row, or a
+  speculative verify window of up to ``DECODE_MAX_QUERIES`` consecutive
+  positions per row; decode attention is plain tensor code in the JAX
+  package too.
 * ``chunked_attention`` streams the softmax over query and key chunks and
   skips key chunks a query chunk cannot see (bounded memory for long
   prefills where the kernel does not apply).
@@ -63,6 +65,9 @@ _NEG = -1e30
 # (serve/engine.py, Engine.KV_BUCKET) is a multiple of it, so a decode
 # chunk reads whole blocks.
 DECODE_KV_BLOCK = 512
+# The most queries per row decode_attention takes: a speculative verify
+# window of spec_k + 1 positions (the Engine's spec_k < 16).
+DECODE_MAX_QUERIES = 16
 # Query rows per kernel query tile (one warpgroup): the GQA-packed [G, sc]
 # rows, sc = floor(64 / G) positions (1 for G > 64, the tile then holding 64
 # heads of one position); rows G * sc .. 63 are idle.
@@ -154,30 +159,36 @@ def decode_attention(
     q, k, v, positions, seq_lens, *, scale: float, sliding_window: Optional[int] = None,
     k_scale=None, v_scale=None, kv_len: Optional[int] = None, logit_softcap: Optional[float] = None,
 ):
-    """Decode attention: q [B, H, 1, D], k/v [B, KV, T, D] as in
+    """Decode attention: q [B, H, S, D] with S <= ``DECODE_MAX_QUERIES``
+    queries per row (one in decode, a verify window of consecutive
+    positions in speculative decoding), k/v [B, KV, T, D] as in
     :func:`naive_attention`, reading the key blocks ``[t0, t0 +
-    DECODE_KV_BLOCK)`` (cut at T) for ``t0 < kv_len``.
+    DECODE_KV_BLOCK)`` (cut at T) for ``t0 < kv_len``.  One fp32 copy of
+    each block's K and V serves every query of the block's rows: the G
+    heads of a KV head and the S positions are the rows of one product.
 
     Each block's scores, sums and P.V product are computed with the same
     shapes whatever ``kv_len``; the softmax takes the maximum over every
-    block read (exact in any order), and a block wholly past a row's
-    position adds exact zeros to that row's sums.  So a row's output is a
-    function of its query and the cache up to its own position: it does
-    not depend on ``kv_len``, and so not on its batchmates' positions or
-    the decode chunk it runs in.  No host read.  The mask's bias is added
-    after the softcap: capped, a masked slot would be visible."""
+    block read (exact in any order), and a block wholly past a query's
+    position adds exact zeros to that query's sums.  So a row's output is
+    a function of its queries and the cache up to its own positions: it
+    does not depend on ``kv_len``, and so not on its batchmates' positions
+    or the decode chunk it runs in.  No host read.  The mask's bias is
+    added after the softcap: capped, a masked slot would be visible."""
     b, nh, s, d = q.shape
     nkv, t_max = k.shape[1], k.shape[2]
-    if s != 1:
-        raise ValueError(f"decode_attention takes one query per row, got S={s}")
+    if not 1 <= s <= DECODE_MAX_QUERIES:
+        raise ValueError(f"decode_attention takes 1 to {DECODE_MAX_QUERIES} queries per row, got S={s}")
     kv_len = t_max if kv_len is None else min(kv_len, t_max)
     bk, g = b * nkv, nh // nkv
-    qg = q.reshape(bk, g, d).float()
+    qg = q.reshape(bk, g * s, d).float()  # rows (head of the group, position)
     block = DECODE_KV_BLOCK
     read = min(-(-kv_len // block) * block, t_max)
     t_ids = torch.arange(read, device=q.device)
-    vis = _visibility(t_ids, positions, seq_lens, sliding_window)  # [B, 1, read]
-    bias = torch.where(vis, 0.0, _NEG).expand(b, nkv, read).reshape(bk, 1, read)
+    vis = _visibility(t_ids, positions, seq_lens, sliding_window)  # [B, S, read]
+    # One bias row per query row; with one query it broadcasts over the heads.
+    bias = torch.where(vis, 0.0, _NEG)[:, None, None].expand(b, nkv, g if s > 1 else 1, s, read)
+    bias = bias.reshape(bk, -1, read)
     scores, m = [], None
     for t0 in range(0, read, block):
         t1 = min(t0 + block, t_max)
@@ -200,7 +211,7 @@ def decode_attention(
             p = p * (v_scale[:, :, t0:t1] * (1.0 / 127.0)).reshape(bk, 1, t1 - t0)
         pv = torch.bmm(p.to(q.dtype).float(), v[:, :, t0:t1].float().reshape(bk, t1 - t0, d))
         o = pv if o is None else o + pv
-    return (o / l).reshape(b, nh, 1, d).to(q.dtype)
+    return (o / l).reshape(b, nh, s, d).to(q.dtype)
 
 
 def chunked_attention(
@@ -333,20 +344,22 @@ def attention(
     q, k, v, positions, seq_lens, *, scale, sliding_window=None,
     k_scale=None, v_scale=None, kv_len: Optional[int] = None,
     differentiable: bool = False, segment_ids=None, logit_softcap: Optional[float] = None,
+    decode: bool = False,
 ):
     """Dispatching entry point; see the module docstring for the contract
     (``positions[b]`` must be ``pos0_b + arange(S)``).  ``kv_len`` is an optional host-side
     bound: no query sees a slot at or past it, so the plain paths read only
     ``k[:, :, :kv_len]`` (the JAX package's chunk-skipping decode path reads
     only the live prefix the same way; here the caller knows its length).
-    One query per row is decode: :func:`decode_attention`, whose output
-    does not depend on ``kv_len``.  The dispatch thresholds use the full
+    One query per row is decode, and so are the rows of a speculative
+    verify window (``decode``, S <= ``DECODE_MAX_QUERIES``):
+    :func:`decode_attention`, whose output does not depend on ``kv_len``.  The dispatch thresholds use the full
     cache length, as the JAX package's do.  ``differentiable=True``
     (training), ``segment_ids`` (packed rows) and ``logit_softcap`` keep to
     the plain paths."""
     b, nh, s, d = q.shape
     t_max = k.shape[2]
-    if s == 1 and not differentiable and segment_ids is None:
+    if (s == 1 or decode) and not differentiable and segment_ids is None:
         return decode_attention(q, k, v, positions, seq_lens, scale=scale, sliding_window=sliding_window,
                                 k_scale=k_scale, v_scale=v_scale, kv_len=kv_len, logit_softcap=logit_softcap)
     opts = dict(k_scale=k_scale, v_scale=v_scale, segment_ids=segment_ids, logit_softcap=logit_softcap)

@@ -13,6 +13,10 @@
     # registry config with random weights (load test / smoke)
     python -m nf4_tpu_torch.serve --model llama3-8b --synthetic
 
+    # speculative decoding: prompt-lookup drafts, or a draft model's
+    python -m nf4_tpu_torch.serve --packed llama-nf4.npz --spec-k 3
+    python -m nf4_tpu_torch.serve --packed llama-nf4.npz --spec-k 3 --draft-packed draft-nf4.npz
+
 Endpoints (``serve/api.py``): ``/v1/completions``,
 ``/v1/chat/completions`` (incl. ``"stream": true`` SSE), ``/v1/models``,
 ``/health``, ``/metrics`` (Prometheus).  A tokenizer directory
@@ -32,9 +36,6 @@ import time
 # Flags of the JAX package's CLI whose machinery is not ported yet: each
 # parses, and exits with a clear message when set.
 _UNPORTED = {
-    "spec_k": "--spec-k (speculative decoding)",
-    "draft_packed": "--draft-packed (draft-model speculation)",
-    "draft_model": "--draft-model (draft-model speculation)",
     "prefix_cache": "--prefix-cache (shared-prefix prefill)",
 }
 
@@ -104,6 +105,22 @@ def build_engine(args):
     if eos is None:
         eos = 2  # Llama convention
 
+    draft = None
+    if args.draft_packed or args.draft_model:
+        if args.spec_k <= 0:
+            raise SystemExit("--draft-* requires --spec-k > 0")
+        t0 = time.monotonic()
+        # The draft covers the target's context.
+        if args.draft_packed:
+            dparams, dcfg = load_packed_auto(args.draft_packed, device=args.device, max_seq_len=cfg.max_seq_len)
+            dsrc = args.draft_packed
+        else:  # --draft-model NAME: synthetic draft weights (testing)
+            dcfg = dataclasses.replace(configs.get_config(args.draft_model), max_seq_len=cfg.max_seq_len)
+            dparams = synthetic_params(dcfg, seed=0, device=args.device)
+            dsrc = f"synthetic:{args.draft_model}"
+        draft = (dparams, dcfg)
+        print(f"draft model: {dsrc} ({time.monotonic() - t0:.1f}s)", file=sys.stderr)
+
     engine = Engine(
         params,
         cfg,
@@ -112,6 +129,8 @@ def build_engine(args):
         sampling=SamplingParams(temperature=args.temperature),
         decode_chunk=args.decode_chunk,
         device=args.device,
+        spec_k=args.spec_k,
+        draft=draft,
     )
     return engine, tokenizer
 
@@ -141,9 +160,14 @@ def main(argv=None, block=True):
     ap.add_argument("--tp", type=int, default=1, help="tensor-parallel degree (not ported yet)")
     ap.add_argument("--dp", type=int, default=1, help="data-parallel degree (not ported yet)")
     ap.add_argument("--decode-chunk", type=int, default=8, help="decode steps per host sync (one CUDA graph)")
-    ap.add_argument("--spec-k", type=int, default=0, help="speculative decoding draft length (not ported yet)")
-    ap.add_argument("--draft-packed", default=None, help="draft model checkpoint (not ported yet)")
-    ap.add_argument("--draft-model", default=None, help="synthetic draft model (not ported yet)")
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="speculative decoding: draft length (prompt-lookup n-gram drafts unless --draft-* gives a "
+                    "draft model)")
+    ap.add_argument("--draft-packed", default=None,
+                    help="packed checkpoint of a small draft model for draft-model speculation (same vocabulary)")
+    ap.add_argument("--draft-model", default=None,
+                    help="registry config name for a synthetic draft model (testing; real serving should use "
+                    "--draft-packed)")
     ap.add_argument("--prefix-cache", action="store_true", help="shared-prefix prefill (not ported yet)")
     ap.add_argument("--batch-window", type=float, default=0.01,
                     help="dispatcher dynamic-batching grace (s): wait this long after a fresh wave's first "

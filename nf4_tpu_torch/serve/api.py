@@ -397,6 +397,8 @@ class CompletionServer:
             ("graph_replays_total", "counter", eng.graph_stats["replayed"]),
             ("pipeline_launched_total", "counter", eng.pipeline_stats["launched"]),
             ("pipeline_discarded_total", "counter", eng.pipeline_stats["discarded"]),
+            ("spec_steps_total", "counter", eng.spec_stats["steps"]),
+            ("spec_emitted_total", "counter", eng.spec_stats["emitted"]),
             ("batch_slots", "gauge", eng.batch_size),
         ]
         return "".join(f"# TYPE nf4tpu_{name} {kind}\nnf4tpu_{name} {value}\n" for name, kind, value in rows)

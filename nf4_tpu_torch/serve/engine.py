@@ -61,14 +61,45 @@ held for an earlier call stay in the cache, and they are invisible for
 the reason a dropped chunk's are: a new request's prefill writes
 positions 0 to its bucket's end, each decode step writes its position
 before attending, and no query sees a slot past its own position.  One
-call runs at a time.  Speculation, prefix caching, scoring, LoRA and
-tensor parallelism are not ported yet.
+call runs at a time.  Prefix caching, scoring, LoRA and tensor
+parallelism are not ported yet.
+
+Speculative decoding (``spec_k > 0``; ``serve/speculative.py``, the JAX
+package's speculation): each round drafts ``spec_k`` tokens per slot, by
+prompt lookup over the slot's history or from a draft model
+(``draft=(params, cfg)``, run greedily over a cache of its own), and
+verifies them in one forward of ``spec_k + 1`` decode rows; greedy rows
+accept a draft iff it is the argmax (plain greedy's tokens), stochastic
+rows by rejection sampling (the sampled distribution).  A call leaves
+speculation to plain decode while an active request has a penalty, a
+logit bias, a seed, a dynamic bias row (choices, ``min_new_tokens``) or
+the call asks for top logprobs.  Rounds run ``decode_chunk`` at a time
+with no host read, as a graph of the Decoder's pool on CUDA, keyed by
+(kv_len, n, :class:`SpecKind`), kv_len the bucket of the chunk's worst-case
+end (every round advancing ``spec_k + 1``); prompt lookup reads a static
+device history ``[B, max_seq_len]`` that refills write and the chunks
+extend, the draft model its own cache, prefilled at refill and kept in
+lockstep.  Pipelined, a chunk's successor starts from its device outputs
+when it cannot end a request on budget.  A round that does not fit a
+chunk is one eager, host-stepped verify.  An adaptive controller pauses
+speculation when the mean accepted drafts per round fall below
+``spec_min_accept`` (plain decode serves a cooldown of ``spec_cooldown``
+chunks, doubling on each failed probe up to ``spec_cooldown_max``); a
+draft model's slots that fell behind during a pause catch up by grouped
+continuation prefills.  A dropped speculative chunk has written target K/V,
+history and draft K/V past the consumed state, all in place; each such
+position is written again before any query reads it (a round writes its
+window before it attends, drafts at a position before proposing from it,
+and history entries before ``slot_pos + 1`` are the consumed ones), so
+nothing is rolled back.  Idle slots verify frozen at position 0, in a
+window (< 16 positions) that any refill's prefill overwrites.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import time
 from typing import List, Optional, Sequence
 
@@ -77,12 +108,22 @@ import torch
 
 from ..models.llama import KVCache, LlamaConfig, LlamaParams, check_supported, decode_step, forward, init_kv_cache
 from ..ops._cuda import CountedGraph
-from ..ops.attention import DECODE_KV_BLOCK
+from ..ops.attention import DECODE_KV_BLOCK, DECODE_MAX_QUERIES
 from ..utils.device import resolve_device
 from ..utils.shapes import bucket_len
 from .sampling import BatchedSampling, KeyStream, SamplingParams, sample, sample_batched
+from .speculative import (
+    draft_propose,
+    propose_ngram,
+    spec_chunk,
+    spec_chunk_draft,
+    spec_chunk_draft_sampled,
+    spec_chunk_sampled,
+    spec_verify,
+    spec_verify_sampled,
+)
 
-__all__ = ["Engine", "Decoder", "ChunkKind", "GenerationResult", "kv_bucket"]
+__all__ = ["Engine", "Decoder", "ChunkKind", "SpecKind", "GenerationResult", "kv_bucket"]
 
 GREEDY = SamplingParams()
 # The most top-logprob alternatives a request may ask for (OpenAI's cap);
@@ -129,6 +170,76 @@ class ChunkKind:
     bias: bool = False
 
 
+@dataclasses.dataclass(frozen=True)
+class SpecKind:
+    """A speculative chunk's body, one graph each: ``k`` drafts per round,
+    drafted by a ``draft`` model (else prompt lookup), verified by the
+    ``greedy`` rule (else rejection sampling)."""
+
+    k: int
+    draft: bool
+    greedy: bool
+
+
+def _verify_forward(params, tokens, cache, positions, seq_lens, *, cfg, kv_len):
+    """The verify forward (``spec_verify``'s ``fwd``): decode rows."""
+    return forward(params, cfg, tokens, cache, positions, seq_lens, kv_len=kv_len, decode=True)
+
+
+def _draft_step(params, token, cache, positions, *, cfg, kv_len):
+    """One decode step of the draft model (the chunks' ``dfwd``)."""
+    return decode_step(params, cfg, token, cache, positions, kv_len=kv_len)
+
+
+def _spec_ok(p: SamplingParams) -> bool:
+    """Can a request be served by speculation?  Not with the penalties (their
+    token state would have to evolve across unaccepted drafts), a logit
+    bias, or a seed (rejection sampling's key use follows the accept
+    counts, which would break (seed, step) reproducibility)."""
+    return (p.repetition_penalty == 1.0 and p.presence_penalty == 0.0 and p.frequency_penalty == 0.0
+            and not p.logit_bias and p.seed is None)
+
+
+def prefill_rows(params, cfg: LlamaConfig, cache: KVCache, tokens: np.ndarray, lengths: np.ndarray,
+                 slots: np.ndarray, device, start: Optional[np.ndarray] = None, segment: int = 2048):
+    """Prefill a group of token rows (each padded to the same bucket) into
+    cache slots ``slots``; returns the last-token logits [G, V].  ``start``
+    [G] is each row's first position (default 0: a prompt); a continuation
+    from ``start`` sees the slot's cache below it, and its padding's
+    positions are cut at the cache's last slot, which no valid query
+    reads.
+
+    The slots' cache rows (the int8 scale planes' too) are gathered, run
+    through the model and scattered back (the JAX package's
+    ``_prefill_impl``).  Buckets above ``segment`` run segment by segment,
+    each attending to the cache the earlier ones wrote; each row's logits
+    come from the segment holding its last token."""
+    dev = device
+    g, bucket = tokens.shape
+    slots_t = torch.as_tensor(slots, dtype=torch.long, device=dev)
+    slot_cache = KVCache(**{name: t[:, slots_t] for name, t in cache.planes().items()})
+    toks = torch.as_tensor(tokens, dtype=torch.int32, device=dev)
+    lens = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
+    t_max = cache.k.shape[3]
+    first = 0 if start is None else int(np.max(start))
+    start_t = None if start is None else torch.as_tensor(start, dtype=torch.int32, device=dev)
+    last = None
+    for t0 in range(0, bucket, segment):
+        width = min(segment, bucket - t0)
+        positions = (t0 + torch.arange(width, dtype=torch.int32, device=dev)).expand(g, width)
+        seq_lens = torch.clamp(lens, max=t0 + width)
+        if start_t is not None:
+            positions = torch.clamp(start_t[:, None] + positions, max=t_max - 1)
+            seq_lens = start_t + seq_lens
+        logits, _ = forward(params, cfg, toks[:, t0 : t0 + width], slot_cache, positions, seq_lens,
+                            last_only=True, kv_len=min(first + t0 + width, t_max))
+        here = torch.as_tensor((lengths - 1) // segment == t0 // segment, device=dev)
+        last = logits if last is None else torch.where(here[:, None], logits, last)
+    for name, t in slot_cache.planes().items():
+        getattr(cache, name)[:, slots_t] = t
+    return last
+
+
 def kv_bucket(end: int, granularity: int, max_seq_len: int) -> int:
     """The ``kv_len`` of a decode chunk whose last step writes position
     ``end - 1``: ``end`` rounded up to a multiple of ``granularity``, at
@@ -161,6 +272,14 @@ class Engine:
     replays unless ``cuda_graphs=False``; ``pipeline_decode`` launches each
     chunk's successor before reading the chunk back.
 
+    ``spec_k > 0`` turns on speculative decoding (module docstring): prompt
+    lookup over ``spec_ngram``-grams, or a draft model with ``draft=(params,
+    cfg)`` (the same vocabulary, a ``max_seq_len`` at least this model's,
+    its params on ``device``).  The adaptive controller's fields
+    (``spec_min_accept``, ``spec_cooldown``, ``spec_cooldown_max``) may be
+    set after construction; ``spec_stats`` counts the verify rounds
+    consumed, the tokens they emitted and the controller's pauses.
+
     ``pipeline_stats`` counts the chunks launched ahead of a read-back and
     those dropped because the chunk before them ended a request;
     ``graph_stats`` the decode graphs captured, the seconds their captures
@@ -189,15 +308,28 @@ class Engine:
         cuda_graphs: bool = True,
         mesh=None,
         spec_k: int = 0,
+        spec_ngram: int = 3,
         draft=None,
         prefix_cache: bool = False,
         lora_bank=None,
     ):
-        unported = {"mesh": mesh is not None, "spec_k": spec_k > 0, "draft": draft is not None,
-                    "prefix_cache": prefix_cache, "lora_bank": lora_bank is not None}
+        unported = {"mesh": mesh is not None, "prefix_cache": prefix_cache, "lora_bank": lora_bank is not None}
         if any(unported.values()):
             raise NotImplementedError(f"not ported yet: {', '.join(k for k, v in unported.items() if v)}")
         check_supported(cfg)
+        # spec_k stays below the smallest prefill bucket (16), so a refill's
+        # prefill overwrites the window an idle slot's verify wrote.
+        if not 0 <= spec_k < DECODE_MAX_QUERIES:
+            raise ValueError(f"spec_k must be in [0, {DECODE_MAX_QUERIES})")
+        if draft is not None:
+            if spec_k == 0:
+                raise ValueError("draft= requires spec_k > 0")
+            dcfg = draft[1]
+            if dcfg.vocab_size != cfg.vocab_size:
+                raise ValueError("draft and target must share a vocabulary")
+            if dcfg.max_seq_len < cfg.max_seq_len:
+                raise ValueError("draft max_seq_len must cover the target's")
+            check_supported(dcfg)
         self.params = params
         self.cfg = cfg
         self.batch_size = batch_size
@@ -209,6 +341,18 @@ class Engine:
         self.pipeline_stats = {"launched": 0, "discarded": 0}
         self.graph_stats = {"captured": 0, "capture_s": 0.0, "replayed": 0, "pool_bytes": 0}
         self.keys = KeyStream(seed, self.device)
+        self.spec_k, self.spec_ngram = spec_k, spec_ngram
+        self._draft = None if draft is None else tuple(draft)
+        # The adaptive controller (the JAX package's): below spec_min_accept
+        # mean accepted drafts per round, speculation pauses for a cooldown
+        # of plain decode chunks, which doubles on each failed probe up to
+        # spec_cooldown_max and resets on a good one.
+        self.spec_min_accept = 0.15
+        self.spec_cooldown = 8
+        self.spec_cooldown_max = 128
+        self._spec_pause = 0
+        self._spec_backoff = 0
+        self.spec_stats = {"steps": 0, "emitted": 0, "pauses": 0}
         self.graph_stream = None
         self._cache: Optional[KVCache] = None
         self._decoder: Optional[Decoder] = None
@@ -219,14 +363,20 @@ class Engine:
     def _warm_up(self) -> None:
         """One eager decode step and one per-request sampling step of every
         mask kind on the capture stream over a throwaway cache, before any
-        capture: whatever the decode path makes at first use (the byte
-        tables, the occupancy queries, the tile counters, cuBLAS's
-        workspace for that stream, the kernels' shared-memory opt-in, the
-        sampler's kernels) then exists when a graph is captured.  Its
+        capture, and with ``spec_k`` one verify round of each accept rule
+        (through the draft model with one): whatever the decode path makes
+        at first use (the byte tables, the occupancy queries, the tile
+        counters, cuBLAS's workspace for that stream, the kernels'
+        shared-memory opt-in and tensor maps for the verify's row count,
+        the sampler's kernels) then exists when a graph is captured.  Its
         launches count as eager ones."""
         width = min(16, self.cfg.max_seq_len)
         cache = init_kv_cache(dataclasses.replace(self.cfg, max_seq_len=width), self.batch_size, self.device)
-        dec = Decoder(self, cache)
+        dcache = None
+        if self._draft is not None:
+            dcfg = dataclasses.replace(self._draft[1], max_seq_len=width)
+            dcache = init_kv_cache(dcfg, self.batch_size, self.device)
+        dec = Decoder(self, cache, dcache)
         self.graph_stream.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(self.graph_stream):
             logits = dec.run_eager(1, width)
@@ -235,6 +385,9 @@ class Engine:
                 kind = ChunkKind(1, mask, True)
                 dec.prepare(kind)
                 dec.sample_step(logits, tok, active != 0, steps, kind)
+            for greedy in (True, False) if self.spec_k else ():
+                dec.inputs[1:3] = torch.stack((torch.zeros_like(tok), torch.ones_like(tok)))  # from position 0
+                dec.run_spec(1, width, SpecKind(self.spec_k, self._draft is not None, greedy))
         torch.cuda.synchronize(self.device)
         self.keys.counter.zero_()  # the warm-up's draws do not count
 
@@ -244,7 +397,10 @@ class Engine:
         graph is captured once per Engine."""
         if self._decoder is None:
             self._cache = init_kv_cache(self.cfg, self.batch_size, device=self.device)
-            self._decoder = Decoder(self, self._cache)
+            dcache = None
+            if self._draft is not None:
+                dcache = init_kv_cache(self._draft[1], self.batch_size, device=self.device)
+            self._decoder = Decoder(self, self._cache, dcache)
         return self._cache, self._decoder
 
     @staticmethod
@@ -334,34 +490,19 @@ class Engine:
 
     def prefill_group(self, cache: KVCache, tokens: np.ndarray, lengths: np.ndarray, slots: np.ndarray):
         """Prefill a group of prompts (each padded to the same bucket) into
-        cache slots ``slots``; returns the last-token logits [G, V].
+        cache slots ``slots``; returns the last-token logits [G, V]
+        (:func:`prefill_rows`, in segments of ``PREFILL_SEGMENT``)."""
+        return prefill_rows(self.params, self.cfg, cache, tokens, lengths, slots, self.device,
+                            segment=self.PREFILL_SEGMENT)
 
-        The slots' cache rows (the int8 scale planes' too) are gathered,
-        run through the model and scattered back (the JAX package's
-        ``_prefill_impl``).  Buckets above
-        ``PREFILL_SEGMENT`` run segment by segment, each attending to the
-        cache the earlier ones wrote; each row's logits come from the
-        segment holding its last token."""
-        dev = self.device
-        g, bucket = tokens.shape
-        slots_t = torch.as_tensor(slots, dtype=torch.long, device=dev)
-        slot_cache = KVCache(**{name: t[:, slots_t] for name, t in cache.planes().items()})
-        toks = torch.as_tensor(tokens, dtype=torch.int32, device=dev)
-        lens = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
-        seg = self.PREFILL_SEGMENT
-        last = None
-        for t0 in range(0, bucket, seg):
-            width = min(seg, bucket - t0)
-            positions = (t0 + torch.arange(width, dtype=torch.int32, device=dev)).expand(g, width)
-            logits, _ = forward(
-                self.params, self.cfg, toks[:, t0 : t0 + width], slot_cache, positions,
-                torch.clamp(lens, max=t0 + width), last_only=True, kv_len=t0 + width,
-            )
-            here = torch.as_tensor((lengths - 1) // seg == t0 // seg, device=dev)
-            last = logits if last is None else torch.where(here[:, None], logits, last)
-        for name, t in slot_cache.planes().items():
-            getattr(cache, name)[:, slots_t] = t
-        return last
+    def prefill_draft(self, cache: KVCache, tokens: np.ndarray, lengths: np.ndarray, slots: np.ndarray,
+                      start: Optional[np.ndarray] = None):
+        """The draft model's prefill of token rows into its cache's
+        ``slots`` from positions ``start`` (default 0): a refill's prompts,
+        or the continuation of slots whose draft cache fell behind."""
+        dparams, dcfg = self._draft
+        return prefill_rows(dparams, dcfg, cache, tokens, lengths, slots, self.device, start,
+                            segment=self.PREFILL_SEGMENT)
 
 
 class Decoder:
@@ -383,16 +524,24 @@ class Decoder:
     for that event only, so a chunk launched after it keeps running.  The
     host buffers alternate, so a later chunk's copy cannot overwrite
     outputs not yet read; the device's need no twin, as their copy is
-    ordered before the next chunk on the stream."""
+    ordered before the next chunk on the stream.
 
-    def __init__(self, engine: Engine, cache: KVCache):
+    With the engine's ``spec_k``, :meth:`launch_spec` runs speculative
+    chunks the same way (:meth:`run_spec`): from the same inputs (tokens,
+    positions, active), over the prompt-lookup history ``hist`` [B,
+    max_seq_len] or the draft model's cache ``dcache``, their targets,
+    accept counts and logprobs into ``s_targets``, ``s_acc`` and ``s_lps``
+    [n, B, ...]."""
+
+    def __init__(self, engine: Engine, cache: KVCache, dcache: Optional[KVCache] = None):
         dev = engine.device
         b = cache.k.shape[1]
         n = max(engine.decode_chunk, 1)
         # The engine's parts, not the engine: it holds this Decoder.
         self.params, self.cfg, self.keys = engine.params, engine.cfg, engine.keys
         self.stats, self.stream = engine.graph_stats, engine.graph_stream
-        self.cache = cache
+        self.cache, self.dcache, self.draft = cache, dcache, engine._draft
+        self.spec_k, self.ngram = engine.spec_k, engine.spec_ngram
         self.inputs = torch.zeros((4, b), dtype=torch.int32, device=dev)
         self.toks = torch.zeros((n, b), dtype=torch.int32, device=dev)
         self.lps = torch.zeros((n, b), dtype=torch.float32, device=dev)
@@ -402,14 +551,19 @@ class Decoder:
         self.masks = {}  # "bool" / "counts" -> [B, V], made by prepare()
         self.saved = {}  # their copies while a chunk runs ahead
         self.bias = None  # [B, V] fp32, made by prepare()
+        outs = [("toks", self.toks), ("lps", self.lps), ("top_v", self.top_v), ("top_i", self.top_i)]
+        if self.spec_k:
+            kk = self.spec_k + 1
+            self.hist = torch.zeros((b, self.cfg.max_seq_len), dtype=torch.int32, device=dev)
+            self.s_targets = torch.zeros((n, b, kk), dtype=torch.int32, device=dev)
+            self.s_acc = torch.zeros((n, b), dtype=torch.int32, device=dev)
+            self.s_lps = torch.zeros((n, b, kk), dtype=torch.float32, device=dev)
+            outs += [("targets", self.s_targets), ("acc", self.s_acc), ("s_lps", self.s_lps)]
         pinned = dev.type == "cuda"
-        self.host = [
-            {name: torch.zeros(t.shape, dtype=t.dtype, pin_memory=pinned)
-             for name, t in (("toks", self.toks), ("lps", self.lps), ("top_v", self.top_v), ("top_i", self.top_i))}
-            for _ in range(2)
-        ]
+        self.host = [{name: torch.zeros(t.shape, dtype=t.dtype, pin_memory=pinned) for name, t in outs}
+                     for _ in range(2)]
         self.flip = 0
-        self.graphs = {}  # (kv_len, n, kind) -> CountedGraph
+        self.graphs = {}  # (kv_len, n, ChunkKind | SpecKind | None) -> CountedGraph
         self.pool = torch.cuda.graph_pool_handle() if engine.graph_stream is not None else None
 
     # -- the per-request state -------------------------------------------------
@@ -465,26 +619,44 @@ class Decoder:
         launch's device outputs.  On CUDA a chunk of ``n > 1`` steps is a
         graph replay."""
         self.prepare(kind)
-        if tokens is not None:
-            steps = np.zeros(len(tokens), np.int32) if steps is None else steps
-            host = np.stack([np.asarray(a, dtype=np.int32) for a in (tokens, positions, active, steps)])
-            # A pageable copy, so the host waits for the stream: it is idle
-            # or still runs a dropped chunk, which this one must follow.
-            self.inputs.copy_(torch.from_numpy(host))
-        if self.pool is not None and n > 1:
-            graph = self.graphs.get((kv_len, n, kind)) or self._capture(n, kv_len, kind)
+        self._set_inputs(tokens, positions, active, steps)
+        self._execute((kv_len, n, kind), n > 1, lambda: self.run_eager(n, kv_len, kind))
+        pairs = [("toks", self.toks[:n])]
+        if kind is not None:
+            pairs.append(("lps", self.lps[:n]))
+            if kind.top_lp_k:
+                pairs += [("top_v", self.top_v), ("top_i", self.top_i)]
+        return self._hand_off(pairs, n, kind)
+
+    def _set_inputs(self, tokens, positions, active, steps) -> None:
+        """Copy host inputs [B] into ``inputs`` (nothing when ``tokens`` is
+        None: the chunk continues from the device outputs)."""
+        if tokens is None:
+            return
+        steps = np.zeros(len(tokens), np.int32) if steps is None else steps
+        host = np.stack([np.asarray(a, dtype=np.int32) for a in (tokens, positions, active, steps)])
+        # A pageable copy, so the host waits for the stream: it is idle or
+        # still runs a dropped chunk, which this one must follow.
+        self.inputs.copy_(torch.from_numpy(host))
+
+    def _execute(self, key, graphed: bool, run) -> None:
+        """Run a chunk body: on CUDA (``graphed``) the replay of its graph,
+        captured at first use, else ``run()`` eagerly."""
+        if self.pool is not None and graphed:
+            graph = self.graphs.get(key) or self._capture(key, run)
             graph.replay()
             self.stats["replayed"] += 1
         else:
-            self.run_eager(n, kv_len, kind)
+            run()
+
+    def _hand_off(self, pairs, n: int, kind):
+        """Enqueue the copies of a chunk's outputs (host buffer name, device
+        tensor) into the next pinned host buffers and record an event: the
+        handle :meth:`read_all` / :meth:`read_spec` take."""
         out = self.host[self.flip]
         self.flip ^= 1
-        out["toks"][:n].copy_(self.toks[:n], non_blocking=True)
-        if kind is not None:
-            out["lps"][:n].copy_(self.lps[:n], non_blocking=True)
-            if kind.top_lp_k:
-                out["top_v"].copy_(self.top_v, non_blocking=True)
-                out["top_i"].copy_(self.top_i, non_blocking=True)
+        for name, t in pairs:
+            out[name][: t.shape[0]].copy_(t, non_blocking=True)
         done = None
         if self.toks.is_cuda:
             done = torch.cuda.Event()
@@ -570,17 +742,75 @@ class Decoder:
                 mask.scatter_add_(1, idx, act[:, None].to(torch.int32))
         return nxt, lp, top
 
-    def _capture(self, n: int, kv_len: int, kind: Optional[ChunkKind]) -> CountedGraph:
-        """Capture the chunk body for (kv_len, n, kind) on the engine's
-        capture stream, into this decoder's memory pool."""
+    # -- speculative chunks ------------------------------------------------------
+
+    def write_history(self, slot: int, start: int, tokens: Sequence[int]) -> None:
+        """Write ``tokens`` into the prompt-lookup history of ``slot`` from
+        position ``start`` (a pageable copy, ordered after the chunks
+        already launched)."""
+        vals = torch.from_numpy(np.asarray(tokens, dtype=np.int32))
+        self.hist[slot, start : start + len(vals)].copy_(vals)
+
+    def launch_spec(self, n: int, kv_len: int, kind: SpecKind, tokens=None, positions=None, active=None):
+        """Enqueue ``n`` speculative rounds at ``kv_len`` with body ``kind``
+        (:meth:`run_spec`); inputs and chaining as :meth:`launch`.  On CUDA
+        a graph replay.  Returns the handle :meth:`read_spec` takes."""
+        self._set_inputs(tokens, positions, active, None)
+        self._execute((kv_len, n, kind), True, lambda: self.run_spec(n, kv_len, kind))
+        pairs = [("targets", self.s_targets[:n]), ("acc", self.s_acc[:n]), ("s_lps", self.s_lps[:n])]
+        return self._hand_off(pairs, n, kind)
+
+    @staticmethod
+    def read_spec(handle):
+        """(targets [n, B, k+1], accepted [n, B], logprobs [n, B, k+1]) of a
+        launched speculative chunk, once its copy is done."""
+        out, n, _, done = handle
+        if done is not None:
+            done.synchronize()
+        return tuple(out[name][:n].numpy().copy() for name in ("targets", "acc", "s_lps"))
+
+    def run_spec(self, n: int, kv_len: int, kind: SpecKind) -> None:
+        """The speculative chunk's body, eagerly (and what a graph
+        captures): ``n`` rounds of drafting (prompt lookup over ``hist``,
+        or the draft model over ``dcache``), verify (greedy or rejection
+        sampling with the rows' ``bp`` and the engine's key stream),
+        history write and advance (``serve/speculative.py``), from
+        ``inputs``; the outputs into ``s_targets``, ``s_acc`` and ``s_lps``,
+        the next tokens and positions back into ``inputs``.  Nothing here
+        touches the host."""
+        tok, pos, active = self.inputs[0], self.inputs[1], self.inputs[2] != 0
+        fwd = functools.partial(_verify_forward, cfg=self.cfg, kv_len=kv_len)
+        common = dict(fwd=fwd, k=kind.k, n_steps=n)
+        if kind.draft:
+            dparams, dcfg = self.draft
+            common["dfwd"] = functools.partial(_draft_step, cfg=dcfg, kv_len=kv_len)
+            if kind.greedy:
+                out = spec_chunk_draft(self.params, dparams, tok, self.dcache, self.cache, pos, active, **common)
+            else:
+                out = spec_chunk_draft_sampled(self.params, dparams, tok, self.dcache, self.cache, pos, self.keys,
+                                               self.bp, active, **common)
+        elif kind.greedy:
+            out = spec_chunk(self.params, tok, self.hist, self.cache, pos, active, ngram=self.ngram, **common)
+        else:
+            out = spec_chunk_sampled(self.params, tok, self.hist, self.cache, pos, self.keys, self.bp, active,
+                                     ngram=self.ngram, **common)
+        targets, accepted, lps = out[:3]
+        self.s_targets[:n] = targets
+        self.s_acc[:n] = accepted
+        self.s_lps[:n] = lps
+        self.inputs[:2] = torch.stack(out[-2:])
+
+    def _capture(self, key, run) -> CountedGraph:
+        """Capture a chunk body ``run`` for ``key`` (kv_len, n, kind) on the
+        engine's capture stream, into this decoder's memory pool."""
         t0 = time.perf_counter()
         graph = CountedGraph()
         with graph.capture(pool=self.pool, stream=self.stream):
-            self.run_eager(n, kv_len, kind)
+            run()
         self.stats["capture_s"] += time.perf_counter() - t0
         self.stats["captured"] += 1
         self.stats["pool_bytes"] = max(self.stats["pool_bytes"], self.pool_bytes())
-        self.graphs[(kv_len, n, kind)] = graph
+        self.graphs[key] = graph
         return graph
 
     def pool_bytes(self) -> int:
@@ -640,6 +870,12 @@ class _Scheduler:
         self.cur = np.zeros(n, dtype=np.int32)  # next input token
         self.dynamic = [False] * n
         self.rowkey = [None] * n  # the key of each slot's uploaded bias row
+        # Speculation: the entries of each slot's device history row that
+        # hold its context, the positions its draft cache holds, and
+        # whether the last round's mean acceptance cleared the threshold.
+        self.hist_len = [0] * n
+        self.draft_pos = np.zeros(n, dtype=np.int64)
+        self.spec_confident = False
 
     def add_request(self, prompt, sp: SamplingParams) -> None:
         budget = sp.max_new_tokens if sp.max_new_tokens is not None else self.default_budget
@@ -781,6 +1017,27 @@ class _Scheduler:
                 self.on_token(r, t)
         if self.kind.mask is not None:
             self.dec.reset_mask(self.kind.mask, slots, first_t)
+        if self.eng.spec_k:
+            self._spec_refill(chunk, slots)
+
+    def _spec_refill(self, chunk, slots) -> None:
+        """A refilled slot's speculative state: its context in the device
+        history, or its full prompt in the draft model's cache (prefilled
+        from position 0, in one group)."""
+        if self.eng._draft is None:
+            for s, r, _ in chunk:
+                ctx = self.prompts[r] + self.generated[s]
+                self.dec.write_history(s, 0, ctx)
+                self.hist_len[s] = len(ctx)
+            return
+        dcfg = self.eng._draft[1]
+        full = [self.prompts[r] for _, r, _ in chunk]
+        toks = np.zeros((len(full), min(bucket_len(max(map(len, full))), dcfg.max_seq_len)), dtype=np.int32)
+        for j, p in enumerate(full):
+            toks[j, : len(p)] = p
+        self.eng.prefill_draft(self.dec.dcache, toks, np.asarray([len(p) for p in full], np.int32), slots)
+        for (s, _, _), p in zip(chunk, full):
+            self.draft_pos[s] = len(p)
 
     # -- the bias rows of progress-dependent slots -----------------------------
 
@@ -909,28 +1166,43 @@ class _Scheduler:
         return self.admit_peek is not None and any(r == -1 for r in self.slot_req) and bool(self.admit_peek())
 
     def decode(self) -> None:
-        """Decode chunks while every active slot has room for one (budget,
+        """One speculative round when the active requests allow it, else
+        decode chunks while every active slot has room for one (budget,
         context, a constant bias row), else a single step.  Pipelined, each
         chunk's successor is launched before the chunk is read back, when
         the successor too is sure to fit and no admitted request waits; it
         is dropped when the chunk ended a request or a request was
-        cancelled (the JAX package's multi-step branch of ``generate``)."""
+        cancelled (the JAX package's multi-step branch of ``generate``).
+        While speculation is paused, each plain chunk or step serves one
+        unit of the cooldown, and the chunk loop ends when it expires."""
         act = self.active()
         idx = np.nonzero(act)[0]
-        n = self.eng.decode_chunk
+        eng = self.eng
+        if self.spec_eligible(idx):
+            self.spec_round(act, idx)
+            return
+        n = eng.decode_chunk
         kind = self.chunk_kind(idx)
         if not (n > 1 and self.chunk_ok(idx, n, 0)):
+            if eng._spec_pause > 0:
+                eng._spec_pause -= 1
             self.consume(self.launch(act, 1, kind), act, 1)
             return
-        stats = self.eng.pipeline_stats
+        stats = eng.pipeline_stats
+        reprobe = eng.spec_k > 0 and eng._spec_pause > 0
         cur = self.launch(act, n, kind)
         while True:
             nxt = None
-            if self.eng.pipeline_decode and self.chunk_ok(idx, n, 1) and not self.admit_waiting():
+            # No successor when the cooldown expires at this chunk, so the
+            # loop ends (to probe again) dropping nothing.
+            expiring = reprobe and eng._spec_pause <= 1
+            if eng.pipeline_decode and self.chunk_ok(idx, n, 1) and not expiring and not self.admit_waiting():
                 self.dec.save_state(kind)
                 nxt = self.launch(act, n, kind, ahead=1)
                 stats["launched"] += 1
             finished = self.consume(cur, act, n)
+            if reprobe:
+                eng._spec_pause -= 1
             if nxt is None:
                 return
             if finished or self.cancel_hit():
@@ -938,3 +1210,239 @@ class _Scheduler:
                 self.dec.restore_state(kind)
                 return
             cur = nxt
+
+    # -- speculation -------------------------------------------------------------
+
+    def spec_eligible(self, idx) -> bool:
+        """Speculate this round?  The engine speculates and is not paused;
+        every active request allows it (:func:`_spec_ok`, no dynamic bias
+        row), the call asks for no top logprobs, and a verify window fits
+        every active slot's context (the JAX package's gate)."""
+        eng = self.eng
+        return (
+            eng.spec_k > 0
+            and eng._spec_pause == 0
+            and all(_spec_ok(self.slot_sp[s]) and not self.dynamic[s] for s in idx)
+            and self.kind.top_lp_k == 0
+            and self.cfg.max_seq_len - 1 - int(self.slot_pos[idx].max()) >= eng.spec_k + 1
+        )
+
+    def spec_room(self, idx, n: int, ahead: int) -> bool:
+        """Room for a chunk of ``n`` rounds launched ``ahead`` chunks past
+        the host state: context for the worst case (every round advancing
+        k + 1 positions) and budget for ``n`` more tokens (a chunk that
+        overshoots a budget has its extra tokens dropped)."""
+        span = self.eng.spec_k + 1
+        ctx_ok = self.cfg.max_seq_len - 1 - int(self.slot_pos[idx].max()) >= (ahead + 1) * n * span
+        rem = min(self.budgets[self.slot_req[s]] - len(self.generated[s]) for s in idx) - ahead * n
+        return ctx_ok and rem >= n
+
+    def successor_safe(self, idx, n: int) -> bool:
+        """The chunk in flight cannot end a request on budget, so its
+        successor is not dropped for that (worst case: every round emits
+        k + 1 tokens; a stop token can still drop it)."""
+        most = n * (self.eng.spec_k + 1)
+        return all(self.budgets[self.slot_req[s]] - len(self.generated[s]) > most for s in idx)
+
+    def spec_positions(self, act) -> np.ndarray:
+        """Verify positions: idle slots verify frozen at position 0."""
+        return np.where(act, self.slot_pos, 0)
+
+    def spec_kv_len(self, act, end: int) -> int:
+        """The kv bucket of a round or chunk ending ``end`` positions past
+        the active slots' furthest position."""
+        return kv_bucket(int(self.slot_pos[act].max()) + end, self.eng.KV_BUCKET, self.cfg.max_seq_len)
+
+    def sync_history(self, idx) -> None:
+        """Write into the device history what the active slots generated
+        since it last held their context (plain decode writes none)."""
+        for s in idx:
+            ctx_len = int(self.slot_pos[s]) + 1
+            if self.hist_len[s] < ctx_len:
+                ctx = self.prompts[self.slot_req[s]] + self.generated[s]
+                self.dec.write_history(s, self.hist_len[s], ctx[self.hist_len[s] : ctx_len])
+                self.hist_len[s] = ctx_len
+
+    def draft_catchup(self, idx) -> None:
+        """Bring the draft cache of active slots whose draft positions lag
+        their target positions (plain decode during a pause, a fully
+        accepted host-stepped round) up to them: grouped continuation
+        prefills of the gap tokens, from each slot's draft position (the
+        JAX package's ``_draft_catchup``)."""
+        dcfg = self.eng._draft[1]
+        lag = [s for s in idx if self.draft_pos[s] < self.slot_pos[s]]
+        i = 0
+        while i < len(lag):
+            g = next(gg for gg in (4, 2, 1) if len(lag) - i >= gg)
+            grp = lag[i : i + g]
+            i += g
+            gaps = [int(self.slot_pos[s] - self.draft_pos[s]) for s in grp]
+            toks = np.zeros((g, min(bucket_len(max(gaps)), dcfg.max_seq_len)), dtype=np.int32)
+            for j, s in enumerate(grp):
+                ctx = self.prompts[self.slot_req[s]] + self.generated[s]
+                toks[j, : gaps[j]] = ctx[int(self.draft_pos[s]) : int(self.slot_pos[s])]
+            self.eng.prefill_draft(self.dec.dcache, toks, np.asarray(gaps, np.int32), np.asarray(grp),
+                                   start=self.draft_pos[grp].astype(np.int32))
+            self.draft_pos[grp] = self.slot_pos[grp]
+
+    def spec_round(self, act, idx) -> None:
+        """One speculative round of the scheduler (the JAX package's spec
+        branch of ``generate``): chunks of verify rounds, pipelined, while
+        they fit, else one host-stepped verify; then the controller's
+        verdict on the round's mean acceptance.
+
+        After a failed probe (and from a wave's start with a draft model,
+        until a round clears the threshold) the chunks are short (n = 2)
+        and unpipelined, with one grace chunk; a running mean below the
+        threshold after two chunks ends the round at once."""
+        eng = self.eng
+        k, n = eng.spec_k, eng.decode_chunk
+        draft_mode = eng._draft is not None
+        probing = eng._spec_backoff > 0 or (draft_mode and not self.spec_confident and eng.spec_min_accept > 0.0)
+        if probing and n > 2 and (draft_mode or min(len(self.generated[s]) for s in idx) >= 2 * n):
+            n = 2
+        if draft_mode:
+            self.draft_catchup(idx)
+        kind = SpecKind(k, draft_mode, all(self.slot_sp[s].temperature == 0.0 for s in idx))
+        samples: List[float] = []
+        if n > 1 and self.spec_room(idx, n, 0):
+            self.spec_chunks(act, idx, n, kind, probing, samples)
+        else:
+            self.spec_single(act, idx, kind, samples)
+        self.spec_adapt(samples)
+
+    def spec_chunks(self, act, idx, n: int, kind: SpecKind, probing: bool, samples: List[float]) -> None:
+        """Speculative chunks of ``n`` rounds, each successor launched from
+        its predecessor's device outputs before that is read back, when it
+        fits, cannot be dropped on budget and the round is not probing."""
+        eng, stats = self.eng, self.eng.pipeline_stats
+        span = kind.k + 1
+
+        def launch(ahead: int):
+            kv_len = self.spec_kv_len(act, (ahead + 1) * n * span)
+            if ahead:
+                return self.dec.launch_spec(n, kv_len, kind)
+            if not kind.draft:
+                self.sync_history(idx)
+            return self.dec.launch_spec(n, kv_len, kind, self.cur, self.spec_positions(act), act)
+
+        def low_acc() -> bool:
+            return eng.spec_min_accept > 0.0 and len(samples) >= 2 and sum(samples) / len(samples) < eng.spec_min_accept
+
+        cur = launch(0)
+        while True:
+            nxt = None
+            waiting = self.admit_waiting()
+            if (eng.pipeline_decode and self.spec_room(idx, n, 1) and self.successor_safe(idx, n)
+                    and not probing and not waiting):
+                nxt = launch(1)
+                stats["launched"] += 1
+            finished = self.spec_consume(self.dec.read_spec(cur), idx, kind, samples)
+            if nxt is None:
+                # Probe grace: one more unpipelined chunk before the running
+                # mean decides (acceptance develops with the history).
+                if (probing and not waiting and not finished and not low_acc() and len(samples) < 2
+                        and self.spec_room(idx, n, 0) and not self.cancel_hit()):
+                    cur = launch(0)
+                    continue
+                return
+            if finished or low_acc() or self.cancel_hit():
+                stats["discarded"] += 1
+                return
+            cur = nxt
+
+    def spec_consume(self, outs, idx, kind: SpecKind, samples: List[float]) -> bool:
+        """Fold a speculative chunk's rounds into the host state; True when
+        a slot hit a stop or its budget, or its request was cancelled (it
+        takes none of the chunk's tokens).  A slot's position and token
+        follow the device through every round, past a stop too: the slot
+        retires before it decodes again."""
+        targets, acc, lps = outs
+        n = acc.shape[0]
+        samples.append(float(acc[:, idx].mean()))
+        self.eng.spec_stats["steps"] += n
+        finished = False
+        for s in idx:
+            r = self.slot_req[s]
+            if self.cancel is not None and self.cancel(r):
+                finished = True
+                continue
+            for i in range(n):
+                if self.emit(s, r, targets[i, s, : acc[i, s] + 1], lps[i, s]):
+                    finished = True
+                    break
+            self.slot_pos[s] += int((acc[:, s] + 1).sum())
+            self.cur[s] = targets[n - 1, s, acc[n - 1, s]]
+            self.hist_len[s] = int(self.slot_pos[s]) + 1
+            self.draft_pos[s] = self.slot_pos[s]  # the k+1 proposal steps cover every position below
+        return finished
+
+    def emit(self, s: int, r: int, tokens, lps) -> bool:
+        """Append a round's emitted tokens to slot ``s``; True at a stop
+        token or the budget (the rest are dropped)."""
+        for j, t in enumerate(tokens):
+            t = int(t)
+            self.generated[s].append(t)
+            self.eng.spec_stats["emitted"] += 1
+            if self.return_logprobs:
+                self.logprobs[s].append(float(lps[j]))
+            if self.on_token is not None and t not in self.stops[r]:
+                self.on_token(r, t)
+            if t in self.stops[r] or len(self.generated[s]) >= self.budgets[r]:
+                return True
+        return False
+
+    def spec_single(self, act, idx, kind: SpecKind, samples: List[float]) -> None:
+        """One host-stepped verify round, eager: drafts by prompt lookup on
+        the host (or k greedy steps of the draft model), one verify
+        forward, the read-back."""
+        eng, dec, k = self.eng, self.dec, kind.k
+        dev = eng.device
+        kv_len = self.spec_kv_len(act, k + 1)
+        tok = torch.as_tensor(self.cur, dtype=torch.int32, device=dev)
+        pos = torch.as_tensor(self.spec_positions(act), dtype=torch.int32, device=dev)
+        if kind.draft:
+            dparams, dcfg = eng._draft
+            dfwd = functools.partial(_draft_step, cfg=dcfg, kv_len=kv_len)
+            drafts, _ = draft_propose(dparams, tok, dec.dcache, pos, dfwd=dfwd, steps=k)
+        else:
+            host = np.zeros((len(self.cur), k), dtype=np.int32)
+            for s in idx:
+                host[s] = propose_ngram(self.prompts[self.slot_req[s]] + self.generated[s], k, eng.spec_ngram)
+            drafts = torch.from_numpy(host).to(dev)
+        fwd = functools.partial(_verify_forward, cfg=self.cfg, kv_len=kv_len)
+        if kind.greedy:
+            targets, acc, lps, _ = spec_verify(eng.params, tok, drafts, self.cache, pos, fwd=fwd, k=k)
+        else:
+            targets, acc, lps, _ = spec_verify_sampled(eng.params, tok, drafts, self.cache, pos, eng.keys.next(),
+                                                       dec.bp, fwd=fwd, k=k)
+        targets, acc, lps = targets.cpu().numpy(), acc.cpu().numpy(), lps.cpu().numpy()
+        samples.append(float(acc[idx].mean()))
+        eng.spec_stats["steps"] += 1
+        for s in idx:
+            r = self.slot_req[s]
+            if self.cancel is not None and self.cancel(r):
+                continue
+            n_emit = int(acc[s]) + 1
+            self.emit(s, r, targets[s, :n_emit], lps[s])
+            self.slot_pos[s] += n_emit
+            self.cur[s] = targets[s, n_emit - 1]
+            # k proposal steps wrote draft K/V below pos + k: a fully
+            # accepted round leaves one position for the catch-up.
+            self.draft_pos[s] = min(self.slot_pos[s], self.slot_pos[s] - n_emit + k)
+
+    def spec_adapt(self, samples: List[float]) -> None:
+        """The controller's verdict on a round: below ``spec_min_accept``
+        mean accepted drafts, pause for the cooldown (doubled on a repeated
+        failure, up to ``spec_cooldown_max``); else reset the back-off."""
+        if not samples:
+            return
+        eng = self.eng
+        mean = sum(samples) / len(samples)
+        self.spec_confident = mean >= eng.spec_min_accept
+        if mean < eng.spec_min_accept:
+            eng._spec_backoff = min(eng.spec_cooldown_max, (eng._spec_backoff * 2) or eng.spec_cooldown)
+            eng._spec_pause = eng._spec_backoff
+            eng.spec_stats["pauses"] += 1
+        else:
+            eng._spec_backoff = 0

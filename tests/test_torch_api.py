@@ -121,6 +121,32 @@ def test_health_models_metrics(served):
         urllib.request.urlopen(url + "/nope", timeout=30)
 
 
+def test_metrics_count_speculation(params):
+    """A server over a speculative Engine: /metrics carries the JAX server's
+    spec counters, at 0 before a request and moving with it (verify rounds
+    and the tokens they emitted), and the answer is a plain Engine's."""
+    tcfg, tparams = params
+    eng = Engine(tparams, tcfg, batch_size=2, eos_token=-1, device="cpu", spec_k=3)
+    eng.spec_min_accept = 0.0
+    server = CompletionServer(eng)
+    url = f"http://127.0.0.1:{server.start(port=0)}"
+
+    def counters():
+        with urllib.request.urlopen(url + "/metrics", timeout=30) as r:
+            values = dict(line.split() for line in r.read().decode().splitlines() if not line.startswith("#"))
+        return int(values["nf4tpu_spec_steps_total"]), int(values["nf4tpu_spec_emitted_total"])
+
+    try:
+        assert counters() == (0, 0)
+        code, body = _post(url, {"prompt": [1, 2, 3, 1, 2, 3, 1, 2], "max_tokens": 12})
+        steps, emitted = counters()
+    finally:
+        server.stop()
+    assert code == 200 and 0 < steps <= emitted <= 11
+    assert (steps, emitted) == (eng.spec_stats["steps"], eng.spec_stats["emitted"])
+    assert body["choices"][0]["tokens"] == _engine(params).generate([[1, 2, 3, 1, 2, 3, 1, 2]], max_new_tokens=12)[0].tokens
+
+
 def test_completion_matches_engine(served):
     url, twin, _ = served
     want = twin.generate([[3, 5, 7]], max_new_tokens=6)[0]

@@ -261,5 +261,6 @@ def test_decode_attention_independent_of_kv_len(rng, int8):
     # Row 0 (position 40) sees only the first block.
     first = tattn.decode_attention(*tx, scale=D**-0.5, kv_len=512, **tsc).float().numpy()
     np.testing.assert_array_equal(first[0], outs[0][0])
-    with pytest.raises(ValueError, match="one query"):
-        tattn.decode_attention(tx[0].expand(B, H, 2, D), *tx[1:], scale=D**-0.5)
+    # More queries per row than a verify window may hold are refused.
+    with pytest.raises(ValueError, match="queries per row"):
+        tattn.decode_attention(tx[0].expand(B, H, tattn.DECODE_MAX_QUERIES + 1, D), *tx[1:], scale=D**-0.5)

@@ -14,6 +14,8 @@ decode kernel's weights w_hi + w_lo bit for bit; the
 ``torch.set_float32_matmul_precision`` setting.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -1110,6 +1112,123 @@ def test_discarded_chunk_leaves_tokens_identical(dev):
     want = plain.generate(prompts, max_new_tokens=40, stop_tokens=[ref[i]])
     assert [r.tokens for r in got] == [r.tokens for r in want] and got[0].tokens == ref[:i]
     assert pipe.pipeline_stats["discarded"] >= 1 and pipe.graph_stats["replayed"] > 0
+
+
+# -- speculative chunks on CUDA graphs ------------------------------------------
+
+# (drafted by a draft model, greedy accept rule) of each body the Engine captures.
+_SPEC_KINDS = {"ngram-greedy": (False, True), "ngram-sampled": (False, False), "draft-greedy": (True, True),
+               "draft-sampled": (True, False)}
+
+
+def _spec_state(eng, cfg, dcfg):
+    """Caches (the draft's too, when ``dcfg``) with 4 prompts prefilled, the
+    prompts' contexts with their first tokens, and the next chunk's host
+    inputs: tokens, positions (the idle slot 3 at 0), active."""
+    from nf4_tpu_torch.models.llama import init_kv_cache
+
+    rng = np.random.default_rng(4)
+    lens = np.asarray([37, 90, 5, 64], np.int32)
+    toks = np.zeros((4, 128), np.int32)
+    for i, n in enumerate(lens):
+        toks[i, :n] = rng.integers(0, 8, n)  # few distinct tokens: prompt lookup finds matches
+    cache = init_kv_cache(cfg, 4)
+    first = eng.prefill_group(cache, toks, lens, np.arange(4)).argmax(-1).to(torch.int32).cpu().numpy()
+    dcache = None
+    if dcfg is not None:
+        dcache = init_kv_cache(dcfg, 4)
+        eng.prefill_draft(dcache, toks, lens, np.arange(4))
+    ctx = [list(toks[i, :n]) + [int(first[i])] for i, n in enumerate(lens)]
+    act = np.asarray([True, True, True, False])
+    return cache, dcache, ctx, first, np.where(act, lens, 0), act
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("kind", list(_SPEC_KINDS))
+def test_graphed_spec_chunk_bit_identical_to_eager(dev, kind, int8):
+    """A speculative chunk of 4 rounds of 3 drafts (prompt lookup, or a
+    1-layer draft model made of the target's first layer; the greedy rule,
+    or rejection sampling with greedy and stochastic rows; an idle slot)
+    captured as a CUDA graph and replayed gives the eager chunk's targets,
+    accept counts, logprobs, advanced inputs, key counter and writes to the
+    cache, the history and the draft cache bit for bit; so does the next
+    chunk, launched from the device outputs."""
+    from nf4_tpu_torch.serve.engine import Decoder, Engine, SpecKind, kv_bucket
+    from nf4_tpu_torch.serve.sampling import SamplingParams
+
+    draft, greedy = _SPEC_KINDS[kind]
+    cfg, params = _small_model(dev, int8)
+    dcfg = dataclasses.replace(cfg, num_layers=1) if draft else None
+    kw = dict(batch_size=4, eos_token=-1, decode_chunk=4, spec_k=3,
+              draft=(dataclasses.replace(params, layers=params.layers[:1]), dcfg) if draft else None)
+    eng, plain = Engine(params, cfg, **kw), Engine(params, cfg, cuda_graphs=False, **kw)
+    cache, dcache, ctx, first, pos, act = _spec_state(eng, cfg, dcfg)
+    graphed = Decoder(eng, cache, dcache)
+    eager = Decoder(plain, _clone_cache(cache), None if dcache is None else _clone_cache(dcache))
+    sps = [SamplingParams(), SamplingParams(temperature=0.9, top_k=40, top_p=0.9),
+           SamplingParams(temperature=1.1, min_p=0.05), SamplingParams(temperature=0.7)]
+    for dec in (graphed, eager):
+        dec.set_sampling(sps if not greedy else [SamplingParams()] * 4)
+        for s, c in enumerate(ctx):
+            dec.write_history(s, 0, c)
+    spec = SpecKind(3, draft, greedy)
+    kv = kv_bucket(int(pos[act].max()) + 16, eng.KV_BUCKET, cfg.max_seq_len)
+    outs = [dec.read_spec(dec.launch_spec(4, kv, spec, first, pos, act)) for dec in (graphed, eager)]
+    kv2 = kv_bucket(int(pos[act].max()) + 32, eng.KV_BUCKET, cfg.max_seq_len)
+    outs += [dec.read_spec(dec.launch_spec(4, kv2, spec)) for dec in (graphed, eager)]
+    torch.cuda.synchronize()
+    for a, b in ((outs[0], outs[1]), (outs[2], outs[3])):
+        assert all(np.array_equal(x, y) for x, y in zip(a, b))
+    assert torch.equal(graphed.inputs, eager.inputs) and torch.equal(eng.keys.counter, plain.keys.counter)
+    assert int(eng.keys.counter) == (0 if greedy else 8)
+    assert torch.equal(graphed.hist, eager.hist)
+    for mine, theirs in ((graphed.cache, eager.cache), (graphed.dcache, eager.dcache)):
+        for name, t in (mine.planes().items() if mine is not None else ()):
+            assert torch.equal(t, theirs.planes()[name]), name
+    assert set(graphed.graphs) == {(kv, 4, spec), (kv2, 4, spec)} and not eager.graphs
+    assert eng.graph_stats["replayed"] == 2
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("spec_k", [3, 7])
+def test_verify_row_independent_of_batchmates(dev, spec_k, int8):
+    """The verify forward of spec_k + 1 positions per row at batch 4 (16
+    rows: the decode kernel of B or D; 32: its prefill kernel): row 0's
+    logits from position 100 are the same bits whether its batchmates
+    verify near it (kv_len 512) or past position 1400 (kv_len 1536), with
+    other tokens."""
+    from nf4_tpu_torch.models.llama import forward, init_kv_cache
+    from nf4_tpu_torch.ops import _cuda
+    from nf4_tpu_torch.serve.engine import kv_bucket
+
+    cfg, params = _small_model(dev, int8)
+    cfg = dataclasses.replace(cfg, max_seq_len=2048)
+    gen = torch.Generator(device=dev).manual_seed(31)
+    base = init_kv_cache(cfg, 4)
+    for name, t in base.planes().items():
+        if t.dtype == torch.int8:
+            t.copy_(torch.randint(-127, 128, t.shape, generator=gen, device=dev, dtype=torch.int8))
+        elif t.dtype == torch.float32:
+            t.copy_(torch.rand(t.shape, generator=gen, device=dev) * 0.05)
+        else:
+            t.copy_(torch.randn(t.shape, generator=gen, device=dev))
+    s = spec_k + 1
+    row0 = torch.randint(0, cfg.vocab_size, (1, s), generator=gen, device=dev, dtype=torch.int32)
+    logits = []
+    for mates in ((120, 200, 300), (1400, 900, 1200)):
+        toks = torch.cat([row0, torch.randint(0, cfg.vocab_size, (3, s), generator=gen, device=dev,
+                                              dtype=torch.int32)])
+        pos0 = torch.tensor((100,) + mates, dtype=torch.int32, device=dev)
+        positions = pos0[:, None] + torch.arange(s, dtype=torch.int32, device=dev)[None, :]
+        cache = _clone_cache(base)
+        _cuda.reset_launch_counts()
+        out, _ = forward(params, cfg, toks, cache, positions, pos0 + s,
+                         kv_len=kv_bucket(max(mates) + s, 512, cfg.max_seq_len), decode=True)
+        torch.cuda.synchronize()
+        name = "int8_matmul" if int8 else "matmul_bf16"
+        assert _cuda.launch_counts()[name] == 4 * cfg.num_layers
+        logits.append(out[0])
+    assert torch.equal(logits[0], logits[1])
 
 
 def test_capture_with_a_host_sync_raises(dev, monkeypatch):

@@ -5,8 +5,9 @@ JAX package's ``init_params``, so both packages serve the same weights),
 in the 4-bit and the ``--int8 --kv8`` modes, and ``--model tiny-test
 --synthetic`` (also ``tiny-gemma2`` and ``tiny-moe``); answers over localhost equal a twin Engine's, and a
 checkpoint the JAX package saves is served as its own CLI serves it; an
-HF directory (``--hf-dir``) is quantized as it loads and served; flags of
-machinery not ported yet exit with a clear message."""
+HF directory (``--hf-dir``) is quantized as it loads and served;
+``--spec-k`` and ``--draft-*`` serve speculatively; flags of machinery not
+ported yet exit with a clear message."""
 
 import dataclasses
 import json
@@ -178,10 +179,46 @@ def test_hf_dir_serves(tmp_path, capsys, monkeypatch):
     assert body["choices"][0]["tokens"] == twin.generate([[3, 1, 4, 1, 5]], max_new_tokens=6)[0].tokens
 
 
+@pytest.mark.parametrize("flags", [
+    ["--spec-k", "3"],
+    ["--spec-k", "2", "--int8", "--kv8"],
+    ["--spec-k", "3", "--draft-model", "tiny-test"],
+    ["--spec-k", "3", "--draft-packed", "CHECKPOINT"],
+], ids=["prompt-lookup", "prompt-lookup-int8", "draft-model", "draft-packed"])
+def test_spec_flags_serve(checkpoint, flags):
+    """``--spec-k`` with prompt lookup (also in the int8 mode) and with a
+    draft model (synthetic, or the test's checkpoint): the server's Engine
+    speculates, with the draft's context cut to the target's, and answers
+    with a plain Engine's greedy tokens."""
+    path, tcfg, tparams = checkpoint
+    flags = [path if f == "CHECKPOINT" else f for f in flags]
+    server = main(["--packed", path, "--port", "0", "--batch-size", "2", "--eos", "-1", "--device", "cpu",
+                   "--decode-chunk", "4", "--max-seq-len", "48", *flags], block=False)
+    try:
+        eng = server.engine
+        eng.spec_min_accept = 0.0
+        assert eng.spec_k == int(flags[1])
+        if "--draft-model" in flags or "--draft-packed" in flags:
+            assert eng._draft is not None and eng._draft[1].max_seq_len == 48
+        body = _complete(server.port, {"prompt": [3, 1, 4, 1, 3, 1, 4, 1], "max_tokens": 10})
+    finally:
+        server.stop()
+    assert eng.spec_stats["steps"] > 0
+    cfg, params = dataclasses.replace(tcfg, max_seq_len=48), tparams
+    if "--int8" in flags:
+        cfg, params = dataclasses.replace(cfg, kv_quant=True), llama.recode_params_int8(tparams)
+    twin = Engine(params, cfg, batch_size=2, eos_token=-1, device="cpu")
+    assert body["choices"][0]["tokens"] == twin.generate([[3, 1, 4, 1, 3, 1, 4, 1]], max_new_tokens=10)[0].tokens
+
+
+def test_draft_flags_need_spec_k():
+    with pytest.raises(SystemExit, match="requires --spec-k"):
+        main(["--model", "tiny-test", "--synthetic", "--port", "0", "--device", "cpu", "--draft-model", "tiny-test"],
+             block=False)
+
+
 @pytest.mark.parametrize("flags, what", [
-    (["--spec-k", "2"], "--spec-k"), (["--draft-packed", "x.npz"], "--draft"),
-    (["--draft-model", "tiny-test"], "--draft"), (["--prefix-cache"], "--prefix-cache"), (["--tp", "2"], "--tp"),
-    (["--dp", "2"], "--dp"),
+    (["--prefix-cache"], "--prefix-cache"), (["--tp", "2"], "--tp"), (["--dp", "2"], "--dp"),
 ])
 def test_unported_flags_exit(flags, what):
     with pytest.raises(SystemExit, match="not ported yet") as e:

@@ -479,7 +479,7 @@ def test_sampling_argument_checks_and_unported_options(models):
         eng.generate([[1, 2]], max_new_tokens=2, adapter=[0])
     with pytest.raises(NotImplementedError, match="not ported yet: score"):
         eng.score([[1, 2]])
-    for kw in ({"spec_k": 2}, {"prefix_cache": True}, {"mesh": object()}, {"lora_bank": object()}, {"draft": 1}):
+    for kw in ({"prefix_cache": True}, {"mesh": object()}, {"lora_bank": object()}):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             _engine(models, **kw)
     # A default of the Engine's own: None entries take it.
