@@ -102,7 +102,17 @@ Phases, each of which fails the run on any error:
    stress tensor (4096 x 4096, NF4 and FP4) on the card against the
    oracle; then phase 5b's requests on the loaded params in the 4-bit and
    the int8 mode as (b), every kernel call of the eager run held to its
-   plain version.  Phase (c) also
+   plain version; (p) scoring and the shared-prefix cache on 5b's
+   weights, and again in the int8 mode of (d) (``phase_score_prefix``):
+   ``Engine.score`` of 5b's requests with their 32 greedy tokens, every
+   launch exact, each generated token's score within 2 x NEAR_TIE x max
+   |logit| of its decode-path logprob, a batch of 8 x 1024 seeded tokens
+   through kernel C timed with its peak memory and perplexity; six requests
+   of one 1024-token prefix and their own tails through 4 slots with
+   ``prefix_cache=True``, launches exact, tokens held to the cache-off
+   Engine's, a request admitted into an idle slot held to its run alone, a
+   second call reusing the saved prefix, each call timed against the
+   cache-off one.  Phase (c) also
    runs Gemma-2 and Gemma-3 small models, dense projections and MoE (fp32
    activations) card against CPU, and the MoE MLP alone in bf16 with 4-bit
    and int8 experts.  Every phase's weights are freed before the next.
@@ -124,7 +134,11 @@ Phases, each of which fails the run on any error:
    ``torch.profiler`` breakdown of one step; (d) a small model's train
    step on the card against the CPU (loss, adapter gradients, adapters
    after one SGD step); (e) a run saved with ``save_train_state`` and
-   resumed against the uninterrupted run.
+   resumed against the uninterrupted run;
+7. (q) the trained-in-place quality gate (``nf4_tpu_torch.eval.
+   quality_gate`` on its synthetic corpus at its defaults): a byte-level LM
+   trained as dense fp32 weights, its held-out perplexity dense, bf16, NF4
+   and int8-recoded, every one finite and the NF4 delta within 0.1.
 
 Kernel and library times are device times: many calls captured in one
 CUDA graph, replayed, and timed with CUDA events (an eager loop of small
@@ -1536,6 +1550,221 @@ def phase_spec(params, cfg, prompts, want, step_ms, int8=False):
     return dict(launches), dict(runs=res, eager_held=held, plain_token_diffs=ref_diffs)
 
 
+# Phase 5p: the scoring batch (8 sequences of 1024 seeded tokens), the
+# prefix-cache requests' tails (one 1024-token prefix, 5b's longest
+# prompt, then each its own tail), and the scores' tolerance against the
+# decode path's logprobs: 2 x NEAR_TIE x max |logit| (a log-probability is
+# a logit less the row's log-sum-exp, each within the near-tie scale).
+SCORE_BATCH = (8, 1024)
+PREFIX_TAILS = (37, 300, 64, 9, 700, 16)
+
+
+def score_expected(cfg, params, seqs, batch_size) -> tuple:
+    """(projection-kernel launches, kernel-C launches) of ``Engine.score``
+    over ``seqs`` in batches of ``batch_size``: one forward per batch over
+    a cache of its bucket T (kernel C when T >= 256 and B * H * T * T
+    reaches the threshold), and a packed lm_head once per row."""
+    from nf4_tpu_torch.nf4.format import PackedNF4
+    from nf4_tpu_torch.ops.attention import _CHUNKED_MIN_SCORE_ELEMS
+    from nf4_tpu_torch.ops.int8_serve import PackedInt8
+    from nf4_tpu_torch.utils.shapes import bucket_len
+
+    todo = [s for s in seqs if len(s) >= 2]
+    head = isinstance(params.lm_head, (PackedNF4, PackedInt8))
+    proj = flash = 0
+    for i in range(0, len(todo), batch_size):
+        batch = todo[i : i + batch_size]
+        t = min(bucket_len(max(map(len, batch))), cfg.max_seq_len)
+        proj += projections_per_layer(cfg) * cfg.num_layers + (len(batch) if head else 0)
+        flash += cfg.num_layers * (t >= 256 and len(batch) * cfg.num_heads * t * t >= _CHUNKED_MIN_SCORE_ELEMS)
+    return proj, flash
+
+
+@contextlib.contextmanager
+def prefill_clock():
+    """Within it, time every prefill the Engine runs (``prefill_rows``,
+    synchronized before and after): yields [calls, seconds, tokens]."""
+    import torch
+
+    from nf4_tpu_torch.serve import engine as engine_mod
+
+    clock = [0, 0.0, 0]
+    inner = engine_mod.prefill_rows
+
+    def timed(params, cfg, cache, tokens, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(params, cfg, cache, tokens, *a, **kw)
+        torch.cuda.synchronize()
+        clock[0] += 1
+        clock[1] += time.perf_counter() - t0
+        clock[2] += tokens.size
+        return out
+
+    engine_mod.prefill_rows = timed
+    try:
+        yield clock
+    finally:
+        engine_mod.prefill_rows = inner
+
+
+def phase_score_prefix(params, cfg, prompts, want, int8=False):
+    """Main path (p): scoring and the shared-prefix cache of Llama-3-8B at
+    full width and depth, on the phase's weights (5b's, or 5d's int8 ones).
+
+    Scoring: ``Engine.score`` of the phase's requests followed by their 32
+    greedy tokens (``generate(return_logprobs=True)``, held to the phase's
+    own tokens), every launch count exact, each generated token's score
+    within 2 x NEAR_TIE x max |logit| of its decode-path logprob; a batch of
+    8 x 1024 seeded tokens (kernel C) timed, with its peak memory and
+    perplexity.  The prefix cache: six requests of 32 tokens through 4
+    slots, each the 1024-token prompt and its own tail of ``PREFIX_TAILS``
+    tokens, so refills continue the prefix; launch counts exact
+    (``spec_generate``); tokens held to the same requests without the cache
+    (``tokens_held``); a request admitted mid-call into an idle slot held
+    to its run alone; a second call that reuses the saved prefix with the
+    first call's tokens; ``generate`` s of each call against the cache-off
+    Engine's."""
+    import numpy as np
+    import torch
+
+    from nf4_tpu_torch.eval.ppl import perplexity
+    from nf4_tpu_torch.models.llama import init_kv_cache
+    from nf4_tpu_torch.ops import _cuda
+    from nf4_tpu_torch.serve.engine import Engine
+
+    label = "5p int8" if int8 else "5p"
+    names = ("int8_matmul", "flash_attention_int8") if int8 else ("matmul_bf16", "flash_attention")
+    t_phase = time.perf_counter()
+    eng = Engine(params, cfg, batch_size=4, eos_token=-1, decode_chunk=8)
+    gen = eng.generate(prompts, max_new_tokens=32, return_logprobs=True)
+    gen_diffs = tokens_held(f"{label} generate(return_logprobs=True) against the phase's tokens", eng, gen,
+                            [dataclasses.replace(r, tokens=t) for r, t in zip(gen, want)])
+    seqs = [r.prompt + r.tokens for r in gen]
+    _cuda.reset_launch_counts()
+    scores = eng.score(seqs)
+    torch.cuda.synchronize()
+    counts = _cuda.launch_counts()
+    proj, flash = score_expected(cfg, params, seqs, eng.batch_size)
+    check(counts[names[0]] == proj and counts[names[1]] == flash and sum(counts.values()) == proj + flash,
+          f"{label} score launched {counts}, not {names[0]} {proj} and {names[1]} {flash}")
+    logits = eng.prefill_group(init_kv_cache(cfg, 1), np.asarray([prompts[0]], np.int32),
+                               np.asarray([len(prompts[0])], np.int32), np.asarray([0]))
+    scale = logits.abs().max().item()
+    diff = max(abs(a - b) for r, s in zip(gen, scores) for a, b in zip(s[len(r.prompt) - 1 :], r.logprobs))
+    check(all(len(s) == len(q) - 1 for s, q in zip(scores, seqs)) and all(np.isfinite(s).all() for s in scores),
+          f"{label}: score lengths or finite values")
+    check(diff <= 2 * NEAR_TIE * scale, f"{label}: a generated token's score is {diff} from its decode logprob "
+                                        f"(limit 2 x {NEAR_TIE} x max |logit| {scale})")
+
+    rng = np.random.default_rng(16)
+    batch = [list(map(int, rng.integers(0, cfg.vocab_size, SCORE_BATCH[1]))) for _ in range(SCORE_BATCH[0])]
+    eng.score(batch, batch_size=SCORE_BATCH[0])  # warm up
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    batch_scores = eng.score(batch, batch_size=SCORE_BATCH[0])
+    torch.cuda.synchronize()
+    score_s = time.perf_counter() - t0
+    batch_counts = _cuda.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    proj8, flash8 = score_expected(cfg, params, batch, SCORE_BATCH[0])
+    check(batch_counts[names[0]] == proj8 and batch_counts[names[1]] == flash8 == cfg.num_layers,
+          f"{label} 8 x 1024 score launched {batch_counts}, not {names[0]} {proj8} and {names[1]} {flash8}")
+    check(all(len(s) == SCORE_BATCH[1] - 1 and np.isfinite(s).all() for s in batch_scores),
+          f"{label}: 8 x 1024 scores")
+    ppl = perplexity(params, cfg, batch, batch_size=SCORE_BATCH[0])
+    check(math.isfinite(ppl), f"{label}: perplexity {ppl}")
+    n_tok = SCORE_BATCH[0] * (SCORE_BATCH[1] - 1)
+    score = dict(launches=counts, batch_launches=batch_counts, max_logprob_diff=diff, max_abs_logit=scale,
+                 batch_ms=score_s * 1e3, batch_tok_s=n_tok / score_s, batch_peak_gb=peak / 1e9,
+                 batch_peak_above_engine_gb=(peak - base) / 1e9, batch_perplexity=ppl, generate_token_diffs=gen_diffs)
+    print(f"phase {label} score: {len(seqs)} requests + 32 tokens, launches {counts} (kernel C on "
+          f"{counts[names[1]] // cfg.num_layers} of the batches); largest |score - decode logprob| over the generated "
+          f"tokens {diff:.4f} (limit {2 * NEAR_TIE * scale:.4f}, max |logit| {scale:.2f}); 8 x 1024 seeded tokens in "
+          f"{score_s * 1e3:.1f} ms = {n_tok / score_s:.0f} tokens/s through kernel C ({batch_counts}), peak "
+          f"{peak / 1e9:.2f} GB ({(peak - base) / 1e9:.2f} GB above the weights and the Engine's cache), perplexity "
+          f"{ppl:.1f}; on {card_line()}")
+
+    prefix = list(prompts[0])
+    tails = [list(map(int, rng.integers(0, cfg.vocab_size, n))) for n in PREFIX_TAILS]
+    requests = [prefix + t for t in tails]
+    eng.generate(requests, max_new_tokens=32)  # the cache-off Engine's captures
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    off = eng.generate(requests, max_new_tokens=32)
+    torch.cuda.synchronize()
+    off_s = time.perf_counter() - t0
+    with prefill_clock() as off_prefill:  # a third call, its prefills clocked
+        eng.generate(requests, max_new_tokens=32)
+    peng = Engine(params, cfg, batch_size=4, eos_token=-1, decode_chunk=8, prefix_cache=True)
+    got, pcounts, tally, first_s = spec_generate(f"{label} prefix", peng, requests, int8=int8)
+    stats1 = dict(peng.prefix_stats)
+    check(stats1 == {"prefix_len": len(prefix), "tokens_saved": len(prefix) * 5, "reused": False},
+          f"{label} prefix_stats {stats1}")
+    diffs = tokens_held(f"{label} prefix cache against the cache-off Engine", peng, got, off)
+
+    late = requests[2]
+    solo = eng.generate([late], max_new_tokens=32)
+    calls = []
+
+    def admit(features):
+        calls.append(features["prefix"] == tuple(prefix))
+        return [(late, None, None)] if len(calls) == 3 else []
+
+    admit.peek = lambda: len(calls) < 3
+    adm = peng.generate(requests[:2], max_new_tokens=32, admit=admit)
+    check(len(adm) == 3 and len(calls) >= 3 and all(calls), f"{label}: the admitted request ({len(calls)} polls)")
+    adm_diffs = tokens_held(f"{label} request admitted into an idle slot, against its run alone", peng, adm[2:], solo)
+
+    again, counts2, tally2, second_s = spec_generate(f"{label} prefix call 2", peng, requests, int8=int8)
+    with prefill_clock() as on_prefill:  # a third call, its prefills clocked
+        peng.generate(requests, max_new_tokens=32)
+    stats2 = dict(peng.prefix_stats)
+    # Call 2 runs call 1's forwards but the prefix's prefill (bucket 1024).
+    check(stats2["reused"] and tally2["target"] == tally["target"] - 1
+          and tally2["flash_target"] == tally["flash_target"] - flash_prefills(cfg, [(1, 1024)]),
+          f"{label} call 2: {stats2}, forwards {tally2} against {tally}")
+    check([r.tokens for r in again] == [r.tokens for r in got], f"{label}: call 2's tokens differ from call 1's")
+    prefix_res = dict(stats_first=stats1, stats_second=stats2, launches=pcounts, forwards=tally, token_diffs=diffs,
+                      admitted_token_diffs=adm_diffs, generate_first_s=first_s, generate_second_s=second_s,
+                      generate_cache_off_s=off_s, prefills_cache_off=off_prefill, prefills_reused=on_prefill)
+    print(f"phase {label} prefix cache: {len(requests)} requests of a 1024-token prefix + tails {PREFIX_TAILS}, "
+          f"32 tokens each through 4 slots: prefix_stats {stats1}, then {stats2}; launches {pcounts} for the "
+          f"forwards {tally}; generate {first_s:.2f} s (prefix prefilled) and {second_s:.2f} s (reused) against "
+          f"{off_s:.2f} s without the cache (warm); prefills [calls, s, padded tokens] of the warm calls: "
+          f"{[off_prefill[0], round(off_prefill[1], 3), off_prefill[2]]} without the cache, "
+          f"{[on_prefill[0], round(on_prefill[1], 3), on_prefill[2]]} reusing the prefix (a third call of each, "
+          f"synchronized around each prefill); an admitted request into an idle slot held to its run alone; "
+          f"phase {time.perf_counter() - t_phase:.1f} s; on {card_line()}")
+    del eng, peng
+    free_memory()
+    launches = {k: counts.get(k, 0) + batch_counts.get(k, 0) + pcounts.get(k, 0) + counts2.get(k, 0)
+                for k in set(counts) | set(batch_counts) | set(pcounts) | set(counts2)}
+    return launches, dict(score=score, prefix=prefix_res)
+
+
+def phase_quality_gate():
+    """Phase 7q: ``python -m nf4_tpu_torch.eval.quality_gate --corpus
+    synthetic`` at its defaults, in process: a byte-level LM trained in
+    place (dense fp32 weights, 600 AdamW steps), its held-out perplexity
+    dense fp32 and bf16, NF4 (kernel B) and int8-recoded (kernel D); every
+    perplexity finite and the NF4 delta within the gate of 0.1."""
+    from nf4_tpu_torch.eval.quality_gate import quality_gate
+
+    t0 = time.perf_counter()
+    report = quality_gate(corpus="synthetic", log=sys.stdout)
+    secs = time.perf_counter() - t0
+    ppls = ("ppl_dense_fp32", "ppl_dense_bf16", "ppl_nf4", "ppl_nf4_int8_recode")
+    check(all(math.isfinite(report[k]) for k in ppls), f"7q: a perplexity is not finite: {report}")
+    check(report["gate"] == 0.1 and report["within_gate"] and abs(report["delta"]) <= 0.1,
+          f"7q: the NF4 delta is outside the gate: {report}")
+    print(f"phase 7q quality gate (synthetic corpus, defaults) in {secs:.1f} s: {json.dumps(report)}; on {card_line()}")
+    return dict(report, seconds=secs)
+
+
 def phase_int8_serving(prompts, profile):
     """Main path (d): the same serving with every projection recoded to int8
     (kernel D) and an int8 KV cache (kernel C's int8 branch)."""
@@ -1570,7 +1799,8 @@ def phase_int8_serving(prompts, profile):
           f"int8 serving launched a 4-bit or bf16-KV kernel: {counts}")
     check(abs(serving["kv_cache_gb"] - kv8 / 1e9) < 1e-9, "KV cache size")
     spec_counts, spec = phase_spec(params, cfg, prompts, serving["tokens"], serving["decode_ms_step"], int8=True)
-    return counts, dict(serving, recode_s=recode_s, spec=spec), spec_counts
+    score_counts, score_prefix = phase_score_prefix(params, cfg, prompts, serving["tokens"], int8=True)
+    return counts, dict(serving, recode_s=recode_s, spec=spec, score_prefix=score_prefix), spec_counts, score_counts
 
 
 @contextlib.contextmanager
@@ -2651,10 +2881,11 @@ def main() -> int:
     serve_counts, serving, params = phase_serving(prompts, args.profile)
     http_counts, http = phase_http_serving(params, prompts, serving["tokens"], args.profile)
     spec_counts, spec = phase_spec(params, LLAMA3_8B, prompts, serving["tokens"], serving["decode_ms_step"])
+    score_counts, score_prefix = phase_score_prefix(params, LLAMA3_8B, prompts, serving["tokens"])
     del params
     free_memory()
     phase_small_model(dev, rng)
-    int8_counts, serving8, spec8_counts = phase_int8_serving(prompts, args.profile)
+    int8_counts, serving8, spec8_counts, score8_counts = phase_int8_serving(prompts, args.profile)
     phase_checkpoint(dev, rng)
     qwen_counts, serving_qwen = phase_qwen2_serving(prompts, args.profile)
     free_memory()
@@ -2679,6 +2910,8 @@ def main() -> int:
           "kernel E only in fp32, kernel B only in bf16")
     phase_train_small(rng)
     phase_resume(rng)
+    free_memory()
+    gate = phase_quality_gate()
 
     def decode_layer(res):  # one decode layer's four projections at B=4
         return [res[(name, 4)] for name in LLAMA3_8B_PROJ]
@@ -2712,7 +2945,7 @@ def main() -> int:
              bound_ms=deq["w_down"]["bound_ms"], bound_by="bytes", library_ms=None),
         matmul_row("matmul_bf16", "nf4_tpu_torch/csrc/matmul.cu", "nf4_tpu/ops/matmul.py:148", mm,
                    serve_counts["matmul_bf16"], prefill=True, http_launches=http_counts["matmul_bf16"],
-                   spec_launches=spec_counts["matmul_bf16"],
+                   spec_launches=spec_counts["matmul_bf16"], score_prefix_launches=score_counts["matmul_bf16"],
                    gemma2_9b_launches=gemma2_counts["matmul_bf16"], gemma3_4b_launches=gemma3_counts["matmul_bf16"],
                    mixtral_8x7b_launches=mixtral_counts["matmul_bf16"],
                    qwen3_30b_a3b_launches=moe_counts["4-bit"]["matmul_bf16"],
@@ -2721,14 +2954,17 @@ def main() -> int:
                   qwen2_7b_launches=qwen_counts["flash_attention"], gemma_7b_launches=gemma_counts["flash_attention"],
                   http_launches=http_counts["flash_attention"], gemma2_9b_launches=gemma2_counts["flash_attention"],
                   spec_launches=spec_counts["flash_attention"],
+                  score_prefix_launches=score_counts["flash_attention"],
                   gemma3_4b_launches=gemma3_counts["flash_attention"],
                   mixtral_8x7b_launches=mixtral_counts["flash_attention"],
                   qwen3_30b_a3b_launches=moe_counts["4-bit"]["flash_attention"]),
         flash_row("flash_attention_int8", fl8, int8_counts["flash_attention_int8"], int8=True,
                   spec_launches=spec8_counts["flash_attention_int8"],
+                  score_prefix_launches=score8_counts["flash_attention_int8"],
                   qwen3_30b_a3b_launches=moe_counts["int8"]["flash_attention_int8"]),
         matmul_row("int8_matmul", "nf4_tpu_torch/csrc/int8_matmul.cu", "nf4_tpu/ops/int8_serve.py:151", mm8,
                    int8_counts["int8_matmul"], prefill=True, spec_launches=spec8_counts["int8_matmul"],
+                   score_prefix_launches=score8_counts["int8_matmul"],
                    qwen3_30b_a3b_launches=moe_counts["int8"]["int8_matmul"],
                    hf_checkpoint_launches=hf_counts["int8"]["int8_matmul"]),
         dict(name="dequant_t_fast", route="cuda", source="nf4_tpu_torch/csrc/dequant.cu",
@@ -2759,7 +2995,8 @@ def main() -> int:
                            flash=fl, flash_int8=fl8, flash_shapes=fls, serving=serving, serving_int8=serving8,
                            serving_qwen2_7b=serving_qwen, gemma_7b=gemma, http_serving=http, speculative=spec,
                            serving_gemma2_9b=gemma2, serving_gemma3_4b=gemma3, serving_mixtral_8x7b=mixtral,
-                           qwen3_30b_a3b=qwen3_moe, hf_checkpoint=hf_ckpt,
+                           qwen3_30b_a3b=qwen3_moe, hf_checkpoint=hf_ckpt, score_prefix=score_prefix,
+                           quality_gate=gate,
                            training_bf16=train16, training_fp32=train32, kernels=kernels), f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -22,15 +22,19 @@ rather than fall back.
   ``csrc/matmul.cu``, fp32/fp16 on ``csrc/matmul_exact.cu``;
   differentiable in the activations (the weight stays frozen).
 
+* :func:`init_params` -- a seeded random model (the JAX package's draws).
+
 Serving lives in ``models/`` (Llama; HF checkpoint directories and packed
 checkpoints in ``models/loader.py``; the int8 recode ``recode_params_int8``) and
-``serve/engine.py``; QLoRA fine-tuning in ``train/``.
+``serve/engine.py`` (``Engine.score`` too); perplexity and scoring in
+``eval/``; QLoRA fine-tuning in ``train/``.
 """
 
 from .nf4.format import PackedNF4, pack_for_tpu, quantize_for_tpu
 from .nf4.lut import FP4_CODE, NF4_CODE, dynamic_code, get_code
 from .nf4.reference import QuantState, dequantize_nf4, quantize_nf4
 from .ops.dequant import dequantize, dequantize_fast, dequantize_t, dequantize_t_fast
+from .models.llama import init_params
 from .ops.matmul import nf4_matmul
 
 __version__ = "0.1.0"
@@ -51,6 +55,7 @@ __all__ = [
     "dequantize_fast",
     "dequantize_t_fast",
     "nf4_matmul",
+    "init_params",
     "dequantize_nf4_module",
     "reset_dequantize_state",
 ]

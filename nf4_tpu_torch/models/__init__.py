@@ -1,0 +1,3 @@
+from .llama import init_params
+
+__all__ = ["init_params"]

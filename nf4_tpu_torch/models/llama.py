@@ -69,6 +69,8 @@ __all__ = [
     "fuse_rows",
     "quantize_layer",
     "quantize_dense_params",
+    "init_params",
+    "lm_head",
 ]
 
 
@@ -150,10 +152,9 @@ def check_supported(cfg: LlamaConfig) -> None:
 
 def check_trainable(cfg: LlamaConfig) -> None:
     """Raise for the configurations :func:`train_forward` does not train
-    yet (they serve)."""
+    yet (they serve).  Dense projections (``quantize=False``) train."""
     check_supported(cfg)
     _raise_unported({
-        "quantize=False (dense projections)": not cfg.quantize,
         "num_experts > 1": cfg.num_experts > 1,
         "attn_logit_softcapping": cfg.attn_logit_softcapping is not None,
         "final_logit_softcapping": cfg.final_logit_softcapping is not None,
@@ -240,19 +241,22 @@ def init_kv_cache(cfg: LlamaConfig, batch_size: int, device=None) -> KVCache:
 
 class _HalfLogits(torch.autograd.Function):
     """``x @ w.T`` of bf16/fp16 CUDA operands with an fp32 result, and its
-    gradient in ``x`` (``w``, a dense leaf of the frozen base, gets none)."""
+    gradients in ``x`` and, where ``w`` is a trained dense leaf, in ``w``."""
 
     @staticmethod
     def forward(ctx, x2, w):
-        ctx.save_for_backward(w)
+        ctx.save_for_backward(x2, w)
         return torch.mm(x2, w.t(), out_dtype=torch.float32)
 
     @staticmethod
     def backward(ctx, g):
-        (w,) = ctx.saved_tensors
+        x2, w = ctx.saved_tensors
         # g rounds to the operand type (the half-precision product's input),
-        # the sums stay fp32 until the one rounding to x's type.
-        return torch.mm(g.to(w.dtype), w, out_dtype=torch.float32).to(w.dtype), None
+        # the sums stay fp32 until the one rounding to the operand's type.
+        g = g.to(w.dtype)
+        dx = torch.mm(g, w, out_dtype=torch.float32).to(w.dtype) if ctx.needs_input_grad[0] else None
+        dw = torch.mm(g.t(), x2, out_dtype=torch.float32).to(w.dtype) if ctx.needs_input_grad[1] else None
+        return dx, dw
 
 
 def _dense_logits(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -436,6 +440,49 @@ def quantize_dense_params(dense_layers: list, cfg: LlamaConfig, embed, final_nor
         final_norm=_host(final_norm).to(dev, torch.float32),
         lm_head=_lm_head(lm_head, cfg, dev),
     )
+
+
+def init_params(cfg: LlamaConfig, seed: int = 0, device=None) -> LlamaParams:
+    """Random weights on ``device`` (default ``cuda``), quantized per
+    ``cfg.quantize``: the JAX package's ``init_params``, the same
+    ``np.random.default_rng(seed)`` draws in the same order (per layer the
+    q/k/v biases, q, k, v, o, then gate, up and down, per expert with the
+    router after them; then the embedding and the lm_head), so dense
+    leaves equal its bit for bit, and packed ones after the same
+    ``quantize_for_tpu``.  Norms are ones."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    h, inter = cfg.hidden_size, cfg.intermediate_size
+
+    def dense(mo, ni):
+        return (rng.standard_normal((mo, ni)) * (ni**-0.5)).astype(np.float32)
+
+    def ones(n):
+        return np.ones(n, np.float32)
+
+    layers = []
+    for _ in range(cfg.num_layers):
+        lw = {"input_norm": ones(h), "post_attn_norm": ones(h)}
+        if cfg.attn_bias:
+            lw.update(bq=rng.standard_normal(cfg.q_dim) * 0.02, bk=rng.standard_normal(cfg.kv_dim) * 0.02,
+                      bv=rng.standard_normal(cfg.kv_dim) * 0.02)
+        lw.update(wq=dense(cfg.q_dim, h), wk=dense(cfg.kv_dim, h), wv=dense(cfg.kv_dim, h), wo=dense(h, cfg.q_dim))
+        if cfg.num_experts == 1:
+            lw.update(w_gate=dense(inter, h), w_up=dense(inter, h), w_down=dense(h, inter))
+        else:
+            for e in range(cfg.num_experts):
+                lw.update({f"expert{e}.w_gate": dense(inter, h), f"expert{e}.w_up": dense(inter, h),
+                           f"expert{e}.w_down": dense(h, inter)})
+            lw["router"] = rng.standard_normal((cfg.num_experts, h)) * (h**-0.5)
+        if cfg.attn_logit_softcapping is not None or cfg.sliding_window_pattern > 1:  # Gemma-2's block
+            lw.update(post_attn_out_norm=ones(h), post_ffw_norm=ones(h))
+        if cfg.qk_norm:
+            lw.update(q_norm=ones(cfg.head_dim), k_norm=ones(cfg.head_dim))
+        layers.append(quantize_layer(lw, cfg, dev))
+    embed = (rng.standard_normal((cfg.vocab_size, h)) * 0.02).astype(np.float32)
+    head = (rng.standard_normal((cfg.vocab_size, h)) * (h**-0.5)).astype(np.float32)
+    return LlamaParams(embed=_host(embed).to(dev, cfg.dtype), layers=layers,
+                       final_norm=torch.ones(h, dtype=torch.float32, device=dev), lm_head=_lm_head(head, cfg, dev))
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float, one_plus: bool = False) -> torch.Tensor:
@@ -712,11 +759,15 @@ def forward(
     kv_len: Optional[int] = None,
     lora=None,
     decode: bool = False,
+    hidden: bool = False,
 ) -> Tuple[torch.Tensor, KVCache]:
     """Embed, run every layer, return fp32 logits ([B, S, V], or [B, V] for
     each row's last valid token with ``last_only``) and the cache, written
     in place.  ``kv_len`` (host int) bounds the slots any query can see.
     ``lora`` is an optional unmerged ``train.lora.LoraParams``.
+    ``hidden=True`` returns the last layer's output instead of the logits
+    (``[B, S, hidden]``, before the final norm), for a caller that applies
+    :func:`lm_head` a part at a time (scoring keeps no ``[B, S, V]``).
 
     ``decode=True`` marks the S positions of each row as decode rows, not a
     prompt: a speculative verify window of S <= 16 consecutive positions
@@ -736,7 +787,7 @@ def forward(
     if last_only:
         last_idx = torch.clamp(seq_lens - 1 - positions[:, 0], 0, s - 1).long()
         x = x[torch.arange(b, device=x.device), last_idx]
-    return _logits(params, cfg, x, decode), cache
+    return (x if hidden else lm_head(params, cfg, x, decode)), cache
 
 
 def _embed(params: LlamaParams, cfg: LlamaConfig, tokens: torch.Tensor) -> torch.Tensor:
@@ -748,9 +799,10 @@ def _embed(params: LlamaParams, cfg: LlamaConfig, tokens: torch.Tensor) -> torch
     return x
 
 
-def _logits(params: LlamaParams, cfg: LlamaConfig, x: torch.Tensor, decode: bool = False) -> torch.Tensor:
-    """fp32 logits of the final norm of ``x``, softcapped with
-    ``final_logit_softcapping`` (Gemma-2); ``decode`` as in :func:`forward`."""
+def lm_head(params: LlamaParams, cfg: LlamaConfig, x: torch.Tensor, decode: bool = False) -> torch.Tensor:
+    """The model's head: fp32 logits of the final norm of hidden states
+    ``x`` (``forward(hidden=True)``'s), softcapped with
+    ``final_logit_softcapping``; ``decode`` as in :func:`forward`."""
     x = rms_norm(x, params.final_norm, cfg.rms_norm_eps, cfg.rmsnorm_one_plus)
     if isinstance(params.lm_head, (PackedNF4, PackedInt8)):
         logits = _matmul(x, params.lm_head, out_dtype=torch.float32, decode=decode)
@@ -775,12 +827,13 @@ def train_forward(
     plain paths, and ``remat=True`` checkpoints each layer
     (``torch.utils.checkpoint``, non-reentrant), so the backward recomputes
     the layer's activations instead of keeping all ``L`` layers' of them.
-    Gradients flow to ``lora`` (and any dense leaf that requires one); the
-    packed weights are frozen.  For packed rows (``train.data.pack_sft``)
+    Gradients flow to ``lora`` and to any dense leaf that requires one
+    (a ``quantize=False`` model's projections train in full); the packed
+    weights are frozen.  For packed rows (``train.data.pack_sft``)
     ``segment_ids`` makes attention block-diagonal and ``positions`` carries
     the segment-relative rotary phases; the causal mask runs on slot
-    indices.  Gemma-2/3, MoE and dense-projection configurations are not
-    trained yet (:func:`check_trainable`)."""
+    indices.  Gemma-2/3 and MoE configurations are not trained yet
+    (:func:`check_trainable`)."""
     check_trainable(cfg)
     b, s = tokens.shape
     x = _embed(params, cfg, tokens)
@@ -795,7 +848,7 @@ def train_forward(
                                   ll=ll, train=True, segment_ids=segment_ids, window=cfg.sliding_window)
 
         x = checkpoint(layer, x, use_reentrant=False) if remat else layer(x)
-    return _logits(params, cfg, x)
+    return lm_head(params, cfg, x)
 
 
 def prefill(params, cfg: LlamaConfig, tokens: torch.Tensor, cache: Optional[KVCache] = None):

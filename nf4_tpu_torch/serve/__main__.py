@@ -17,6 +17,9 @@
     python -m nf4_tpu_torch.serve --packed llama-nf4.npz --spec-k 3
     python -m nf4_tpu_torch.serve --packed llama-nf4.npz --spec-k 3 --draft-packed draft-nf4.npz
 
+    # shared-prefix caching: a wave's common prompt prefix prefilled once
+    python -m nf4_tpu_torch.serve --packed llama-nf4.npz --prefix-cache
+
 Endpoints (``serve/api.py``): ``/v1/completions``,
 ``/v1/chat/completions`` (incl. ``"stream": true`` SSE), ``/v1/models``,
 ``/health``, ``/metrics`` (Prometheus).  A tokenizer directory
@@ -33,13 +36,6 @@ import os
 import sys
 import time
 
-# Flags of the JAX package's CLI whose machinery is not ported yet: each
-# parses, and exits with a clear message when set.
-_UNPORTED = {
-    "prefix_cache": "--prefix-cache (shared-prefix prefill)",
-}
-
-
 def build_engine(args):
     """Construct (engine, tokenizer) from parsed CLI args."""
     from ..models import configs
@@ -49,9 +45,6 @@ def build_engine(args):
     from .engine import Engine
     from .sampling import SamplingParams
 
-    for name, what in _UNPORTED.items():
-        if getattr(args, name):
-            raise SystemExit(f"{what} is not ported yet")
     if args.tp > 1 or args.dp > 1:
         raise SystemExit("--tp / --dp > 1 (multi-GPU serving) is not ported yet")
     if sum(map(bool, (args.packed, args.hf_dir, args.synthetic))) != 1:
@@ -131,6 +124,7 @@ def build_engine(args):
         device=args.device,
         spec_k=args.spec_k,
         draft=draft,
+        prefix_cache=args.prefix_cache,
     )
     return engine, tokenizer
 
@@ -168,7 +162,7 @@ def main(argv=None, block=True):
     ap.add_argument("--draft-model", default=None,
                     help="registry config name for a synthetic draft model (testing; real serving should use "
                     "--draft-packed)")
-    ap.add_argument("--prefix-cache", action="store_true", help="shared-prefix prefill (not ported yet)")
+    ap.add_argument("--prefix-cache", action="store_true", help="prefill shared prompt prefixes once per wave")
     ap.add_argument("--batch-window", type=float, default=0.01,
                     help="dispatcher dynamic-batching grace (s): wait this long after a fresh wave's first "
                     "request for more arrivals")

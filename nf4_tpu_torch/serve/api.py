@@ -8,8 +8,13 @@ The port of the JAX package's ``serve/api.py``.  Stdlib-only
   "presence_penalty", "frequency_penalty", "logit_bias": {"id": bias},
   "stop": [ids], "min_tokens", "seed": int, "n": int, "logprobs": bool |
   int, "top_logprobs": int, "guided_choice": [[ids] | "text", ...],
-  "stream": bool}``.  String prompts need the server to be constructed
-  with a tokenizer (anything with ``encode(str) -> ids`` /
+  "stream": bool, "echo": bool}``.  ``echo`` puts the prompt before the
+  completion's tokens and, with ``logprobs``, the prompt's teacher-forced
+  log-probabilities (``Engine.score``) before the completion's:
+  ``token_logprobs`` is ``[None] + prompt + completion``, and
+  ``top_logprobs`` has ``None`` at the prompt's positions.  ``echo`` with
+  ``max_tokens: 0`` scores the prompt and generates nothing.  String
+  prompts need the server to be constructed with a tokenizer (anything with ``encode(str) -> ids`` /
   ``decode(ids) -> str`` — a HF tokenizer fits).  ``seed`` makes the
   response reproducible (choice ``i`` of ``n`` uses ``seed + i``).
 * ``POST /v1/chat/completions`` — same sampling fields with
@@ -34,7 +39,10 @@ the running call can serve them (``Engine.admissible``); the rest lead the
 next wave.  All CUDA work stays on the dispatcher thread (a CUDA call from
 another thread while a decode graph is being captured would invalidate
 the capture); handler threads only parse, tokenize, wait and serialize.
-Not ported yet: ``echo`` (prompt scoring) and multi-LoRA model names.
+Scoring-only requests (``echo`` with ``max_tokens: 0``) never generate and
+never join a running wave; a wave's ``echo`` + ``logprobs`` requests are
+scored in one batched ``Engine.score`` after its ``generate``.  Not ported
+yet: multi-LoRA model names.
 """
 
 from __future__ import annotations
@@ -51,7 +59,7 @@ import traceback
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, List, Optional, Sequence
 
-from .engine import MAX_TOP_LOGPROBS, Engine
+from .engine import MAX_TOP_LOGPROBS, Engine, GenerationResult
 from .sampling import SamplingParams
 
 __all__ = ["CompletionServer", "serve_http"]
@@ -75,6 +83,10 @@ class _Pending:
     # handed to on_token so far.
     cancelled: bool = False
     emitted: int = 0
+    # OpenAI "echo": the prompt (and, with logprobs, its teacher-forced
+    # logprobs) in the response; with max_tokens=0, scoring only.
+    echo: bool = False
+    prompt_logprobs: Optional[List[float]] = None
 
 
 def _params_from_body(body: Dict[str, Any], seed_offset: int = 0) -> SamplingParams:
@@ -143,7 +155,7 @@ class CompletionServer:
         self._dispatcher = threading.Thread(target=self._dispatch_loop, name="nf4-dispatcher", daemon=True)
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._lock = threading.Lock()
-        self.stats = {"requests": 0, "waves": 0, "tokens_out": 0, "admitted": 0, "cancelled": 0}
+        self.stats = {"requests": 0, "waves": 0, "tokens_out": 0, "admitted": 0, "cancelled": 0, "scored": 0}
         self.port: Optional[int] = None
 
     def _count(self, name: str, k: int = 1) -> None:
@@ -178,15 +190,19 @@ class CompletionServer:
             carry = self._run_wave(wave)
 
     def _run_wave(self, wave: List[_Pending]) -> List[_Pending]:
-        """Run one engine call over ``wave``; requests arriving mid-wave
-        join it through the engine's ``admit`` hook when the call can
-        serve them (``Engine.admissible``); the rest are returned
-        deferred, to lead the next wave."""
+        """Run one engine call over ``wave``'s generating requests, then
+        score its ``echo`` + ``logprobs`` prompts in one batched
+        ``Engine.score``.  Requests arriving mid-wave join the call through
+        the engine's ``admit`` hook when it can serve them
+        (``Engine.admissible``) and they generate; the rest are returned
+        deferred, to lead the next wave.  The engine's request indices are
+        positions in ``gen_wave``, the wave's generating requests."""
         self._count("waves")
         deferred: List[_Pending] = []
+        gen_wave = [p for p in wave if p.params.max_new_tokens != 0]
 
         def on_token(req_idx: int, tok: int):
-            p = wave[req_idx]
+            p = gen_wave[req_idx]
             p.emitted += 1
             if p.stream_q is not None:
                 if p.cancelled:
@@ -197,21 +213,23 @@ class CompletionServer:
                 p.stream_q.put(tok)
 
         def cancel(req_idx: int) -> bool:
-            """Engine request indices are wave positions (admitted
-            requests are appended to both in the same order)."""
-            return wave[req_idx].cancelled
+            """Engine request indices are gen_wave positions (admitted
+            requests are appended to it and to the wave)."""
+            return gen_wave[req_idx].cancelled
 
         def admit(features):
             """Drain the HTTP queue into the running engine call."""
             admitted = []
-            while len(wave) < self.max_wave:
+            while len(gen_wave) < self.max_wave:
                 try:
                     p = self._queue.get_nowait()
                 except queue.Empty:
                     break
-                if not Engine.admissible(features, p.tokens, p.params, logprobs=p.logprobs):
+                if p.params.max_new_tokens == 0 or not Engine.admissible(features, p.tokens, p.params,
+                                                                         logprobs=p.logprobs):
                     deferred.append(p)
                     continue
+                gen_wave.append(p)
                 wave.append(p)
                 admitted.append((p.tokens, p.params, None))
                 self._count("admitted")
@@ -222,19 +240,31 @@ class CompletionServer:
         admit.peek = lambda: not self._queue.empty()
 
         try:
-            results = self.engine.generate(
-                [p.tokens for p in wave],
-                # Per-request budgets ride SamplingParams.max_new_tokens;
-                # the call-level value is a fallback.
-                max_new_tokens=max(p.params.max_new_tokens or 64 for p in wave),
-                sampling=[p.params for p in wave],
-                return_logprobs=any(p.logprobs for p in wave),
-                # Always wired: a request admitted mid-wave may stream even
-                # when none of the initial ones do.
-                on_token=on_token,
-                admit=admit,
-                cancel=cancel,
-            )
+            for p in wave:
+                if p.params.max_new_tokens == 0:
+                    p.result = GenerationResult(list(p.tokens), [], True, [])
+            results = []
+            if gen_wave:
+                results = self.engine.generate(
+                    [p.tokens for p in gen_wave],
+                    # Per-request budgets ride SamplingParams.max_new_tokens;
+                    # the call-level value is a fallback.
+                    max_new_tokens=max(p.params.max_new_tokens or 64 for p in gen_wave),
+                    sampling=[p.params for p in gen_wave],
+                    return_logprobs=any(p.logprobs for p in gen_wave),
+                    # Always wired: a request admitted mid-wave may stream
+                    # even when none of the initial ones do.
+                    on_token=on_token,
+                    admit=admit,
+                    cancel=cancel,
+                )
+            # The prompts' logprobs of echo + logprobs requests, one
+            # batched teacher-forced pass.
+            need = [p for p in wave if p.echo and p.logprobs]
+            if need:
+                for p, lp in zip(need, self.engine.score([p.tokens for p in need])):
+                    p.prompt_logprobs = lp
+                self._count("scored", len(need))
         except Exception as e:  # the dispatcher keeps serving: report to every waiter
             traceback.print_exc(file=sys.stderr)
             for p in wave:
@@ -243,7 +273,7 @@ class CompletionServer:
                     p.stream_q.put(None)
                 p.done.set()
             return deferred
-        for p, r in zip(wave, results):
+        for p, r in zip(gen_wave, results):
             p.result = r
             self._count("tokens_out", len(r.tokens))
             # A socket can close after its request finished normally; only
@@ -272,16 +302,19 @@ class CompletionServer:
         vocab = self.engine.cfg.vocab_size
         if not all(0 <= t < vocab for t in tokens):
             raise ValueError(f"prompt token ids must be in [0, {vocab})")
-        if body.get("echo"):
-            raise ValueError("not ported yet: echo (prompt scoring)")
+        echo = bool(body.get("echo", False))
+        if echo and len(tokens) > self.engine.cfg.max_seq_len:
+            raise ValueError(f"prompt length {len(tokens)} exceeds the model context {self.engine.cfg.max_seq_len}")
         params = _params_from_body(body, seed_offset)
         if not all(0 <= t < vocab for t, _ in params.logit_bias):
             raise ValueError(f"logit_bias token ids must be in [0, {vocab})")
         if not 0 <= params.top_logprobs <= MAX_TOP_LOGPROBS:
             # An unbounded k would fail the whole wave on the device.
             raise ValueError(f"logprobs/top_logprobs must be in [0, {MAX_TOP_LOGPROBS}]")
-        if params.max_new_tokens < 1:
-            raise ValueError("max_tokens must be >= 1")
+        if params.max_new_tokens < 0:
+            raise ValueError("max_tokens must be >= 0")
+        if params.max_new_tokens == 0 and not echo:
+            raise ValueError("max_tokens=0 requires echo=true (scoring)")
         gc = body.get("guided_choice")
         if gc:
             # vLLM-style guided choice: each option is a token-id list, or
@@ -300,6 +333,7 @@ class CompletionServer:
             params=params,
             logprobs=bool(body.get("logprobs", False)) or int(body.get("top_logprobs", 0) or 0) > 0,
             stream_q=queue.Queue() if body.get("stream") else None,
+            echo=echo,
         )
         self._count("requests")
         self._queue.put(pending)
@@ -346,17 +380,27 @@ class CompletionServer:
 
     def _choice(self, p: _Pending, index: int) -> Dict[str, Any]:
         r = p.result
+        out_tokens = (list(p.tokens) if p.echo else []) + list(r.tokens)
         if r.finished:
             finish = "stop"
         elif p.cancelled:
             finish = "abort"  # cut short by a client disconnect (vLLM's name)
         else:
             finish = "length"
-        choice: Dict[str, Any] = {"index": index, "tokens": list(r.tokens), "finish_reason": finish}
-        text = self._decode_text(r.tokens)
+        choice: Dict[str, Any] = {"index": index, "tokens": out_tokens, "finish_reason": finish}
+        text = self._decode_text(out_tokens)
         if text is not None:
             choice["text"] = text
-        if r.logprobs is not None and p.logprobs:
+        if p.echo and p.logprobs:
+            # The first prompt token has no conditional probability (null),
+            # then the prompt's teacher-forced logprobs, then the
+            # completion's; alternatives exist for generated positions only.
+            lp_block = {"token_logprobs": [None] + list(p.prompt_logprobs or []) + list(r.logprobs or [])}
+            if r.top_logprobs is not None:
+                lp_block["top_logprobs"] = [None] * len(p.tokens) + [
+                    {self._token_key(t): v for t, v in row} for row in r.top_logprobs]
+            choice["logprobs"] = lp_block
+        elif r.logprobs is not None and p.logprobs:
             lp_block: Dict[str, Any] = {"token_logprobs": list(r.logprobs)}
             if r.top_logprobs is not None:
                 # OpenAI shape: one {token: logprob} dict per position.
@@ -393,12 +437,14 @@ class CompletionServer:
             ("tokens_out_total", "counter", stats["tokens_out"]),
             ("admitted_total", "counter", stats["admitted"]),
             ("cancelled_total", "counter", stats["cancelled"]),
+            ("scored_total", "counter", stats["scored"]),
             ("graphs_captured_total", "counter", eng.graph_stats["captured"]),
             ("graph_replays_total", "counter", eng.graph_stats["replayed"]),
             ("pipeline_launched_total", "counter", eng.pipeline_stats["launched"]),
             ("pipeline_discarded_total", "counter", eng.pipeline_stats["discarded"]),
             ("spec_steps_total", "counter", eng.spec_stats["steps"]),
             ("spec_emitted_total", "counter", eng.spec_stats["emitted"]),
+            ("prefix_tokens_saved_total", "counter", eng.prefix_stats.get("tokens_saved", 0)),
             ("batch_slots", "gauge", eng.batch_size),
         ]
         return "".join(f"# TYPE nf4tpu_{name} {kind}\nnf4tpu_{name} {value}\n" for name, kind, value in rows)

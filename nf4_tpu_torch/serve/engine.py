@@ -27,11 +27,12 @@ a chunk reads the same ``kv_len``, :func:`kv_bucket` of the chunk's end,
 so the shapes repeat; decode attention reads whole key blocks up to it
 (``ops/attention.py:decode_attention``), and a slot's logits do not
 depend on it: not on its batchmates' positions, the chunk size or the
-pipeline.  (They can depend on the size of the group the slot's prompt
-prefilled in, which picks the prefill's kernel branches.)  On CUDA every
-chunk of ``decode_chunk`` steps is
-one CUDA graph, captured once per (kv bucket, n, :class:`ChunkKind`) in
-the Engine's lifetime and replayed on the current stream; the graphs of a
+pipeline, nor on the size of the group its prompt prefilled in (prompt
+rows take the prefill kernels at any count, with a K split that is the
+weight's: ``ops/matmul.py:_prefill_ksplit``).  On CUDA every chunk of
+``decode_chunk`` steps is one CUDA graph, captured once per (kv bucket,
+n, :class:`ChunkKind`) in the Engine's lifetime and replayed on the
+current stream; the graphs of a
 :class:`Decoder` share one memory pool.  Single steps (the budget's tail,
 slots whose bias rows change every step), prefill and the CPU run
 eagerly, with the same kv buckets, so graphed and eager decode give the
@@ -61,8 +62,23 @@ held for an earlier call stay in the cache, and they are invisible for
 the reason a dropped chunk's are: a new request's prefill writes
 positions 0 to its bucket's end, each decode step writes its position
 before attending, and no query sees a slot past its own position.  One
-call runs at a time.  Prefix caching, scoring, LoRA and tensor
-parallelism are not ported yet.
+call runs at a time.  LoRA and tensor parallelism are not ported yet.
+
+Shared-prefix caching (``prefix_cache=True``, the JAX package's): when a
+call's prompts (at least 2) share a prefix of ``Lp = min(lcp, shortest -
+1, max_seq_len - 2) >= 16`` tokens, it is prefilled once (into slot 0)
+and its K/V positions ``[0, Lp)`` (with the int8 scale planes) are saved;
+every refill writes that saved prefix into its slot and prefills only
+``prompt[Lp:]`` from position ``Lp`` (a continuation prefill).  A later
+call with the same prefix reuses the saved rows with no prefill
+(``prefix_stats``).  The prefix is written at every refill, not once per
+call, because idle slots write inside it: they ride decode chunks frozen
+at their position (0 for a slot never filled) and verify frozen at
+positions ``0 .. spec_k``.  With the prefix written first, a refill again
+writes every position below its continuation's end before any of its
+queries reads one.  Admitted requests must extend the prefix
+(:meth:`Engine.admissible`).  Scoring (:meth:`Engine.score`) uses a
+cache of its own, never the Engine's.
 
 Speculative decoding (``spec_k > 0``; ``serve/speculative.py``, the JAX
 package's speculation): each round drafts ``spec_k`` tokens per slot, by
@@ -92,7 +108,8 @@ position is written again before any query reads it (a round writes its
 window before it attends, drafts at a position before proposing from it,
 and history entries before ``slot_pos + 1`` are the consumed ones), so
 nothing is rolled back.  Idle slots verify frozen at position 0, in a
-window (< 16 positions) that any refill's prefill overwrites.
+window (< 16 positions) that any refill's prefill overwrites (with the
+prefix cache, the refill's prefix write).
 """
 
 from __future__ import annotations
@@ -106,6 +123,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..eval.ppl import token_logprobs
 from ..models.llama import KVCache, LlamaConfig, LlamaParams, check_supported, decode_step, forward, init_kv_cache
 from ..ops._cuda import CountedGraph
 from ..ops.attention import DECODE_KV_BLOCK, DECODE_MAX_QUERIES
@@ -240,6 +258,23 @@ def prefill_rows(params, cfg: LlamaConfig, cache: KVCache, tokens: np.ndarray, l
     return last
 
 
+def _common_prefix_len(prompts) -> int:
+    """Length of the longest token prefix shared by all prompts."""
+    it = iter(prompts)
+    first = list(next(it))
+    n = len(first)
+    for p in it:
+        p = list(p)
+        m = min(n, len(p))
+        i = 0
+        while i < m and p[i] == first[i]:
+            i += 1
+        n = i
+        if n == 0:
+            break
+    return n
+
+
 def kv_bucket(end: int, granularity: int, max_seq_len: int) -> int:
     """The ``kv_len`` of a decode chunk whose last step writes position
     ``end - 1``: ``end`` rounded up to a multiple of ``granularity``, at
@@ -280,6 +315,11 @@ class Engine:
     set after construction; ``spec_stats`` counts the verify rounds
     consumed, the tokens they emitted and the controller's pauses.
 
+    ``prefix_cache=True`` prefills a call's shared prompt prefix once
+    (module docstring); ``prefix_stats`` holds the last such call's
+    ``prefix_len``, ``tokens_saved`` and whether its prefix was ``reused``
+    from an earlier call.
+
     ``pipeline_stats`` counts the chunks launched ahead of a read-back and
     those dropped because the chunk before them ended a request;
     ``graph_stats`` the decode graphs captured, the seconds their captures
@@ -313,7 +353,9 @@ class Engine:
         prefix_cache: bool = False,
         lora_bank=None,
     ):
-        unported = {"mesh": mesh is not None, "prefix_cache": prefix_cache, "lora_bank": lora_bank is not None}
+        if lora_bank is not None and (spec_k or prefix_cache):
+            raise ValueError("lora_bank is not composable with speculative decoding or prefix caching")
+        unported = {"mesh": mesh is not None, "lora_bank": lora_bank is not None}
         if any(unported.values()):
             raise NotImplementedError(f"not ported yet: {', '.join(k for k, v in unported.items() if v)}")
         check_supported(cfg)
@@ -353,6 +395,11 @@ class Engine:
         self._spec_pause = 0
         self._spec_backoff = 0
         self.spec_stats = {"steps": 0, "emitted": 0, "pauses": 0}
+        self.prefix_cache = prefix_cache
+        self.prefix_stats = {"prefix_len": 0, "tokens_saved": 0}
+        # (prefix tokens, {plane name: its K/V rows [L, 1, KV, Lp(, D)]}):
+        # the last call's shared prefix, for every refill and the next call.
+        self._prefix_saved = None
         self.graph_stream = None
         self._cache: Optional[KVCache] = None
         self._decoder: Optional[Decoder] = None
@@ -411,7 +458,8 @@ class Engine:
         A generate() call allocates only the sampling machinery its
         INITIAL requests need (penalty masks, bias rows, top-k logprobs,
         per-token logprobs); a late request needing more must wait for the
-        next call."""
+        next call.  A prefix-cached call serves only prompts that extend
+        its shared prefix (``features["prefix"]``)."""
         if logprobs and not features["return_logprobs"]:
             return False
         if len(prompt) == 0 or len(prompt) > features["max_prompt_len"]:
@@ -424,6 +472,9 @@ class Engine:
         if (needs_counts or sp.repetition_penalty != 1.0) and not features["use_mask"]:
             return False
         if _uses_bias(sp) and not features["use_bias"]:
+            return False
+        prefix = features.get("prefix", ())
+        if prefix and (len(prompt) <= len(prefix) or tuple(prompt[: len(prefix)]) != prefix):
             return False
         # Multi-LoRA serving is not ported: no call serves an adapter.
         return adapter is None
@@ -483,16 +534,30 @@ class Engine:
             self, prompts, per_req, max_new_tokens, return_logprobs, stop_tokens, on_token, admit, cancel
         ).run()
 
-    def score(self, prompts, batch_size=None, adapter=None):
-        raise NotImplementedError("not ported yet: score (teacher-forced prompt logprobs)")
+    def score(self, prompts, batch_size: Optional[int] = None, adapter=None) -> List[List[float]]:
+        """Teacher-forced log-probabilities of given sequences (no
+        generation): one list per prompt, entry i = log P(tok[i+1] |
+        tok[:i+1]), in fp32 (:func:`~nf4_tpu_torch.eval.ppl.token_logprobs`
+        on the Engine's params and device, ``batch_size`` rows at a time,
+        default the Engine's slot count).  It runs over a cache of its own,
+        one batch's bucket long, never the Engine's (which holds the slots'
+        rows and the prefix cache's).  The scoring idiom behind OpenAI
+        completions' ``echo``.  ``adapter`` (multi-LoRA) is not ported yet."""
+        if adapter is not None:
+            raise NotImplementedError("not ported yet: adapter (multi-LoRA scoring)")
+        return token_logprobs(self.params, self.cfg, prompts, batch_size=batch_size or self.batch_size,
+                              device=self.device)
 
     # -- device work ----------------------------------------------------------
 
-    def prefill_group(self, cache: KVCache, tokens: np.ndarray, lengths: np.ndarray, slots: np.ndarray):
+    def prefill_group(self, cache: KVCache, tokens: np.ndarray, lengths: np.ndarray, slots: np.ndarray,
+                      start: Optional[np.ndarray] = None):
         """Prefill a group of prompts (each padded to the same bucket) into
-        cache slots ``slots``; returns the last-token logits [G, V]
-        (:func:`prefill_rows`, in segments of ``PREFILL_SEGMENT``)."""
-        return prefill_rows(self.params, self.cfg, cache, tokens, lengths, slots, self.device,
+        cache slots ``slots``, from positions ``start`` (default 0; a
+        prefix-cached continuation starts at the prefix's end); returns the
+        last-token logits [G, V] (:func:`prefill_rows`, in segments of
+        ``PREFILL_SEGMENT``)."""
+        return prefill_rows(self.params, self.cfg, cache, tokens, lengths, slots, self.device, start,
                             segment=self.PREFILL_SEGMENT)
 
     def prefill_draft(self, cache: KVCache, tokens: np.ndarray, lengths: np.ndarray, slots: np.ndarray,
@@ -849,16 +914,18 @@ class _Scheduler:
         top_lp_k = max((p.top_logprobs for p in sps), default=0)
         if not 0 <= top_lp_k <= MAX_TOP_LOGPROBS:
             raise ValueError(f"top_logprobs must be in [0, {MAX_TOP_LOGPROBS}]")
+        self.cache, self.dec = engine.state()
+        self.prefix_len = self.setup_prefix([list(p) for p in prompts])
         self.features = {
             "use_mask": use_mask, "use_counts": use_counts, "use_bias": use_bias, "top_lp_k": top_lp_k,
             "return_logprobs": return_logprobs, "max_prompt_len": self.cfg.max_seq_len - 1,
+            "prefix": tuple(self.prompts[0][: self.prefix_len]) if self.prefix_len else (),
         }
         self.kind = ChunkKind(top_lp_k, "counts" if use_counts else "bool" if use_mask else None, use_bias)
         # A plain call runs the greedy body while its active requests are
         # greedy (a stochastic admitted one switches its chunks to the
         # per-request body, with this call's plain kind).
         self.plain = not return_logprobs and all(_plain_greedy(p) for p in sps)
-        self.cache, self.dec = engine.state()
         self.dec.prepare(self.kind)
         n = engine.batch_size
         self.slot_req = [-1] * n  # request index, or -1 when idle
@@ -876,6 +943,26 @@ class _Scheduler:
         self.hist_len = [0] * n
         self.draft_pos = np.zeros(n, dtype=np.int64)
         self.spec_confident = False
+
+    def setup_prefix(self, prompts) -> int:
+        """The call's shared-prefix length ``Lp`` (0: no prefix cache), the
+        JAX package's rule; the prefix's K/V rows are prefilled (into slot
+        0) and saved unless the Engine saved the same prefix before."""
+        eng, cfg = self.eng, self.cfg
+        if not eng.prefix_cache or len(prompts) < 2:
+            return 0
+        lp = min(_common_prefix_len(prompts), min(len(p) for p in prompts) - 1, cfg.max_seq_len - 2)
+        if lp < 16:
+            return 0
+        ptoks = tuple(prompts[0][:lp])
+        reused = eng._prefix_saved is not None and eng._prefix_saved[0] == ptoks
+        if not reused:
+            toks = np.zeros((1, min(bucket_len(lp), cfg.max_seq_len)), dtype=np.int32)
+            toks[0, :lp] = ptoks
+            eng.prefill_group(self.cache, toks, np.asarray([lp], np.int32), np.zeros(1, np.int64))
+            eng._prefix_saved = (ptoks, {name: t[:, :1, :, :lp].clone() for name, t in self.cache.planes().items()})
+        eng.prefix_stats = {"prefix_len": lp, "tokens_saved": lp * (len(prompts) - 1), "reused": reused}
+        return lp
 
     def add_request(self, prompt, sp: SamplingParams) -> None:
         budget = sp.max_new_tokens if sp.max_new_tokens is not None else self.default_budget
@@ -958,7 +1045,8 @@ class _Scheduler:
                     continue
                 self.slot_req[s] = r
                 self.slot_sp[s] = self.sps[r]
-                pending.append((s, r, min(bucket_len(len(prompt)), cfg.max_seq_len)))
+                # A prefix-cached call prefills only the continuation.
+                pending.append((s, r, min(bucket_len(len(prompt) - self.prefix_len), cfg.max_seq_len)))
                 break
         if pending and not self.greedy_body(self.slot_sp):
             self.dec.set_sampling(self.slot_sp)
@@ -974,17 +1062,25 @@ class _Scheduler:
 
     def _prefill(self, chunk, bucket: int) -> None:
         """Prefill a group and take each request's first token through the
-        sampler its decode uses (no emitted tokens yet: no penalties)."""
-        g = len(chunk)
+        sampler its decode uses (no emitted tokens yet: no penalties).  In
+        a prefix-cached call the saved prefix is written into the slots
+        first, and the prompts continue from its end."""
+        g, lp = len(chunk), self.prefix_len
         toks = np.zeros((g, bucket), dtype=np.int32)
         lens = np.zeros(g, dtype=np.int32)
         slots = np.zeros(g, dtype=np.int64)
         for j, (s, r, _) in enumerate(chunk):
-            prompt = self.prompts[r]
-            toks[j, : len(prompt)] = prompt
-            lens[j] = len(prompt)
+            rest = self.prompts[r][lp:]
+            toks[j, : len(rest)] = rest
+            lens[j] = len(rest)
             slots[j] = s
-        logits = self.eng.prefill_group(self.cache, toks, lens, slots)
+        start = None
+        if lp:
+            idx = torch.as_tensor(slots, device=self.eng.device)
+            for name, rows in self.eng._prefix_saved[1].items():
+                getattr(self.cache, name)[:, idx, :, :lp] = rows
+            start = np.full(g, lp, dtype=np.int32)
+        logits = self.eng.prefill_group(self.cache, toks, lens, slots, start)
         sps = [self.sps[r] for _, r, _ in chunk]
         if self.greedy_body(sps):
             first_t = sample(logits, GREEDY)

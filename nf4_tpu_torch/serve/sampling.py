@@ -22,8 +22,8 @@ device buffers it reads.  A row's key is
   tokens the request has generated so far, so its noise is a pure
   function of (seed, step), whatever its batchmates or the chunking (its
   tokens also follow its logits, which the Engine keeps independent of
-  its batchmates' positions and the chunking, but not of the size of the
-  group its prompt prefilled in: see ``serve/engine.py``);
+  its batchmates' positions, the chunking and the size of the group its
+  prompt prefilled in: see ``serve/engine.py``);
 - otherwise: a hash of (the draw's key, the row's index), the draw's key
   coming from a :class:`KeyStream` (the Engine's ``seed`` and a draw
   counter kept on the device).

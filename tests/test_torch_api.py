@@ -226,7 +226,8 @@ def test_seeded_and_n_choices(served):
 
 @pytest.mark.parametrize("body", [
     b"{not json", b"[1, 2]", {"prompt": 5}, {"prompt": [1, "x"]}, {"prompt": [1], "n": 0},
-    {"prompt": [1], "n": 2, "stream": True}, {"prompt": [1], "logprobs": 21}, {"prompt": [1], "echo": True},
+    {"prompt": [1], "n": 2, "stream": True}, {"prompt": [1], "logprobs": 21},
+    {"prompt": [1] * 65, "echo": True, "max_tokens": 0, "logprobs": True},
     {"prompt": [1], "max_tokens": 0}, {"prompt": [1], "temperature": "hot"}, {"prompt": [1, 256]},
     {"prompt": [-1, 2]}, {"prompt": [1], "logit_bias": {"300": 1.0}}, {"prompt": [1], "logit_bias": {"-3": 1.0}},
 ])
@@ -424,6 +425,37 @@ def test_greedy_bodies_match_the_jax_server(both, path, body):
                                    atol=LOGIT_TOL)
         for grow, wrow in zip(g["logprobs"].get("top_logprobs", [])[:upto], w["logprobs"].get("top_logprobs", [])):
             assert abs(max(grow.values()) - max(wrow.values())) <= LOGIT_TOL
+
+
+@pytest.mark.parametrize("body", [
+    {"prompt": [3, 1, 4, 1, 5, 9], "max_tokens": 0, "echo": True, "logprobs": True},
+    {"prompt": [2, 4, 6], "max_tokens": 3, "echo": True, "logprobs": 2},
+    {"prompt": "hi!", "max_tokens": 2, "echo": True},
+])
+def test_echo_bodies_match_the_jax_server(both, body):
+    """``echo`` (scoring only, with generation and top logprobs, a string
+    prompt without logprobs): the JAX server's payload keys, usage, finish
+    reason and echoed prompt, its generated tokens under the near-tie rule,
+    ``None`` where it has ``None``, and the prompt's logprobs within
+    LOGIT_TOL."""
+    jurl, turl, jparams, cfg, _ = both
+    (jcode, want), (tcode, got) = _post(jurl, body), _post(turl, body)
+    assert jcode == tcode == 200 and got.keys() == want.keys() and got["usage"] == want["usage"]
+    g, w = got["choices"][0], want["choices"][0]
+    assert g.keys() == w.keys() and g["finish_reason"] == w["finish_reason"]
+    prompt = ToyTokenizer().encode(body["prompt"]) if isinstance(body["prompt"], str) else body["prompt"]
+    n = len(prompt)
+    assert g["tokens"][:n] == w["tokens"][:n] == prompt
+    upto = _agree(jparams, cfg, prompt, g["tokens"][n:], w["tokens"][n:])
+    if "logprobs" in w:
+        glp, wlp = g["logprobs"], w["logprobs"]
+        assert glp.keys() == wlp.keys() and len(glp["token_logprobs"]) == len(wlp["token_logprobs"])
+        assert glp["token_logprobs"][0] is None is wlp["token_logprobs"][0]
+        np.testing.assert_allclose(glp["token_logprobs"][1 : n + upto], wlp["token_logprobs"][1 : n + upto],
+                                   atol=LOGIT_TOL)
+        if "top_logprobs" in wlp:
+            assert [row is None for row in glp["top_logprobs"]] == [row is None for row in wlp["top_logprobs"]]
+            assert [len(r) for r in glp["top_logprobs"][n:]] == [len(r) for r in wlp["top_logprobs"][n:]]
 
 
 def test_chat_fallback_prompt_equals_the_jax_server(both):

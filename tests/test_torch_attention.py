@@ -20,6 +20,17 @@ B, H, KV, S, T, D = 2, 4, 2, 256, 512, 128
 TOL = dict(rtol=2e-2, atol=2e-2)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread (as ``test_torch_pipeline.py``): the tiny models'
+    ops gain nothing from more, and beside other test processes their
+    thread pools' waits dominate."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _inputs(rng, pos0=0):
     q = rng.standard_normal((B, H, S, D)).astype(np.float32)
     k = rng.standard_normal((B, KV, T, D)).astype(np.float32)

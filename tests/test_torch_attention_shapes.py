@@ -26,6 +26,17 @@ S, T, POS0 = 300, 512, 37
 SHAPES = [(14, 2, 128), (6, 2, 128), (4, 2, 256), (2, 2, 384)]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread (as ``test_torch_pipeline.py``): the tiny models'
+    ops gain nothing from more, and beside other test processes their
+    thread pools' waits dominate."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _inputs(rng, h, kv, d, int8):
     b = 2
     q = rng.standard_normal((b, h, S, d)).astype(np.float32)

@@ -970,7 +970,7 @@ def test_prefill_group_first_logits(dev):
 
 
 # The model's computations, by the name the forward calls them through.
-_WATCHED = ("rms_norm", "_matmul", "apply_rope", "_quantize_kv", "attention", "_gated", "_logits")
+_WATCHED = ("rms_norm", "_matmul", "apply_rope", "_quantize_kv", "attention", "_gated", "lm_head")
 
 
 def _first_group_difference(eng, toks, lens):
@@ -1253,3 +1253,78 @@ def test_capture_with_a_host_sync_raises(dev, monkeypatch):
     with pytest.raises(RuntimeError):
         dec.launch(8, 256, tok, pos, act)
     assert not dec.graphs and eng.graph_stats["captured"] == 0 and eng.graph_stats["replayed"] == 0
+
+
+@pytest.mark.parametrize("spec_k", [0, 3])
+@pytest.mark.parametrize("int8", [False, True])
+def test_prefix_cache_graphed_equals_eager(dev, int8, spec_k):
+    """With the shared-prefix cache, graphed and pipelined decode gives the
+    eager, unpipelined Engine's tokens and logprobs bit for bit (the prefix
+    changes no graph's shapes), through refills and a second call that
+    reuses the saved prefix."""
+    from nf4_tpu_torch.serve.engine import Engine
+
+    cfg, params = _small_model(dev, int8)
+    rng = np.random.default_rng(7)
+    prefix = list(map(int, rng.integers(0, cfg.vocab_size, 40)))
+    prompts = [prefix + list(map(int, rng.integers(0, cfg.vocab_size, n))) for n in (3, 30, 9, 70, 1, 12)]
+    kw = dict(batch_size=4, eos_token=-1, decode_chunk=4, prefix_cache=True, spec_k=spec_k)
+    graphed = Engine(params, cfg, **kw)
+    eager = Engine(params, cfg, cuda_graphs=False, pipeline_decode=False, **kw)
+    for eng in (graphed, eager):
+        eng.spec_min_accept = 0.0
+    for call in range(2):
+        got = graphed.generate(prompts, max_new_tokens=12, return_logprobs=True)
+        want = eager.generate(prompts, max_new_tokens=12, return_logprobs=True)
+        assert [r.tokens for r in got] == [r.tokens for r in want]
+        assert [r.logprobs for r in got] == [r.logprobs for r in want]
+        assert graphed.prefix_stats == eager.prefix_stats == {"prefix_len": 40, "tokens_saved": 200,
+                                                              "reused": call == 1}
+    assert graphed.graph_stats["replayed"] > 0 and eager.graph_stats["replayed"] == 0
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_scoring_through_kernel_c_close_to_plain(dev, int8, monkeypatch):
+    """``token_logprobs`` with the attention threshold moved down so each
+    batch (bucket 256) takes kernel C, against the same call on the plain
+    attention path on the card, within 0.05 nats; kernel C launched once
+    per layer and batch."""
+    from nf4_tpu_torch.eval.ppl import token_logprobs
+    from nf4_tpu_torch.ops import _cuda
+    from nf4_tpu_torch.ops import attention as tattn
+
+    cfg, params = _small_model(dev, int8)
+    rng = np.random.default_rng(8)
+    seqs = [list(map(int, rng.integers(0, cfg.vocab_size, n))) for n in (200, 256, 140, 300)]
+    monkeypatch.setattr(tattn, "_CHUNKED_MIN_SCORE_ELEMS", 1)
+    _cuda.reset_launch_counts()
+    got = token_logprobs(params, cfg, seqs, batch_size=2)
+    counts = _cuda.launch_counts()
+    name = "flash_attention_int8" if int8 else "flash_attention"
+    assert counts[name] == 2 * cfg.num_layers
+    monkeypatch.setattr(tattn, "_flash_eligible", lambda *a: False)
+    want = token_logprobs(params, cfg, seqs, batch_size=2)
+    assert [len(g) for g in got] == [min(len(s), cfg.max_seq_len) - 1 for s in seqs]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, atol=0.05, rtol=0)
+
+
+def test_half_logits_gradients_in_x_and_w(dev):
+    """The bf16 dense product's backward (``_HalfLogits``: a trained dense
+    projection or lm_head on the card) gives x and w their gradients: the
+    fp32 products of the bf16-rounded upstream gradient, rounded once to
+    bf16."""
+    from nf4_tpu_torch.models.llama import _dense_logits
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((37, 256), generator=gen, device=dev).to(torch.bfloat16).requires_grad_()
+    w = (torch.randn((384, 256), generator=gen, device=dev) * 0.05).to(torch.bfloat16).requires_grad_()
+    g = torch.randn((37, 384), generator=gen, device=dev)
+    y = _dense_logits(x, w)
+    assert y.dtype == torch.float32
+    (y * g).sum().backward()
+    gb = g.to(torch.bfloat16).float()
+    for got, want in ((x.grad, gb @ w.float()), (w.grad, gb.t() @ x.float())):
+        assert got is not None and got.dtype == torch.bfloat16
+        # One bf16 rounding of fp32 sums taken in another order.
+        torch.testing.assert_close(got.float(), want, rtol=1e-2, atol=1e-3 * want.abs().max().item())

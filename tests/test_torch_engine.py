@@ -31,6 +31,17 @@ from nf4_tpu_torch.serve.sampling import BatchedSampling, KeyStream, SamplingPar
 LOGIT_TOL = 0.2
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread (as ``test_torch_pipeline.py``): the tiny models'
+    ops gain nothing from more, and beside other test processes their
+    thread pools' waits dominate."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def models():
     cfg = jconfigs.TINY_TEST
@@ -45,13 +56,32 @@ def _prompts():
     return [list(map(int, rng.integers(3, 256, size=n))) for n in (3, 17, 9, 30, 1, 12)]
 
 
-def _teacher_forced(cfg, params, result, stops):
-    """Check the port's tokens against the JAX logits of its own sequence."""
+def _emitted_seq(result, stops):
+    """A result's prompt and emitted tokens, the stop token included."""
     seq = list(result.prompt) + list(result.tokens)
     if result.finished:
         seq.append(next(iter(stops)))  # the stop token the port emitted
-    logits, _ = jllama.prefill(params, cfg, jnp.asarray([seq], jnp.int32))
-    logits = np.asarray(logits[0], np.float32)
+    return seq
+
+
+def _jax_logits(cfg, params, seqs):
+    """The JAX model's fp32 logits [len(seq), V] of each sequence, from one
+    right-padded prefill: causal attention keeps the padding out of every
+    real position, so one compiled shape serves them all."""
+    toks = np.zeros((len(seqs), max(map(len, seqs))), np.int32)
+    for i, s in enumerate(seqs):
+        toks[i, : len(s)] = s
+    logits, _ = jllama.prefill(params, cfg, jnp.asarray(toks))
+    logits = np.asarray(logits, np.float32)
+    return [logits[i, : len(s)] for i, s in enumerate(seqs)]
+
+
+def _teacher_forced(cfg, params, result, stops, logits=None):
+    """Check the port's tokens against the JAX logits of its own sequence
+    (``logits``: those logits, already computed)."""
+    seq = _emitted_seq(result, stops)
+    if logits is None:
+        logits = _jax_logits(cfg, params, [seq])[0]
     emitted = seq[len(result.prompt):]
     for i, tok in enumerate(emitted):
         row = logits[len(result.prompt) - 1 + i]
@@ -61,16 +91,29 @@ def _teacher_forced(cfg, params, result, stops):
             assert tok == int(np.argmax(row)), (i, tok)
 
 
-def _agree_until_near_tie(cfg, params, got, want):
+def _agree_until_near_tie(cfg, params, got, want, logits=None):
+    """``logits``: the JAX logits of ``want``'s prompt and tokens, already
+    computed (row i predicts the token after position i)."""
     seq = list(want.prompt)
     for g, w in zip(got.tokens, want.tokens):
         if g != w:
-            logits, _ = jllama.prefill(params, cfg, jnp.asarray([seq], jnp.int32))
-            top2 = np.sort(np.asarray(logits[0, -1], np.float32))[-2:]
+            row = _jax_logits(cfg, params, [seq])[0][-1] if logits is None else logits[len(seq) - 1]
+            top2 = np.sort(row)[-2:]
             assert top2[1] - top2[0] <= LOGIT_TOL, "diverged where JAX's choice was clear"
             return
         seq.append(w)
     assert len(got.tokens) == len(want.tokens) and got.finished == want.finished
+
+
+def _hold_to_jax(cfg, params, got, want, stops):
+    """Both rules for every result: the teacher-forced rule on the port's
+    tokens and the near-tie rule against the JAX engine's, with the JAX
+    logits of all of them from one padded prefill."""
+    seqs = [_emitted_seq(g, stops) for g in got] + [list(w.prompt) + list(w.tokens) for w in want]
+    rows = _jax_logits(cfg, params, seqs)
+    for i, (g, w) in enumerate(zip(got, want)):
+        _teacher_forced(cfg, params, g, stops, rows[i])
+        _agree_until_near_tie(cfg, params, g, w, rows[len(got) + i])
 
 
 @pytest.mark.parametrize("eos_pick", [None, 2])

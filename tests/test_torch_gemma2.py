@@ -49,6 +49,17 @@ TINY_GEMMA3 = dataclasses.replace(
 GEMMA2_LOW_CAPS = dataclasses.replace(jconfigs.TINY_GEMMA2, attn_logit_softcapping=2.0, final_logit_softcapping=1.5)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread (as ``test_torch_pipeline.py``): the tiny models'
+    ops gain nothing from more, and beside other test processes their
+    thread pools' waits dominate."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _models(cfg, seed=0):
     params = _redraw(jllama.init_params(cfg, seed=seed), cfg, np.random.default_rng(seed + 100))
     tcfg = config_from_dict(config_to_dict(cfg))
@@ -242,7 +253,7 @@ def test_gemma2_engine_matches_jax_engine():
     """Greedy tokens of the port's Engine and the JAX Engine for
     tiny-gemma2: six prompts (two longer than the window) through two
     slots, decode chunks of 4, under the near-tie rule."""
-    from test_torch_engine import _agree_until_near_tie, _teacher_forced
+    from test_torch_engine import _hold_to_jax
 
     cfg, params, tcfg, tparams = _models(jconfigs.TINY_GEMMA2)
     rng = np.random.default_rng(5)
@@ -250,10 +261,8 @@ def test_gemma2_engine_matches_jax_engine():
     want = JaxEngine(params, cfg, batch_size=2, eos_token=-1, decode_chunk=4).generate(prompts, max_new_tokens=8)
     got = Engine(tparams, tcfg, batch_size=2, eos_token=-1, decode_chunk=4, device="cpu").generate(
         prompts, max_new_tokens=8)
-    for g, w in zip(got, want):
-        assert len(g.tokens) == 8
-        _teacher_forced(cfg, params, g, {-1})
-        _agree_until_near_tie(cfg, params, g, w)
+    assert all(len(g.tokens) == 8 for g in got)
+    _hold_to_jax(cfg, params, got, want, {-1})
 
 
 @pytest.mark.parametrize("ext", ["npz", "safetensors"])

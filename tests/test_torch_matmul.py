@@ -28,6 +28,17 @@ from nf4_tpu.nf4.reference import quantize_nf4
 REL_TOL = 2e-2
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread (as ``test_torch_pipeline.py``): the tiny models'
+    ops gain nothing from more, and beside other test processes their
+    thread pools' waits dominate."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _pair(rng, shape, shards=1, quant_type="nf4"):
     w = rng.standard_normal(shape).astype(np.float32) * 0.05
     state = quantize_nf4(w, quant_type=quant_type)

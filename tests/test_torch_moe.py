@@ -50,6 +50,17 @@ MOE_CONFIGS = {
 }
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread (as ``test_torch_pipeline.py``): the tiny models'
+    ops gain nothing from more, and beside other test processes their
+    thread pools' waits dominate."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _models(cfg, seed=0):
     params = _redraw(jllama.init_params(cfg, seed=seed), cfg, np.random.default_rng(seed + 100))
     tcfg = config_from_dict(config_to_dict(cfg))
@@ -181,7 +192,7 @@ def test_moe_engine_matches_jax_engine():
     """Greedy tokens of the port's Engine and the JAX Engine for tiny-moe
     (fp32 activations, module docstring): six prompts through two slots,
     decode chunks of 4, under the near-tie rule of ``test_torch_engine.py``."""
-    from test_torch_engine import _agree_until_near_tie, _teacher_forced
+    from test_torch_engine import _hold_to_jax
 
     cfg, params, tcfg, tparams = _models(_fp32(jconfigs.TINY_MOE))
     rng = np.random.default_rng(5)
@@ -189,10 +200,8 @@ def test_moe_engine_matches_jax_engine():
     want = JaxEngine(params, cfg, batch_size=2, eos_token=-1, decode_chunk=4).generate(prompts, max_new_tokens=8)
     got = Engine(tparams, tcfg, batch_size=2, eos_token=-1, decode_chunk=4, device="cpu").generate(
         prompts, max_new_tokens=8)
-    for g, w in zip(got, want):
-        assert len(g.tokens) == 8
-        _teacher_forced(cfg, params, g, {-1})
-        _agree_until_near_tie(cfg, params, g, w)
+    assert all(len(g.tokens) == 8 for g in got)
+    _hold_to_jax(cfg, params, got, want, {-1})
 
 
 @pytest.mark.parametrize("ext", ["npz", "safetensors"])
@@ -270,9 +279,11 @@ def test_synthetic_params_draw_experts_router_and_norms():
 
 
 def test_training_moe_and_dense_raise():
+    """Training MoE models is not ported yet; dense projections train
+    (their loss and gradients against JAX: ``test_torch_eval.py``)."""
     from nf4_tpu_torch.train import make_train_step
 
     opt = torch.optim.SGD([torch.zeros(1, requires_grad=True)], lr=1.0)
-    for cfg in (configs.TINY_MOE, dataclasses.replace(configs.TINY_TEST, quantize=False)):
-        with pytest.raises(NotImplementedError, match="not ported yet: training with"):
-            make_train_step(cfg, opt)
+    with pytest.raises(NotImplementedError, match="not ported yet: training with num_experts"):
+        make_train_step(configs.TINY_MOE, opt)
+    assert callable(make_train_step(dataclasses.replace(configs.TINY_TEST, quantize=False), opt))

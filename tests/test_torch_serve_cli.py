@@ -6,8 +6,9 @@ in the 4-bit and the ``--int8 --kv8`` modes, and ``--model tiny-test
 --synthetic`` (also ``tiny-gemma2`` and ``tiny-moe``); answers over localhost equal a twin Engine's, and a
 checkpoint the JAX package saves is served as its own CLI serves it; an
 HF directory (``--hf-dir``) is quantized as it loads and served;
-``--spec-k`` and ``--draft-*`` serve speculatively; flags of machinery not
-ported yet exit with a clear message."""
+``--spec-k`` and ``--draft-*`` serve speculatively, ``--prefix-cache``
+prefills a wave's shared prefix once; flags of machinery not ported yet
+exit with a clear message."""
 
 import dataclasses
 import json
@@ -27,6 +28,17 @@ from nf4_tpu_torch.models.convert import config_from_dict, params_from_numpy
 from nf4_tpu_torch.models.loader import save_packed
 from nf4_tpu_torch.serve.__main__ import main
 from nf4_tpu_torch.serve.engine import Engine
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread (as ``test_torch_pipeline.py``): the tiny models'
+    ops gain nothing from more, and beside other test processes their
+    thread pools' waits dominate."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
@@ -217,9 +229,38 @@ def test_draft_flags_need_spec_k():
              block=False)
 
 
-@pytest.mark.parametrize("flags, what", [
-    (["--prefix-cache"], "--prefix-cache"), (["--tp", "2"], "--tp"), (["--dp", "2"], "--dp"),
-])
+def test_prefix_cache_flag_serves(checkpoint):
+    """``--prefix-cache``: three concurrent requests sharing a 20-token
+    prefix land in one wave, which prefills the prefix once; each answer
+    is a plain Engine's greedy tokens."""
+    import threading
+
+    path, tcfg, tparams = checkpoint
+    prefix = [7, 3, 11, 5, 2, 9, 13, 4, 8, 6, 1, 12, 10, 14, 15, 3, 7, 2, 5, 9]
+    prompts = [prefix + [20 + i, 21 + i] for i in range(3)]
+    server = main(["--packed", path, "--port", "0", "--batch-size", "2", "--eos", "-1", "--device", "cpu",
+                   "--decode-chunk", "4", "--prefix-cache", "--batch-window", "2.0"], block=False)
+    bodies = [None] * 3
+    try:
+        assert server.engine.prefix_cache
+
+        def post(i):
+            bodies[i] = _complete(server.port, {"prompt": prompts[i], "max_tokens": 6})
+
+        threads = [threading.Thread(target=post, args=(i,)) for i in range(3)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        stats = dict(server.engine.prefix_stats)
+    finally:
+        server.stop()
+    assert stats["prefix_len"] == len(prefix) and stats["tokens_saved"] == 2 * len(prefix)
+    twin = Engine(tparams, tcfg, batch_size=2, eos_token=-1, device="cpu")
+    assert [b["choices"][0]["tokens"] for b in bodies] == [r.tokens for r in twin.generate(prompts, max_new_tokens=6)]
+
+
+@pytest.mark.parametrize("flags, what", [(["--tp", "2"], "--tp"), (["--dp", "2"], "--dp")])
 def test_unported_flags_exit(flags, what):
     with pytest.raises(SystemExit, match="not ported yet") as e:
         main(["--model", "tiny-test", "--synthetic", "--port", "0", "--device", "cpu", *flags], block=False)

@@ -444,14 +444,14 @@ class TestAdmission:
             _engine(models).generate([[1, 2]], max_new_tokens=2, admit=admit)
 
     def test_admissible_agrees_with_jax(self, models):
-        """On every ``features`` a port's call makes (no adapters, no
-        prefix: neither is ported), for requests with and without an
-        adapter."""
+        """On every ``features`` a port's call makes (no adapters: they are
+        not ported; with and without a shared prefix), for requests with
+        and without an adapter."""
         base = {"use_mask": False, "use_counts": False, "use_bias": False, "top_lp_k": 0, "return_logprobs": False,
-                "max_prompt_len": 63}
+                "max_prompt_len": 63, "prefix": ()}
         rich = dict(base, use_mask=True, use_counts=True, use_bias=True, top_lp_k=5, return_logprobs=True)
         feats = [base, rich, dict(base, use_counts=True), dict(base, use_mask=True), dict(base, use_bias=True),
-                 dict(base, top_lp_k=3)]
+                 dict(base, top_lp_k=3), dict(base, prefix=(7, 8)), dict(rich, prefix=(7, 8, 9))]
         seen = []
         _engine(models).generate([[1, 2]], max_new_tokens=2, admit=lambda f: seen.append(f) or [])
         assert seen and set(seen[0]) == set(base)
@@ -464,8 +464,7 @@ class TestAdmission:
             for sp in params:
                 for prompt in prompts:
                     for kw in ({}, {"logprobs": True}, {"adapter": 0}, {"adapter": 2}, {"adapter": -2}):
-                        want = JaxEngine.admissible(dict(f, adapters=False, num_adapters=0, prefix=()), prompt,
-                                                    _j(sp), **kw)
+                        want = JaxEngine.admissible(dict(f, adapters=False, num_adapters=0), prompt, _j(sp), **kw)
                         assert Engine.admissible(f, prompt, sp, **kw) == want, (f, sp, prompt, kw)
 
 
@@ -477,11 +476,15 @@ def test_sampling_argument_checks_and_unported_options(models):
         eng.generate([[1, 2]], max_new_tokens=0)
     with pytest.raises(NotImplementedError, match="not ported yet: adapter"):
         eng.generate([[1, 2]], max_new_tokens=2, adapter=[0])
-    with pytest.raises(NotImplementedError, match="not ported yet: score"):
-        eng.score([[1, 2]])
-    for kw in ({"prefix_cache": True}, {"mesh": object()}, {"lora_bank": object()}):
+    with pytest.raises(NotImplementedError, match="not ported yet: adapter"):
+        eng.score([[1, 2]], adapter=[0])
+    assert len(eng.score([[1, 2, 3]])[0]) == 2  # scoring and the prefix cache are ported
+    assert _engine(models, prefix_cache=True).prefix_cache
+    for kw in ({"mesh": object()}, {"lora_bank": object()}):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             _engine(models, **kw)
+    with pytest.raises(ValueError, match="lora_bank is not composable"):
+        _engine(models, prefix_cache=True, lora_bank=object())
     # A default of the Engine's own: None entries take it.
     eng = _engine(models, sampling=SamplingParams(max_new_tokens=3))
     res = eng.generate([[1, 2], [3]], max_new_tokens=5, sampling=[None, SamplingParams()])

@@ -55,6 +55,17 @@ VARIANTS = {
 }
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread (as ``test_torch_pipeline.py``): the tiny models'
+    ops gain nothing from more, and beside other test processes their
+    thread pools' waits dominate."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _redraw(params, cfg, rng):
     """The JAX params with every norm's scale 1 + N(0, 0.3) (the weight
     itself with ``rmsnorm_one_plus``; Gemma-2/3's output norms too) and the
