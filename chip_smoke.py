@@ -1580,34 +1580,6 @@ def score_expected(cfg, params, seqs, batch_size) -> tuple:
     return proj, flash
 
 
-@contextlib.contextmanager
-def prefill_clock():
-    """Within it, time every prefill the Engine runs (``prefill_rows``,
-    synchronized before and after): yields [calls, seconds, tokens]."""
-    import torch
-
-    from nf4_tpu_torch.serve import engine as engine_mod
-
-    clock = [0, 0.0, 0]
-    inner = engine_mod.prefill_rows
-
-    def timed(params, cfg, cache, tokens, *a, **kw):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = inner(params, cfg, cache, tokens, *a, **kw)
-        torch.cuda.synchronize()
-        clock[0] += 1
-        clock[1] += time.perf_counter() - t0
-        clock[2] += tokens.size
-        return out
-
-    engine_mod.prefill_rows = timed
-    try:
-        yield clock
-    finally:
-        engine_mod.prefill_rows = inner
-
-
 def phase_score_prefix(params, cfg, prompts, want, int8=False):
     """Main path (p): scoring and the shared-prefix cache of Llama-3-8B at
     full width and depth, on the phase's weights (5b's, or 5d's int8 ones).
@@ -1617,14 +1589,20 @@ def phase_score_prefix(params, cfg, prompts, want, int8=False):
     own tokens), every launch count exact, each generated token's score
     within 2 x NEAR_TIE x max |logit| of its decode-path logprob; a batch of
     8 x 1024 seeded tokens (kernel C) timed, with its peak memory and
-    perplexity.  The prefix cache: six requests of 32 tokens through 4
-    slots, each the 1024-token prompt and its own tail of ``PREFIX_TAILS``
-    tokens, so refills continue the prefix; launch counts exact
-    (``spec_generate``); tokens held to the same requests without the cache
-    (``tokens_held``); a request admitted mid-call into an idle slot held
-    to its run alone; a second call that reuses the saved prefix with the
-    first call's tokens; ``generate`` s of each call against the cache-off
-    Engine's."""
+    perplexity, after a first (warm-up) call of it with every kernel B, C
+    or D call held to its plain version (``kernels_held_to_plain``).  The
+    prefix cache: six requests of 32 tokens through 4 slots, each the
+    1024-token prompt and its own tail of ``PREFIX_TAILS`` tokens, so
+    refills continue the prefix; launch counts exact (``spec_generate``);
+    tokens held to the same requests without the cache (``tokens_held``);
+    a request admitted mid-call into an idle slot held to its run alone; a
+    second call that reuses the saved prefix with the first call's tokens;
+    ``generate`` s of each call against the cache-off Engine's; then the
+    six requests once more on an eager Engine with the cache, 2 tokens
+    each, every kernel call held to its plain version: the prefix's
+    prefill, the continuations from ``Lp`` (kernel C at buckets 512 and
+    1024, the plain path below 256) and the refills' continuations, with
+    the graphed call's first 2 tokens."""
     import numpy as np
     import torch
 
@@ -1635,6 +1613,7 @@ def phase_score_prefix(params, cfg, prompts, want, int8=False):
 
     label = "5p int8" if int8 else "5p"
     names = ("int8_matmul", "flash_attention_int8") if int8 else ("matmul_bf16", "flash_attention")
+    proj_kernel = "D" if int8 else "B"
     t_phase = time.perf_counter()
     eng = Engine(params, cfg, batch_size=4, eos_token=-1, decode_chunk=8)
     gen = eng.generate(prompts, max_new_tokens=32, return_logprobs=True)
@@ -1659,8 +1638,13 @@ def phase_score_prefix(params, cfg, prompts, want, int8=False):
 
     rng = np.random.default_rng(16)
     batch = [list(map(int, rng.integers(0, cfg.vocab_size, SCORE_BATCH[1]))) for _ in range(SCORE_BATCH[0])]
-    eng.score(batch, batch_size=SCORE_BATCH[0])  # warm up
+    _cuda.reset_launch_counts()
+    with kernels_held_to_plain(f"{label} 8 x 1024 score (warm-up)") as held_score:
+        eng.score(batch, batch_size=SCORE_BATCH[0])
     torch.cuda.synchronize()
+    held_counts = _cuda.launch_counts()
+    check(held_score["C"][0] == held_counts[names[1]] == cfg.num_layers and held_score[proj_kernel][0] > 0,
+          f"{label} 8 x 1024 score: calls held {held_score}, launches {held_counts}")
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     _cuda.reset_launch_counts()
@@ -1680,7 +1664,8 @@ def phase_score_prefix(params, cfg, prompts, want, int8=False):
     n_tok = SCORE_BATCH[0] * (SCORE_BATCH[1] - 1)
     score = dict(launches=counts, batch_launches=batch_counts, max_logprob_diff=diff, max_abs_logit=scale,
                  batch_ms=score_s * 1e3, batch_tok_s=n_tok / score_s, batch_peak_gb=peak / 1e9,
-                 batch_peak_above_engine_gb=(peak - base) / 1e9, batch_perplexity=ppl, generate_token_diffs=gen_diffs)
+                 batch_peak_above_engine_gb=(peak - base) / 1e9, batch_perplexity=ppl, generate_token_diffs=gen_diffs,
+                 batch_held=held_score)
     print(f"phase {label} score: {len(seqs)} requests + 32 tokens, launches {counts} (kernel C on "
           f"{counts[names[1]] // cfg.num_layers} of the batches); largest |score - decode logprob| over the generated "
           f"tokens {diff:.4f} (limit {2 * NEAR_TIE * scale:.4f}, max |logit| {scale:.2f}); 8 x 1024 seeded tokens in "
@@ -1697,8 +1682,6 @@ def phase_score_prefix(params, cfg, prompts, want, int8=False):
     off = eng.generate(requests, max_new_tokens=32)
     torch.cuda.synchronize()
     off_s = time.perf_counter() - t0
-    with prefill_clock() as off_prefill:  # a third call, its prefills clocked
-        eng.generate(requests, max_new_tokens=32)
     peng = Engine(params, cfg, batch_size=4, eos_token=-1, decode_chunk=8, prefix_cache=True)
     got, pcounts, tally, first_s = spec_generate(f"{label} prefix", peng, requests, int8=int8)
     stats1 = dict(peng.prefix_stats)
@@ -1720,26 +1703,38 @@ def phase_score_prefix(params, cfg, prompts, want, int8=False):
     adm_diffs = tokens_held(f"{label} request admitted into an idle slot, against its run alone", peng, adm[2:], solo)
 
     again, counts2, tally2, second_s = spec_generate(f"{label} prefix call 2", peng, requests, int8=int8)
-    with prefill_clock() as on_prefill:  # a third call, its prefills clocked
-        peng.generate(requests, max_new_tokens=32)
     stats2 = dict(peng.prefix_stats)
     # Call 2 runs call 1's forwards but the prefix's prefill (bucket 1024).
     check(stats2["reused"] and tally2["target"] == tally["target"] - 1
           and tally2["flash_target"] == tally["flash_target"] - flash_prefills(cfg, [(1, 1024)]),
           f"{label} call 2: {stats2}, forwards {tally2} against {tally}")
     check([r.tokens for r in again] == [r.tokens for r in got], f"{label}: call 2's tokens differ from call 1's")
+    del peng
+    free_memory()
+
+    eager = Engine(params, cfg, batch_size=4, eos_token=-1, decode_chunk=8, pipeline_decode=False,
+                   cuda_graphs=False, prefix_cache=True)
+    _cuda.reset_launch_counts()
+    with kernels_held_to_plain(f"{label} eager prefix-cache call") as held_prefix:
+        short = eager.generate(requests, max_new_tokens=2)
+    torch.cuda.synchronize()
+    eager_counts = _cuda.launch_counts()
+    check(eager.prefix_stats["prefix_len"] == len(prefix) and held_prefix[proj_kernel][0] > 0
+          and held_prefix["C"][0] == eager_counts[names[1]] > cfg.num_layers,
+          f"{label} eager prefix-cache call: {eager.prefix_stats}, calls held {held_prefix}, launches {eager_counts} "
+          f"(kernel C on the prefix's prefill and at least one continuation)")
+    check([r.tokens for r in short] == [r.tokens[:2] for r in got],
+          f"{label}: the eager prefix-cache call's tokens differ from the graphed call's")
     prefix_res = dict(stats_first=stats1, stats_second=stats2, launches=pcounts, forwards=tally, token_diffs=diffs,
                       admitted_token_diffs=adm_diffs, generate_first_s=first_s, generate_second_s=second_s,
-                      generate_cache_off_s=off_s, prefills_cache_off=off_prefill, prefills_reused=on_prefill)
+                      generate_cache_off_s=off_s, eager_held=held_prefix, eager_launches=eager_counts)
     print(f"phase {label} prefix cache: {len(requests)} requests of a 1024-token prefix + tails {PREFIX_TAILS}, "
           f"32 tokens each through 4 slots: prefix_stats {stats1}, then {stats2}; launches {pcounts} for the "
           f"forwards {tally}; generate {first_s:.2f} s (prefix prefilled) and {second_s:.2f} s (reused) against "
-          f"{off_s:.2f} s without the cache (warm); prefills [calls, s, padded tokens] of the warm calls: "
-          f"{[off_prefill[0], round(off_prefill[1], 3), off_prefill[2]]} without the cache, "
-          f"{[on_prefill[0], round(on_prefill[1], 3), on_prefill[2]]} reusing the prefix (a third call of each, "
-          f"synchronized around each prefill); an admitted request into an idle slot held to its run alone; "
-          f"phase {time.perf_counter() - t_phase:.1f} s; on {card_line()}")
-    del eng, peng
+          f"{off_s:.2f} s without the cache (warm); an admitted request into an idle slot held to its run alone; "
+          f"eager call held to the plain versions ({eager_counts[names[1]] // cfg.num_layers} prefills through "
+          f"kernel C); phase {time.perf_counter() - t_phase:.1f} s; on {card_line()}")
+    del eng, eager
     free_memory()
     launches = {k: counts.get(k, 0) + batch_counts.get(k, 0) + pcounts.get(k, 0) + counts2.get(k, 0)
                 for k in set(counts) | set(batch_counts) | set(pcounts) | set(counts2)}

@@ -15,20 +15,10 @@ import torch
 
 from nf4_tpu.ops import attention as jattn
 from nf4_tpu_torch.ops import attention as tattn
+from _torch_threads import _one_thread  # noqa: F401
 
 B, H, KV, S, T, D = 2, 4, 2, 256, 512, 128
 TOL = dict(rtol=2e-2, atol=2e-2)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread (as ``test_torch_pipeline.py``): the tiny models'
-    ops gain nothing from more, and beside other test processes their
-    thread pools' waits dominate."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _inputs(rng, pos0=0):

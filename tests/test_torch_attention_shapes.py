@@ -19,22 +19,12 @@ import torch
 
 from nf4_tpu.ops import attention as jattn
 from nf4_tpu_torch.ops import attention as tattn
+from _torch_threads import _one_thread  # noqa: F401
 
 TOL = dict(rtol=2e-2, atol=2e-2)
 S, T, POS0 = 300, 512, 37
 # (H, KV, D)
 SHAPES = [(14, 2, 128), (6, 2, 128), (4, 2, 256), (2, 2, 384)]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread (as ``test_torch_pipeline.py``): the tiny models'
-    ops gain nothing from more, and beside other test processes their
-    thread pools' waits dominate."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _inputs(rng, h, kv, d, int8):

@@ -28,17 +28,10 @@ from nf4_tpu_torch.models import llama
 from nf4_tpu_torch.models.convert import config_from_dict, params_from_numpy
 from nf4_tpu_torch.serve.engine import Engine
 from nf4_tpu_torch.serve.sampling import SamplingParams
+from _torch_threads import _one_thread  # noqa: F401
 
 LOGIT_TOL = 0.2  # test_torch_engine.py's: the port rounds weights to bf16
 PROMPTS = [[11, 23, 5], [17, 3, 29]]  # novel text: prompt lookup would not help
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

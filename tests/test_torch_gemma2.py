@@ -34,6 +34,7 @@ from nf4_tpu_torch.models import configs, llama, loader
 from nf4_tpu_torch.models.convert import _tensor, config_from_dict, params_from_numpy
 from nf4_tpu_torch.ops import attention as tattn
 from nf4_tpu_torch.serve.engine import Engine
+from _torch_threads import _one_thread  # noqa: F401
 
 ATTN_TOL = 2e-2
 
@@ -47,17 +48,6 @@ TINY_GEMMA3 = dataclasses.replace(
 # tiny-gemma2 with caps the tiny model's scores and logits reach, so that a
 # port that ignored either would miss the JAX logits.
 GEMMA2_LOW_CAPS = dataclasses.replace(jconfigs.TINY_GEMMA2, attn_logit_softcapping=2.0, final_logit_softcapping=1.5)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread (as ``test_torch_pipeline.py``): the tiny models'
-    ops gain nothing from more, and beside other test processes their
-    thread pools' waits dominate."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _models(cfg, seed=0):

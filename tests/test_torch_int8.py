@@ -30,17 +30,7 @@ import nf4_tpu_torch
 from nf4_tpu.nf4.reference import quantize_nf4
 from nf4_tpu.ops import int8_serve as jint8
 from nf4_tpu_torch.ops import int8_serve as tint8
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread (as ``test_torch_pipeline.py``): the tiny models'
-    ops gain nothing from more, and beside other test processes their
-    thread pools' waits dominate."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from _torch_threads import _one_thread  # noqa: F401
 
 
 def _pair(rng, shape, shards=1, quant_type="nf4"):

@@ -36,6 +36,7 @@ from nf4_tpu_torch.models import configs, llama, loader
 from nf4_tpu_torch.models.convert import _tensor, config_from_dict, params_from_numpy
 from nf4_tpu_torch.ops.int8_serve import PackedInt8
 from nf4_tpu_torch.serve.engine import Engine
+from _torch_threads import _one_thread  # noqa: F401
 
 MODULE_TOL = 2e-2
 
@@ -48,17 +49,6 @@ MOE_CONFIGS = {
     "tiny-moe, moe_norm_topk=False": dataclasses.replace(jconfigs.TINY_MOE, moe_norm_topk=False),
     "tiny qwen3-moe": TINY_QWEN3_MOE,
 }
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread (as ``test_torch_pipeline.py``): the tiny models'
-    ops gain nothing from more, and beside other test processes their
-    thread pools' waits dominate."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _models(cfg, seed=0):

@@ -30,18 +30,9 @@ from nf4_tpu_torch.models.convert import config_from_dict, params_from_numpy
 from nf4_tpu_torch.ops import _cuda
 from nf4_tpu_torch.serve import engine as engine_mod
 from nf4_tpu_torch.serve.engine import Decoder, Engine, kv_bucket
+from _torch_threads import _one_thread  # noqa: F401
 
 LOGIT_TOL = 0.2  # test_torch_engine.py's: the port rounds weights to bf16
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread: the tiny model's ops gain nothing from more, and
-    beside other test processes their thread pools' waits dominate."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -20,7 +20,6 @@ import dataclasses
 
 import numpy as np
 import pytest
-import torch
 from test_torch_engine import _hold_to_jax
 
 from nf4_tpu.models import configs as jconfigs
@@ -31,19 +30,9 @@ from nf4_tpu.serve.engine import _common_prefix_len as jax_common_prefix_len
 from nf4_tpu_torch.models import llama
 from nf4_tpu_torch.models.convert import config_from_dict
 from nf4_tpu_torch.serve.engine import Engine, _common_prefix_len
+from _torch_threads import _one_thread  # noqa: F401
 
 PREFIX = [7, 3, 11, 5, 2, 9, 13, 4, 8, 6, 1, 12, 10, 14, 15, 3, 7, 2, 5, 9]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread (as ``test_torch_pipeline.py``): the tiny model's
-    ops gain nothing from more, and beside other test processes their
-    thread pools' waits dominate."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -28,17 +28,7 @@ from nf4_tpu_torch.models.convert import config_from_dict, params_from_numpy
 from nf4_tpu_torch.models.loader import save_packed
 from nf4_tpu_torch.serve.__main__ import main
 from nf4_tpu_torch.serve.engine import Engine
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread (as ``test_torch_pipeline.py``): the tiny models'
-    ops gain nothing from more, and beside other test processes their
-    thread pools' waits dominate."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from _torch_threads import _one_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

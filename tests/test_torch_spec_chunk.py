@@ -20,7 +20,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from nf4_tpu.models import configs as jconfigs
 from nf4_tpu.models import llama as jllama
@@ -30,20 +29,13 @@ from nf4_tpu_torch.models import llama
 from nf4_tpu_torch.models.convert import config_from_dict, params_from_numpy
 from nf4_tpu_torch.serve.engine import Engine
 from nf4_tpu_torch.serve.sampling import SamplingParams
+from _torch_threads import _one_thread  # noqa: F401
 
 LOGIT_TOL = 0.2  # test_torch_engine.py's: the port rounds weights to bf16
 # Mixed lengths, more prompts than slots, repetitive ones (drafts accepted)
 # and ordinary ones (drafts rejected).
 PROMPTS = [[1, 2, 3, 1, 2, 3, 1, 2, 3, 1, 2], [4, 5], [9], [7, 8, 7, 8, 7, 8, 7], [10, 11, 12, 13]]
 NOVEL = [[11, 23, 5], [17, 3, 29]]  # no self-repetition: prompt lookup rarely hits
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -31,19 +31,12 @@ from nf4_tpu_torch.serve import engine as engine_mod
 from nf4_tpu_torch.serve import speculative as spec
 from nf4_tpu_torch.serve.engine import Engine
 from nf4_tpu_torch.serve.sampling import BatchedSampling, KeyStream, SamplingParams
+from _torch_threads import _one_thread  # noqa: F401
 
 # Total-variation limit of an empirical distribution of DRAWS samples over
 # a few tokens: about 4x its standard deviation there.
 DRAWS, TV_LIMIT = 20000, 0.02
 PROMPTS = [[1, 2, 3, 1, 2, 3, 1, 2], [4, 5, 6]]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _stub(logits):

@@ -48,20 +48,10 @@ from nf4_tpu_torch.train import (
     LoraConfig, data, init_lora, lm_loss, load_lora, load_train_state, make_train_step, save_lora,
     save_train_state,
 )
+from _torch_threads import _one_thread  # noqa: F401
 
 LOGIT_TOL = 0.2
 LCFG = LoraConfig(rank=4, alpha=8.0)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread (as ``test_torch_pipeline.py``): the tiny models'
-    ops gain nothing from more, and beside other test processes their
-    thread pools' waits dominate."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _pair(rng, shape, shards=1, quant_type="nf4"):

@@ -31,6 +31,7 @@ from nf4_tpu.models import loader as jloader
 from nf4_tpu.models.loader import config_to_dict
 from nf4_tpu_torch.models import configs, llama, loader
 from nf4_tpu_torch.models.convert import config_from_dict, params_from_numpy
+from _torch_threads import _one_thread  # noqa: F401
 
 LOGIT_TOL = 0.2
 PROMPT, STEPS = 24, 4
@@ -53,17 +54,6 @@ VARIANTS = {
     # Mistral: a window shorter than the prompt, at prefill and decode.
     "mistral sliding_window": dict(sliding_window=8),
 }
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread (as ``test_torch_pipeline.py``): the tiny models'
-    ops gain nothing from more, and beside other test processes their
-    thread pools' waits dominate."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _redraw(params, cfg, rng):
