@@ -112,7 +112,17 @@ Phases, each of which fails the run on any error:
    ``prefix_cache=True``, launches exact, tokens held to the cache-off
    Engine's, a request admitted into an idle slot held to its run alone, a
    second call reusing the saved prefix, each call timed against the
-   cache-off one.  Phase (c) also
+   cache-off one; (r) multi-LoRA serving on 5b's weights, and briefly in
+   the int8 mode of (d) (``phase_multi_lora``): a bank of 4 seeded adapters
+   (ranks 8, 16, 16, 32, all four targets), 5b's requests with adapters
+   ``[None, 0, 1, 2, 3, 0]`` through 4 slots and again with the mix
+   permuted (no capture), every launch exact, the request without an
+   adapter equal to the phase's tokens, each adapted one held to its run
+   alone, an eager call of 2 tokens with every kernel call held to its
+   plain version, ``Engine.score`` through two adapters against decode's
+   logprobs, the graphed decode step with the bank timed at kv_len 1536,
+   and ``merge_lora`` of adapter 0 into 4 layers (kernel A, then the card
+   quantizer), its first layer held to the CPU's merge.  Phase (c) also
    runs Gemma-2 and Gemma-3 small models, dense projections and MoE (fp32
    activations) card against CPU, and the MoE MLP alone in bf16 with 4-bit
    and int8 experts.  Every phase's weights are freed before the next.
@@ -131,10 +141,14 @@ Phases, each of which fails the run on any error:
    (kernels B and A) and in fp32 (kernels E and A), each step's launches
    counted from 0, the step-0 loss held against ``lm_loss`` through the
    inference forward (one prefill per example); with ``--profile`` a
-   ``torch.profiler`` breakdown of one step; (d) a small model's train
-   step on the card against the CPU (loss, adapter gradients, adapters
-   after one SGD step); (e) a run saved with ``save_train_state`` and
-   resumed against the uninterrupted run;
+   ``torch.profiler`` breakdown of one step; (d) 3 bf16 AdamW steps of
+   rank-16 QLoRA on Gemma-2-9B, Gemma-3-4B and Mixtral-8x7B (attention
+   only) at full width and 2 layers, launches exact, the step-0 loss held
+   to the inference forward's, ms per step and peak memory; then the
+   Gemma-2 adapter served from a bank; (s) a small model's train step on
+   the card against the CPU (loss, adapter gradients, adapters after one
+   SGD step); (e) a run saved with ``save_train_state`` and resumed
+   against the uninterrupted run;
 7. (q) the trained-in-place quality gate (``nf4_tpu_torch.eval.
    quality_gate`` on its synthetic corpus at its defaults): a byte-level LM
    trained as dense fp32 weights, its held-out perplexity dense, bf16, NF4
@@ -149,8 +163,9 @@ peak rate (989 TFLOP/s bf16 tensor, 67 TFLOP/s fp32), the H100 SXM data
 sheet's figures (kernel E's prefill branch: 3 x the fp32 operations at 495
 TFLOP/s tf32, its 3xTF32 work; ``ffma_bound_ms`` beside it is the fp32
 figure).  The line before the last holds the card's name and power
-limit; the last line is the JSON result.  Without a CUDA device the script
-exits non-zero and prints no result.
+limit; the last line is the JSON result.  Each group of phases prints
+its seconds (``elapsed:``).  Without a CUDA device the script exits
+non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -1320,7 +1335,7 @@ def forward_tally(eng):
             del eng.prefill_draft
 
 
-def spec_generate(label, eng, prompts, sampling=None, int8=False, budget=32):
+def spec_generate(label, eng, prompts, sampling=None, int8=False, budget=32, adapter=None, logprobs=False):
     """One ``generate`` of ``prompts`` on ``eng`` with every launch count set
     to 0 just before and read just after, held to exactly the launches of
     the forwards it ran (``forward_tally``): kernel B (or D) once per
@@ -1338,7 +1353,8 @@ def spec_generate(label, eng, prompts, sampling=None, int8=False, budget=32):
     with forward_tally(eng) as tally:
         _cuda.reset_launch_counts()
         t0 = time.perf_counter()
-        results = eng.generate(prompts, max_new_tokens=budget, sampling=sampling)
+        results = eng.generate(prompts, max_new_tokens=budget, sampling=sampling, adapter=adapter,
+                               return_logprobs=logprobs)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         counts = _cuda.launch_counts()
@@ -1359,11 +1375,12 @@ def spec_generate(label, eng, prompts, sampling=None, int8=False, budget=32):
     return results, counts, dict(tally), secs
 
 
-def tokens_held(label, eng, got, want) -> list:
+def tokens_held(label, eng, got, want, adapters=None) -> list:
     """``got``'s tokens equal ``want``'s for every request, or the first
     difference comes where the plain prefill path's top-2 logit gap after
-    ``want``'s tokens is at most NEAR_TIE x max |logit|.  Returns [(request,
-    token index, gap, max |logit|)] of the differences, printed."""
+    ``want``'s tokens (through each request's bank adapter, ``adapters``)
+    is at most NEAR_TIE x max |logit|.  Returns [(request, token index,
+    gap, max |logit|)] of the differences, printed."""
     import numpy as np
 
     from nf4_tpu_torch.models.llama import init_kv_cache
@@ -1378,7 +1395,9 @@ def tokens_held(label, eng, got, want) -> list:
         seq = list(w.prompt) + list(w.tokens[:at])
         toks = np.zeros((1, min(bucket_len(len(seq)), cfg.max_seq_len)), np.int32)
         toks[0, : len(seq)] = seq
-        logits = eng.prefill_group(init_kv_cache(cfg, 1), toks, np.asarray([len(seq)], np.int32), np.asarray([0]))
+        ids = None if adapters is None or adapters[i] is None else np.asarray([adapters[i]], np.int32)
+        logits = eng.prefill_group(init_kv_cache(cfg, 1), toks, np.asarray([len(seq)], np.int32), np.asarray([0]),
+                                   adapter_ids=ids)
         top = logits[0].float().topk(2).values
         gap, scale = (top[0] - top[1]).item(), logits.abs().max().item()
         diffs.append((i, at, gap, scale))
@@ -1760,6 +1779,321 @@ def phase_quality_gate():
     return dict(report, seconds=secs)
 
 
+# Phase 5r: the bank's adapters (ranks; all four targets, B drawn with a
+# std per target, MULTI_LORA_B_STD, so the adapters change the tokens: the
+# synthetic model's 32 random layers send every request to one token,
+# which deltas of ~0.4x the base projections' outputs left alone on the
+# card, and ~4x on o and down moved only the larger ranks'; deltas of
+# ~10x on the projections that write the residual (o, down) move it,
+# while q/k/v and gate/up stay small, since large ones sharpen the random
+# attention until rounding decides the logits), the requests' adapters
+# (5b's six prompts through 4 slots, so refills switch adapters) and the
+# same mix permuted for the second call.
+MULTI_LORA_RANKS = (8, 16, 16, 32)
+MULTI_LORA_B_STD = {"qkv": 0.02, "o": 2.0, "gateup": 0.02, "down": 2.0}
+MULTI_LORA_MIX = [None, 0, 1, 2, 3, 0]
+MULTI_LORA_PERMUTED = [3, 0, None, 1, 0, 2]
+MERGE_LAYERS = 4
+
+
+def bank_adapters(cfg, ranks, seed=20, device="cuda"):
+    """Seeded adapters on ``device``, one per rank, on all four targets: A
+    from ``init_lora``, B drawn there, normal with MULTI_LORA_B_STD's std
+    for its target."""
+    import torch
+
+    from nf4_tpu_torch.train import LoraConfig, init_lora
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = []
+    for j, r in enumerate(ranks):
+        lora = init_lora(cfg, LoraConfig(rank=r, alpha=2.0 * r), seed=seed + j, device=device)
+        with torch.no_grad():
+            for ll in lora.layers:
+                for name, std in MULTI_LORA_B_STD.items():
+                    getattr(ll, name).b.normal_(0.0, std, generator=gen)
+        out.append(lora)
+    return out
+
+
+def bank_decode_ms(eng, cfg, adapters, chunks=4, n=8) -> float:
+    """ms per graphed, pipelined decode step at batch 4 from position 1024
+    (kv_len 1536) on a Decoder of ``eng`` whose slots hold ``adapters``,
+    after one untimed chunk (its capture): serve_llama's timing."""
+    import numpy as np
+    import torch
+
+    from nf4_tpu_torch.models.llama import init_kv_cache
+    from nf4_tpu_torch.serve.engine import Decoder, kv_bucket
+
+    dec = Decoder(eng, init_kv_cache(cfg, 4))
+    if dec.ids is not None:
+        dec.set_adapters(np.asarray(adapters, np.int32))
+    pos, act, cur = np.full(4, 1024, np.int64), np.ones(4, bool), np.zeros(4, np.int32)
+    kv = kv_bucket(1024 + chunks * n, eng.KV_BUCKET, cfg.max_seq_len)
+    dec.read(dec.launch(n, kv, cur, pos, act))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    h = dec.launch(n, kv, cur, pos, act)
+    for _ in range(chunks - 1):
+        nxt = dec.launch(n, kv)
+        dec.read(h)
+        h = nxt
+    out = dec.read(h)
+    ms = (time.perf_counter() - t0) * 1e3 / (chunks * n)
+    check(kv == 1536 and out.shape == (n, 4) and ((out >= 0) & (out < cfg.vocab_size)).all(), "bank decode tokens")
+    return ms
+
+
+def phase_multi_lora(params, cfg, prompts, want, step_ms, int8=False):
+    """Main path (r): multi-LoRA serving of Llama-3-8B at full width and
+    depth on the phase's weights (5b's, or briefly 5d's int8 ones): a bank
+    of 4 seeded adapters of ranks MULTI_LORA_RANKS on all four targets,
+    5b's requests with adapters MULTI_LORA_MIX through 4 slots, graphed and
+    pipelined, every launch count exact (``spec_generate``), the request
+    without an adapter equal to the phase's own tokens, the adapters
+    changing the tokens; then the mix permuted on the same Engine, which
+    captures nothing.  The 4-bit mode also: each adapted request held to
+    its run alone (``tokens_held`` through its adapter); an eager call of 2
+    tokens with every kernel call held to its plain version; ``Engine.
+    score`` through two adapters, each generated token's score within 2 x
+    NEAR_TIE x max |logit| of its decode logprob, launches exact; the
+    graphed decode step with the bank (slots on adapters 0-3) timed at
+    kv_len 1536 against ``step_ms``; ``merge_lora`` of adapter 0 into
+    MERGE_LAYERS layers on the card (kernel A, then the card quantizer),
+    its first layer held to the CPU's merge."""
+    import numpy as np
+    import torch
+
+    from nf4_tpu_torch.models.llama import LlamaParams, init_kv_cache
+    from nf4_tpu_torch.ops import _cuda
+    from nf4_tpu_torch.serve.engine import Engine
+    from nf4_tpu_torch.train import LoraAB, LoraLayer, LoraParams, merge_lora
+
+    label = "5r int8" if int8 else "5r"
+    t_phase = time.perf_counter()
+    adapters = bank_adapters(cfg, MULTI_LORA_RANKS)
+    t0 = time.perf_counter()
+    eng = Engine(params, cfg, batch_size=4, eos_token=-1, decode_chunk=8, lora_bank=adapters)
+    torch.cuda.synchronize()
+    bank_s = time.perf_counter() - t0
+    bank_bytes = sum(t.numel() * t.element_size() for ll in eng._bank.layers
+                     for ab in (ll.qkv, ll.o, ll.gateup, ll.down) for t in (ab.a, ab.b))
+    fp32_bytes = sum(p.numel() * p.element_size() for a in adapters for p in a.parameters())
+    got, counts, tally, secs = spec_generate(f"{label} bank", eng, prompts, int8=int8, adapter=MULTI_LORA_MIX)
+    captured = eng.graph_stats["captured"]
+    check(got[0].tokens == want[0], f"{label}: the request without an adapter differs from the base Engine's tokens")
+    changed = sum(r.tokens != w for r, w, a in zip(got, want, MULTI_LORA_MIX) if a is not None)
+    moved = {a for r, w, a in zip(got, want, MULTI_LORA_MIX) if a is not None and r.tokens != w}
+    check(moved == set(range(len(adapters))), f"{label}: adapters {sorted(moved)} of {len(adapters)} change the "
+                                              f"tokens of a request ({changed} of 5 requests)")
+    again, counts2, tally2, secs2 = spec_generate(f"{label} bank permuted", eng, prompts, int8=int8,
+                                                  adapter=MULTI_LORA_PERMUTED)
+    check(eng.graph_stats["captured"] == captured, f"{label}: the permuted mix captured a graph")
+    none_at = MULTI_LORA_PERMUTED.index(None)
+    check(again[none_at].tokens == want[none_at], f"{label}: the permuted call's request without an adapter differs")
+    launches = {k: counts[k] + counts2[k] for k in counts}
+    res = dict(generate_s=secs, generate_permuted_s=secs2, forwards=tally, launches=counts, changed=changed,
+               bank_build_s=bank_s, bank_bytes=bank_bytes, adapters_fp32_bytes=fp32_bytes,
+               graphs=dict(eng.graph_stats))
+    if int8:
+        print(f"phase {label}: {len(prompts)} requests x 32 tokens, adapters {MULTI_LORA_MIX} then "
+              f"{MULTI_LORA_PERMUTED}: {secs:.2f} s then {secs2:.2f} s (0 captures); the request without an adapter "
+              f"equal to 5d's tokens; launches {counts}; phase {time.perf_counter() - t_phase:.1f} s")
+        del eng
+        free_memory()
+        return launches, res
+
+    # Each adapted request against its run alone (the same Engine).
+    solo, solo_ad = [], []
+    for i, a in enumerate(MULTI_LORA_MIX):
+        if a is not None:
+            solo += eng.generate([prompts[i]], max_new_tokens=32, adapter=[a])
+            solo_ad.append(a)
+    adapted = [r for r, a in zip(got, MULTI_LORA_MIX) if a is not None]
+    diffs = tokens_held(f"{label} adapted requests against their runs alone", eng, adapted, solo, solo_ad)
+
+    eager = Engine(params, cfg, batch_size=4, eos_token=-1, decode_chunk=8, pipeline_decode=False,
+                   cuda_graphs=False, lora_bank=adapters)
+    with kernels_held_to_plain(f"{label} eager bank call") as held:
+        short = eager.generate(prompts, max_new_tokens=2, adapter=MULTI_LORA_MIX)
+    check([r.tokens for r in short] == [r.tokens[:2] for r in got],
+          f"{label}: the eager bank call's tokens differ from the graphed call's")
+    del eager
+    free_memory()
+
+    # Scoring through the bank: two requests' prompts and 32 greedy tokens.
+    pick = [1, 3]
+    lp = eng.generate([prompts[i] for i in pick], max_new_tokens=32, adapter=[MULTI_LORA_MIX[i] for i in pick],
+                      return_logprobs=True)
+    seqs = [r.prompt + r.tokens for r in lp]
+    _cuda.reset_launch_counts()
+    scores = eng.score(seqs, adapter=[MULTI_LORA_MIX[i] for i in pick])
+    torch.cuda.synchronize()
+    score_counts = _cuda.launch_counts()
+    proj, flash = score_expected(cfg, params, seqs, eng.batch_size)
+    check(score_counts["matmul_bf16"] == proj and score_counts["flash_attention"] == flash
+          and sum(score_counts.values()) == proj + flash, f"{label} score launched {score_counts}")
+    logits = eng.prefill_group(init_kv_cache(cfg, 1), np.asarray([prompts[1]], np.int32),
+                               np.asarray([len(prompts[1])], np.int32), np.asarray([0]), adapter_ids=np.asarray([0]))
+    scale = logits.abs().max().item()
+    diffs_lp = [abs(x - y) for r, s in zip(lp, scores) for x, y in zip(s[len(r.prompt) - 1 :], r.logprobs)]
+    diff = max(diffs_lp)
+    check(diff <= 2 * NEAR_TIE * scale, f"{label}: a generated token's score is {diff} from its decode logprob "
+                                        f"(limit 2 x {NEAR_TIE} x max |logit| {scale}; mean "
+                                        f"{sum(diffs_lp) / len(diffs_lp)}, sorted {sorted(diffs_lp)[-8:]})")
+    for key in launches:
+        launches[key] += score_counts[key]
+
+    bank_ms = bank_decode_ms(eng, cfg, [0, 1, 2, 3])
+    base_ms = bank_decode_ms(Engine(params, cfg, batch_size=4, eos_token=-1, decode_chunk=8), cfg, [-1] * 4)
+    del eng
+    free_memory()
+
+    # merge_lora of adapter 0 into the first MERGE_LAYERS layers on the card,
+    # its first layer against the same merge on the CPU.
+    sub = LlamaParams(embed=None, layers=params.layers[:MERGE_LAYERS], final_norm=None, lm_head=None)
+    lora0 = LoraParams(list(adapters[0].layers[:MERGE_LAYERS]))
+    cfg_m = dataclasses.replace(cfg, num_layers=MERGE_LAYERS)
+    torch.cuda.synchronize()
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    merged = merge_lora(sub, lora0, cfg_m)
+    torch.cuda.synchronize()
+    merge_s = time.perf_counter() - t0
+    merge_counts = _cuda.launch_counts()
+    check(merge_counts["dequant_t"] == 4 * MERGE_LAYERS and sum(merge_counts.values()) == 4 * MERGE_LAYERS,
+          f"{label} merge_lora launched {merge_counts}, not kernel A {4 * MERGE_LAYERS} times")
+    cpu_sub = params_to(dataclasses.replace(sub, layers=sub.layers[:1]), "cpu")
+    cpu_lora = LoraParams([LoraLayer(**{f: LoraAB(getattr(lora0.layers[0], f).a.detach().cpu(),
+                                                  getattr(lora0.layers[0], f).b.detach().cpu(),
+                                                  getattr(lora0.layers[0], f).scaling)
+                                        for f in ("qkv", "o", "gateup", "down")})])
+    t0 = time.perf_counter()
+    cpu = merge_lora(cpu_sub, cpu_lora, dataclasses.replace(cfg, num_layers=1))
+    cpu_s = time.perf_counter() - t0
+    codes_diff, codes_total, scale_err = 0, 0, 0.0
+    for name in ("wqkv", "wo", "w_gateup", "w_down"):
+        a, b = getattr(merged.layers[0], name), getattr(cpu.layers[0], name)
+        pa, pb = a.packed.cpu(), b.packed
+        codes_diff += int(((pa & 15) != (pb & 15)).sum() + ((pa >> 4) != (pb >> 4)).sum())
+        codes_total += 2 * pa.numel()
+        scale_err = max(scale_err, ((a.scales.cpu() - b.scales).abs() / b.scales.abs().clamp_min(1e-30)).max().item())
+    check(codes_diff <= 1e-4 * codes_total and scale_err <= 1e-6,
+          f"{label} merge_lora: {codes_diff} of {codes_total} codes or scales ({scale_err}) differ from the CPU's")
+    res.update(token_diffs=diffs, eager_held=held, score_launches=score_counts, score_max_diff=diff,
+               decode_ms_step_bank=bank_ms, decode_ms_step_base=base_ms, decode_ms_step_5b=step_ms,
+               merge_s=merge_s, merge_cpu_layer_s=cpu_s, merge_codes_diff=codes_diff,
+               merge_codes_total=codes_total, merge_scale_err=scale_err, merge_launches=merge_counts)
+    print(f"phase {label} multi-LoRA bank of {len(adapters)} adapters (ranks {MULTI_LORA_RANKS}, all four targets): "
+          f"{bank_bytes / 1e9:.3f} GB in the serving bank (bf16; fp32 adapters {fp32_bytes / 1e9:.3f} GB), built in "
+          f"{bank_s:.2f} s; {len(prompts)} requests x 32 tokens, adapters {MULTI_LORA_MIX}: {secs:.2f} s (graphs "
+          f"captured {captured}), permuted {MULTI_LORA_PERMUTED}: warm {secs2:.2f} s, 0 captures; {changed} of 5 "
+          f"adapted requests change the tokens, the others' equal 5b's; launches {counts} for the forwards {tally}; "
+          f"score of 2 requests: largest |score - decode logprob| {diff:.4f} (limit {2 * NEAR_TIE * scale:.4f}); "
+          f"graphed decode step at kv_len 1536 with the slots on adapters 0-3 {bank_ms:.2f} ms against "
+          f"{base_ms:.2f} ms without the bank here and 5b's {step_ms:.2f} ms; merge_lora of adapter 0 into "
+          f"{MERGE_LAYERS} layers {merge_s * 1e3:.0f} ms (kernel A {merge_counts['dequant_t']} launches, the card "
+          f"quantizer), layer 0 against the CPU merge ({cpu_s:.1f} s): {codes_diff} of {codes_total} codes differ, "
+          f"scales within {scale_err:.1e}; phase {time.perf_counter() - t_phase:.1f} s; on {card_line()}")
+    launches["dequant_t"] += merge_counts["dequant_t"]
+    del merged, adapters
+    free_memory()
+    return launches, res
+
+
+# Phase 6d: the families that only served before, 2 layers each at full
+# width: Gemma-2-9B (a local and a global layer, both softcaps), Gemma-3-4B
+# (two local layers: their own RoPE) and Mixtral-8x7B (LoRA on attention
+# only, the frozen experts' gradient through kernel A).
+TRAIN_FAMILIES = {  # label: (config name, seed, LoRA targets)
+    "Gemma-2-9B": ("gemma2-9b", 11, ("wqkv", "wo", "w_gateup", "w_down")),
+    "Gemma-3-4B": ("gemma3-4b", 12, ("wqkv", "wo", "w_gateup", "w_down")),
+    "Mixtral-8x7B": ("mixtral-8x7b", 13, ("wqkv", "wo")),
+}
+FAMILY_LAYERS = 2
+
+
+def phase_train_families(examples):
+    """Main path (6d): 3 bf16 AdamW steps (lr 1e-4, ``remat=True``) of rank-16
+    QLoRA on each of TRAIN_FAMILIES at full width and FAMILY_LAYERS layers,
+    on 6b's packed examples (2 x 512 slots, mapped into the vocabulary),
+    each step's launches exact (kernel B once per projection of the
+    forward and of its recompute, kernel A once per projection in the
+    backward but layer 0's wqkv), the losses finite and the step-0 loss
+    held to the inference forward's (``reference_loss``); then the
+    trained Gemma-2 adapter served from a bank beside the base for 8
+    tokens, launches exact and tokens equal to an eager Engine's."""
+    import torch
+
+    from nf4_tpu_torch.models import configs
+    from nf4_tpu_torch.models.synthetic import synthetic_params
+    from nf4_tpu_torch.ops import _cuda
+    from nf4_tpu_torch.serve.engine import Engine
+    from nf4_tpu_torch.train import LoraConfig, init_lora, make_train_step, pack_sft
+
+    t_phase = time.perf_counter()
+    res, total = {}, {name: 0 for name in _cuda.KERNELS}
+    trained = None
+    for label, (name, seed, targets) in TRAIN_FAMILIES.items():
+        cfg = dataclasses.replace(configs.get_config(name), num_layers=FAMILY_LAYERS, max_seq_len=8192)
+        params = synthetic_params(cfg, seed=seed)
+        ex = [([t % cfg.vocab_size for t in p], [t % cfg.vocab_size for t in c]) for p, c in examples]
+        batch = pack_sft(ex, 512)
+        tok, mask, pos, seg = batch_to(batch, "cuda")
+        lora = init_lora(cfg, LoraConfig(rank=16, alpha=32.0, targets=targets), seed=seed)
+        opt = torch.optim.AdamW(lora.parameters(), lr=1e-4, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
+        step = make_train_step(cfg, opt, remat=True)
+        ref = reference_loss(params, cfg, ex)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, secs, counts = [], [], []
+        for _ in range(3):
+            _cuda.reset_launch_counts()
+            t0 = time.perf_counter()
+            losses.append(step(params, lora, tok, mask, pos, seg).item())
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            counts.append(_cuda.launch_counts())
+        peak = torch.cuda.max_memory_allocated()
+        per_layer = projections_per_layer(cfg)
+        want = {k: 0 for k in _cuda.KERNELS}
+        want.update(matmul_bf16=2 * per_layer * cfg.num_layers, dequant_t=per_layer * cfg.num_layers - 1)
+        check(all(math.isfinite(v) for v in losses), f"6d {label}: losses {losses}")
+        for c in counts:
+            check(c == want, f"6d {label}: launches per step {c}, expected {want}")
+            for k in c:
+                total[k] += c[k]
+        check(abs(losses[0] - ref) <= 2e-2, f"6d {label}: step-0 loss {losses[0]} against the inference forward's {ref}")
+        step_ms = sum(secs[1:]) / 2 * 1e3
+        res[label] = dict(losses=losses, ref_loss=ref, step_ms=step_ms, peak_gb=peak / 1e9,
+                          launches_per_step=counts[0], step_times_ms=[v * 1e3 for v in secs])
+        print(f"phase 6d QLoRA {label} bf16 ({cfg.num_layers} layers at full width, rank 16 on {targets}, 2 x 512 "
+              f"packed): losses {losses}; step-0 loss against the inference forward {ref:.6f}; step times "
+              f"{[round(v * 1e3, 1) for v in secs]} ms, {step_ms:.1f} ms/step; peak memory {peak / 1e9:.2f} GB; "
+              f"launches per step {counts[0]}; on {card_line()}")
+        if label == "Gemma-2-9B":
+            prompts = [ex[0][0] + ex[0][1], ex[1][0]]
+            eng = Engine(params, cfg, batch_size=4, eos_token=-1, decode_chunk=8, lora_bank=[lora])
+            plain = Engine(params, cfg, batch_size=4, eos_token=-1, decode_chunk=8, lora_bank=[lora],
+                           cuda_graphs=False, pipeline_decode=False)
+            got, served, tally, serve_s = spec_generate("6d Gemma-2-9B trained adapter", eng, prompts, budget=8,
+                                                        adapter=[0, None])
+            check([r.tokens for r in got] == [r.tokens for r in plain.generate(prompts, max_new_tokens=8,
+                                                                                adapter=[0, None])],
+                  "6d: the trained adapter's graphed tokens differ from eager decode")
+            for k in served:
+                total[k] += served[k]
+            trained = dict(generate_s=serve_s, launches=served, forwards=tally)
+            print(f"phase 6d Gemma-2-9B trained adapter served from a bank beside the base: 2 requests x 8 tokens in "
+                  f"{serve_s:.2f} s, launches {served}, tokens equal to eager decode")
+            del eng, plain
+        del params, lora, opt, step
+        free_memory()
+    print(f"phase 6d: done in {time.perf_counter() - t_phase:.1f} s")
+    return total, dict(families=res, served=trained)
+
+
 def phase_int8_serving(prompts, profile):
     """Main path (d): the same serving with every projection recoded to int8
     (kernel D) and an int8 KV cache (kernel C's int8 branch)."""
@@ -1795,7 +2129,10 @@ def phase_int8_serving(prompts, profile):
     check(abs(serving["kv_cache_gb"] - kv8 / 1e9) < 1e-9, "KV cache size")
     spec_counts, spec = phase_spec(params, cfg, prompts, serving["tokens"], serving["decode_ms_step"], int8=True)
     score_counts, score_prefix = phase_score_prefix(params, cfg, prompts, serving["tokens"], int8=True)
-    return counts, dict(serving, recode_s=recode_s, spec=spec, score_prefix=score_prefix), spec_counts, score_counts
+    lora_counts, multi_lora = phase_multi_lora(params, cfg, prompts, serving["tokens"], serving["decode_ms_step"],
+                                               int8=True)
+    more = dict(recode_s=recode_s, spec=spec, score_prefix=score_prefix, multi_lora=multi_lora)
+    return counts, dict(serving, **more), spec_counts, score_counts, lora_counts
 
 
 @contextlib.contextmanager
@@ -2761,7 +3098,7 @@ def small_lora(cfg, dev, seed):
 
 
 def phase_train_small(rng, devices=("cuda", "cpu")):
-    """Main path (6d): one fp32 training step of a small model on the card
+    """Main path (6s): one fp32 training step of a small model on the card
     against the same step on the CPU (``devices``): the loss, the adapters'
     gradients, and the adapters after one SGD(1.0) step."""
     import torch
@@ -2793,7 +3130,7 @@ def phase_train_small(rng, devices=("cuda", "cpu")):
         g_err = max(g_err, (got[name][0] - g_ref).abs().max().item() / scale)
         p_err = max(p_err, (got[name][1] - p_ref).abs().max().item() / scale)
     check(g_err <= 1e-4 and p_err <= 1e-4, f"small train step grads/adapters, card vs CPU: {g_err}, {p_err}")
-    print(f"phase 6d small model fp32 train step, card vs CPU plain path: loss {loss:.6f} vs {want_loss:.6f}; "
+    print(f"phase 6s small model fp32 train step, card vs CPU plain path: loss {loss:.6f} vs {want_loss:.6f}; "
           f"max grad diff {g_err:.2e} and max adapter diff after SGD(1.0) {p_err:.2e} of each gradient's "
           f"largest value (limit 1e-4); card launches {counts}")
 
@@ -2846,6 +3183,17 @@ def main() -> int:
 
     card = card_line()
     print(f"phase 1 card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    t_start = last = time.perf_counter()
+    laps = {}
+
+    def lap(name):
+        """Print the seconds since the last lap (and since the start)."""
+        nonlocal last
+        now = time.perf_counter()
+        laps[name] = now - last
+        print(f"elapsed: phases {name} {now - last:.1f} s (total {now - t_start:.1f} s)")
+        last = now
+
     t0 = time.perf_counter()
     reports = _cuda.build()
     print(f"phase 1 built {sorted(reports) or 'nothing (cached)'} in {time.perf_counter() - t0:.1f} s")
@@ -2865,6 +3213,7 @@ def main() -> int:
     fl = phase_flash(gen, dev)
     fl8 = phase_flash(gen, dev, int8=True)
     fls = phase_flash_shapes(gen, dev)
+    lap("1-4")
 
     import numpy as np
 
@@ -2873,29 +3222,46 @@ def main() -> int:
     from nf4_tpu_torch.models.configs import LLAMA3_8B
 
     prompts = [list(map(int, rng.integers(0, LLAMA3_8B.vocab_size, n))) for n in (1024, 37, 300, 64, 700, 9)]
+    lap("5a")
     serve_counts, serving, params = phase_serving(prompts, args.profile)
+    lap("5b")
     http_counts, http = phase_http_serving(params, prompts, serving["tokens"], args.profile)
+    lap("5h")
     spec_counts, spec = phase_spec(params, LLAMA3_8B, prompts, serving["tokens"], serving["decode_ms_step"])
+    lap("5n")
     score_counts, score_prefix = phase_score_prefix(params, LLAMA3_8B, prompts, serving["tokens"])
+    lap("5p")
+    lora_counts, multi_lora = phase_multi_lora(params, LLAMA3_8B, prompts, serving["tokens"],
+                                               serving["decode_ms_step"])
+    lap("5r")
     del params
     free_memory()
     phase_small_model(dev, rng)
-    int8_counts, serving8, spec8_counts, score8_counts = phase_int8_serving(prompts, args.profile)
+    lap("5c")
+    int8_counts, serving8, spec8_counts, score8_counts, lora8_counts = phase_int8_serving(prompts, args.profile)
+    lap("5d (with 5n, 5p and 5r int8)")
     phase_checkpoint(dev, rng)
     qwen_counts, serving_qwen = phase_qwen2_serving(prompts, args.profile)
     free_memory()
+    lap("5e, 5f")
     gemma_counts, gemma = phase_gemma(rng)
     free_memory()
+    lap("5g")
     gemma2_counts, gemma2 = phase_gemma2_serving(prompts, rng, args.profile)
     free_memory()
+    lap("5i")
     gemma3_counts, gemma3 = phase_gemma3_serving(prompts, rng, args.profile)
     free_memory()
+    lap("5j")
     mixtral_counts, mixtral = phase_mixtral_serving(prompts, args.profile)
     free_memory()
+    lap("5k")
     moe_counts, qwen3_moe = phase_qwen3_moe(prompts)
     free_memory()
+    lap("5l")
     hf_counts, hf_ckpt = phase_hf_checkpoint(prompts)
     free_memory()
+    lap("5m")
     phase_backward(gen, dev)
     # 7 examples of 60-200 tokens that pack into 2 x 512 slots (97.8% full).
     examples = sft_examples(np.random.default_rng(0), LLAMA3_8B.vocab_size, 7, 60, 200)
@@ -2903,10 +3269,14 @@ def main() -> int:
     train32 = phase_training("6c", "fp32", examples, args.profile)
     check(train32["launches_per_step"]["matmul_bf16"] == 0 and train16["launches_per_step"]["matmul_exact"] == 0,
           "kernel E only in fp32, kernel B only in bf16")
+    lap("6a-6c")
+    family_counts, families = phase_train_families(examples)
+    lap("6d")
     phase_train_small(rng)
     phase_resume(rng)
     free_memory()
     gate = phase_quality_gate()
+    lap("6s, 6e, 7q")
 
     def decode_layer(res):  # one decode layer's four projections at B=4
         return [res[(name, 4)] for name in LLAMA3_8B_PROJ]
@@ -2936,6 +3306,7 @@ def main() -> int:
     kernels = [
         dict(name="dequant_t", route="cuda", source="nf4_tpu_torch/csrc/dequant.cu",
              replaces="nf4_tpu/ops/dequant.py:86", launches=dequant_counts["dequant_t"],
+             multi_lora_launches=lora_counts["dequant_t"], train_families_launches=family_counts["dequant_t"],
              max_abs_err=deq["max_abs_err"], ms=deq["w_down"]["ms"], plain_ms=deq["w_down"]["plain_ms"],
              bound_ms=deq["w_down"]["bound_ms"], bound_by="bytes", library_ms=None),
         matmul_row("matmul_bf16", "nf4_tpu_torch/csrc/matmul.cu", "nf4_tpu/ops/matmul.py:148", mm,
@@ -2944,7 +3315,9 @@ def main() -> int:
                    gemma2_9b_launches=gemma2_counts["matmul_bf16"], gemma3_4b_launches=gemma3_counts["matmul_bf16"],
                    mixtral_8x7b_launches=mixtral_counts["matmul_bf16"],
                    qwen3_30b_a3b_launches=moe_counts["4-bit"]["matmul_bf16"],
-                   hf_checkpoint_launches=hf_counts["4-bit"]["matmul_bf16"]),
+                   hf_checkpoint_launches=hf_counts["4-bit"]["matmul_bf16"],
+                   multi_lora_launches=lora_counts["matmul_bf16"],
+                   train_families_launches=family_counts["matmul_bf16"]),
         flash_row("flash_attention", fl, serve_counts["flash_attention"],
                   qwen2_7b_launches=qwen_counts["flash_attention"], gemma_7b_launches=gemma_counts["flash_attention"],
                   http_launches=http_counts["flash_attention"], gemma2_9b_launches=gemma2_counts["flash_attention"],
@@ -2952,16 +3325,22 @@ def main() -> int:
                   score_prefix_launches=score_counts["flash_attention"],
                   gemma3_4b_launches=gemma3_counts["flash_attention"],
                   mixtral_8x7b_launches=mixtral_counts["flash_attention"],
-                  qwen3_30b_a3b_launches=moe_counts["4-bit"]["flash_attention"]),
+                  qwen3_30b_a3b_launches=moe_counts["4-bit"]["flash_attention"],
+                  multi_lora_launches=lora_counts["flash_attention"],
+                  train_families_launches=family_counts["flash_attention"]),
         flash_row("flash_attention_int8", fl8, int8_counts["flash_attention_int8"], int8=True,
                   spec_launches=spec8_counts["flash_attention_int8"],
                   score_prefix_launches=score8_counts["flash_attention_int8"],
-                  qwen3_30b_a3b_launches=moe_counts["int8"]["flash_attention_int8"]),
+                  qwen3_30b_a3b_launches=moe_counts["int8"]["flash_attention_int8"],
+                  multi_lora_launches=lora8_counts["flash_attention_int8"],
+                  train_families_launches=family_counts["flash_attention_int8"]),
         matmul_row("int8_matmul", "nf4_tpu_torch/csrc/int8_matmul.cu", "nf4_tpu/ops/int8_serve.py:151", mm8,
                    int8_counts["int8_matmul"], prefill=True, spec_launches=spec8_counts["int8_matmul"],
                    score_prefix_launches=score8_counts["int8_matmul"],
                    qwen3_30b_a3b_launches=moe_counts["int8"]["int8_matmul"],
-                   hf_checkpoint_launches=hf_counts["int8"]["int8_matmul"]),
+                   hf_checkpoint_launches=hf_counts["int8"]["int8_matmul"],
+                   multi_lora_launches=lora8_counts["int8_matmul"],
+                   train_families_launches=family_counts["int8_matmul"]),
         dict(name="dequant_t_fast", route="cuda", source="nf4_tpu_torch/csrc/dequant.cu",
              replaces="nf4_tpu/ops/dequant.py:147", launches=fast_counts["dequant_t_fast"],
              max_abs_err=fast["max_abs_err"], ms=fast["w_down"]["ms"], plain_ms=fast["w_down"]["plain_ms"],
@@ -2991,7 +3370,7 @@ def main() -> int:
                            serving_qwen2_7b=serving_qwen, gemma_7b=gemma, http_serving=http, speculative=spec,
                            serving_gemma2_9b=gemma2, serving_gemma3_4b=gemma3, serving_mixtral_8x7b=mixtral,
                            qwen3_30b_a3b=qwen3_moe, hf_checkpoint=hf_ckpt, score_prefix=score_prefix,
-                           quality_gate=gate,
+                           quality_gate=gate, multi_lora=multi_lora, train_families=families, phase_seconds=laps,
                            training_bf16=train16, training_fp32=train32, kernels=kernels), f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -42,17 +42,20 @@ def _bucket_len(n: int, cap: int) -> int:
 
 
 def _batch_token_logp(params: LlamaParams, cfg: LlamaConfig, toks: np.ndarray, lens: np.ndarray,
-                      device) -> torch.Tensor:
+                      device, lora=None, ids=None) -> torch.Tensor:
     """log P(token_t | prefix) for a padded batch ``toks`` [B, T] of true
     lengths ``lens``: fp32 [B, T-1] on ``device`` (entry t-1 predicts token
-    t; entries at or past a row's length are left as they come)."""
+    t; entries at or past a row's length are left as they come); ``lora``
+    and the rows' adapters ``ids`` as in ``forward``."""
     b, t = toks.shape
     cache = init_kv_cache(dataclasses.replace(cfg, max_seq_len=t), b, device)
     tokens = torch.as_tensor(toks, dtype=torch.int32, device=device)
     positions = torch.arange(t, dtype=torch.int32, device=device).expand(b, t)
     seq_lens = torch.as_tensor(lens, dtype=torch.int32, device=device)
+    adapter_ids = None if ids is None else torch.as_tensor(ids, dtype=torch.int32, device=device)
     with torch.no_grad():
-        x, _ = forward(params, cfg, tokens, cache, positions, seq_lens, kv_len=t, hidden=True)
+        x, _ = forward(params, cfg, tokens, cache, positions, seq_lens, kv_len=t, hidden=True, lora=lora,
+                       adapter_ids=adapter_ids)
         del cache
         out = torch.empty((b, t - 1), dtype=torch.float32, device=device)
         targets = tokens[:, 1:].long()
@@ -86,14 +89,15 @@ def token_logprobs(params: LlamaParams, cfg: LlamaConfig, sequences: Sequence[Se
     log P(seq[i+1] | seq[:i+1]) (the first token has none; OpenAI's
     completions API reports it as null).  Sequences are truncated to
     ``cfg.max_seq_len``; those of length 0 or 1 give ``[]``.  ``params``
-    live on ``device`` (default ``cuda``).  ``lora`` / ``adapter_ids``
-    (scoring through a multi-LoRA bank) are not ported yet."""
-    if lora is not None or adapter_ids is not None:
-        raise NotImplementedError("not ported yet: lora / adapter_ids (multi-LoRA scoring)")
+    live on ``device`` (default ``cuda``).  ``lora`` is an unmerged
+    adapter, or a multi-LoRA bank (``train.lora.stack_adapters``, or its
+    serving form ``models.llama.prepare_bank``) with ``adapter_ids`` one
+    bank index per sequence (-1: the base model)."""
     dev = resolve_device(device)
     out = [[] for _ in sequences]
     for idx, toks, lens in _batches(cfg, sequences, batch_size):
-        lp = _batch_token_logp(params, cfg, toks, lens, dev).cpu().numpy()
+        ids = None if adapter_ids is None else [adapter_ids[i] for i in idx]
+        lp = _batch_token_logp(params, cfg, toks, lens, dev, lora, ids).cpu().numpy()
         for j, i in enumerate(idx):
             out[i] = [float(v) for v in lp[j, : lens[j] - 1]]
     return out

@@ -15,9 +15,11 @@ the fused 4-bit matmul for :class:`PackedNF4` weights, the int8 matmul for
 weights recoded by :func:`recode_params_int8`, a plain product for dense
 weights (``quantize=False``).  With ``kv_quant`` the KV cache is int8 with
 per-slot absmax scales.  :func:`train_forward` is the cache-free,
-differentiable forward of QLoRA fine-tuning: LoRA deltas
-(``train.lora``) on the adapted projections, gradients to the adapters
-through the packed weights' backward.
+differentiable forward of QLoRA fine-tuning, for every family served:
+LoRA deltas (``train.lora``) on the adapted projections, gradients to
+the adapters through the packed weights' backward.  :func:`forward` also
+takes a multi-LoRA bank with a per-row adapter id (:func:`_lora_delta`,
+:func:`prepare_bank`).
 
 Where the dispatch differs from the JAX package's: there a layer's window
 is a traced value of the layer scan, which keeps every windowed
@@ -71,6 +73,8 @@ __all__ = [
     "quantize_dense_params",
     "init_params",
     "lm_head",
+    "prepare_bank",
+    "LoraBank",
 ]
 
 
@@ -135,32 +139,14 @@ _ACTIVATIONS = {
 }
 
 
-def _raise_unported(missing: dict, what: str = "") -> None:
-    bad = [name for name, on in missing.items() if on]
-    if bad:
-        raise NotImplementedError(f"not ported yet: {what}{', '.join(bad)}")
-
-
 def check_supported(cfg: LlamaConfig) -> None:
     """Raise for configuration features this port does not serve yet."""
-    _raise_unported({"tp_shards > 1": cfg.tp_shards > 1})
+    if cfg.tp_shards > 1:
+        raise NotImplementedError("not ported yet: tp_shards > 1")
     if cfg.activation not in _ACTIVATIONS:
         raise ValueError(f"unknown activation {cfg.activation!r}; {'|'.join(_ACTIVATIONS)}")
     if cfg.rope_scaling is not None and cfg.rope_scaling[0] not in ("linear", "llama3", "longrope"):
         raise ValueError(f"unknown rope_scaling kind {cfg.rope_scaling[0]!r}; llama3|linear|longrope")
-
-
-def check_trainable(cfg: LlamaConfig) -> None:
-    """Raise for the configurations :func:`train_forward` does not train
-    yet (they serve).  Dense projections (``quantize=False``) train."""
-    check_supported(cfg)
-    _raise_unported({
-        "num_experts > 1": cfg.num_experts > 1,
-        "attn_logit_softcapping": cfg.attn_logit_softcapping is not None,
-        "final_logit_softcapping": cfg.final_logit_softcapping is not None,
-        "sliding_window_pattern > 1": cfg.sliding_window_pattern > 1,
-        "rope_local_theta": cfg.rope_local_theta is not None,
-    }, "training with ")
 
 
 # A packed weight, or a dense cfg.dtype tensor [out, in] (quantize=False).
@@ -629,17 +615,123 @@ def _write_kv(layer_cache: torch.Tensor, new: torch.Tensor, index) -> None:
     layer_cache.transpose(1, 2)[index] = new.transpose(1, 2).to(layer_cache.dtype)
 
 
-def _lora_delta(x: torch.Tensor, ab) -> Optional[torch.Tensor]:
+@dataclasses.dataclass
+class BankAB:
+    """One projection's adapters of a multi-LoRA bank (``train.lora.
+    stack_adapters``) in the form the banked delta reads: ``a`` [A * r, in]
+    and ``b`` [out, A * r] in the activation dtype (adapter j's rank rows
+    at ``j * r .. (j + 1) * r``), ``num`` = A."""
+
+    a: torch.Tensor
+    b: torch.Tensor
+    num: int
+    scaling: float = 1.0
+
+
+@dataclasses.dataclass
+class BankLayer:
+    """One layer's :class:`BankAB` per adapted projection (None: not adapted)."""
+
+    qkv: Optional[BankAB] = None
+    o: Optional[BankAB] = None
+    gateup: Optional[BankAB] = None
+    down: Optional[BankAB] = None
+
+
+@dataclasses.dataclass
+class LoraBank:
+    """A multi-LoRA bank in serving form (:func:`prepare_bank`)."""
+
+    layers: List[BankLayer]
+    num_adapters: int
+
+
+def _bank_ab(a: torch.Tensor, b: torch.Tensor, scaling: float, dtype) -> BankAB:
+    """A stacked pair (``a`` [A, r, in], ``b`` [A, out, r]) as a :class:`BankAB`
+    of ``dtype``: the values of the JAX package's per-call cast."""
+    n, r, n_in = a.shape
+    return BankAB(a.to(dtype).reshape(n * r, n_in), b.to(dtype).permute(1, 0, 2).reshape(-1, n * r), n, scaling)
+
+
+def prepare_bank(lora, dtype) -> LoraBank:
+    """A stacked bank (``train.lora.stack_adapters``, duck-typed: each pair's
+    ``a`` is [A, r, in]) as a :class:`LoraBank` of ``dtype``, made once: the
+    serving Engine's, so a decode step reads the bank in its dtype with no
+    cast and no transpose."""
+    layers, num = [], 0
+    for ll in lora.layers:
+        fields = {}
+        for f in ("qkv", "o", "gateup", "down"):
+            ab = getattr(ll, f)
+            if ab is None:
+                continue
+            if ab.a.dim() != 3:
+                raise ValueError("a LoRA bank's pairs are stacked [A, r, in]: use train.lora.stack_adapters")
+            fields[f] = _bank_ab(ab.a.detach(), ab.b.detach(), ab.scaling, dtype)
+            num = fields[f].num
+        layers.append(BankLayer(**fields))
+    if not num:
+        raise ValueError("the LoRA bank adapts no projection")
+    return LoraBank(layers, num)
+
+
+def _bank_size(lora) -> int:
+    """The number of adapters of a banked ``lora`` (a :class:`LoraBank` or a
+    stacked ``LoraParams``); 0 for one adapter or none."""
+    if lora is None:
+        return 0
+    if isinstance(lora, LoraBank):
+        return lora.num_adapters
+    ab = next((getattr(lora.layers[0], f) for f in ("qkv", "o", "gateup", "down")
+               if getattr(lora.layers[0], f) is not None), None)
+    return 0 if ab is None or ab.a.dim() == 2 else ab.a.shape[0]
+
+
+def _adapter_mask(adapter_ids: torch.Tensor, num: int, dtype) -> torch.Tensor:
+    """The one-hot rows [B, A] of ``adapter_ids`` [B] (-1: none, all zero),
+    made once per forward with no host read, so a decode chunk captures."""
+    return (adapter_ids[:, None] == torch.arange(num, device=adapter_ids.device, dtype=adapter_ids.dtype)).to(dtype)
+
+
+def _lora_delta(x: torch.Tensor, ab, adapter_ids=None, sel=None) -> Optional[torch.Tensor]:
     """One projection's low-rank update ``(x @ A^T) @ B^T * scaling`` in
-    ``x``'s dtype (the QLoRA convention), or None when ``ab`` (a
-    ``train.lora.LoraAB``, duck-typed) is None."""
+    ``x``'s dtype (the QLoRA convention), or None when ``ab`` is None.
+    ``ab`` is a ``train.lora.LoraAB`` (duck-typed): one adapter (``a`` [r,
+    in]), or a stacked bank (``a`` [A, r, in], or a :class:`BankAB`) with
+    ``adapter_ids`` [B] int32 selecting one adapter per row (-1: none,
+    delta 0); ``sel`` is their :func:`_adapter_mask`, when the caller made
+    it once for every projection.
+
+    The bank's design is the JAX package's: both products run over the
+    whole bank, ``x`` [B, S, in] against every adapter's A ([A * r, in]),
+    and a one-hot mask of each row's adapter zeroes the other adapters'
+    columns of the rank-r intermediate before the product with every B
+    ([out, A * r]).  A gather of each row's pair would read the same bank
+    bytes at decode (every adapter of a batch of slots may be live) and
+    write a copy of them besides, and at a prefill of many rows per
+    adapter it would repeat the pair per row.  A row's delta follows its
+    own id and its own ``x`` only (the other adapters' terms are exact
+    zeros), no shape follows the ids, and nothing reads the host."""
     if ab is None:
         return None
+    if isinstance(ab, BankAB) or ab.a.dim() == 3:
+        bank = ab if isinstance(ab, BankAB) else _bank_ab(ab.a, ab.b, ab.scaling, x.dtype)
+        if sel is None:
+            if adapter_ids is None:
+                raise ValueError("banked LoRA needs adapter_ids [B]")
+            sel = _adapter_mask(adapter_ids, bank.num, x.dtype)
+        b, s = x.shape[:2]
+        t = x @ bank.a.to(x.dtype).t()  # [B, S, A * r]
+        t = (t.view(b, s, bank.num, -1) * sel[:, None, :, None]).view(b, s, -1)
+        d = t @ bank.b.to(x.dtype).t()
+        return d if bank.scaling == 1.0 else d * bank.scaling
     return (x @ ab.a.to(x.dtype).t()) @ ab.b.to(x.dtype).t() * ab.scaling
 
 
 def _add_delta(y: torch.Tensor, delta: Optional[torch.Tensor]) -> torch.Tensor:
-    return y if delta is None else y + delta.to(y.dtype)
+    """``y`` plus a delta in the activation dtype (at most ``y``'s), summed
+    in ``y``'s dtype."""
+    return y if delta is None else y + delta
 
 
 def _post(cfg: LlamaConfig, t: torch.Tensor, w: Optional[torch.Tensor]) -> torch.Tensor:
@@ -650,19 +742,20 @@ def _post(cfg: LlamaConfig, t: torch.Tensor, w: Optional[torch.Tensor]) -> torch
 
 def _layer_forward(cfg, x, lp: LayerParams, layer_cache: Optional[KVCache], positions, seq_lens, cos, sin,
                    kv_len=None, ll=None, train: bool = False, segment_ids=None, cache_index=None, window=None,
-                   decode: bool = False):
+                   decode: bool = False, sel=None):
     """One decoder layer; x [B, S, hidden]; writes this call's K/V into the
     layer's cache views in place at ``cache_index`` (the positions'
     :func:`_cache_index`).  ``window`` is the layer's sliding window
     (:func:`_layer_window`); ``decode`` marks the rows as decode rows (see
     :func:`forward`).  ``ll`` is the layer's LoRA adapters
-    (``train.lora.LoraLayer``) or None; ``train=True`` uses no cache
+    (``train.lora.LoraLayer``, or a bank's layer with ``sel`` its rows'
+    :func:`_adapter_mask`) or None; ``train=True`` uses no cache
     (attention over this call's own K/V, differentiable paths only, with
     ``segment_ids`` for packed rows)."""
     b, s, _ = x.shape
 
     def delta(t, name):
-        return None if ll is None else _lora_delta(t, getattr(ll, name))
+        return None if ll is None else _lora_delta(t, getattr(ll, name), sel=sel)
 
     one_plus = cfg.rmsnorm_one_plus
     attn_in = rms_norm(x, lp.input_norm, cfg.rms_norm_eps, one_plus)
@@ -685,6 +778,7 @@ def _layer_forward(cfg, x, lp: LayerParams, layer_cache: Optional[KVCache], posi
             sliding_window=window,
             differentiable=True,
             segment_ids=segment_ids,
+            logit_softcap=cfg.attn_logit_softcapping,
         )
     else:
         if cfg.kv_quant:
@@ -709,6 +803,9 @@ def _layer_forward(cfg, x, lp: LayerParams, layer_cache: Optional[KVCache], posi
 
     mlp_in = rms_norm(x, lp.post_attn_norm, cfg.rms_norm_eps, one_plus)
     if lp.router is not None:
+        if ll is not None and (ll.gateup is not None or ll.down is not None):
+            raise ValueError("LoRA on MoE expert MLPs is not supported; adapt the attention projections "
+                             "(targets=('wqkv', 'wo'))")
         return x + _post(cfg, _moe_mlp(cfg, mlp_in, lp, decode), lp.post_ffw_norm).to(x.dtype)
     gateup = _add_delta(_matmul(mlp_in, lp.w_gateup, decode=decode), delta(mlp_in, "gateup"))  # one kernel for gate+up
     h = _gated(cfg, gateup)
@@ -760,11 +857,14 @@ def forward(
     lora=None,
     decode: bool = False,
     hidden: bool = False,
+    adapter_ids: Optional[torch.Tensor] = None,  # [B] int32: each row's adapter of a banked `lora`, -1 none
 ) -> Tuple[torch.Tensor, KVCache]:
     """Embed, run every layer, return fp32 logits ([B, S, V], or [B, V] for
     each row's last valid token with ``last_only``) and the cache, written
     in place.  ``kv_len`` (host int) bounds the slots any query can see.
-    ``lora`` is an optional unmerged ``train.lora.LoraParams``.
+    ``lora`` is an optional unmerged ``train.lora.LoraParams``: one
+    adapter, or a bank (``train.lora.stack_adapters``, or its serving form
+    :func:`prepare_bank`) with ``adapter_ids`` choosing each row's.
     ``hidden=True`` returns the last layer's output instead of the logits
     (``[B, S, hidden]``, before the final norm), for a caller that applies
     :func:`lm_head` a part at a time (scoring keeps no ``[B, S, V]``).
@@ -780,10 +880,16 @@ def forward(
     x = _embed(params, cfg, tokens)
     tables = _layer_tables(cfg, positions)
     index = _cache_index(positions)
+    num = _bank_size(lora)
+    sel = None
+    if num:
+        if adapter_ids is None:
+            raise ValueError("banked LoRA needs adapter_ids [B]")
+        sel = _adapter_mask(adapter_ids, num, x.dtype)
     for i, lp in enumerate(params.layers):
         ll = None if lora is None else lora.layers[i]
         x = _layer_forward(cfg, x, lp, cache.layer(i), positions, seq_lens, *tables[i], kv_len, ll=ll,
-                           cache_index=index, window=_layer_window(cfg, i), decode=decode)
+                           cache_index=index, window=_layer_window(cfg, i), decode=decode, sel=sel)
     if last_only:
         last_idx = torch.clamp(seq_lens - 1 - positions[:, 0], 0, s - 1).long()
         x = x[torch.arange(b, device=x.device), last_idx]
@@ -832,20 +938,23 @@ def train_forward(
     weights are frozen.  For packed rows (``train.data.pack_sft``)
     ``segment_ids`` makes attention block-diagonal and ``positions`` carries
     the segment-relative rotary phases; the causal mask runs on slot
-    indices.  Gemma-2/3 and MoE configurations are not trained yet
-    (:func:`check_trainable`)."""
-    check_trainable(cfg)
+    indices.  Every family that serves trains: each layer gets its window
+    and its RoPE tables (Gemma-2/3's local layers), attention its logit
+    softcap, the head the final one; an MoE layer's experts stay frozen
+    (LoRA on the attention projections only), their gradient to the
+    activations through ``nf4_matmul``'s backward."""
+    check_supported(cfg)
     b, s = tokens.shape
     x = _embed(params, cfg, tokens)
     slot_ids = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
     seq_lens = torch.full((b,), s, dtype=torch.int32, device=tokens.device)
-    cos, sin = rope_tables(cfg, slot_ids if positions is None else positions)
+    tables = _layer_tables(cfg, slot_ids if positions is None else positions)
     for i, lp in enumerate(params.layers):
         ll = None if lora is None else lora.layers[i]
 
-        def layer(x, lp=lp, ll=ll):
+        def layer(x, lp=lp, ll=ll, cos=tables[i][0], sin=tables[i][1], window=_layer_window(cfg, i)):
             return _layer_forward(cfg, x, lp, None, slot_ids, seq_lens, cos, sin,
-                                  ll=ll, train=True, segment_ids=segment_ids, window=cfg.sliding_window)
+                                  ll=ll, train=True, segment_ids=segment_ids, window=window)
 
         x = checkpoint(layer, x, use_reentrant=False) if remat else layer(x)
     return lm_head(params, cfg, x)
@@ -880,10 +989,14 @@ def prefill_chunked(params, cfg: LlamaConfig, tokens: torch.Tensor, cache: Optio
     return logits, cache
 
 
-def decode_step(params, cfg: LlamaConfig, token, cache: KVCache, positions, kv_len: Optional[int] = None):
+def decode_step(params, cfg: LlamaConfig, token, cache: KVCache, positions, kv_len: Optional[int] = None,
+                lora=None, adapter_ids=None):
     """One token per sequence: token [B], positions [B] (the slot being
-    written).  Returns (logits [B, V], cache)."""
+    written); ``lora`` / ``adapter_ids`` as in :func:`forward` (the
+    multi-LoRA Engine's bank and slot adapters).  Returns (logits [B, V],
+    cache)."""
     logits, cache = forward(
-        params, cfg, token[:, None], cache, positions[:, None], positions + 1, kv_len=kv_len
+        params, cfg, token[:, None], cache, positions[:, None], positions + 1, kv_len=kv_len, lora=lora,
+        adapter_ids=adapter_ids,
     )
     return logits[:, 0], cache

@@ -23,8 +23,13 @@ The port of the JAX package's ``serve/api.py``.  Stdlib-only
   tokenizers), else by a minimal generic template; responses carry the
   OpenAI chat shape (``message.content``; streaming sends
   ``delta.content`` chunks).
-* ``GET /v1/models``, ``GET /health`` and ``GET /metrics`` (Prometheus
-  text).
+* ``GET /v1/models`` (the base model's name and every adapter's),
+  ``GET /health`` and ``GET /metrics`` (Prometheus text).
+* Multi-LoRA model routing: with ``adapters={name: bank index}`` over an
+  ``Engine(lora_bank=)``, a request's ``"model"`` names the adapter that
+  serves it (the base model's name, or none, serves the base); an unknown
+  name is a 400.  Requests of different adapters batch into one wave, and
+  their ``echo`` scores run through the same adapters.
 * ``"stream": true`` responds with server-sent events (one ``data:`` JSON
   line per token, then ``data: [DONE]``), fed by the engine's
   ``on_token`` callback.  A client that goes away (its socket closes, or a
@@ -41,8 +46,7 @@ another thread while a decode graph is being captured would invalidate
 the capture); handler threads only parse, tokenize, wait and serialize.
 Scoring-only requests (``echo`` with ``max_tokens: 0``) never generate and
 never join a running wave; a wave's ``echo`` + ``logprobs`` requests are
-scored in one batched ``Engine.score`` after its ``generate``.  Not ported
-yet: multi-LoRA model names.
+scored in one batched ``Engine.score`` after its ``generate``.
 """
 
 from __future__ import annotations
@@ -87,6 +91,9 @@ class _Pending:
     # logprobs) in the response; with max_tokens=0, scoring only.
     echo: bool = False
     prompt_logprobs: Optional[List[float]] = None
+    # The bank index of the adapter serving the request (None: the base
+    # model), from its "model" field.
+    adapter: Optional[int] = None
 
 
 def _params_from_body(body: Dict[str, Any], seed_offset: int = 0) -> SamplingParams:
@@ -135,7 +142,8 @@ class CompletionServer:
     ``tokenizer`` is optional; without it, prompts must be token-id
     lists and responses carry only token ids.  ``batch_window`` (s): after
     the first request of a fresh wave, wait this long for more before
-    launching it, so a burst starts as one wave."""
+    launching it, so a burst starts as one wave.  ``adapters`` maps served
+    model names to bank indices of an ``Engine(lora_bank=)``."""
 
     def __init__(
         self,
@@ -143,6 +151,7 @@ class CompletionServer:
         tokenizer=None,
         model_name: str = "nf4-tpu",
         max_wave: int = 64,
+        adapters: Optional[Dict[str, int]] = None,
         batch_window: float = 0.01,
     ):
         self.engine = engine
@@ -150,6 +159,13 @@ class CompletionServer:
         self.model_name = model_name
         self.max_wave = max_wave
         self.batch_window = batch_window
+        self.adapters = dict(adapters or {})
+        if self.adapters:
+            if getattr(engine, "_bank", None) is None:
+                raise ValueError("adapters= requires an Engine built with lora_bank=...")
+            bad = {k: v for k, v in self.adapters.items() if not 0 <= v < engine.num_adapters}
+            if bad:
+                raise ValueError(f"adapter indices out of range [0, {engine.num_adapters}): {bad}")
         self._queue: "queue.Queue[_Pending]" = queue.Queue()
         self._shutdown = threading.Event()
         self._dispatcher = threading.Thread(target=self._dispatch_loop, name="nf4-dispatcher", daemon=True)
@@ -226,18 +242,22 @@ class CompletionServer:
                 except queue.Empty:
                     break
                 if p.params.max_new_tokens == 0 or not Engine.admissible(features, p.tokens, p.params,
-                                                                         logprobs=p.logprobs):
+                                                                         logprobs=p.logprobs, adapter=p.adapter):
                     deferred.append(p)
                     continue
                 gen_wave.append(p)
                 wave.append(p)
-                admitted.append((p.tokens, p.params, None))
+                admitted.append((p.tokens, p.params, p.adapter))
                 self._count("admitted")
             return admitted
 
         # The engine's pipelined chunk loop polls this between chunks and
         # breaks out to refill an idle slot as soon as a request waits.
         admit.peek = lambda: not self._queue.empty()
+
+        def adapters(ps):
+            """The requests' adapters for the engine, None when all are the base's."""
+            return [p.adapter for p in ps] if any(p.adapter is not None for p in ps) else None
 
         try:
             for p in wave:
@@ -251,6 +271,7 @@ class CompletionServer:
                     # the call-level value is a fallback.
                     max_new_tokens=max(p.params.max_new_tokens or 64 for p in gen_wave),
                     sampling=[p.params for p in gen_wave],
+                    adapter=adapters(gen_wave),
                     return_logprobs=any(p.logprobs for p in gen_wave),
                     # Always wired: a request admitted mid-wave may stream
                     # even when none of the initial ones do.
@@ -262,7 +283,7 @@ class CompletionServer:
             # batched teacher-forced pass.
             need = [p for p in wave if p.echo and p.logprobs]
             if need:
-                for p, lp in zip(need, self.engine.score([p.tokens for p in need])):
+                for p, lp in zip(need, self.engine.score([p.tokens for p in need], adapter=adapters(need))):
                     p.prompt_logprobs = lp
                 self._count("scored", len(need))
         except Exception as e:  # the dispatcher keeps serving: report to every waiter
@@ -299,6 +320,15 @@ class CompletionServer:
                 tokens = list(prompt)
             else:
                 raise ValueError("prompt must be a string or a list of token ids")
+        model = body.get("model")
+        adapter = None
+        # Without an adapter map the field is informational (OpenAI SDKs
+        # always send one); with one it routes, and an unknown name is the
+        # client's error.
+        if model is not None and model != self.model_name and self.adapters:
+            if model not in self.adapters:
+                raise ValueError(f"unknown model {model!r}; served models: {[self.model_name, *self.adapters]}")
+            adapter = self.adapters[model]
         vocab = self.engine.cfg.vocab_size
         if not all(0 <= t < vocab for t in tokens):
             raise ValueError(f"prompt token ids must be in [0, {vocab})")
@@ -334,6 +364,7 @@ class CompletionServer:
             logprobs=bool(body.get("logprobs", False)) or int(body.get("top_logprobs", 0) or 0) > 0,
             stream_q=queue.Queue() if body.get("stream") else None,
             echo=echo,
+            adapter=adapter,
         )
         self._count("requests")
         self._queue.put(pending)
@@ -482,7 +513,8 @@ class CompletionServer:
                     self.end_headers()
                     self.wfile.write(body)
                 elif self.path == "/v1/models":
-                    self._json(200, {"object": "list", "data": [{"id": server.model_name, "object": "model"}]})
+                    names = (server.model_name, *server.adapters)
+                    self._json(200, {"object": "list", "data": [{"id": n, "object": "model"} for n in names]})
                 else:
                     self._json(404, {"error": "not found"})
 

@@ -62,7 +62,22 @@ held for an earlier call stay in the cache, and they are invisible for
 the reason a dropped chunk's are: a new request's prefill writes
 positions 0 to its bucket's end, each decode step writes its position
 before attending, and no query sees a slot past its own position.  One
-call runs at a time.  LoRA and tensor parallelism are not ported yet.
+call runs at a time.  Tensor parallelism is not ported yet.
+
+Multi-LoRA serving (``lora_bank=``, the JAX package's): a bank of
+adapters (``train.lora.stack_adapters``) over one frozen base, each
+request served through one of them or none (``generate(adapter=)``).
+The Engine keeps the bank in its serving form (``models.llama.
+prepare_bank``: the activation dtype, each projection's pairs
+concatenated over adapters) and each slot's adapter in a static device
+buffer (``Decoder.ids``, -1: none), written at refill before the group's
+prefill, so one graph per (kv bucket, n, kind) serves every adapter mix.
+A slot's delta follows its own adapter and its own rows only
+(``models.llama._lora_delta``); a request without an adapter gets a delta
+of exact zeros, its tokens the base Engine's.  A chunk launched ahead
+reads the ids the chunk before it read: refills run only after the loop
+that launched it has ended, and write the buffer on the stream, after
+it.
 
 Shared-prefix caching (``prefix_cache=True``, the JAX package's): when a
 call's prompts (at least 2) share a prefix of ``Lp = min(lcp, shortest -
@@ -124,7 +139,9 @@ import numpy as np
 import torch
 
 from ..eval.ppl import token_logprobs
-from ..models.llama import KVCache, LlamaConfig, LlamaParams, check_supported, decode_step, forward, init_kv_cache
+from ..models.llama import (
+    KVCache, LlamaConfig, LlamaParams, _bank_size, check_supported, decode_step, forward, init_kv_cache, prepare_bank,
+)
 from ..ops._cuda import CountedGraph
 from ..ops.attention import DECODE_KV_BLOCK, DECODE_MAX_QUERIES
 from ..utils.device import resolve_device
@@ -219,13 +236,15 @@ def _spec_ok(p: SamplingParams) -> bool:
 
 
 def prefill_rows(params, cfg: LlamaConfig, cache: KVCache, tokens: np.ndarray, lengths: np.ndarray,
-                 slots: np.ndarray, device, start: Optional[np.ndarray] = None, segment: int = 2048):
+                 slots: np.ndarray, device, start: Optional[np.ndarray] = None, segment: int = 2048, lora=None,
+                 adapter_ids: Optional[np.ndarray] = None):
     """Prefill a group of token rows (each padded to the same bucket) into
     cache slots ``slots``; returns the last-token logits [G, V].  ``start``
     [G] is each row's first position (default 0: a prompt); a continuation
     from ``start`` sees the slot's cache below it, and its padding's
     positions are cut at the cache's last slot, which no valid query
-    reads.
+    reads.  ``lora`` / ``adapter_ids`` [G] (a bank and each row's adapter)
+    as in ``models.llama.forward``.
 
     The slots' cache rows (the int8 scale planes' too) are gathered, run
     through the model and scattered back (the JAX package's
@@ -241,6 +260,7 @@ def prefill_rows(params, cfg: LlamaConfig, cache: KVCache, tokens: np.ndarray, l
     t_max = cache.k.shape[3]
     first = 0 if start is None else int(np.max(start))
     start_t = None if start is None else torch.as_tensor(start, dtype=torch.int32, device=dev)
+    ids = None if adapter_ids is None else torch.as_tensor(adapter_ids, dtype=torch.int32, device=dev)
     last = None
     for t0 in range(0, bucket, segment):
         width = min(segment, bucket - t0)
@@ -250,7 +270,7 @@ def prefill_rows(params, cfg: LlamaConfig, cache: KVCache, tokens: np.ndarray, l
             positions = torch.clamp(start_t[:, None] + positions, max=t_max - 1)
             seq_lens = start_t + seq_lens
         logits, _ = forward(params, cfg, toks[:, t0 : t0 + width], slot_cache, positions, seq_lens,
-                            last_only=True, kv_len=min(first + t0 + width, t_max))
+                            last_only=True, kv_len=min(first + t0 + width, t_max), lora=lora, adapter_ids=ids)
         here = torch.as_tensor((lengths - 1) // segment == t0 // segment, device=dev)
         last = logits if last is None else torch.where(here[:, None], logits, last)
     for name, t in slot_cache.planes().items():
@@ -320,6 +340,11 @@ class Engine:
     ``prefix_len``, ``tokens_saved`` and whether its prefix was ``reused``
     from an earlier call.
 
+    ``lora_bank`` serves several adapters over the one base (module
+    docstring): a stacked bank (``train.lora.stack_adapters``) or a list
+    of adapters to stack, on ``device``; ``num_adapters`` is its size.  It
+    does not compose with ``spec_k`` or ``prefix_cache``.
+
     ``pipeline_stats`` counts the chunks launched ahead of a read-back and
     those dropped because the chunk before them ended a request;
     ``graph_stats`` the decode graphs captured, the seconds their captures
@@ -355,10 +380,20 @@ class Engine:
     ):
         if lora_bank is not None and (spec_k or prefix_cache):
             raise ValueError("lora_bank is not composable with speculative decoding or prefix caching")
-        unported = {"mesh": mesh is not None, "lora_bank": lora_bank is not None}
-        if any(unported.values()):
-            raise NotImplementedError(f"not ported yet: {', '.join(k for k, v in unported.items() if v)}")
+        if mesh is not None:
+            raise NotImplementedError("not ported yet: mesh")
         check_supported(cfg)
+        self._bank, self.num_adapters = None, 0
+        if lora_bank is not None:
+            if isinstance(lora_bank, (list, tuple)):
+                from ..train.lora import stack_adapters
+
+                lora_bank = stack_adapters(lora_bank)
+            if not hasattr(lora_bank, "layers") or not _bank_size(lora_bank):
+                raise ValueError("lora_bank must be a stacked bank ([A, r, in] pairs): use "
+                                 "train.lora.stack_adapters, or pass a list of adapters")
+            self._bank = prepare_bank(lora_bank, cfg.dtype)
+            self.num_adapters = self._bank.num_adapters
         # spec_k stays below the smallest prefill bucket (16), so a refill's
         # prefill overwrites the window an idle slot's verify wrote.
         if not 0 <= spec_k < DECODE_MAX_QUERIES:
@@ -459,7 +494,8 @@ class Engine:
         INITIAL requests need (penalty masks, bias rows, top-k logprobs,
         per-token logprobs); a late request needing more must wait for the
         next call.  A prefix-cached call serves only prompts that extend
-        its shared prefix (``features["prefix"]``)."""
+        its shared prefix (``features["prefix"]``); an ``adapter`` needs
+        an Engine with a bank (``features["adapters"]``) that holds it."""
         if logprobs and not features["return_logprobs"]:
             return False
         if len(prompt) == 0 or len(prompt) > features["max_prompt_len"]:
@@ -473,11 +509,11 @@ class Engine:
             return False
         if _uses_bias(sp) and not features["use_bias"]:
             return False
-        prefix = features.get("prefix", ())
-        if prefix and (len(prompt) <= len(prefix) or tuple(prompt[: len(prefix)]) != prefix):
+        if adapter is not None and not (features.get("adapters") and
+                                        -1 <= int(adapter) < features.get("num_adapters", 0)):
             return False
-        # Multi-LoRA serving is not ported: no call serves an adapter.
-        return adapter is None
+        prefix = features.get("prefix", ())
+        return not (prefix and (len(prompt) <= len(prefix) or tuple(prompt[: len(prefix)]) != prefix))
 
     def generate(
         self,
@@ -505,6 +541,10 @@ class Engine:
         each token is read back (never for a stop token, unless the
         request has ``choices``).
 
+        ``adapter`` (an Engine with ``lora_bank``): one bank index or None
+        (the base model) per prompt; requests of different adapters batch
+        together.
+
         ``admit(features)``, when given, is called whenever a slot is idle
         and the queue is empty; it returns ``(prompt, SamplingParams or
         None, adapter)`` requests to join the running call, each of which
@@ -517,8 +557,15 @@ class Engine:
         request reporting True retires with what it has
         (``finished=False``), none of the tokens read back after the poll;
         a cancelled queued request never prefills."""
+        adapters = [-1] * len(prompts)
         if adapter is not None:
-            raise NotImplementedError("not ported yet: adapter (multi-LoRA serving)")
+            if self._bank is None:
+                raise ValueError("generate(adapter=...) needs Engine(lora_bank=...)")
+            if len(adapter) != len(prompts):
+                raise ValueError(f"one adapter index per prompt: got {len(adapter)} for {len(prompts)}")
+            adapters = [-1 if a is None else int(a) for a in adapter]
+            if not all(-1 <= a < self.num_adapters for a in adapters):
+                raise ValueError(f"adapter indices must be in [0, {self.num_adapters}) or None")
         if sampling is None:
             sampling = self.sampling
         if isinstance(sampling, SamplingParams):
@@ -531,7 +578,7 @@ class Engine:
                     f"(got {len(per_req)} for {len(prompts)} prompts)"
                 )
         return _Scheduler(
-            self, prompts, per_req, max_new_tokens, return_logprobs, stop_tokens, on_token, admit, cancel
+            self, prompts, per_req, adapters, max_new_tokens, return_logprobs, stop_tokens, on_token, admit, cancel
         ).run()
 
     def score(self, prompts, batch_size: Optional[int] = None, adapter=None) -> List[List[float]]:
@@ -542,23 +589,37 @@ class Engine:
         default the Engine's slot count).  It runs over a cache of its own,
         one batch's bucket long, never the Engine's (which holds the slots'
         rows and the prefix cache's).  The scoring idiom behind OpenAI
-        completions' ``echo``.  ``adapter`` (multi-LoRA) is not ported yet."""
-        if adapter is not None:
-            raise NotImplementedError("not ported yet: adapter (multi-LoRA scoring)")
-        return token_logprobs(self.params, self.cfg, prompts, batch_size=batch_size or self.batch_size,
+        completions' ``echo``.  ``adapter`` (an Engine with ``lora_bank``):
+        one bank index or None per prompt, the adapter that would serve
+        the request; a call with none scores without the bank."""
+        bs = batch_size or self.batch_size
+        if self._bank is None:
+            if adapter is not None:
+                raise ValueError("score(adapter=...) needs Engine(lora_bank=...)")
+            return token_logprobs(self.params, self.cfg, prompts, batch_size=bs, device=self.device)
+        ids = [-1 if adapter is None or adapter[i] is None else int(adapter[i]) for i in range(len(prompts))]
+        if not all(-1 <= a < self.num_adapters for a in ids):
+            raise ValueError(f"adapter indices must be in [0, {self.num_adapters}) or None")
+        if all(a == -1 for a in ids):  # deltas of exact zeros: the bank-free forward
+            return token_logprobs(self.params, self.cfg, prompts, batch_size=bs, device=self.device)
+        return token_logprobs(self.params, self.cfg, prompts, batch_size=bs, lora=self._bank, adapter_ids=ids,
                               device=self.device)
 
     # -- device work ----------------------------------------------------------
 
     def prefill_group(self, cache: KVCache, tokens: np.ndarray, lengths: np.ndarray, slots: np.ndarray,
-                      start: Optional[np.ndarray] = None):
+                      start: Optional[np.ndarray] = None, adapter_ids: Optional[np.ndarray] = None):
         """Prefill a group of prompts (each padded to the same bucket) into
         cache slots ``slots``, from positions ``start`` (default 0; a
-        prefix-cached continuation starts at the prefix's end); returns the
-        last-token logits [G, V] (:func:`prefill_rows`, in segments of
+        prefix-cached continuation starts at the prefix's end), each row
+        through its bank adapter ``adapter_ids`` (default none); returns
+        the last-token logits [G, V] (:func:`prefill_rows`, in segments of
         ``PREFILL_SEGMENT``)."""
+        if self._bank is None or adapter_ids is None or not (np.asarray(adapter_ids) >= 0).any():
+            adapter_ids = None  # no adapter in the group: deltas of exact zeros, left out
         return prefill_rows(self.params, self.cfg, cache, tokens, lengths, slots, self.device, start,
-                            segment=self.PREFILL_SEGMENT)
+                            segment=self.PREFILL_SEGMENT, lora=None if adapter_ids is None else self._bank,
+                            adapter_ids=adapter_ids)
 
     def prefill_draft(self, cache: KVCache, tokens: np.ndarray, lengths: np.ndarray, slots: np.ndarray,
                       start: Optional[np.ndarray] = None):
@@ -591,6 +652,9 @@ class Decoder:
     outputs not yet read; the device's need no twin, as their copy is
     ordered before the next chunk on the stream.
 
+    With the engine's bank, every step runs each slot through its adapter,
+    ``ids`` [B] int32 (-1: none), written at refill (:meth:`set_adapters`).
+
     With the engine's ``spec_k``, :meth:`launch_spec` runs speculative
     chunks the same way (:meth:`run_spec`): from the same inputs (tokens,
     positions, active), over the prompt-lookup history ``hist`` [B,
@@ -607,6 +671,8 @@ class Decoder:
         self.stats, self.stream = engine.graph_stats, engine.graph_stream
         self.cache, self.dcache, self.draft = cache, dcache, engine._draft
         self.spec_k, self.ngram = engine.spec_k, engine.spec_ngram
+        self.lora = engine._bank
+        self.ids = torch.full((b,), -1, dtype=torch.int32, device=dev) if self.lora is not None else None
         self.inputs = torch.zeros((4, b), dtype=torch.int32, device=dev)
         self.toks = torch.zeros((n, b), dtype=torch.int32, device=dev)
         self.lps = torch.zeros((n, b), dtype=torch.float32, device=dev)
@@ -648,6 +714,11 @@ class Decoder:
     def set_sampling(self, params: Sequence[SamplingParams]) -> None:
         """Every slot's sampling parameters (one per slot)."""
         self.bp.copy_(BatchedSampling.stack(params, self.inputs.device))
+
+    def set_adapters(self, ids: np.ndarray) -> None:
+        """Every slot's bank adapter (-1: none): a pageable copy, ordered
+        after the chunks already launched."""
+        self.ids.copy_(torch.from_numpy(np.asarray(ids, dtype=np.int32)))
 
     def reset_mask(self, kind: str, slots, first: torch.Tensor) -> None:
         """Clear the emitted-token rows of ``slots`` and record their first
@@ -757,9 +828,11 @@ class Decoder:
         tok, pos, active, steps = self.inputs
         act = active != 0
         out = []
+        bank = {} if self.lora is None else dict(lora=self.lora, adapter_ids=self.ids)
+        step = functools.partial(decode_step, self.params, self.cfg, **bank)
         if kind is None:  # plain greedy: fp32 argmax only
             for _ in range(n):
-                logits, _ = decode_step(self.params, self.cfg, tok, self.cache, pos, kv_len=kv_len)
+                logits, _ = step(tok, self.cache, pos, kv_len=kv_len)
                 tok = torch.where(act, sample(logits, GREEDY), tok)
                 out.append(tok)
                 pos = pos + active
@@ -768,7 +841,7 @@ class Decoder:
             return logits
         lps, tops = [], []
         for _ in range(n):
-            logits, _ = decode_step(self.params, self.cfg, tok, self.cache, pos, kv_len=kv_len)
+            logits, _ = step(tok, self.cache, pos, kv_len=kv_len)
             tok, lp, top = self.sample_step(logits, tok, act, steps, kind)
             out.append(tok)
             lps.append(lp)
@@ -893,8 +966,8 @@ class _Scheduler:
     change with their progress (``choices``, ``min_new_tokens`` not yet
     reached: "dynamic" slots)."""
 
-    def __init__(self, engine: Engine, prompts, sps, max_new_tokens: int, return_logprobs: bool, stop_tokens,
-                 on_token, admit, cancel):
+    def __init__(self, engine: Engine, prompts, sps, adapters, max_new_tokens: int, return_logprobs: bool,
+                 stop_tokens, on_token, admit, cancel):
         self.eng = engine
         self.cfg = engine.cfg
         self.default_budget = max_new_tokens
@@ -903,9 +976,10 @@ class _Scheduler:
         self.on_token, self.admit, self.cancel = on_token, admit, cancel
         self.admit_peek = getattr(admit, "peek", None) if admit is not None else None
         self.prompts, self.sps, self.stops, self.budgets, self.results = [], [], [], [], []
+        self.adapters = []  # each request's bank adapter, -1: none
         self.queue = collections.deque()
-        for p, sp in zip(prompts, sps):
-            self.add_request(p, sp)
+        for p, sp, a in zip(prompts, sps, adapters):
+            self.add_request(p, sp, a)
         # What this call's buffers and chunk bodies serve: the contract of
         # ``admit`` (Engine.admissible).
         use_mask = any(_uses_mask(p) for p in sps)
@@ -920,6 +994,7 @@ class _Scheduler:
             "use_mask": use_mask, "use_counts": use_counts, "use_bias": use_bias, "top_lp_k": top_lp_k,
             "return_logprobs": return_logprobs, "max_prompt_len": self.cfg.max_seq_len - 1,
             "prefix": tuple(self.prompts[0][: self.prefix_len]) if self.prefix_len else (),
+            "adapters": engine._bank is not None, "num_adapters": engine.num_adapters,
         }
         self.kind = ChunkKind(top_lp_k, "counts" if use_counts else "bool" if use_mask else None, use_bias)
         # A plain call runs the greedy body while its active requests are
@@ -931,6 +1006,7 @@ class _Scheduler:
         self.slot_req = [-1] * n  # request index, or -1 when idle
         self.slot_sp = [GREEDY] * n
         self.slot_pos = np.zeros(n, dtype=np.int64)  # next position to write
+        self.slot_adapter = np.full(n, -1, dtype=np.int32)
         self.generated: List[List[int]] = [[] for _ in range(n)]
         self.logprobs: List[List[float]] = [[] for _ in range(n)]
         self.toplp: List[list] = [[] for _ in range(n)]
@@ -964,7 +1040,7 @@ class _Scheduler:
         eng.prefix_stats = {"prefix_len": lp, "tokens_saved": lp * (len(prompts) - 1), "reused": reused}
         return lp
 
-    def add_request(self, prompt, sp: SamplingParams) -> None:
+    def add_request(self, prompt, sp: SamplingParams, adapter: int = -1) -> None:
         budget = sp.max_new_tokens if sp.max_new_tokens is not None else self.default_budget
         if sp.choices:
             budget = max(budget, max(len(c) for c in sp.choices))
@@ -973,6 +1049,7 @@ class _Scheduler:
         self.queue.append(len(self.prompts))
         self.prompts.append(list(prompt))
         self.sps.append(sp)
+        self.adapters.append(adapter)
         self.stops.append(self.base_stops | set(sp.stop_tokens))
         self.budgets.append(budget)
         self.results.append(None)
@@ -1029,7 +1106,7 @@ class _Scheduler:
                     raise ValueError(
                         "admit() returned a request this generate() call cannot serve (check Engine.admissible first)"
                     )
-                self.add_request(tok, sp)
+                self.add_request(tok, sp, -1 if ad is None else int(ad))
         pending = []  # (slot, request, bucket)
         for s in range(len(self.slot_req)):
             if self.slot_req[s] != -1:
@@ -1045,11 +1122,14 @@ class _Scheduler:
                     continue
                 self.slot_req[s] = r
                 self.slot_sp[s] = self.sps[r]
+                self.slot_adapter[s] = self.adapters[r]
                 # A prefix-cached call prefills only the continuation.
                 pending.append((s, r, min(bucket_len(len(prompt) - self.prefix_len), cfg.max_seq_len)))
                 break
         if pending and not self.greedy_body(self.slot_sp):
             self.dec.set_sampling(self.slot_sp)
+        if pending and self.dec.ids is not None:  # before the group prefills and the next chunk
+            self.dec.set_adapters(self.slot_adapter)
         groups = collections.defaultdict(list)
         for item in pending:
             groups[item[2]].append(item)
@@ -1080,7 +1160,7 @@ class _Scheduler:
             for name, rows in self.eng._prefix_saved[1].items():
                 getattr(self.cache, name)[:, idx, :, :lp] = rows
             start = np.full(g, lp, dtype=np.int32)
-        logits = self.eng.prefill_group(self.cache, toks, lens, slots, start)
+        logits = self.eng.prefill_group(self.cache, toks, lens, slots, start, self.slot_adapter[slots])
         sps = [self.sps[r] for _, r, _ in chunk]
         if self.greedy_body(sps):
             first_t = sample(logits, GREEDY)

@@ -3,14 +3,16 @@
 The counterpart of the JAX package's ``train/``: low-rank adapters over the
 packed weights (``lora``), a training step with optional per-layer
 rematerialization and gradient accumulation over a torch optimizer
-(``trainer``), resumable training state (``state``) and SFT batching
-(``data``).  Still to port: ``merge_lora`` (it needs the quantizer),
-``stack_adapters`` (multi-LoRA serving), and data- and tensor-parallel
-training.
+(``trainer``), resumable training state (``state``), SFT batching
+(``data``), multi-LoRA banks (``stack_adapters``) and merging an adapter
+into the packed weights (``merge_lora``).  Still to port: data- and
+tensor-parallel training.
 """
 
 from .data import SFTBatch, pack_sft, pad_sft
-from .lora import LoraAB, LoraConfig, LoraLayer, LoraParams, init_lora, load_lora, save_lora
+from .lora import (
+    LoraAB, LoraConfig, LoraLayer, LoraParams, init_lora, load_lora, merge_lora, save_lora, stack_adapters,
+)
 from .state import load_train_state, save_train_state
 from .trainer import lm_loss, make_train_step
 
@@ -20,6 +22,8 @@ __all__ = [
     "LoraLayer",
     "LoraParams",
     "init_lora",
+    "stack_adapters",
+    "merge_lora",
     "save_lora",
     "load_lora",
     "lm_loss",

@@ -15,6 +15,10 @@ to the adapted projections' outputs.
 * Files are the JAX package's ``.npz`` schema (``__rank__``, ``__alpha__``,
   ``__tp_basis__``, ``__targets__``, ``{name}.a`` [L, r, in], ``{name}.b``
   [L, out, r]): adapters written by either package load in the other.
+* :func:`stack_adapters` stacks adapters into a multi-LoRA bank, served
+  per request (``serve.engine.Engine(lora_bank=)``); :func:`merge_lora`
+  folds one adapter into the base weights (``W + scaling * B @ A``),
+  requantized by the port's quantizer.
 
 PyTorch idiom in place of the JAX one: the adapters are ``nn.Module``s
 with one :class:`LoraLayer` per layer (the JAX package stacks ``[L, ...]``
@@ -30,7 +34,10 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..models.llama import LlamaConfig
+from ..models.llama import LlamaConfig, LlamaParams
+from ..nf4.format import PackedNF4, quantize_for_tpu
+from ..ops.dequant import dequantize
+from ..ops.matmul import _ieee_fp32
 from ..utils.device import resolve_device
 
 __all__ = [
@@ -39,6 +46,8 @@ __all__ = [
     "LoraLayer",
     "LoraParams",
     "init_lora",
+    "stack_adapters",
+    "merge_lora",
     "save_lora",
     "load_lora",
 ]
@@ -142,6 +151,98 @@ def init_lora(cfg: LlamaConfig, lcfg: LoraConfig, seed: int = 0, device=None) ->
         a = rng.standard_normal((L, r, in_d)).astype(np.float32) * (in_d**-0.5)
         stacked[_TARGET_FIELD[name]] = (a, np.zeros((L, out_d, r), np.float32))
     return _from_stacked(stacked, L, lcfg.scaling, cfg.tp_shards, dev)
+
+
+def stack_adapters(loras) -> LoraParams:
+    """Stack adapters (each :class:`LoraParams` of one adapter, ranks and
+    scalings free) into one multi-LoRA BANK for per-request serving
+    (``serve.engine.Engine(lora_bank=)``): each layer's pairs gain an
+    adapter axis, ``a`` [A, r_max, in] and ``b`` [A, out, r_max] (the JAX
+    package's ``[L, A, ...]`` leaves, per layer).  The JAX package's
+    normalizations, none of which changes an adapter's function: each
+    adapter's ``scaling`` folded into its ``a`` (the bank's is 1.0); ranks
+    zero-padded to the largest; a projection some adapters leave out gets
+    zero pairs for them.  The bank lives on the adapters' device, fp32."""
+    loras = list(loras)
+    if not loras:
+        raise ValueError("stack_adapters needs at least one adapter")
+    bases = {lo.tp_basis for lo in loras}
+    if len(bases) != 1:
+        raise ValueError(f"adapters were initialized against different tp_shards bases {sorted(bases)}: "
+                         "their fused-row layouts are incompatible")
+    depth = {len(lo.layers) for lo in loras}
+    if len(depth) != 1:
+        raise ValueError(f"adapters of different depths {sorted(depth)}")
+    layers = []
+    for i in range(depth.pop()):
+        fields = {}
+        for f in _TARGET_FIELD.values():
+            abs_ = [getattr(lo.layers[i], f) for lo in loras]
+            present = [ab for ab in abs_ if ab is not None]
+            if not present:
+                continue
+            if any(ab.a.dim() != 2 for ab in present):
+                raise ValueError("stack_adapters takes single adapters, not banks")
+            rmax = max(ab.a.shape[0] for ab in present)
+            (out_d, _), in_d = present[0].b.shape, present[0].a.shape[1]
+            dev = present[0].a.device
+            a = torch.zeros((len(abs_), rmax, in_d), dtype=torch.float32, device=dev)
+            b = torch.zeros((len(abs_), out_d, rmax), dtype=torch.float32, device=dev)
+            with torch.no_grad():
+                for j, ab in enumerate(abs_):
+                    if ab is not None:
+                        r = ab.a.shape[0]
+                        a[j, :r] = ab.a.float() * ab.scaling
+                        b[j, :, :r] = ab.b.float()
+            fields[f] = LoraAB(a, b, 1.0)
+        layers.append(LoraLayer(**fields))
+    return LoraParams(layers, tp_basis=loras[0].tp_basis)
+
+
+def merge_lora(params: LlamaParams, lora: LoraParams, cfg: LlamaConfig, quantize: bool = True,
+               method: str = "auto") -> LlamaParams:
+    """Fold one adapter into the base weights: ``W' = W + scaling * B @ A``
+    (the JAX package's ``merge_lora``), one projection at a time on the
+    weights' device.  A packed weight is dequantized exactly (on the card
+    kernel A), ``B @ A`` is a full fp32 product (no TF32), and
+    ``quantize=True`` quantizes each merged weight back to the packed
+    layout with :func:`~nf4_tpu_torch.nf4.format.quantize_for_tpu`
+    (``method``; the weight's ``quant_type`` kept; on the card the device
+    quantizer): the merged values move to the nearest point of the new
+    grid, as a fine-tuned dense checkpoint's do when it is quantized.
+    ``quantize=False`` returns dense ``cfg.dtype`` weights.  The merged
+    model serves with no adapter, on every path.  Not ported yet:
+    ``method="native"`` and tensor-parallel packing (``quantize_for_tpu``
+    raises)."""
+    if lora.tp_basis != cfg.tp_shards:
+        raise ValueError(f"adapter tp_basis={lora.tp_basis} but cfg.tp_shards={cfg.tp_shards}: the fused-row "
+                         "layouts differ; merge with the config the adapter was trained against")
+    if len(lora.layers) != len(params.layers):
+        raise ValueError(f"{len(lora.layers)} adapter layers for {len(params.layers)} model layers")
+    layers = []
+    for lp, ll in zip(params.layers, lora.layers):
+        new = {}
+        for name, field in _TARGET_FIELD.items():
+            ab = getattr(ll, field)
+            if ab is None:
+                continue
+            if ab.a.dim() != 2:
+                raise ValueError("merge_lora takes one adapter, not a bank")
+            pw = getattr(lp, name)
+            packed = isinstance(pw, PackedNF4)
+            if packed and pw.packed.dim() != 2 or not packed and pw.dim() != 2:
+                raise ValueError(f"LoRA on MoE expert MLPs is not supported ({name})")
+            with torch.no_grad(), _ieee_fp32():
+                w = dequantize(pw, torch.float32) if packed else pw.float()
+                delta = ab.b.detach().to(w.device, torch.float32) @ ab.a.detach().to(w.device, torch.float32)
+                merged = w + ab.scaling * delta
+            if quantize:
+                qt = pw.quant_type if packed else cfg.quant_type
+                new[name] = quantize_for_tpu(merged, dtype=cfg.dtype, method=method, quant_type=qt, device=w.device)
+            else:
+                new[name] = merged.to(cfg.dtype)
+        layers.append(dataclasses.replace(lp, **new))
+    return dataclasses.replace(params, layers=layers)
 
 
 def save_lora(path: str, lora: LoraParams, lcfg: LoraConfig) -> None:

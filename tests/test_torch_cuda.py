@@ -1328,3 +1328,113 @@ def test_half_logits_gradients_in_x_and_w(dev):
         assert got is not None and got.dtype == torch.bfloat16
         # One bf16 rounding of fp32 sums taken in another order.
         torch.testing.assert_close(got.float(), want, rtol=1e-2, atol=1e-3 * want.abs().max().item())
+
+
+# -- multi-LoRA serving on CUDA graphs --------------------------------------------
+
+def _small_bank(cfg, dev, ranks=(4, 8, 2)):
+    """Seeded adapters on all four targets, B large enough to move tokens."""
+    from nf4_tpu_torch.train import LoraConfig, init_lora
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    out = []
+    for j, r in enumerate(ranks):
+        lora = init_lora(cfg, LoraConfig(rank=r, alpha=2.0 * r), seed=j, device=dev)
+        with torch.no_grad():
+            for ll in lora.layers:
+                for ab in (ll.qkv, ll.o, ll.gateup, ll.down):
+                    ab.b.normal_(0.0, 0.05, generator=gen)
+        out.append(lora)
+    return out
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_graphed_bank_chunk_bit_identical_to_eager(dev, int8):
+    """A decode chunk over a multi-LoRA bank (active slots on adapters 2, 0
+    and none) captured as a CUDA graph and replayed gives the eager chunk's
+    logits, tokens, inputs and cache writes bit for bit; the slot without
+    an adapter gives the bank-free chunk's logits bit for bit."""
+    from nf4_tpu_torch.ops._cuda import CountedGraph
+    from nf4_tpu_torch.serve.engine import Decoder, Engine, kv_bucket
+
+    cfg, params = _small_model(dev, int8)
+    bank = _small_bank(cfg, dev)
+    common = dict(batch_size=4, eos_token=-1, decode_chunk=8)
+    eng = Engine(params, cfg, lora_bank=bank, **common)
+    plain = Engine(params, cfg, lora_bank=bank, cuda_graphs=False, **common)
+    base = Engine(params, cfg, cuda_graphs=False, **common)
+    cache, tok, pos, act = _decode_state(base, cfg)
+    ids = np.asarray([2, 0, -1, 1], np.int32)
+    graphed, eager, bare = (Decoder(e, c) for e, c in ((eng, cache), (plain, _clone_cache(cache)),
+                                                       (base, _clone_cache(cache))))
+    graphed.set_adapters(ids)
+    eager.set_adapters(ids)
+    host = torch.from_numpy(np.stack([tok, pos.astype(np.int32), act.astype(np.int32), np.zeros(4, np.int32)]))
+    host = host.to(dev)
+    kv = kv_bucket(int(pos[act].max()) + 8, eng.KV_BUCKET, cfg.max_seq_len)
+    eager.inputs.copy_(host)
+    want = eager.run_eager(8, kv)
+    bare.inputs.copy_(host)
+    ref = bare.run_eager(8, kv)
+    graph = CountedGraph()
+    with graph.capture(pool=graphed.pool, stream=eng.graph_stream):
+        logits = graphed.run_eager(8, kv)
+    graphed.inputs.copy_(host)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(logits, want) and torch.equal(graphed.toks, eager.toks)
+    assert torch.equal(graphed.inputs, eager.inputs)
+    for name, t in graphed.cache.planes().items():
+        assert torch.equal(t, eager.cache.planes()[name]), name
+    assert torch.equal(want[2], ref[2]) and torch.equal(eager.toks[:, 2], bare.toks[:, 2])
+    assert not torch.equal(want[0], ref[0]) and not torch.equal(want[1], ref[1])
+
+
+def test_bank_captures_once_for_every_adapter_mix(dev):
+    """Two mixes of adapters on one Engine: the second captures no graph;
+    both give an eager Engine's tokens, and the requests without an
+    adapter the base Engine's, bit for bit."""
+    from nf4_tpu_torch.serve.engine import Engine
+
+    cfg, params = _small_model(dev, False)
+    bank = _small_bank(cfg, dev)
+    rng = np.random.default_rng(12)
+    prompts = [list(map(int, rng.integers(0, cfg.vocab_size, n))) for n in (30, 70, 9, 50, 12)]
+    common = dict(batch_size=4, eos_token=-1, decode_chunk=8)
+    eng = Engine(params, cfg, lora_bank=bank, **common)
+    plain = Engine(params, cfg, lora_bank=bank, cuda_graphs=False, **common)
+    base = Engine(params, cfg, **common).generate(prompts, max_new_tokens=24)
+    captured = None
+    for mix in ([None, 0, 1, 2, 0], [2, None, 0, 1, None]):
+        got = eng.generate(prompts, max_new_tokens=24, adapter=mix)
+        if captured is None:
+            captured = eng.graph_stats["captured"]
+        assert eng.graph_stats["captured"] == captured > 0
+        want = plain.generate(prompts, max_new_tokens=24, adapter=mix)
+        assert [r.tokens for r in got] == [r.tokens for r in want]
+        assert all(r.tokens == b.tokens for r, b, a in zip(got, base, mix) if a is None)
+        assert sum(r.tokens != b.tokens for r, b, a in zip(got, base, mix) if a is not None) >= 2
+
+
+def test_bank_row_independent_of_batchmates_adapters(dev):
+    """A request's tokens do not follow its batchmates' adapters: equal
+    across two mixes, or the first difference at a near-tie of the
+    request's own logits (2e-2 x max |logit|)."""
+    from nf4_tpu_torch.models.llama import init_kv_cache
+    from nf4_tpu_torch.serve.engine import Engine
+
+    cfg, params = _small_model(dev, False)
+    eng = Engine(params, cfg, batch_size=4, eos_token=-1, decode_chunk=8, lora_bank=_small_bank(cfg, dev))
+    rng = np.random.default_rng(13)
+    prompts = [list(map(int, rng.integers(0, cfg.vocab_size, n))) for n in (40, 20, 60, 33)]
+    a = eng.generate(prompts, max_new_tokens=24, adapter=[1, 0, 2, None])[0]
+    b = eng.generate(prompts, max_new_tokens=24, adapter=[1, None, 0, 2])[0]
+    if a.tokens != b.tokens:
+        at = next(i for i, (x, y) in enumerate(zip(a.tokens, b.tokens)) if x != y)
+        seq = prompts[0] + a.tokens[:at]
+        toks = np.zeros((1, 128), np.int32)
+        toks[0, : len(seq)] = seq
+        logits = eng.prefill_group(init_kv_cache(cfg, 1), toks, np.asarray([len(seq)], np.int32), np.asarray([0]),
+                                   adapter_ids=np.asarray([1], np.int32))[0].float()
+        top = logits.topk(2).values
+        assert (top[0] - top[1]).item() <= 2e-2 * logits.abs().max().item(), at

@@ -158,10 +158,23 @@ def test_batching_invariance():
 
 
 def test_lora_scoring_is_not_ported():
-    cfg = _port(jconfigs.TINY_TEST)
-    params = llama.init_params(cfg, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported yet: lora"):
-        ppl.token_logprobs(params, cfg, [[1, 2, 3]], lora=object(), device="cpu")
+    """Scoring through an unmerged adapter is ported (the name is the
+    slice's that refused it): ``token_logprobs(lora=)`` against the JAX
+    package's; a bank per sequence is in ``test_torch_multi_lora.py``."""
+    from test_torch_train import _adapters
+
+    cfg = jconfigs.TINY_TEST
+    jparams = jllama.init_params(cfg, seed=0)
+    tcfg = _port(cfg)
+    tparams = llama.init_params(tcfg, seed=0, device="cpu")
+    jl, tl = _adapters(cfg, seed=3, b_scale=0.3)
+    seqs = _sequences(cfg.vocab_size)[:4]
+    want = jppl.token_logprobs(jparams, cfg, seqs, batch_size=2, lora=jl)
+    got = ppl.token_logprobs(tparams, tcfg, seqs, batch_size=2, lora=tl, device="cpu")
+    base = ppl.token_logprobs(tparams, tcfg, seqs, batch_size=2, device="cpu")
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, atol=LOGP_TOL, rtol=0)
+    assert max(abs(a - b) for g, b0 in zip(got, base) for a, b in zip(g, b0)) > 0.1
 
 
 def test_cli_end_to_end(tmp_path, capsys):

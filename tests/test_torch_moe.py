@@ -269,11 +269,24 @@ def test_synthetic_params_draw_experts_router_and_norms():
 
 
 def test_training_moe_and_dense_raise():
-    """Training MoE models is not ported yet; dense projections train
-    (their loss and gradients against JAX: ``test_torch_eval.py``)."""
-    from nf4_tpu_torch.train import make_train_step
+    """MoE models train with LoRA on the attention projections (their loss
+    and gradients against JAX: ``test_torch_train_families.py``); LoRA on
+    the expert MLPs raises, in ``init_lora`` and in the forward, as the JAX
+    package's does.  Dense projections train (``test_torch_eval.py``)."""
+    from nf4_tpu_torch.models.synthetic import synthetic_params
+    from nf4_tpu_torch.train import LoraAB, LoraConfig, LoraLayer, LoraParams, init_lora, make_train_step
 
+    cfg = configs.TINY_MOE
     opt = torch.optim.SGD([torch.zeros(1, requires_grad=True)], lr=1.0)
-    with pytest.raises(NotImplementedError, match="not ported yet: training with num_experts"):
-        make_train_step(configs.TINY_MOE, opt)
+    assert callable(make_train_step(cfg, opt))
     assert callable(make_train_step(dataclasses.replace(configs.TINY_TEST, quantize=False), opt))
+    with pytest.raises(ValueError, match="MoE expert MLPs"):
+        init_lora(cfg, LoraConfig(rank=2, alpha=4.0), device="cpu")
+    params = synthetic_params(cfg, seed=1, device="cpu")
+    lora = init_lora(cfg, LoraConfig(rank=2, alpha=4.0, targets=("wqkv", "wo")), device="cpu")
+    toks = torch.zeros((1, 8), dtype=torch.int32)
+    assert bool(torch.isfinite(llama.train_forward(params, cfg, toks, lora=lora)).all())
+    gateup = LoraAB(torch.zeros(2, cfg.hidden_size), torch.zeros(2 * cfg.intermediate_size, 2), 2.0)
+    expert = LoraParams([LoraLayer(qkv=ll.qkv, o=ll.o, gateup=gateup) for ll in lora.layers])
+    with pytest.raises(ValueError, match="MoE expert MLPs"):
+        llama.train_forward(params, cfg, toks, lora=expert)
