@@ -21,7 +21,11 @@ Tolerances:
   perplexity within GATE_FP32_TOL = 1e-4 (fp32 training, sums in another
   order), of the bf16, NF4 and int8-recode ones within GATE_BF16_TOL =
   2e-3 (bf16 activations rounded in another order; leaving one projection
-  of the NF4 model unquantized moves it by 6.5e-3).
+  of the NF4 model unquantized moves it by 6.5e-3).  The tool's int8
+  products run the JAX int8 kernel in interpret mode, whose weights are
+  the port's, ``bf16(int8 * bf16(scale))``: on the CPU ``int8_matmul``
+  would take its XLA path, fp32 weights, which moves the perplexity by
+  up to 2.3e-3 on the repo corpus.
 """
 
 import dataclasses
@@ -41,6 +45,7 @@ from nf4_tpu.eval import ppl as jppl
 from nf4_tpu.models import configs as jconfigs
 from nf4_tpu.models import llama as jllama
 from nf4_tpu.models.loader import config_to_dict
+from nf4_tpu.ops import int8_serve as jint8
 from nf4_tpu.serve.engine import Engine as JaxEngine
 from nf4_tpu.train import trainer as jtrainer
 from nf4_tpu_torch.eval import ppl
@@ -468,6 +473,19 @@ def test_dense_lora_step_matches_jax(dense_fp32):
     assert all(t.grad is None for t in _tensors(tparams).values())
 
 
+_int8_matmul_xla = jint8._int8_matmul_jnp
+
+
+def _int8_kernel_interpret(x_pad, values, scales, out_dtype):
+    """The JAX ``int8_matmul``'s product as its Pallas kernel computes it
+    (interpret mode; one K tile, 128-wide out tiles) for bf16 activations;
+    the XLA path for the others, as on the TPU."""
+    if x_pad.dtype != jnp.bfloat16:
+        return _int8_matmul_xla(x_pad, values, scales, out_dtype)
+    n_pad, m_pad = values.shape
+    return jint8._int8_matmul_pallas(x_pad, values, scales, out_dtype, (16, n_pad, 128), True)
+
+
 def test_quality_gate_few_steps(capsys, monkeypatch):
     """``python -m nf4_tpu_torch.eval.quality_gate`` at a few steps on both
     corpora: the tool's JSON keys, finite perplexities, a loss that falls,
@@ -475,9 +493,11 @@ def test_quality_gate_few_steps(capsys, monkeypatch):
     ``tools/quality_gate.py``'s; each of the four perplexities held to the
     tool's on the same settings (GATE_FP32_TOL, GATE_BF16_TOL in log
     space): the training, the bf16 cast, the NF4 leaves (each fused
-    projection; the embedding and lm_head in bf16) and the int8 recode."""
+    projection; the embedding and lm_head in bf16) and the int8 recode
+    (the tool's through the JAX int8 kernel in interpret mode)."""
     from nf4_tpu_torch.eval.quality_gate import load_corpus, main, synthetic_corpus
 
+    monkeypatch.setattr(jint8, "_int8_matmul_jnp", _int8_kernel_interpret)
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     spec = importlib.util.spec_from_file_location("quality_gate_tool", os.path.join(root, "tools", "quality_gate.py"))
     tool = importlib.util.module_from_spec(spec)
