@@ -9,14 +9,18 @@ toolkit:
 Phases, each of which fails the run on any error:
 
 1. the card's name and power limit; build the CUDA kernels from
-   ``nf4_tpu_torch/csrc`` (one nvcc per source, in parallel);
+   ``nf4_tpu_torch/csrc`` (one nvcc per source, in parallel); (d) the
+   diagnostics (``nf4_tpu_torch.diagnostics.main()``: versions, the build,
+   kernels A and F on a 1024 x 1024 weight against their plain versions
+   and the oracle, the CPU, C++ and no-card routes), which must exit 0;
 2. kernels A (exact dequant) and F (fast bf16 dequant) against their plain
    versions at the Llama-3-8B shapes, bit for bit, NF4 and FP4 (A also
    bf16 and fp16 out);
 3. kernels B (fused 4-bit matmul) and D (int8 matmul) against their plain
    versions at the four projection shapes, decode B=4 and prefill B=1024,
    and at decode B=1, 8 and 16 and the serving run's ragged B=37, 300 and
-   700, max rel err < 2e-2;
+   700, max rel err < 2e-2; kernel B also at Llama-3-70B's four
+   projections at B=4 and 1024, timed;
    (3e) kernel E (the fp32/fp16-activation matmul) at the same shapes and
    rows, fp32 x (fp32 out) and fp16 x (fp16 and fp32 out), max abs err <=
    1e-5 * max|want| for fp32 out, 2e-3 * max|want| for fp16; at B=4 and
@@ -27,8 +31,9 @@ Phases, each of which fails the run on any error:
    version at B=1, H=32, KV=8, D=128, S=1024, T=8192, with and without a
    window, and at a ragged S=700 from position 0 and from 37; the int8
    branch also against the bf16 branch on the dequantized cache; then at
-   the further shapes of the TPU kernel's contract (``FLASH_SHAPES``: G =
-   7, 3, 96 and 1, 2, 4; D = 64, 128, 256 and 384), T=8192, both KV dtypes,
+   the further shapes of the TPU kernel's contract and Llama-3-70B's
+   (``FLASH_SHAPES``: G = 8 at H = 64, 7, 3, 96 and 1, 2, 4; D = 64, 128,
+   256 and 384), T=8192, both KV dtypes,
    causal, windowed and ragged, each timed at S=1024 causal beside its
    bound and SDPA;
 5. the main paths, each with every launch count set to 0 just before and
@@ -74,19 +79,22 @@ Phases, each of which fails the run on any error:
    the same prefill on the plain attention path within 2e-2 * max|logit|;
    (g) Gemma-7B at full width (D = 256) and 8 of its 28 layers: that
    prefill check, then 8 greedy tokens; (i) Gemma-2-9B at full width and
-   depth (softcaps, a 4096 window on every other layer, four-norm blocks)
-   as (b), kernel C never launched (the softcap keeps prefills plain), then
-   a prompt of 4608 tokens past the window, its tokens held to eager
-   decode, and the 1024-token prefill held to the plain attention and
-   projection path; (j) Gemma-3-4B at full width and depth (max_seq_len
-   cut to 8192) as (b), then a 1536-token prompt (kernel C on every layer,
+   10 of its 42 layers (softcaps, a 4096 window on every other layer,
+   four-norm blocks) as (b), kernel C never launched (the softcap keeps
+   prefills plain), then a prompt of 4608 tokens past the window, its
+   tokens held to eager decode, and the 1024-token prefill held to the
+   plain attention and projection path; (j) Gemma-3-4B at full width and
+   12 of its 34 layers (max_seq_len cut to 8192) as (b), then a 1536-token prompt (kernel C on every layer,
    windowed on the local ones), its tokens held to eager decode in which
    every kernel call is held to its plain version, and 4 2048-token
    prefills' logits through kernel C, the plain path and the plain path
-   in fp32, printed; (k) Mixtral-8x7B at full width and depth (8 experts,
-   top-2; max_seq_len 8192) as (b), 18 projection launches per layer; (l)
-   Qwen3-30B-A3B at full width (128 experts, top-8) and 4 of its 48
-   layers, in the 4-bit and the int8 mode, every launch count exact,
+   in fp32, printed; (k) Mixtral-8x7B at full width and 8 of its 32 layers
+   (8 experts, top-2; max_seq_len 8192) as (b), 18 projection launches per
+   layer; (t) Llama-3-70B at full width and depth (80 layers, 64 heads
+   over 8, 4-bit, max_seq_len 8192) as (b), with at most two 4-slot caches
+   alive at once, its memory before the weights, their bytes and the peak
+   printed; (l) Qwen3-30B-A3B at full width (128 experts, top-8) and 2 of
+   its 48 layers, in the 4-bit and the int8 mode, every launch count exact,
    tokens held to eager decode in which every kernel call is held to its
    plain version, and the 1024-token prefill held to the plain attention
    and projection path (kernel D's in the int8 mode); (m) Llama-3-8B at
@@ -95,12 +103,14 @@ Phases, each of which fails the run on any error:
    them, an untied lm_head) quantized on the card as it loads
    (``load_hf_llama``), its load time, the quantizer's GB/s and ms per
    layer, ``peak_dense_bytes`` at most one layer's, layers 0-1 byte for
-   byte the NumPy oracle's on the same fused weights; a bnb NF4 one of the
-   same weights' layers 0-1 (double-quantized per projection by the
+   byte the NumPy oracle's on the same fused weights, and the C++ host
+   quantizer's on layer 0's w_gateup; a bnb NF4 one of the same weights'
+   layers 0-1 (double-quantized per projection by the
    oracle, as Hub checkpoints are; groups across two files) repacked on
    load, its bytes the card's and its scales the oracle's; the midpoint
-   stress tensor (4096 x 4096, NF4 and FP4) on the card against the
-   oracle; then phase 5b's requests on the loaded params in the 4-bit and
+   stress tensor (4096 x 4096, NF4 and FP4) on the card and the C++ host
+   quantizer against the oracle, each method's elements per second; then
+   phase 5b's requests on the loaded params in the 4-bit and
    the int8 mode as (b), every kernel call of the eager run held to its
    plain version; (p) scoring and the shared-prefix cache on 5b's
    weights, and again in the int8 mode of (d) (``phase_score_prefix``):
@@ -310,6 +320,13 @@ LLAMA3_8B_PROJ = {  # name: (out m, in n, output dtype name)
     "w_gateup": (28672, 4096, "bf16"),
     "w_down": (4096, 14336, "fp32"),
 }
+# Llama-3-70B's four projections (phase 3 times kernel B on them too).
+LLAMA3_70B_PROJ = {
+    "wqkv": (10240, 8192, "bf16"),
+    "wo": (8192, 8192, "fp32"),
+    "w_gateup": (57344, 8192, "bf16"),
+    "w_down": (8192, 28672, "fp32"),
+}
 
 
 def phase_dequant(gen, dev, fast=False):
@@ -357,7 +374,8 @@ def phase_dequant(gen, dev, fast=False):
 
 def phase_matmul(gen, dev, int8=False):
     """Kernel B (fused 4-bit matmul) or, with ``int8``, kernel D (int8
-    matmul on the same weights recoded) against its plain version."""
+    matmul on the same weights recoded) against its plain version; kernel
+    B also at Llama-3-70B's projections (keys ``("70b " + name, B)``)."""
     import torch
 
     from nf4_tpu_torch.nf4.format import pad_to
@@ -390,9 +408,12 @@ def phase_matmul(gen, dev, int8=False):
             rel = (got - want).abs().max().item() / want.abs().max().item()
             check(rel < 2e-2, f"{label} max rel err {rel:.3g} at {name} B={b}")
             print(f"phase 3 {label} {name} B={b} (b_pad {x.shape[0]}) m={m} n={n} out={od}: rel err {rel:.2e}")
+    timed = [(name, shape) for name, shape in LLAMA3_8B_PROJ.items()]
+    if not int8:  # the 4-bit mode alone serves Llama-3-70B
+        timed += [(f"70b {name}", shape) for name, shape in LLAMA3_70B_PROJ.items()]
     for b in (4, 1024):
         b_pad = 16 if b <= 16 else b
-        for name, (m, n, od) in LLAMA3_8B_PROJ.items():
+        for name, (m, n, od) in timed:
             pw = make(gen, m, n, dev)
             x = torch.zeros((b_pad, n), device=dev, dtype=torch.bfloat16)
             x[:b] = torch.randn((b, n), generator=gen, device=dev).to(torch.bfloat16)
@@ -411,15 +432,18 @@ def phase_matmul(gen, dev, int8=False):
             lib = time_ms([lambda wt=wt: torch.matmul(x, wt) for wt in wts])
             del wts
             io = x.numel() * 2 + b_pad * pw.padded_shape[0] * (2 if od == "bf16" else 4)
-            bnd = bound_ms(pw.nbytes + io, 2 * b_pad * pw.padded_shape[1] * pw.padded_shape[0], PEAK_BF16_S)
-            res[(name, b)] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib, bound_ms=bnd, max_abs_err=err, rel=rel)
+            flops = 2 * b_pad * pw.padded_shape[1] * pw.padded_shape[0]
+            bnd = bound_ms(pw.nbytes + io, flops, PEAK_BF16_S)
+            by = "bytes" if (pw.nbytes + io) / PEAK_BYTES_S > flops / PEAK_BF16_S else "operations"
+            res[(name, b)] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib, bound_ms=bnd, bound_by=by,
+                                  max_abs_err=err, rel=rel)
             print(f"phase 3 {label} {name} B={b} m={m} n={n} out={od}: rel err {rel:.2e}; {ms:.4f} ms, "
                   f"plain {plain_ms:.4f} ms, torch.matmul on bf16 weight {lib:.4f} ms, bound {bnd:.4f} ms")
     from nf4_tpu_torch.ops.int8_serve import _D_DECODE
     from nf4_tpu_torch.ops.matmul import _B_DECODE, _decode_ksplit, _decode_shape
 
     query = _D_DECODE if int8 else _B_DECODE  # the shared decode kernel with D's or B's decode
-    splits = {name: _decode_ksplit(16, m, n // 64, dev, query) for name, (m, n, _) in LLAMA3_8B_PROJ.items()}
+    splits = {name: _decode_ksplit(16, m, n // 64, dev, query) for name, (m, n, _) in timed}
     cols, blocks = _decode_shape(dev, query)
     print(f"phase 3 {label} decode: blocks of {cols} columns, {blocks} per SM, K splits {splits}")
     return res
@@ -539,6 +563,7 @@ def phase_flash(gen, dev, int8=False):
 # Phase 4's further shapes, the TPU kernel's contract beyond D = 128 and
 # 64 % G == 0: (model, H, KV, D).  Each at T = 8192 and B = 1.
 FLASH_SHAPES = [
+    ("llama3-70b", 64, 8, 128),
     ("qwen2-7b", 28, 4, 128),  # G = 7: one idle row per query tile
     ("gemma-7b", 16, 16, 256),
     ("gemma2-9b", 16, 8, 256),
@@ -889,11 +914,16 @@ def serve_llama(label, params, cfg, prompts, weight_bytes, profile, by_bucket=Tr
           "graphed, pipelined tokens differ from eager, unpipelined decode")
     with kernels_held_to_plain(label, cfg.num_experts) as held:  # the same prefills and 1 decode step
         eager.generate(prompts, max_new_tokens=2)
+    peak_eager = torch.cuda.max_memory_allocated()  # both Engines' caches and the held calls' plain versions
     print(f"phase {label} generate (graphed, pipelined): {len(prompts)} requests x 32 tokens in {gen_s:.2f} s, "
           f"again on the same Engine {gen2_s:.2f} s (0 captures, the same tokens and launches; eager, "
           f"unpipelined: {eager_s:.2f} s; tokens identical); launches {counts}; graphs captured "
           f"{graphs['captured']} in {graphs['capture_s']:.2f} s, pool {graphs['pool_bytes'] / 1e6:.1f} MB, "
-          f"replays {graphs['replayed']}; pipeline {pipe}; peak memory {peak / 1e9:.1f} GB")
+          f"replays {graphs['replayed']}; pipeline {pipe}; peak memory {peak / 1e9:.1f} GB, "
+          f"{peak_eager / 1e9:.1f} GB with the eager Engine and the held calls")
+    if not by_bucket:  # the eager Engine is not timed: at most two caches at once
+        del eager
+        free_memory()
 
     # Throughput of the engine's two steps, timed alone.
     cache = init_kv_cache(cfg, 4)
@@ -946,8 +976,9 @@ def serve_llama(label, params, cfg, prompts, weight_bytes, profile, by_bucket=Tr
                                    f"position 1024, kv_len {kv}", lambda: decode_run(dec, kv, True), rows)
     bound = weight_bytes / PEAK_BYTES_S
     res = dict(generate_s=gen_s, generate_again_s=gen2_s, generate_eager_s=eager_s, graph_stats=graphs, held=held,
+               peak_graphed_gb=peak / 1e9, peak_eager_gb=peak_eager / 1e9,
                pipeline_stats=pipe, tokens=[r.tokens for r in results],
-               prefill_tok_s=1024 / prefill_s, kv_bucket=eng.KV_BUCKET, kv_len=kv,
+               prefill_tok_s=1024 / prefill_s, prefill_ms=prefill_s * 1e3, kv_bucket=eng.KV_BUCKET, kv_len=kv,
                decode_ms_step=ms_pipe, decode_tok_s=4e3 / ms_pipe, decode_busy=busy / wall,
                weight_gb=weight_bytes / 1e9, kv_cache_gb=cache.nbytes / 1e9)
     more = ""
@@ -962,6 +993,7 @@ def serve_llama(label, params, cfg, prompts, weight_bytes, profile, by_bucket=Tr
         more = (f"; graphed {res['decode_graphed_ms_step']:.2f} ms/step; eager {res['decode_eager_ms_step']:.2f} "
                 f"ms/step, device busy {busy_e / wall_e:.1%} (profiled); graphed and pipelined by kv bucket "
                 f"{{{', '.join(f'{g}: {ms:.2f}' for g, ms in res['decode_ms_step_by_bucket'].items())}}} ms/step")
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9  # since the serving run began
     print(f"phase {label} prefill 1024 tokens: {prefill_s * 1e3:.1f} ms = {1024 / prefill_s:.0f} tokens/s "
           f"(median of {[round(t * 1e3, 1) for t in prefill_runs]} ms); decode B=4 at position 1024, kv bucket "
           f"{eng.KV_BUCKET} (kv_len {kv}): graphed and pipelined {ms_pipe:.2f} ms/step = {4e3 / ms_pipe:.1f} "
@@ -2406,12 +2438,16 @@ def generate_counted(label, eng, prompts, forwards, groups, budget=32, eager=Non
 # layers mask; bucket 8192, prefilled in 4 segments of 2048, then 31
 # decode steps: 35 forwards, all on the plain attention paths (softcap).
 GEMMA2_LONG = 4608
+# Depth cuts that keep the script inside its time: Gemma-2-9B (42 layers),
+# Gemma-3-4B (34: two of its 5-local-to-1-global patterns) and Mixtral-8x7B
+# (32) at full width; Llama-3-70B (phase 5t) shows the full-depth fit.
+GEMMA2_LAYERS, GEMMA3_LAYERS, MIXTRAL_LAYERS = 10, 12, 8
 
 
 def phase_gemma2_serving(prompts, rng, profile):
-    """Main path (i): greedy serving of Gemma-2-9B at full width and depth
-    (42 layers, D = 256, attention and final softcaps, a 4096 window on
-    every other layer, four-norm blocks) as phase 5b, every launch count
+    """Main path (i): greedy serving of Gemma-2-9B at full width and
+    GEMMA2_LAYERS of its 42 layers (D = 256, attention and final softcaps,
+    a 4096 window on every other layer, four-norm blocks) as phase 5b, every launch count
     exact (kernel C never: the softcap keeps every prefill plain); one
     prompt of GEMMA2_LONG tokens, its tokens held to eager decode; the
     1024-token prefill held to the plain attention and projection path."""
@@ -2421,12 +2457,12 @@ def phase_gemma2_serving(prompts, rng, profile):
     from nf4_tpu_torch.models.synthetic import synthetic_params
     from nf4_tpu_torch.serve.engine import Engine
 
-    cfg = configs.GEMMA2_9B
+    cfg = dataclasses.replace(configs.GEMMA2_9B, num_layers=GEMMA2_LAYERS)
     params = synthetic_params(cfg, seed=6)
     torch.cuda.synchronize()
     packed = projection_bytes(params)
     head = params.lm_head.numel() * params.lm_head.element_size()
-    print(f"phase 5i Gemma-2-9B synthetic params (full width and depth: {cfg.num_layers} layers, D={cfg.head_dim}, "
+    print(f"phase 5i Gemma-2-9B synthetic params (full width, {cfg.num_layers} of 42 layers, D={cfg.head_dim}, "
           f"softcaps {cfg.attn_logit_softcapping} / {cfg.final_logit_softcapping}, window {cfg.sliding_window} on "
           f"every other layer): {packed / 1e9:.3f} GB packed+scales, lm_head {head / 1e9:.3f} GB")
     prompts = in_vocab(prompts, cfg)
@@ -2453,9 +2489,9 @@ DRIFT_PROMPTS = 4  # phase 5j's 2048-token prompts for attention_drift
 
 
 def phase_gemma3_serving(prompts, rng, profile):
-    """Main path (j): greedy serving of Gemma-3-4B at full width and depth
-    (34 layers: 5 local of window 1024 with their own RoPE to 1 global, q/k
-    norms, D = 256), max_seq_len cut from 32768 to 8192, as phase 5b; a
+    """Main path (j): greedy serving of Gemma-3-4B at full width and
+    GEMMA3_LAYERS of its 34 layers (5 local of window 1024 with their own
+    RoPE to 1 global, q/k norms, D = 256), max_seq_len cut from 32768 to 8192, as phase 5b; a
     prompt of 1536 tokens (bucket 2048: kernel C on every layer, windowed on
     the local ones), its tokens held to eager decode in which each layer's
     kernel C call is held to its plain version; the logits of
@@ -2467,12 +2503,13 @@ def phase_gemma3_serving(prompts, rng, profile):
     from nf4_tpu_torch.models.synthetic import synthetic_params
     from nf4_tpu_torch.serve.engine import Engine
 
-    cfg = dataclasses.replace(configs.GEMMA3_4B, max_seq_len=8192)
+    cfg = dataclasses.replace(configs.GEMMA3_4B, num_layers=GEMMA3_LAYERS, max_seq_len=8192)
     params = synthetic_params(cfg, seed=7)
     torch.cuda.synchronize()
     packed = projection_bytes(params)
     head = params.lm_head.numel() * params.lm_head.element_size()
-    print(f"phase 5j Gemma-3-4B synthetic params (full width and depth, max_seq_len cut to {cfg.max_seq_len}): "
+    print(f"phase 5j Gemma-3-4B synthetic params (full width, {cfg.num_layers} of 34 layers, max_seq_len cut to "
+          f"{cfg.max_seq_len}): "
           f"{packed / 1e9:.3f} GB packed+scales, lm_head {head / 1e9:.3f} GB")
     prompts = in_vocab(prompts, cfg)
     counts, serving = serve_llama("5j", params, cfg, prompts, packed + head, profile, by_bucket=False)
@@ -2497,22 +2534,24 @@ def phase_gemma3_serving(prompts, rng, profile):
 
 def phase_mixtral_serving(prompts, profile):
     """Main path (k): greedy serving of Mixtral-8x7B at full width and
-    depth (32 layers, 8 experts, top-2), max_seq_len cut from 32768 to
-    8192, as phase 5b: 18 projection launches per layer and forward."""
+    MIXTRAL_LAYERS of its 32 layers (8 experts, top-2), max_seq_len cut
+    from 32768 to 8192, as phase 5b: 18 projection launches per layer and
+    forward."""
     import torch
 
     from nf4_tpu_torch.models import configs
     from nf4_tpu_torch.models.synthetic import synthetic_params
 
-    cfg = dataclasses.replace(configs.MIXTRAL_8X7B, max_seq_len=8192)
+    cfg = dataclasses.replace(configs.MIXTRAL_8X7B, num_layers=MIXTRAL_LAYERS, max_seq_len=8192)
     t0 = time.perf_counter()
     params = synthetic_params(cfg, seed=8)
     torch.cuda.synchronize()
     packed = projection_bytes(params)
     experts = sum(w.nbytes for lp in params.layers for w in (lp.w_gateup, lp.w_down))
     head = params.lm_head.numel() * params.lm_head.element_size()
-    print(f"phase 5k Mixtral-8x7B synthetic params (full width and depth, {cfg.num_experts} experts, top-"
-          f"{cfg.experts_per_token}; max_seq_len cut to {cfg.max_seq_len}): {packed / 1e9:.3f} GB packed+scales "
+    print(f"phase 5k Mixtral-8x7B synthetic params (full width, {cfg.num_layers} of 32 layers, {cfg.num_experts} "
+          f"experts, top-{cfg.experts_per_token}; max_seq_len cut to {cfg.max_seq_len}): {packed / 1e9:.3f} GB "
+          f"packed+scales "
           f"({experts / 1e9:.3f} GB of it experts), lm_head {head / 1e9:.3f} GB, built in "
           f"{time.perf_counter() - t0:.1f} s")
     prompts = in_vocab(prompts, cfg)
@@ -2524,7 +2563,51 @@ def phase_mixtral_serving(prompts, profile):
     return counts, dict(serving, weight_gb=packed / 1e9)
 
 
-QWEN3_MOE_LAYERS = 4
+def phase_llama70b_serving(prompts, profile):
+    """Main path (t): greedy serving of Llama-3-70B at full width and depth
+    (80 layers, 64 heads over 8 KV heads, max_seq_len 8192) on its 4-bit
+    weights, as phase 5b: every launch count exact (kernel B 67 x 4 x 80,
+    kernel C 3 x 80), tokens held to eager, unpipelined decode, each kernel
+    B and C call of the eager run held to its plain version, a warm call
+    capturing nothing; then the 1024-token prefill and decode at batch 4
+    timed, with at most two 4-slot caches alive at once.  Prints the memory
+    allocated before the weights, their build seconds and bytes, and the
+    peak beside the card's total."""
+    import torch
+
+    from nf4_tpu_torch.models import configs
+    from nf4_tpu_torch.models.synthetic import synthetic_params
+
+    cfg = configs.LLAMA3_70B
+    free_memory()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = synthetic_params(cfg, seed=10)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    weights = torch.cuda.memory_allocated() - before
+    packed = projection_bytes(params)
+    head = params.lm_head.numel() * params.lm_head.element_size()
+    print(f"phase 5t Llama-3-70B synthetic params (full width and depth: {cfg.num_layers} layers, hidden "
+          f"{cfg.hidden_size}, {cfg.num_heads} heads over {cfg.num_kv_heads}; max_seq_len {cfg.max_seq_len}; 4-bit): "
+          f"{before / 1e9:.3f} GB allocated before; built in {build_s:.1f} s: {weights / 1e9:.3f} GB of weights, "
+          f"{packed / 1e9:.3f} GB of it packed+scales, lm_head {head / 1e9:.3f} GB")
+    counts, serving = serve_llama("5t", params, cfg, prompts, packed + head, profile, by_bucket=False)
+    proj, flash = serve_expected(cfg)
+    check((proj, flash) == (21440, 240), f"serve_expected(LLAMA3_70B) is {proj}, {flash}, not 21440, 240")
+    check(counts["matmul_bf16"] == proj and counts["flash_attention"] == flash,
+          f"Llama-3-70B serving launched kernels B and C {counts['matmul_bf16']} and {counts['flash_attention']} "
+          f"times, not {proj} and {flash}: {counts}")
+    total = torch.cuda.mem_get_info()[1]
+    check(serving["peak_gb"] * 1e9 < total, f"5t peak {serving['peak_gb']} GB over the card's {total / 1e9} GB")
+    print(f"phase 5t Llama-3-70B peak memory {serving['peak_gb']:.2f} GB of the card's {total / 1e9:.2f} GB; "
+          f"kernel B {counts['matmul_bf16']} and C {counts['flash_attention']} launches, as expected; {card_line()}")
+    return counts, dict(serving, weight_gb=weights / 1e9, packed_gb=packed / 1e9, build_s=build_s,
+                        allocated_before_gb=before / 1e9, card_total_gb=total / 1e9)
+
+
+QWEN3_MOE_LAYERS = 2
 
 
 def phase_qwen3_moe(prompts):
@@ -2802,7 +2885,18 @@ def phase_hf_checkpoint(prompts):
         oracle = dict(zip(fused, pool.map(lambda t: quantize_for_tpu(t, method="oracle", device="cpu"),
                                           fused.values())))
         res["oracle_fused_s"] = time.perf_counter() - t0
-        del dense, fused
+        # The C++ host quantizer on the largest of those weights: the
+        # oracle's bytes and the card's.
+        w_gu = fused[(0, "w_gateup")]
+        t0 = time.perf_counter()
+        nat = quantize_for_tpu(w_gu, method="native", device="cpu")
+        res["native_w_gateup_s"] = time.perf_counter() - t0
+        check(_same_packed(nat, oracle[(0, "w_gateup")]) and _same_packed(params.layers[0].w_gateup, nat),
+              "5m: the native quantizer differs from the oracle or the card at layer 0 w_gateup")
+        print(f"phase 5m native quantizer (C++ on the host), layer 0 w_gateup {tuple(w_gu.shape)}: "
+              f"{res['native_w_gateup_s']:.2f} s = {w_gu.numel() / res['native_w_gateup_s'] / 1e6:.1f} M "
+              f"elements/s; its bytes equal the oracle's and the card's")
+        del dense, fused, nat, w_gu
         for (i, name), want in oracle.items():
             got = getattr(params.layers[i], name)
             check(_same_packed(got, want), f"5m: the card quantizer differs from the oracle at layer {i} {name} "
@@ -2826,14 +2920,27 @@ def phase_hf_checkpoint(prompts):
               f"repack's bytes equal the card's and its scales the oracle's per projection; {card}")
 
     # The midpoint stress tensor: normalized values on every decision
-    # midpoint and one ulp either side.
+    # midpoint and one ulp either side; each method timed on it.
+    rates = {}
     for qt in ("nf4", "fp4"):
         w = torch.from_numpy(midpoint_stress(4096, 4096, qt, seed=1))
-        check(_same_packed(quantize_for_tpu(w, quant_type=qt), quantize_for_tpu(w, method="oracle", quant_type=qt,
-                                                                                device="cpu")),
+        out = {}
+        for method, where in (("device", "cuda"), ("oracle", "cpu"), ("native", "cpu")):
+            quantize_for_tpu(w[:128], method=method, quant_type=qt, device=where)  # warm: build, load, caches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[method] = quantize_for_tpu(w, method=method, quant_type=qt, device=where)
+            torch.cuda.synchronize()
+            rates[f"{qt}_{method}"] = w.numel() / (time.perf_counter() - t0)
+        check(_same_packed(out["device"], out["oracle"]),
               f"5m: the card quantizer differs from the oracle on the {qt} midpoint stress tensor")
+        check(_same_packed(out["native"], out["oracle"]),
+              f"5m: the native quantizer differs from the oracle on the {qt} midpoint stress tensor")
     pool.shutdown()
-    print("phase 5m midpoint stress 4096 x 4096, NF4 and FP4: the card's bytes equal the oracle's")
+    res["elements_per_s"] = rates
+    print("phase 5m midpoint stress 4096 x 4096, NF4 and FP4: the card's and the native quantizer's bytes equal "
+          "the oracle's; M elements/s " + ", ".join(f"{k} {v / 1e6:.1f}" for k, v in rates.items())
+          + f"; {card}")
 
     counts = {}
     for mode in ("4-bit", "int8"):
@@ -3202,6 +3309,14 @@ def main() -> int:
             if any(w in line for w in ("registers", "spill", "arning", "serialized")):
                 print(f"  ptxas {name}: {line.strip()}")
 
+    from nf4_tpu_torch import diagnostics
+
+    t0 = time.perf_counter()
+    diag_rc = diagnostics.main()
+    check(diag_rc == 0, f"the diagnostics exited {diag_rc}: {diagnostics.failures}")
+    print(f"phase 1d diagnostics (python -m nf4_tpu_torch.diagnostics): exit 0, every check passed, in "
+          f"{time.perf_counter() - t0:.1f} s")
+
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -3223,6 +3338,9 @@ def main() -> int:
 
     prompts = [list(map(int, rng.integers(0, LLAMA3_8B.vocab_size, n))) for n in (1024, 37, 300, 64, 700, 9)]
     lap("5a")
+    l70_counts, llama70b = phase_llama70b_serving(prompts, args.profile)
+    free_memory()
+    lap("5t")
     serve_counts, serving, params = phase_serving(prompts, args.profile)
     lap("5b")
     http_counts, http = phase_http_serving(params, prompts, serving["tokens"], args.profile)
@@ -3292,6 +3410,11 @@ def main() -> int:
             pre = [res[(n, 1024)] for n in LLAMA3_8B_PROJ]
             row.update(prefill_ms=sum(r["ms"] for r in pre), prefill_bound_ms=sum(r["bound_ms"] for r in pre),
                        prefill_library_ms=sum(r["library_ms"] for r in pre))
+        shapes = {f"llama3-70b {k[0][4:]} B={k[1]}": {f: r[f] for f in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                                          "bound_by", "max_abs_err")}
+                  for k, r in res.items() if k[0].startswith("70b ")}
+        if shapes:
+            row["shapes"] = shapes
         return row
 
     def flash_row(name, res, launches, int8=False, **more):
@@ -3314,6 +3437,7 @@ def main() -> int:
                    spec_launches=spec_counts["matmul_bf16"], score_prefix_launches=score_counts["matmul_bf16"],
                    gemma2_9b_launches=gemma2_counts["matmul_bf16"], gemma3_4b_launches=gemma3_counts["matmul_bf16"],
                    mixtral_8x7b_launches=mixtral_counts["matmul_bf16"],
+                   llama3_70b_launches=l70_counts["matmul_bf16"],
                    qwen3_30b_a3b_launches=moe_counts["4-bit"]["matmul_bf16"],
                    hf_checkpoint_launches=hf_counts["4-bit"]["matmul_bf16"],
                    multi_lora_launches=lora_counts["matmul_bf16"],
@@ -3325,6 +3449,7 @@ def main() -> int:
                   score_prefix_launches=score_counts["flash_attention"],
                   gemma3_4b_launches=gemma3_counts["flash_attention"],
                   mixtral_8x7b_launches=mixtral_counts["flash_attention"],
+                  llama3_70b_launches=l70_counts["flash_attention"],
                   qwen3_30b_a3b_launches=moe_counts["4-bit"]["flash_attention"],
                   multi_lora_launches=lora_counts["flash_attention"],
                   train_families_launches=family_counts["flash_attention"]),
@@ -3369,6 +3494,7 @@ def main() -> int:
                            flash=fl, flash_int8=fl8, flash_shapes=fls, serving=serving, serving_int8=serving8,
                            serving_qwen2_7b=serving_qwen, gemma_7b=gemma, http_serving=http, speculative=spec,
                            serving_gemma2_9b=gemma2, serving_gemma3_4b=gemma3, serving_mixtral_8x7b=mixtral,
+                           serving_llama3_70b=llama70b,
                            qwen3_30b_a3b=qwen3_moe, hf_checkpoint=hf_ckpt, score_prefix=score_prefix,
                            quality_gate=gate, multi_lora=multi_lora, train_families=families, phase_seconds=laps,
                            training_bf16=train16, training_fp32=train32, kernels=kernels), f, indent=1)

@@ -13,7 +13,10 @@ rather than fall back.
   oracle of bitsandbytes' flat 4-bit format (the JAX package's code).
 * :class:`PackedNF4`, :func:`quantize_for_tpu`, :func:`pack_for_tpu` -- the
   packed layout (the names are the JAX package's; the layout is the same
-  here); ``quantize_for_tpu`` quantizes on the card, the oracle's bytes.
+  here); ``quantize_for_tpu`` quantizes on the card or with the C++ host
+  quantizer (``nf4/native.py``), the oracle's bytes either way;
+  :func:`to_quant_state` goes back to the flat layout; :func:`nf4_code` is
+  a copy of the NF4 table.
 * :func:`dequantize` / :func:`dequantize_t` -- exact dequant (kernel
   ``csrc/dequant.cu``).
 * :func:`dequantize_fast` / :func:`dequantize_t_fast` -- bf16 dequant
@@ -27,11 +30,13 @@ rather than fall back.
 Serving lives in ``models/`` (Llama; HF checkpoint directories and packed
 checkpoints in ``models/loader.py``; the int8 recode ``recode_params_int8``) and
 ``serve/engine.py`` (``Engine.score`` too); perplexity and scoring in
-``eval/``; QLoRA fine-tuning in ``train/``.
+``eval/``; QLoRA fine-tuning in ``train/``; the environment and kernel
+checks in ``diagnostics.py`` (``python -m nf4_tpu_torch.diagnostics``) and
+the installer in ``install.py`` (``python -m nf4_tpu_torch.install``).
 """
 
-from .nf4.format import PackedNF4, pack_for_tpu, quantize_for_tpu
-from .nf4.lut import FP4_CODE, NF4_CODE, dynamic_code, get_code
+from .nf4.format import PackedNF4, pack_for_tpu, quantize_for_tpu, to_quant_state
+from .nf4.lut import FP4_CODE, NF4_CODE, dynamic_code, get_code, nf4_code
 from .nf4.reference import QuantState, dequantize_nf4, quantize_nf4
 from .ops.dequant import dequantize, dequantize_fast, dequantize_t, dequantize_t_fast
 from .models.llama import init_params
@@ -42,6 +47,7 @@ __version__ = "0.1.0"
 __all__ = [
     "NF4_CODE",
     "FP4_CODE",
+    "nf4_code",
     "get_code",
     "dynamic_code",
     "QuantState",
@@ -50,6 +56,7 @@ __all__ = [
     "PackedNF4",
     "quantize_for_tpu",
     "pack_for_tpu",
+    "to_quant_state",
     "dequantize",
     "dequantize_t",
     "dequantize_fast",

@@ -20,6 +20,7 @@ __all__ = [
     "TINY_MOE",
     "MIXTRAL_8X7B",
     "QWEN3_MOE_A3B",
+    "LLAMA3_70B",
     "get_config",
 ]
 
@@ -264,6 +265,20 @@ QWEN3_MOE_A3B = LlamaConfig(
     moe_norm_topk=True,
 )
 
+# Llama-3-70B: the largest dense model served on one card, in the 4-bit
+# mode (its int8 recode does not fit 80 GB beside a cache).
+LLAMA3_70B = LlamaConfig(
+    vocab_size=128256,
+    hidden_size=8192,
+    intermediate_size=28672,
+    num_layers=80,
+    num_heads=64,
+    num_kv_heads=8,
+    head_dim=128,
+    rope_theta=500000.0,
+    max_seq_len=8192,
+)
+
 _REGISTRY = {
     "tiny-test": TINY_TEST,
     "tinyllama-1.1b": TINYLLAMA_1_1B,
@@ -280,6 +295,7 @@ _REGISTRY = {
     "tiny-moe": TINY_MOE,
     "mixtral-8x7b": MIXTRAL_8X7B,
     "qwen3-30b-a3b": QWEN3_MOE_A3B,
+    "llama3-70b": LLAMA3_70B,
 }
 
 

@@ -21,8 +21,9 @@ padded and pair-packed on its own (the row-parallel layout).
 codes and exact fp32 block scales, so fusing and splitting rows stays exact
 and :func:`pack_codes_for_tpu` carries the codes through untouched.
 :func:`quantize_for_tpu` quantizes a dense weight straight into the packed
-layout, with the NumPy oracle or on the device (``nf4.fast_quant``),
-byte-identical either way.
+layout, with the NumPy oracle, the C++ host quantizer (``nf4.native``) or on
+the device (``nf4.fast_quant``), byte-identical every way;
+:func:`to_quant_state` goes back to the flat layout.
 """
 
 from __future__ import annotations
@@ -35,7 +36,9 @@ import torch
 
 from ..utils.device import resolve_device
 from .lut import get_code
-from .reference import NF4_BLOCK, QuantState, dequantize_absmax, quantize_nf4, unpack_nibbles
+from .reference import (
+    ABSMAX_BLOCK, NF4_BLOCK, QuantState, dequantize_absmax, pack_nibbles, quantize_nf4, unpack_nibbles,
+)
 
 __all__ = [
     "PackedNF4",
@@ -45,6 +48,7 @@ __all__ = [
     "qdense_from_state",
     "quantize_for_tpu",
     "chunk_views",
+    "to_quant_state",
     "pad_to",
 ]
 
@@ -182,6 +186,9 @@ def _host_fp32(w) -> np.ndarray:
 
 
 _METHODS = ("auto", "oracle", "device", "native")
+# ``method="auto"`` sends a weight of at least this many elements bound for
+# a card to the card quantizer (the JAX package's size rule).
+_DEVICE_MIN_NUMEL = 1 << 22
 
 
 def quantize_for_tpu(
@@ -193,22 +200,33 @@ def quantize_for_tpu(
     dynamic code, offset) resolved to fp32 block scales.
 
     ``method``: ``"oracle"`` runs the NumPy oracle (``nf4.reference``) on
-    the host; ``"device"`` runs ``nf4.fast_quant`` on ``device``;
-    ``"auto"`` is ``"device"`` on whatever device the weight goes to (the
-    CPU too, when the caller asks for it).  Both give the same bytes.
-    ``"native"`` (the JAX package's C++ host quantizer) is not ported yet,
-    nor ``shards > 1`` (tensor-parallel packing)."""
+    the host; ``"native"`` the C++ host quantizer (``nf4.native``; raises
+    when it cannot be built or ``NF4TPU_NATIVE=0``); ``"device"``
+    ``nf4.fast_quant`` on ``device``; ``"auto"`` the card quantizer for a
+    weight of at least 2^22 elements bound for a card, else ``"native"``
+    where it is available, else ``"device"`` on whatever device the weight
+    goes to.  All give the same bytes.  ``shards > 1`` (tensor-parallel
+    packing) is not ported yet."""
     if method not in _METHODS:
         raise ValueError(f"method={method!r}; expected {'|'.join(_METHODS)}")
-    if method == "native":
-        raise NotImplementedError("not ported yet: method='native' (the C++ host quantizer)")
     if shards != 1:
         raise NotImplementedError("not ported yet: shards > 1 (tensor-parallel packing)")
     get_code(quant_type)  # raises for an unknown quant_type
     dev = resolve_device(device)
+    from . import native
+
+    if method == "auto":
+        if int(np.prod(np.shape(w))) >= _DEVICE_MIN_NUMEL and dev.type == "cuda":
+            method = "device"
+        elif native.available():
+            method = "native"
+        else:
+            method = "device"
     if method == "oracle":
         state = quantize_nf4(_host_fp32(w), dtype=np.float16, quant_type=quant_type)
         return pack_for_tpu(state, dtype=dtype, device=dev)
+    if method == "native":
+        return native.quantize_for_tpu_native(w, dtype=dtype, quant_type=quant_type, device=dev)
     from .fast_quant import quantize_for_tpu_device
 
     return quantize_for_tpu_device(w, dtype=dtype, quant_type=quant_type, device=dev)
@@ -237,3 +255,36 @@ def chunk_views(pw: PackedNF4) -> list:
         )
         for s in range(pw.shards)
     ]
+
+
+def to_quant_state(pw: PackedNF4, dtype=torch.float16) -> QuantState:
+    """The inverse of :func:`pack_for_tpu` over the logical region: a flat
+    (bitsandbytes-layout) state whose dequantized values are ``pw``'s, bit
+    for bit.  The scales are carried uncompressed in ``absmax32`` (the
+    packed layout holds them fully dequantized; re-deriving uint8 codes
+    would lose bits), with ``absmax_u8`` zeros and ``offset`` 0.  ``dtype``
+    is recorded as numpy's where numpy has it (fp16, fp32)."""
+    m, n = pw.shape
+    n_chunk = n // pw.shards
+    idx_parts, scale_parts = [], []
+    for view in chunk_views(pw):
+        packed = view.packed.cpu().numpy()
+        idx_t = np.empty((2 * packed.shape[0], packed.shape[1]), dtype=np.uint8)
+        idx_t[0::2] = packed & 0xF
+        idx_t[1::2] = packed >> 4
+        idx_parts.append(idx_t.T[:m, :n_chunk])
+        scale_parts.append(view.scales.cpu().numpy().T[:m, : n_chunk // NF4_BLOCK])
+    idx = np.concatenate(idx_parts, axis=1)
+    scales = np.concatenate(scale_parts, axis=1)  # [m, n // 64]
+    dtype = {torch.float16: np.float16, torch.float32: np.float32}.get(dtype, dtype)
+    return QuantState(
+        packed=pack_nibbles(idx.ravel()),
+        absmax_u8=np.zeros(m * n // NF4_BLOCK, dtype=np.uint8),
+        absmax32=scales.ravel().astype(np.float32),
+        offset=np.float32(0.0),
+        shape=(m, n),
+        dtype=dtype if isinstance(dtype, torch.dtype) else np.dtype(dtype),
+        blocksize=NF4_BLOCK,
+        blocksize2=ABSMAX_BLOCK,
+        quant_type=pw.quant_type,
+    )

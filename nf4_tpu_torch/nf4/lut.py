@@ -10,7 +10,7 @@ import functools
 
 import numpy as np
 
-__all__ = ["NF4_CODE", "FP4_CODE", "get_code", "dynamic_code", "code_midpoints", "fp4_order_and_mids"]
+__all__ = ["NF4_CODE", "FP4_CODE", "nf4_code", "get_code", "dynamic_code", "code_midpoints", "fp4_order_and_mids"]
 
 # The fixed NF4 codebook, index 0..15 -> fp32 value (bitsandbytes' constants).
 NF4_CODE = np.array(
@@ -34,6 +34,12 @@ NF4_CODE = np.array(
     ],
     dtype=np.float32,
 )
+
+
+def nf4_code() -> np.ndarray:
+    """Return the 16-entry NF4 codebook as fp32 (a copy)."""
+    return NF4_CODE.copy()
+
 
 # The fixed FP4 codebook (bitsandbytes ``quant_type="fp4"``): a 4-bit e2m1
 # float with the sign in bit 3, as bnb's exact decimal literals (0.00520833

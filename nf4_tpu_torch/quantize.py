@@ -8,7 +8,8 @@ loads, one layer at a time; or a pre-quantized "*-bnb-4bit" one: repacked
 without requantization) and writes the packed format
 (``models.loader.save_packed``: ``.npz`` or ``.safetensors`` by extension),
 which either package reloads in seconds (``load_packed_auto``).
-``--force-cpu`` quantizes on the CPU (the same bytes).  ``--tp > 1``
+``--force-cpu`` quantizes on the CPU, with the C++ host quantizer
+(``nf4/native.py``) where it builds (the same bytes).  ``--tp > 1``
 (re-packing for tensor parallelism) is not ported yet.
 """
 

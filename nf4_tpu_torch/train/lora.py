@@ -212,8 +212,7 @@ def merge_lora(params: LlamaParams, lora: LoraParams, cfg: LlamaConfig, quantize
     grid, as a fine-tuned dense checkpoint's do when it is quantized.
     ``quantize=False`` returns dense ``cfg.dtype`` weights.  The merged
     model serves with no adapter, on every path.  Not ported yet:
-    ``method="native"`` and tensor-parallel packing (``quantize_for_tpu``
-    raises)."""
+    tensor-parallel packing (``quantize_for_tpu`` raises)."""
     if lora.tp_basis != cfg.tp_shards:
         raise ValueError(f"adapter tp_basis={lora.tp_basis} but cfg.tp_shards={cfg.tp_shards}: the fused-row "
                          "layouts differ; merge with the config the adapter was trained against")

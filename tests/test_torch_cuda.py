@@ -1438,3 +1438,37 @@ def test_bank_row_independent_of_batchmates_adapters(dev):
                                    adapter_ids=np.asarray([1], np.int32))[0].float()
         top = logits.topk(2).values
         assert (top[0] - top[1]).item() <= 2e-2 * logits.abs().max().item(), at
+
+
+def test_diagnostics_kernel_sections(dev, capsys):
+    """``python -m nf4_tpu_torch.diagnostics``' kernel sections on the
+    card: the build, kernel A's launches, kernels A and F bit for bit
+    against their plain versions and the oracle, and the routes."""
+    from nf4_tpu_torch import diagnostics
+
+    diagnostics.failures.clear()
+    diagnostics.env_report()
+    diagnostics.kernel_build_smoke()
+    diagnostics.dequant_check()
+    diagnostics.backend_check()
+    out = capsys.readouterr().out
+    assert diagnostics.failures == [] and "[FAIL]" not in out, out
+    assert "kernel A bit-exact vs the NumPy oracle" in out and "the card quantizer gives the CPU route's bytes" in out
+
+
+@pytest.mark.parametrize("b", [4, 1024])
+def test_matmul_kernel_llama3_70b_w_gateup(dev, b):
+    """Kernel B at Llama-3-70B's largest projection, w_gateup (57344 x
+    8192), at decode and prefill rows, within 2e-2 of its plain version."""
+    from nf4_tpu_torch.ops.matmul import _matmul_bf16_kernel, _matmul_bf16_plain, _pick_bm
+
+    gen = torch.Generator(device=dev).manual_seed(70)
+    pw = _packed(gen, 57344, 8192, dev)
+    b_pad = -(-b // _pick_bm(b)) * _pick_bm(b)
+    x = torch.zeros((b_pad, 8192), device=dev, dtype=torch.bfloat16)
+    x[:b] = torch.randn((b, 8192), generator=gen, device=dev).to(torch.bfloat16)
+    got = _matmul_bf16_kernel(x, pw.packed, pw.scales, torch.bfloat16)
+    want = _matmul_bf16_plain(x, pw.packed, pw.scales, torch.bfloat16).float()
+    torch.cuda.synchronize()
+    assert got.shape == (b_pad, 57344)
+    assert ((got.float() - want).abs().max() / want.abs().max()).item() < 2e-2

@@ -471,8 +471,14 @@ def test_merge_lora_guards(fp32_models, models):
         merge_lora(tparams, LoraParams(list(tl.layers), tp_basis=2), tcfg)
     with pytest.raises(ValueError, match="not a bank"):
         merge_lora(tparams, tbank, tcfg)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        merge_lora(tparams, tl, tcfg, method="native")
+    with pytest.raises(ValueError, match="method="):
+        merge_lora(tparams, tl, tcfg, method="fast")
+    native = merge_lora(tparams, tl, tcfg, method="native")  # ported: the oracle's bytes
+    oracle = merge_lora(tparams, tl, tcfg, method="oracle")
+    for got, want in zip(native.layers, oracle.layers):
+        for name in ("wqkv", "wo", "w_gateup", "w_down"):
+            g, w = getattr(got, name), getattr(want, name)
+            assert torch.equal(g.packed, w.packed) and torch.equal(g.scales, w.scales), name
 
 
 # --- the MoE repair ----------------------------------------------------------------

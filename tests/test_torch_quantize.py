@@ -150,10 +150,12 @@ def test_qdense_and_pack_codes():
         tformat.qdense_from_state(dataclasses.replace(st, shape=(96, 200)))
 
 
-def test_quantize_for_tpu_refuses():
+def test_quantize_for_tpu_refuses(monkeypatch):
     w = _weight((128, 256))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    monkeypatch.setenv("NF4TPU_NATIVE", "0")  # method="native" ported; it refuses when disabled
+    with pytest.raises(RuntimeError, match="native quantizer is unavailable"):
         tformat.quantize_for_tpu(w, method="native", device="cpu")
+    monkeypatch.delenv("NF4TPU_NATIVE")
     with pytest.raises(NotImplementedError, match="not ported yet"):
         tformat.quantize_for_tpu(w, shards=2, device="cpu")
     with pytest.raises(ValueError, match="method="):
