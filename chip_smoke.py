@@ -2126,16 +2126,20 @@ def phase_train_families(examples):
     return total, dict(families=res, served=trained)
 
 
+INT8_LAYERS = 8  # phase 5d's depth (and so 5n, 5p and 5r int8's): 8 of Llama-3-8B's 32 layers, full width
+
+
 def phase_int8_serving(prompts, profile):
     """Main path (d): the same serving with every projection recoded to int8
-    (kernel D) and an int8 KV cache (kernel C's int8 branch)."""
+    (kernel D) and an int8 KV cache (kernel C's int8 branch), at full width
+    and INT8_LAYERS layers."""
     import torch
 
     from nf4_tpu_torch.models import configs
     from nf4_tpu_torch.models.llama import recode_params_int8
     from nf4_tpu_torch.models.synthetic import synthetic_params
 
-    cfg = dataclasses.replace(configs.LLAMA3_8B, kv_quant=True)
+    cfg = dataclasses.replace(configs.LLAMA3_8B, kv_quant=True, num_layers=INT8_LAYERS)
     params = synthetic_params(cfg, seed=0)
     packed = projection_bytes(params)
     t0 = time.perf_counter()
@@ -2191,63 +2195,12 @@ def plain_attention(matmul=False, fp32=False):
         attention._flash_kernel, mm._matmul_bf16_kernel, i8._int8_matmul_kernel = saved
 
 
-@contextlib.contextmanager
 def kernels_held_to_plain(label, experts=0):
-    """Within it (eager work only: each check reads its result on the
-    host), kernel B, C and D calls are held to their plain versions on
-    the same operands, the main path's own (expert views of a stacked
-    weight, padded K, each layer's window and cache): B and D within 2e-2
-    * max|out| per call, as phase 3, each operand shape on its first
-    2 * max(experts, 1) calls (every expert of two layers); C on every call
-    within 2e-2 * max|out| of each query position (over heads and dims),
-    so that a wrong window at a late position, whose outputs average many
-    values and are small, still shows.  The kernel's output goes on, so
-    the tokens are the kernel path's.  Yields {kernel: [calls held,
-    largest err / limit]}, printed at the end."""
-    from nf4_tpu_torch.ops import attention
-    from nf4_tpu_torch.ops import int8_serve as i8
-    from nf4_tpu_torch.ops import matmul as mm
+    """``nf4_tpu_torch.utils.held.kernels_held_to_plain``: within it, every
+    kernel B, C and D call is held to its plain version on its operands."""
+    from nf4_tpu_torch.utils.held import kernels_held_to_plain as held
 
-    saved = attention._flash_kernel, mm._matmul_bf16_kernel, i8._int8_matmul_kernel
-    held = {"B": [0, 0.0], "C": [0, 0.0], "D": [0, 0.0]}
-    seen = {}
-
-    def note(name, err, limit, where):
-        check(err <= limit, f"{label}: kernel {name} {where} against its plain version: max abs err {err}, "
-                            f"limit {limit}")
-        held[name][0] += 1
-        held[name][1] = max(held[name][1], err / limit)
-
-    def projection(name, kern, plain):
-        def run(x_pad, w, scales, out_dtype, *more):
-            out = kern(x_pad, w, scales, out_dtype, *more)
-            key = (tuple(x_pad.shape), tuple(w.shape), out_dtype)
-            seen[name, key] = seen.get((name, key), 0) + 1
-            if seen[name, key] <= 2 * max(experts, 1):
-                want = plain(x_pad, w, scales, out_dtype).float()
-                note(name, (out.float() - want).abs().max().item(), 2e-2 * want.abs().max().item(),
-                     f"x {key[0]} w {key[1]}")
-            return out
-        return run
-
-    def flash(q, k, v, pos0, seq_lens, scale, sliding_window=None, k_scale=None, v_scale=None):
-        out = saved[0](q, k, v, pos0, seq_lens, scale, sliding_window, k_scale, v_scale)
-        want = attention._flash_plain(q, k, v, pos0, seq_lens, scale, sliding_window, k_scale, v_scale).float()
-        err = (out.float() - want).abs().amax(dim=(1, 3)).flatten()  # each (row, query position)
-        limit = 2e-2 * want.abs().amax(dim=(1, 3)).flatten()
-        at = int((err / limit.clamp_min(1e-30)).argmax())
-        note("C", err[at].item(), limit[at].item(), f"q {tuple(q.shape)} window {sliding_window} at query {at}")
-        return out
-
-    attention._flash_kernel = flash
-    mm._matmul_bf16_kernel = projection("B", saved[1], mm._matmul_bf16_plain)
-    i8._int8_matmul_kernel = projection("D", saved[2], i8._int8_matmul_plain)
-    try:
-        yield held
-    finally:
-        attention._flash_kernel, mm._matmul_bf16_kernel, i8._int8_matmul_kernel = saved
-    print(f"phase {label} kernel calls held to their plain versions on the same operands (calls, largest err / "
-          f"limit): {', '.join(f'{k} {n} {r:.3f}' for k, (n, r) in held.items() if n)}")
+    return held(label, experts)
 
 
 def prefill_against_plain(label, eng, prompt, matmul=False, int8=False) -> float:
@@ -2561,6 +2514,156 @@ def phase_mixtral_serving(prompts, profile):
           f"Mixtral-8x7B serving launched kernels B and C {counts['matmul_bf16']} and {counts['flash_attention']} "
           f"times, not {proj} and {flash}: {counts}")
     return counts, dict(serving, weight_gb=packed / 1e9)
+
+
+TP_LAYERS = 8  # phase 5u's depth: Llama-3-8B at full width, 8 of its 32 layers
+
+
+def tp_dense_layer(cfg, gen):
+    """One layer's dense weights of ``cfg`` drawn on the card (normal, std
+    in_features^-0.5; norms ones): ``quantize_layer``'s dict."""
+    import torch
+
+    h, q, kv, inter = cfg.hidden_size, cfg.q_dim, cfg.kv_dim, cfg.intermediate_size
+    shapes = dict(wq=(q, h), wk=(kv, h), wv=(kv, h), wo=(h, q), w_gate=(inter, h), w_up=(inter, h),
+                  w_down=(h, inter))
+    lw = {k: torch.randn(m, n, generator=gen, device="cuda") * n**-0.5 for k, (m, n) in shapes.items()}
+    lw.update(input_norm=torch.ones(h, device="cuda"), post_attn_norm=torch.ones(h, device="cuda"))
+    return lw
+
+
+def phase_tp_serving(prompts):
+    """Main path (u): tensor-parallel serving of Llama-3-8B at full width
+    and TP_LAYERS of its 32 layers, its ranks processes sharing this card
+    over gloo (``nf4_tpu_torch.parallel``).  The weights: dense layers drawn
+    on the card from a seed, quantized once with tp_shards = 4 (and with
+    tp_shards = 1, which ``repack_tp`` to 1 must give byte for byte), saved
+    with ``save_packed``, ``repack_tp`` to 2 saved too.  The yardstick: the
+    same weights at tp = 1 on one Engine, eager, 5b's six requests x 32
+    tokens, 4-bit and int8.  Then on 4 gloo ranks (``Ranks``): tp = 2 in
+    4-bit and in int8, tp = 4 in 4-bit, each rank loading its slices
+    (``load_packed_sharded``) into ``Engine(mesh=)``
+    (``parallel.drive.serve_rank``): every rank's tokens equal, and equal
+    to tp = 1's under the near-tie rule (``tokens_held``); each rank's
+    launches exact against ``serve_expected`` of its ``tp_local_config``,
+    kernel C at least once per rank at tp = 2; every kernel B, C and D call
+    of a 2-token run held to its plain version; eager ms per decode step at
+    batch 4 from position 1024 and the share in the collectives; a
+    1024-token prefill; peak memory per rank."""
+    import tempfile
+
+    import torch
+
+    from nf4_tpu_torch.models import configs
+    from nf4_tpu_torch.models.llama import LlamaParams, init_kv_cache, quantize_layer, recode_params_int8
+    from nf4_tpu_torch.models.loader import save_packed
+    from nf4_tpu_torch.parallel import drive
+    from nf4_tpu_torch.parallel.launch import Ranks
+    from nf4_tpu_torch.parallel.tp import repack_tp
+    from nf4_tpu_torch.serve.engine import Engine
+
+    cfg4 = dataclasses.replace(configs.LLAMA3_8B, num_layers=TP_LAYERS, tp_shards=4)
+    cfg1 = dataclasses.replace(cfg4, tp_shards=1)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    layers4, direct1 = [], []
+    for _ in range(TP_LAYERS):
+        lw = tp_dense_layer(cfg4, gen)
+        layers4.append(quantize_layer(lw, cfg4, "cuda"))
+        direct1.append(quantize_layer(lw, cfg1, "cuda"))
+        del lw
+    h, v = cfg4.hidden_size, cfg4.vocab_size
+    params4 = LlamaParams(embed=(torch.randn(v, h, generator=gen, device="cuda") * 0.02).to(torch.bfloat16),
+                          layers=layers4, final_norm=torch.ones(h, device="cuda"),
+                          lm_head=(torch.randn(v, h, generator=gen, device="cuda") * h**-0.5).to(torch.bfloat16))
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    params1, _ = repack_tp(params4, cfg4, 1)
+    for a, b in zip(params1.layers, direct1):
+        for name in ("wqkv", "wo", "w_gateup", "w_down"):
+            wa, wb = getattr(a, name), getattr(b, name)
+            check(wa.shards == wb.shards == 1 and torch.equal(wa.packed, wb.packed) and torch.equal(wa.scales, wb.scales),
+                  f"5u: repack_tp to 1 differs from quantizing with tp_shards = 1 ({name})")
+    del direct1
+    params2, cfg2 = repack_tp(params4, cfg4, 2)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {4: f"{tmp}/tp4.safetensors", 2: f"{tmp}/tp2.safetensors"}
+        t0 = time.perf_counter()
+        save_packed(paths[4], params4, cfg4)
+        save_packed(paths[2], params2, cfg2)
+        save_s = time.perf_counter() - t0
+        del params4, params2, layers4
+        free_memory()
+        print(f"phase 5u Llama-3-8B at {TP_LAYERS} layers: dense layers drawn and quantized for tp_shards 4 and 1 in "
+              f"{quant_s:.1f} s, repack_tp to 1 byte for byte the tp_shards = 1 quantization; tp_shards 4 and 2 saved "
+              f"in {save_s:.1f} s")
+
+        # The yardstick: tp = 1 on one Engine, eager, 4-bit and int8.
+        base, want, base_ms = {}, {}, {}
+        for int8 in (False, True):
+            cfg = dataclasses.replace(cfg1, kv_quant=int8)
+            params = recode_params_int8(params1) if int8 else params1
+            base[int8] = Engine(params, cfg, batch_size=4, eos_token=-1, decode_chunk=8, cuda_graphs=False)
+            want[int8] = base[int8].generate(prompts, max_new_tokens=32)
+            base_ms[int8] = drive._decode_ms(base[int8], init_kv_cache(cfg, 4), 32, 1024)
+        print(f"phase 5u tp = 1 yardstick (one Engine, eager): ms per decode step at batch 4 from position 1024: "
+              f"4-bit {base_ms[False]:.2f}, int8 {base_ms[True]:.2f}; on {card_line()}")
+
+        runs = {}
+        t0 = time.perf_counter()
+        with Ranks(4, backend="gloo", device="cuda") as ranks:
+            start_s = time.perf_counter() - t0
+            for tp, int8 in ((2, False), (2, True), (4, False)):
+                label = f"5u tp={tp}" + (" int8" if int8 else "")
+                every = ranks.run(drive.serve_rank, paths[tp], prompts, 32, int8=int8, label=label, tp=tp)
+                runs[label] = tp_run_checks(label, every, tp, int8, dataclasses.replace(cfg4, tp_shards=tp),
+                                            base[int8], want[int8], base_ms[int8])
+    del base, params1
+    free_memory()
+    return runs, dict(quantize_s=quant_s, save_s=save_s, ranks_start_s=start_s, tp1_decode_ms_step=base_ms)
+
+
+def tp_run_checks(label, every, tp, int8, cfg, base, want, base_ms) -> dict:
+    """Phase 5u's checks of one tensor-parallel run's rank reports
+    (``drive.serve_rank``) against the tp = 1 yardstick ``base`` (its
+    tokens ``want``, its eager step ``base_ms``); prints them.  Returns the
+    summary (launches summed over the ranks)."""
+    from nf4_tpu_torch.parallel.tp import tp_local_config
+
+    names = ("int8_matmul", "flash_attention_int8") if int8 else ("matmul_bf16", "flash_attention")
+    others = ("matmul_bf16", "flash_attention") if int8 else ("int8_matmul", "flash_attention_int8")
+    check(len(every) == tp and [r["rank"] for r in every] == list(range(tp)), f"{label}: rank reports {len(every)}")
+    for r in every:
+        check(r["tokens"] == every[0]["tokens"], f"{label}: rank {r['rank']}'s tokens differ from rank 0's")
+        local = tp_local_config(dataclasses.replace(cfg, kv_quant=int8), tp, r["rank"])
+        proj, flash = serve_expected(local)
+        c = r["counts"]
+        check(c[names[0]] == proj and c[names[1]] == flash and c[others[0]] == c[others[1]] == 0,
+              f"{label} rank {r['rank']}: launched {c}, not {names[0]} {proj} and {names[1]} {flash}")
+        check(tp != 2 or c[names[1]] > 0, f"{label} rank {r['rank']}: kernel C never launched at tp = 2")
+        held = r["held"]
+        check(held["D" if int8 else "B"][0] > 0 and (held["C"][0] > 0) == (flash > 0),
+              f"{label} rank {r['rank']}: kernel calls held {held}")
+        check(r["backend"] == "gloo" and r["device"] == "cuda:0", f"{label}: rank {r['rank']} on {r['device']}")
+    got = [types.SimpleNamespace(prompt=w.prompt, tokens=t) for w, t in zip(want, every[0]["tokens"])]
+    diffs = tokens_held(f"{label} against tp = 1", base, got, want)
+    mean = lambda key: sum(r[key] for r in every) / tp  # noqa: E731
+    share = mean("comm_ms_step") / mean("decode_timed_ms_step")
+    card = card_line()
+    for r in every:
+        print(f"phase {label} rank {r['rank']}: backend {r['backend']} on {r['device']}; {r['local_heads']} heads over "
+              f"{r['local_kv_heads']} KV heads; launches {r['counts']}; held (calls, largest err / limit) "
+              f"{r['held']}; collectives {r['comm']['calls']} ({r['comm']['bytes'] / 1e6:.1f} MB); generate "
+              f"{r['generate_s']:.2f} s; eager decode B=4 at 1024 {r['decode_ms_step']:.2f} ms/step ({r['comm_ms_step']:.2f} "
+              f"of {r['decode_timed_ms_step']:.2f} ms in collectives when timed); prefill 1024 {r['prefill_ms']:.1f} ms; "
+              f"peak {r['peak_gb']:.2f} GB; on {card}")
+    print(f"phase {label}: every rank's tokens equal, {len(want) - len(diffs)} of {len(want)} requests equal tp = 1's; "
+          f"eager decode {mean('decode_ms_step'):.2f} ms/step against tp = 1's {base_ms:.2f}, {share:.1%} of a timed "
+          f"step in the collectives; on {card}")
+    launches = {k: sum(r["counts"][k] for r in every) for k in every[0]["counts"]}
+    return dict(launches=launches, diffs=diffs, decode_ms_step=mean("decode_ms_step"), comm_share=share,
+                decode_ms_step_tp1=base_ms, prefill_ms=mean("prefill_ms"), peak_gb=[r["peak_gb"] for r in every],
+                held=[r["held"] for r in every], generate_s=mean("generate_s"), load_s=mean("load_s"))
 
 
 def phase_llama70b_serving(prompts, profile):
@@ -3358,6 +3461,9 @@ def main() -> int:
     lap("5c")
     int8_counts, serving8, spec8_counts, score8_counts, lora8_counts = phase_int8_serving(prompts, args.profile)
     lap("5d (with 5n, 5p and 5r int8)")
+    tp_runs, tp_serving = phase_tp_serving(prompts)
+    free_memory()
+    lap("5u")
     phase_checkpoint(dev, rng)
     qwen_counts, serving_qwen = phase_qwen2_serving(prompts, args.profile)
     free_memory()
@@ -3395,6 +3501,9 @@ def main() -> int:
     free_memory()
     gate = phase_quality_gate()
     lap("6s, 6e, 7q")
+
+    def tp_launches(name):  # phase 5u's launches of a kernel, summed over its runs and ranks
+        return sum(run["launches"][name] for run in tp_runs.values())
 
     def decode_layer(res):  # one decode layer's four projections at B=4
         return [res[(name, 4)] for name in LLAMA3_8B_PROJ]
@@ -3441,7 +3550,8 @@ def main() -> int:
                    qwen3_30b_a3b_launches=moe_counts["4-bit"]["matmul_bf16"],
                    hf_checkpoint_launches=hf_counts["4-bit"]["matmul_bf16"],
                    multi_lora_launches=lora_counts["matmul_bf16"],
-                   train_families_launches=family_counts["matmul_bf16"]),
+                   train_families_launches=family_counts["matmul_bf16"],
+                   tensor_parallel_launches=tp_launches("matmul_bf16")),
         flash_row("flash_attention", fl, serve_counts["flash_attention"],
                   qwen2_7b_launches=qwen_counts["flash_attention"], gemma_7b_launches=gemma_counts["flash_attention"],
                   http_launches=http_counts["flash_attention"], gemma2_9b_launches=gemma2_counts["flash_attention"],
@@ -3452,20 +3562,23 @@ def main() -> int:
                   llama3_70b_launches=l70_counts["flash_attention"],
                   qwen3_30b_a3b_launches=moe_counts["4-bit"]["flash_attention"],
                   multi_lora_launches=lora_counts["flash_attention"],
-                  train_families_launches=family_counts["flash_attention"]),
+                  train_families_launches=family_counts["flash_attention"],
+                  tensor_parallel_launches=tp_launches("flash_attention")),
         flash_row("flash_attention_int8", fl8, int8_counts["flash_attention_int8"], int8=True,
                   spec_launches=spec8_counts["flash_attention_int8"],
                   score_prefix_launches=score8_counts["flash_attention_int8"],
                   qwen3_30b_a3b_launches=moe_counts["int8"]["flash_attention_int8"],
                   multi_lora_launches=lora8_counts["flash_attention_int8"],
-                  train_families_launches=family_counts["flash_attention_int8"]),
+                  train_families_launches=family_counts["flash_attention_int8"],
+                  tensor_parallel_launches=tp_launches("flash_attention_int8")),
         matmul_row("int8_matmul", "nf4_tpu_torch/csrc/int8_matmul.cu", "nf4_tpu/ops/int8_serve.py:151", mm8,
                    int8_counts["int8_matmul"], prefill=True, spec_launches=spec8_counts["int8_matmul"],
                    score_prefix_launches=score8_counts["int8_matmul"],
                    qwen3_30b_a3b_launches=moe_counts["int8"]["int8_matmul"],
                    hf_checkpoint_launches=hf_counts["int8"]["int8_matmul"],
                    multi_lora_launches=lora8_counts["int8_matmul"],
-                   train_families_launches=family_counts["int8_matmul"]),
+                   train_families_launches=family_counts["int8_matmul"],
+                   tensor_parallel_launches=tp_launches("int8_matmul")),
         dict(name="dequant_t_fast", route="cuda", source="nf4_tpu_torch/csrc/dequant.cu",
              replaces="nf4_tpu/ops/dequant.py:147", launches=fast_counts["dequant_t_fast"],
              max_abs_err=fast["max_abs_err"], ms=fast["w_down"]["ms"], plain_ms=fast["w_down"]["plain_ms"],
@@ -3497,6 +3610,7 @@ def main() -> int:
                            serving_llama3_70b=llama70b,
                            qwen3_30b_a3b=qwen3_moe, hf_checkpoint=hf_ckpt, score_prefix=score_prefix,
                            quality_gate=gate, multi_lora=multi_lora, train_families=families, phase_seconds=laps,
+                           tensor_parallel=dict(tp_serving, runs=tp_runs),
                            training_bf16=train16, training_fp32=train32, kernels=kernels), f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -6,6 +6,7 @@ from .llama import LlamaConfig
 
 __all__ = [
     "TINY_TEST",
+    "TINY_TP",
     "TINYLLAMA_1_1B",
     "MISTRAL_7B",
     "GEMMA_7B",
@@ -37,6 +38,20 @@ TINY_TEST = LlamaConfig(
 )
 
 # TinyLlama-1.1B.
+# A miniature tensor-parallel config (every column shard keeps a 128-lane
+# tile at tp=4; the KV heads divide): the sharding tests and --tp runs.
+TINY_TP = LlamaConfig(
+    vocab_size=256,
+    hidden_size=256,
+    intermediate_size=512,
+    num_layers=2,
+    num_heads=8,
+    num_kv_heads=4,
+    head_dim=128,
+    max_seq_len=32,
+    tp_shards=4,
+)
+
 TINYLLAMA_1_1B = LlamaConfig(
     vocab_size=32000,
     hidden_size=2048,
@@ -281,6 +296,7 @@ LLAMA3_70B = LlamaConfig(
 
 _REGISTRY = {
     "tiny-test": TINY_TEST,
+    "tiny-tp": TINY_TP,
     "tinyllama-1.1b": TINYLLAMA_1_1B,
     "mistral-7b": MISTRAL_7B,
     "gemma-7b": GEMMA_7B,

@@ -128,8 +128,9 @@ def lora_from_numpy(tree, device=None):
 
 def config_to_dict(cfg: LlamaConfig) -> dict:
     """A JSON-serializable dict of ``cfg`` (the dtype by its name), as the
-    JAX package's ``config_to_dict`` writes it."""
-    out = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    JAX package's ``config_to_dict`` writes it: ``ep_rank`` (runtime only,
+    as its ``ep_axis``) is left out."""
+    out = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg) if f.name != "ep_rank"}
     out["dtype"] = str(cfg.dtype).removeprefix("torch.")
     return out
 

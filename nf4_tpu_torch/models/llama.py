@@ -21,6 +21,16 @@ the adapters through the packed weights' backward.  :func:`forward` also
 takes a multi-LoRA bank with a per-row adapter id (:func:`_lora_delta`,
 :func:`prepare_bank`).
 
+Tensor parallelism (``parallel/tp.py``): each rank runs :func:`forward`
+over its own slice of the params with the per-rank config
+(``tp_local_config``: heads, KV heads and the MLP width divided by the
+degree), and ``reduce_fn`` (a sum over the ranks) after each row-parallel
+product (``wo``, ``w_down``, an MoE layer's expert sum), in fp32 before
+the cast, as the JAX package applies its ``psum``; ``gather_fn`` turns the
+rank's vocabulary slice of the logits into full rows.  Checkpoints packed
+for ``tp_shards > 1`` (fused rows interleaved per shard, row-parallel K in
+chunks) also serve on one device.
+
 Where the dispatch differs from the JAX package's: there a layer's window
 is a traced value of the layer scan, which keeps every windowed
 alternating-layer model off the flash kernel; here it is a host int, so
@@ -39,6 +49,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+import os
 from typing import List, Optional, Tuple, Union
 
 import numpy as np
@@ -111,6 +122,11 @@ class LlamaConfig:
     experts_per_token: int = 2
     moe_norm_topk: bool = True
     moe_shard: str = "tensor"
+    # Runtime only (set by parallel.tp.tp_local_config on a rank, never
+    # saved): in moe_shard="expert" mode the rank whose num_experts local
+    # experts this config describes, so _moe_mlp offsets local expert ids
+    # to global ones (the JAX package's ep_axis).
+    ep_rank: Optional[int] = None
     attn_logit_softcapping: Optional[float] = None
     final_logit_softcapping: Optional[float] = None
     query_pre_attn_scalar: Optional[float] = None
@@ -130,6 +146,14 @@ class LlamaConfig:
     def kv_dim(self) -> int:
         return self.num_kv_heads * self.head_dim
 
+    @property
+    def moe_groups(self) -> int:
+        """The interleave and chunk count of the EXPERT weights: tp_shards in
+        "tensor" mode, 1 in "expert" mode (each rank holds whole experts)."""
+        if self.moe_shard not in ("tensor", "expert"):
+            raise ValueError(f"moe_shard={self.moe_shard!r}; expected 'tensor' or 'expert'")
+        return self.tp_shards if self.moe_shard == "tensor" else 1
+
 
 # The MLP's gate activations, on fp32 (``activation``).
 _ACTIVATIONS = {
@@ -140,9 +164,8 @@ _ACTIVATIONS = {
 
 
 def check_supported(cfg: LlamaConfig) -> None:
-    """Raise for configuration features this port does not serve yet."""
-    if cfg.tp_shards > 1:
-        raise NotImplementedError("not ported yet: tp_shards > 1")
+    """Raise for configuration values this port does not serve."""
+    cfg.moe_groups  # raises for an unknown moe_shard
     if cfg.activation not in _ACTIVATIONS:
         raise ValueError(f"unknown activation {cfg.activation!r}; {'|'.join(_ACTIVATIONS)}")
     if cfg.rope_scaling is not None and cfg.rope_scaling[0] not in ("linear", "llama3", "longrope"):
@@ -313,16 +336,25 @@ def _host(w) -> torch.Tensor:
     return w.detach() if isinstance(w, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(w))
 
 
+def _interleave(ws: list, groups: int) -> list:
+    """The row blocks of ``ws`` in the fused order ``concat_s [w0_s; w1_s;
+    ...]``, ``w_s`` the s-th of ``groups`` equal row slices of ``w``."""
+    for w in ws:
+        if w.shape[0] % groups:
+            raise ValueError(f"{w.shape[0]} rows do not split into {groups} groups")
+    return [w[s * (w.shape[0] // groups) : (s + 1) * (w.shape[0] // groups)] for s in range(groups) for w in ws]
+
+
 def fuse_rows(ws, groups: int = 1):
-    """Fuse [m_i, n] weights along the out dim, ``[w0; w1; ...]``: all
-    dense (torch tensors or numpy arrays) or all :class:`QDense` (codes and
-    per-block scales fused with the same rows, so separately quantized
-    projections fuse exactly).  Mixing the two in one group raises: a dense
-    minority quantized here would hide a checkpoint inconsistency.
-    ``groups > 1`` (the JAX package's per-shard interleave for tensor
-    parallelism) is not ported yet."""
-    if groups != 1:
-        raise NotImplementedError("not ported yet: fuse_rows groups > 1 (tensor-parallel interleave)")
+    """Fuse [m_i, n] weights (or [m_i] vectors) along the out dim,
+    interleaved per tensor-parallel shard: rows ``concat_s [w0_s; w1_s;
+    ...]`` with ``w_s`` rows ``[s*m/g, (s+1)*m/g)`` of ``w``, so shard s's
+    contiguous slice is its own ``[q; k; v]`` (``groups=1``: ``[w0; w1;
+    ...]``).  All dense (torch tensors or numpy arrays) or all
+    :class:`QDense` (codes and per-block scales fused with the same rows,
+    so separately quantized projections fuse exactly).  Mixing the two in
+    one group raises: a dense minority quantized here would hide a
+    checkpoint inconsistency."""
     n_q = sum(isinstance(w, QDense) for w in ws)
     if n_q:
         if n_q != len(ws):
@@ -330,23 +362,24 @@ def fuse_rows(ws, groups: int = 1):
         qt = {w.quant_type for w in ws}
         if len(qt) > 1:
             raise ValueError(f"mixed quant_types in fused group: {qt}")
-        return QDense(np.concatenate([w.codes for w in ws]), np.concatenate([w.scales for w in ws]),
-                      ws[0].quant_type)
-    return torch.cat([_host(w) for w in ws])
+        return QDense(np.concatenate(_interleave([w.codes for w in ws], groups)),
+                      np.concatenate(_interleave([w.scales for w in ws], groups)), ws[0].quant_type)
+    return torch.cat(_interleave([_host(w) for w in ws], groups))
 
 
-def _linear(w, cfg: LlamaConfig, device) -> Weight:
+def _linear(w, cfg: LlamaConfig, device, shards: int = 1) -> Weight:
     """One projection on ``device``: a :class:`QDense` repacked (its codes
     untouched), a dense weight quantized (``cfg.quantize``) or cast to
-    ``cfg.dtype``."""
+    ``cfg.dtype``; packed with K in ``shards`` chunks (row-parallel)."""
     if isinstance(w, QDense):
         if not cfg.quantize:
             raise ValueError("pre-quantized (bnb) weights require cfg.quantize=True")
         if w.quant_type != cfg.quant_type:
             raise ValueError(f"checkpoint quant_type {w.quant_type!r} != config quant_type {cfg.quant_type!r}")
-        return pack_codes_for_tpu(w.codes, w.scales, dtype=cfg.dtype, quant_type=w.quant_type, device=device)
+        return pack_codes_for_tpu(w.codes, w.scales, dtype=cfg.dtype, shards=shards, quant_type=w.quant_type,
+                                  device=device)
     if cfg.quantize:
-        return quantize_for_tpu(w, dtype=cfg.dtype, quant_type=cfg.quant_type, device=device)
+        return quantize_for_tpu(w, dtype=cfg.dtype, shards=shards, quant_type=cfg.quant_type, device=device)
     return _host(w).to(device, cfg.dtype)
 
 
@@ -378,29 +411,33 @@ def quantize_layer(lw: dict, cfg: LlamaConfig, device=None) -> LayerParams:
     ``post_attn_norm`` and, where the model has them, ``bq bk bv``,
     ``q_norm k_norm``, ``post_attn_out_norm post_ffw_norm``.  An MoE
     layer's experts are stacked in expert order; a quantized router is
-    dequantized exactly to fp32."""
+    dequantized exactly to fp32.  Packed for ``cfg.tp_shards``: the fused
+    rows interleaved per shard, ``wo`` and ``w_down`` in K chunks (the
+    experts with ``cfg.moe_groups``)."""
     check_supported(cfg)
     dev = resolve_device(device)
+    g = cfg.tp_shards
 
     def vector(name):
         return _host(lw[name]).to(dev, torch.float32) if name in lw else None
 
     qkv_bias = None
     if cfg.attn_bias:
-        qkv_bias = fuse_rows([lw["bq"], lw["bk"], lw["bv"]]).to(dev, torch.float32)
+        qkv_bias = fuse_rows([lw["bq"], lw["bk"], lw["bv"]], g).to(dev, torch.float32)
     router = None
     if cfg.num_experts > 1:
-        experts = range(cfg.num_experts)
-        gu = _stack([_linear(fuse_rows([lw[f"expert{e}.w_gate"], lw[f"expert{e}.w_up"]]), cfg, dev) for e in experts])
-        dn = _stack([_linear(lw[f"expert{e}.w_down"], cfg, dev) for e in experts])
+        experts, ge = range(cfg.num_experts), cfg.moe_groups
+        gu = _stack([_linear(fuse_rows([lw[f"expert{e}.w_gate"], lw[f"expert{e}.w_up"]], ge), cfg, dev)
+                     for e in experts])
+        dn = _stack([_linear(lw[f"expert{e}.w_down"], cfg, dev, ge) for e in experts])
         router = lw["router"]
         router = _host(router.to_dense() if isinstance(router, QDense) else router).to(dev, torch.float32)
     else:
-        gu = _linear(fuse_rows([lw["w_gate"], lw["w_up"]]), cfg, dev)
-        dn = _linear(lw["w_down"], cfg, dev)
+        gu = _linear(fuse_rows([lw["w_gate"], lw["w_up"]], g), cfg, dev)
+        dn = _linear(lw["w_down"], cfg, dev, g)
     return LayerParams(
-        wqkv=_linear(fuse_rows([lw["wq"], lw["wk"], lw["wv"]]), cfg, dev),
-        wo=_linear(lw["wo"], cfg, dev),
+        wqkv=_linear(fuse_rows([lw["wq"], lw["wk"], lw["wv"]], g), cfg, dev),
+        wo=_linear(lw["wo"], cfg, dev, g),
         w_gateup=gu,
         w_down=dn,
         input_norm=vector("input_norm"),
@@ -577,9 +614,14 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return (xf * cos[:, None] + rotated * sin[:, None]).to(x.dtype)
 
 
-def split_fused(y: torch.Tensor, sizes) -> List[torch.Tensor]:
-    """Split the output features of a fused matmul: y [..., sum(sizes)]."""
-    return list(torch.split(y, list(sizes), dim=-1))
+def split_fused(y: torch.Tensor, sizes, groups: int = 1) -> List[torch.Tensor]:
+    """Split the output features of a fused matmul, y [..., sum(sizes)],
+    one tensor per entry of ``sizes``: the inverse of :func:`fuse_rows`
+    with the same ``groups``."""
+    if groups == 1:
+        return list(torch.split(y, list(sizes), dim=-1))
+    parts = torch.split(y, [size // groups for _ in range(groups) for size in sizes], dim=-1)
+    return [torch.cat(parts[i :: len(sizes)], dim=-1) for i in range(len(sizes))]
 
 
 # The dividend of _quantize_kv's true division: a CPU scalar, which a CUDA
@@ -734,6 +776,61 @@ def _add_delta(y: torch.Tensor, delta: Optional[torch.Tensor]) -> torch.Tensor:
     return y if delta is None else y + delta
 
 
+def _col_chunks(w: Weight, nchunks: int) -> Optional[list]:
+    """``w`` as ``nchunks`` weights of consecutive out-features (lanes), each
+    a contiguous copy the kernels take; None when the padded out dim does
+    not split into chunks of whole 128-lane tiles.  A chunk's logical width
+    is its padded one (padding lanes give exact zeros), so the chunks'
+    outputs side by side are the padded output."""
+    if isinstance(w, (PackedNF4, PackedInt8)):
+        m_pad, n_pad = w.padded_shape
+        if m_pad % nchunks or (m_pad // nchunks) % 128:
+            return None
+        mc = m_pad // nchunks
+        data = "values" if isinstance(w, PackedInt8) else "packed"
+        return [dataclasses.replace(w, **{data: getattr(w, data)[..., c * mc : (c + 1) * mc].contiguous()},
+                                    scales=w.scales[..., c * mc : (c + 1) * mc].contiguous(), shape=(mc, w.shape[1]),
+                                    padded_shape=(mc, n_pad))
+                for c in range(nchunks)]
+    m = w.shape[-2]
+    if m % nchunks:
+        return None
+    return [w[..., c * (m // nchunks) : (c + 1) * (m // nchunks), :] for c in range(nchunks)]
+
+
+def collective_chunks() -> int:
+    """``NF4TPU_COLLECTIVE_MATMUL`` (the JAX package's flag): compute each
+    row-parallel projection in this many chunks of output columns, each
+    reduced on its own as soon as it is computed (a collective matmul, so
+    chunk c's reduction can overlap chunk c+1's product); 0 or unset is one
+    reduction.  It changes no value: each element sees the same sum."""
+    raw = os.environ.get("NF4TPU_COLLECTIVE_MATMUL", "0")
+    try:
+        n = int(raw)
+    except ValueError:
+        raise ValueError(f"NF4TPU_COLLECTIVE_MATMUL={raw!r}; expected an integer chunk count") from None
+    if n < 0:
+        raise ValueError(f"NF4TPU_COLLECTIVE_MATMUL={n} must be >= 0")
+    return n
+
+
+def _reduced_matmul(x: torch.Tensor, w: Weight, reduce_fn, out_dtype=None, decode: bool = False) -> torch.Tensor:
+    """A row-parallel projection and its reduction over the ranks
+    (``reduce_fn``), in ``out_dtype`` (fp32: the partial sums are added
+    before any rounding to the activation dtype).  Under
+    ``NF4TPU_COLLECTIVE_MATMUL=N`` (:func:`collective_chunks`) the output
+    columns are computed in N chunks (:func:`_col_chunks`, each a copy of
+    its slice of the weight), each reduced on its own; the result is the
+    same bits as one reduction."""
+    nchunks = collective_chunks() if reduce_fn is not None else 0
+    chunks = _col_chunks(w, nchunks) if nchunks > 1 else None
+    reduce_fn = reduce_fn or (lambda t: t)
+    if chunks is None:
+        return reduce_fn(_matmul(x, w, out_dtype=out_dtype, decode=decode))
+    parts = [reduce_fn(_matmul(x, wc, out_dtype=out_dtype, decode=decode)) for wc in chunks]
+    return torch.cat(parts, dim=-1)[..., : w.shape[-2] if isinstance(w, torch.Tensor) else w.shape[0]]
+
+
 def _post(cfg: LlamaConfig, t: torch.Tensor, w: Optional[torch.Tensor]) -> torch.Tensor:
     """Gemma-2/3's RMSNorm of a sublayer's fp32 output before its residual
     add; ``t`` itself without the norm."""
@@ -742,7 +839,7 @@ def _post(cfg: LlamaConfig, t: torch.Tensor, w: Optional[torch.Tensor]) -> torch
 
 def _layer_forward(cfg, x, lp: LayerParams, layer_cache: Optional[KVCache], positions, seq_lens, cos, sin,
                    kv_len=None, ll=None, train: bool = False, segment_ids=None, cache_index=None, window=None,
-                   decode: bool = False, sel=None):
+                   decode: bool = False, sel=None, reduce_fn=None):
     """One decoder layer; x [B, S, hidden]; writes this call's K/V into the
     layer's cache views in place at ``cache_index`` (the positions'
     :func:`_cache_index`).  ``window`` is the layer's sliding window
@@ -751,7 +848,8 @@ def _layer_forward(cfg, x, lp: LayerParams, layer_cache: Optional[KVCache], posi
     (``train.lora.LoraLayer``, or a bank's layer with ``sel`` its rows'
     :func:`_adapter_mask`) or None; ``train=True`` uses no cache
     (attention over this call's own K/V, differentiable paths only, with
-    ``segment_ids`` for packed rows)."""
+    ``segment_ids`` for packed rows).  ``reduce_fn`` sums a row-parallel
+    product over the tensor-parallel ranks (see :func:`forward`)."""
     b, s, _ = x.shape
 
     def delta(t, name):
@@ -762,7 +860,11 @@ def _layer_forward(cfg, x, lp: LayerParams, layer_cache: Optional[KVCache], posi
     qkv = _add_delta(_matmul(attn_in, lp.wqkv, decode=decode), delta(attn_in, "qkv"))  # one kernel for q+k+v
     if lp.qkv_bias is not None:
         qkv = qkv + lp.qkv_bias.to(qkv.dtype)
-    qk, v = split_fused(qkv, (cfg.q_dim + cfg.kv_dim, cfg.kv_dim))
+    if cfg.tp_shards == 1:
+        qk, v = split_fused(qkv, (cfg.q_dim + cfg.kv_dim, cfg.kv_dim))
+    else:  # a checkpoint packed for tensor parallelism, on one device
+        q, k, v = split_fused(qkv, (cfg.q_dim, cfg.kv_dim, cfg.kv_dim), cfg.tp_shards)
+        qk = torch.cat((q, k), dim=-1)
     qk = qk.reshape(b, s, cfg.num_heads + cfg.num_kv_heads, cfg.head_dim)
     if lp.q_norm is not None:  # per-head RMSNorm of q and k before RoPE (Qwen3), one pass
         w = torch.cat((lp.q_norm.expand(cfg.num_heads, -1), lp.k_norm.expand(cfg.num_kv_heads, -1)))
@@ -798,7 +900,13 @@ def _layer_forward(cfg, x, lp: LayerParams, layer_cache: Optional[KVCache], posi
             decode=decode,
         )
     attn = attn.transpose(1, 2).reshape(b, s, cfg.q_dim)
-    o_proj = _add_delta(_matmul(attn, lp.wo, out_dtype=torch.float32, decode=decode), delta(attn, "o"))
+    # Row-parallel products stay fp32 through the reduction, cast once after
+    # it; a LoRA delta joins the partial product before the reduction.
+    if ll is None or ll.o is None:
+        o_proj = _reduced_matmul(attn, lp.wo, reduce_fn, out_dtype=torch.float32, decode=decode)
+    else:
+        o_proj = _add_delta(_matmul(attn, lp.wo, out_dtype=torch.float32, decode=decode), delta(attn, "o"))
+        o_proj = o_proj if reduce_fn is None else reduce_fn(o_proj)
     x = x + _post(cfg, o_proj, lp.post_attn_out_norm).to(x.dtype)
 
     mlp_in = rms_norm(x, lp.post_attn_norm, cfg.rms_norm_eps, one_plus)
@@ -806,20 +914,29 @@ def _layer_forward(cfg, x, lp: LayerParams, layer_cache: Optional[KVCache], posi
         if ll is not None and (ll.gateup is not None or ll.down is not None):
             raise ValueError("LoRA on MoE expert MLPs is not supported; adapt the attention projections "
                              "(targets=('wqkv', 'wo'))")
-        return x + _post(cfg, _moe_mlp(cfg, mlp_in, lp, decode), lp.post_ffw_norm).to(x.dtype)
+        return x + _post(cfg, _moe_mlp(cfg, mlp_in, lp, decode, reduce_fn), lp.post_ffw_norm).to(x.dtype)
     gateup = _add_delta(_matmul(mlp_in, lp.w_gateup, decode=decode), delta(mlp_in, "gateup"))  # one kernel for gate+up
-    h = _gated(cfg, gateup)
-    down = _add_delta(_matmul(h, lp.w_down, out_dtype=torch.float32, decode=decode), delta(h, "down"))
+    h = _gated(cfg, gateup, cfg.tp_shards)
+    # The product before its delta: a layer's recompute under remat stops
+    # after the last tensor the backward saves, so the order keeps w_down's
+    # product in it.
+    if ll is None or ll.down is None:
+        down = _reduced_matmul(h, lp.w_down, reduce_fn, out_dtype=torch.float32, decode=decode)
+    else:
+        down = _add_delta(_matmul(h, lp.w_down, out_dtype=torch.float32, decode=decode), delta(h, "down"))
+        down = down if reduce_fn is None else reduce_fn(down)
     return x + _post(cfg, down, lp.post_ffw_norm).to(x.dtype)
 
 
-def _gated(cfg: LlamaConfig, gateup: torch.Tensor) -> torch.Tensor:
-    """act(gate) * up of a fused gate+up output, the activation in fp32."""
-    gate, up = split_fused(gateup, (cfg.intermediate_size, cfg.intermediate_size))
+def _gated(cfg: LlamaConfig, gateup: torch.Tensor, groups: int = 1) -> torch.Tensor:
+    """act(gate) * up of a fused gate+up output (interleaved in ``groups``),
+    the activation in fp32."""
+    gate, up = split_fused(gateup, (cfg.intermediate_size, cfg.intermediate_size), groups)
     return _ACTIVATIONS[cfg.activation](gate.float()).to(up.dtype) * up
 
 
-def _moe_mlp(cfg: LlamaConfig, mlp_in: torch.Tensor, lp: LayerParams, decode: bool = False) -> torch.Tensor:
+def _moe_mlp(cfg: LlamaConfig, mlp_in: torch.Tensor, lp: LayerParams, decode: bool = False,
+             reduce_fn=None) -> torch.Tensor:
     """The mixture-of-experts MLP (the JAX package's ``_moe_mlp``): fp32
     router logits (full fp32 products: TF32 could flip a route), the top
     ``experts_per_token`` experts of each token, ties to the lower index as
@@ -828,7 +945,13 @@ def _moe_mlp(cfg: LlamaConfig, mlp_in: torch.Tensor, lp: LayerParams, decode: bo
     through every expert in expert order, each expert's fp32 output
     weighted by the token's weight for it (0 where not chosen) into an fp32
     sum.  No shape depends on the routes, so decode chunks capture.
-    ``decode``: the rows are decode rows (see :func:`forward`)."""
+    ``decode``: the rows are decode rows (see :func:`forward`).
+
+    Under tensor parallelism the router is whole on every rank; in
+    "tensor" mode each expert's columns and K chunks are the rank's slice,
+    in "expert" mode the rank holds ``num_experts`` whole experts, local
+    expert e being global expert ``ep_rank * num_experts + e``.  Either way
+    ``reduce_fn`` runs once, on the fp32 expert sum."""
     with _ieee_fp32():
         logits = mlp_in.float() @ lp.router.float().t()  # [B, S, E]
     order = torch.sort(logits, dim=-1, descending=True, stable=True)
@@ -838,11 +961,13 @@ def _moe_mlp(cfg: LlamaConfig, mlp_in: torch.Tensor, lp: LayerParams, decode: bo
     else:
         weights = torch.softmax(logits, dim=-1).gather(-1, top_i)
     per_expert = torch.zeros_like(logits).scatter(-1, top_i, weights)  # [B, S, E], the chosen experts' weights
+    off = 0 if cfg.ep_rank is None else cfg.ep_rank * cfg.num_experts
     acc = torch.zeros(mlp_in.shape, dtype=torch.float32, device=mlp_in.device)
     for e, (gu, dn) in enumerate(zip(_experts(lp.w_gateup), _experts(lp.w_down))):
-        out = _matmul(_gated(cfg, _matmul(mlp_in, gu, decode=decode)), dn, out_dtype=torch.float32, decode=decode)
-        acc = acc + per_expert[..., e : e + 1] * out
-    return acc
+        h = _gated(cfg, _matmul(mlp_in, gu, decode=decode), cfg.moe_groups)
+        out = _matmul(h, dn, out_dtype=torch.float32, decode=decode)
+        acc = acc + per_expert[..., off + e : off + e + 1] * out
+    return acc if reduce_fn is None else reduce_fn(acc)
 
 
 def forward(
@@ -858,6 +983,8 @@ def forward(
     decode: bool = False,
     hidden: bool = False,
     adapter_ids: Optional[torch.Tensor] = None,  # [B] int32: each row's adapter of a banked `lora`, -1 none
+    reduce_fn=None,
+    gather_fn=None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """Embed, run every layer, return fp32 logits ([B, S, V], or [B, V] for
     each row's last valid token with ``last_only``) and the cache, written
@@ -874,8 +1001,17 @@ def forward(
     on a live cache.  Their projections route by row count as decode's do
     (``_matmul``) and their attention is :func:`~nf4_tpu_torch.ops.
     attention.decode_attention`, so a row's logits follow its own tokens
-    and cache only, as a decode step's do.  Prompts pass no marker."""
+    and cache only, as a decode step's do.  Prompts pass no marker.
+
+    Tensor parallelism (``parallel/tp.py``): ``params`` are this rank's
+    slice, ``cfg`` its ``tp_local_config`` and ``cache`` its heads;
+    ``reduce_fn(t)`` sums an fp32 partial product over the ranks, and
+    ``gather_fn(logits)`` makes the rank's vocabulary slice of the logits
+    full rows (without it the slice is returned, as the JAX package's
+    ``forward`` returns it)."""
     check_supported(cfg)
+    if lora is not None and reduce_fn is not None:
+        raise ValueError("unmerged LoRA adapters cannot run under tensor parallelism; merge_lora them first")
     b, s = tokens.shape
     x = _embed(params, cfg, tokens)
     tables = _layer_tables(cfg, positions)
@@ -889,11 +1025,15 @@ def forward(
     for i, lp in enumerate(params.layers):
         ll = None if lora is None else lora.layers[i]
         x = _layer_forward(cfg, x, lp, cache.layer(i), positions, seq_lens, *tables[i], kv_len, ll=ll,
-                           cache_index=index, window=_layer_window(cfg, i), decode=decode, sel=sel)
+                           cache_index=index, window=_layer_window(cfg, i), decode=decode, sel=sel,
+                           reduce_fn=reduce_fn)
     if last_only:
         last_idx = torch.clamp(seq_lens - 1 - positions[:, 0], 0, s - 1).long()
         x = x[torch.arange(b, device=x.device), last_idx]
-    return (x if hidden else lm_head(params, cfg, x, decode)), cache
+    if hidden:
+        return x, cache
+    logits = lm_head(params, cfg, x, decode)
+    return (logits if gather_fn is None else gather_fn(logits)), cache
 
 
 def _embed(params: LlamaParams, cfg: LlamaConfig, tokens: torch.Tensor) -> torch.Tensor:
@@ -990,13 +1130,13 @@ def prefill_chunked(params, cfg: LlamaConfig, tokens: torch.Tensor, cache: Optio
 
 
 def decode_step(params, cfg: LlamaConfig, token, cache: KVCache, positions, kv_len: Optional[int] = None,
-                lora=None, adapter_ids=None):
+                lora=None, adapter_ids=None, reduce_fn=None, gather_fn=None):
     """One token per sequence: token [B], positions [B] (the slot being
-    written); ``lora`` / ``adapter_ids`` as in :func:`forward` (the
-    multi-LoRA Engine's bank and slot adapters).  Returns (logits [B, V],
-    cache)."""
+    written); ``lora`` / ``adapter_ids`` (the multi-LoRA Engine's bank and
+    slot adapters) and ``reduce_fn`` / ``gather_fn`` (tensor parallelism)
+    as in :func:`forward`.  Returns (logits [B, V], cache)."""
     logits, cache = forward(
         params, cfg, token[:, None], cache, positions[:, None], positions + 1, kv_len=kv_len, lora=lora,
-        adapter_ids=adapter_ids,
+        adapter_ids=adapter_ids, reduce_fn=reduce_fn, gather_fn=gather_fn,
     )
     return logits[:, 0], cache

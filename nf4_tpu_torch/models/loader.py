@@ -39,6 +39,7 @@ import json
 import math
 import os
 import re
+import types
 from typing import Dict, Iterator, Tuple
 
 import numpy as np
@@ -52,7 +53,8 @@ from .convert import _OPTIONAL_LAYER_FIELDS as _OPTIONAL_FIELDS
 from .convert import config_from_dict, config_to_dict
 from .llama import LayerParams, LlamaConfig, LlamaParams, _lm_head, quantize_layer
 
-__all__ = ["load_hf_llama", "hf_config_to_llama", "save_packed", "load_packed", "load_packed_auto"]
+__all__ = ["load_hf_llama", "hf_config_to_llama", "save_packed", "load_packed", "load_packed_auto",
+           "load_packed_sharded"]
 
 _LINEAR_FIELDS = ("wqkv", "wo", "w_gateup", "w_down")
 _NORM_FIELDS = ("input_norm", "post_attn_norm")
@@ -114,6 +116,10 @@ def save_packed(path: str, params: LlamaParams, cfg: LlamaConfig) -> None:
     np.savez(path, __meta__=np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8), **arrays)
 
 
+def _from_npz(arr: np.ndarray, bf16: bool) -> torch.Tensor:
+    return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16) if bf16 else torch.from_numpy(arr)
+
+
 def _read_packed(path: str) -> Tuple[Dict[str, torch.Tensor], dict]:
     """A save_packed artifact -> (CPU tensors by key, metadata)."""
     if path.endswith(".safetensors"):
@@ -122,16 +128,111 @@ def _read_packed(path: str) -> Tuple[Dict[str, torch.Tensor], dict]:
             return {k: f.get_tensor(k) for k in f.keys()}, meta
     with np.load(path, allow_pickle=False) as z:
         meta = json.loads(bytes(z["__meta__"]).decode())
-        data = {}
-        for key in z.files:
-            if key == "__meta__":
-                continue
-            arr = z[key]
-            if meta["dtypes"].get(key) == "bfloat16":
-                data[key] = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
-            else:
-                data[key] = torch.from_numpy(arr)
+        data = {key: _from_npz(z[key], meta["dtypes"].get(key) == "bfloat16") for key in z.files if key != "__meta__"}
     return data, meta
+
+
+class _LazyEntry:
+    """One tensor of a checkpoint, read when indexed: ``entry[idx]`` reads
+    only that slice of a ``.safetensors`` file (``get_slice``), or the
+    whole ``.npz`` member and then the slice (npz has no partial reads: one
+    member at a time is held).  ``stats``, when given, records each index
+    read under the key."""
+
+    def __init__(self, key: str, shape, read, stats=None):
+        self.key, self.shape, self._read, self.stats = key, tuple(shape), read, stats
+
+    def __getitem__(self, idx) -> torch.Tensor:
+        if self.stats is not None:
+            self.stats.setdefault(self.key, []).append(idx)
+        return self._read(idx)
+
+
+def _lazy_entries(handle, path: str, stats) -> Tuple[Dict[str, _LazyEntry], dict]:
+    """(lazy entries by key, metadata) of an open checkpoint."""
+    if path.endswith(".safetensors"):
+        def reader(sl):
+            return lambda idx: sl[idx].contiguous()
+
+        data = {}
+        for k in handle.keys():
+            sl = handle.get_slice(k)
+            data[k] = _LazyEntry(k, sl.get_shape(), reader(sl), stats)
+        return data, json.loads(handle.metadata()["nf4_tpu"])
+    with handle.open("__meta__.npy") as f:
+        meta = json.loads(bytes(np.lib.format.read_array(f, allow_pickle=False)).decode())
+
+    def reader(name, bf16):
+        def read(idx):
+            with handle.open(name) as f:
+                return _from_npz(np.lib.format.read_array(f, allow_pickle=False), bf16)[idx].contiguous()
+        return read
+
+    data = {}
+    for name in handle.namelist():
+        key = name[: -len(".npy")]
+        if key == "__meta__" or not name.endswith(".npy"):
+            continue
+        with handle.open(name) as f:
+            version = np.lib.format.read_magic(f)
+            header = np.lib.format.read_array_header_1_0 if version == (1, 0) else np.lib.format.read_array_header_2_0
+            shape = header(f)[0]
+        data[key] = _LazyEntry(key, shape, reader(name, meta["dtypes"].get(key) == "bfloat16"), stats)
+    return data, meta
+
+
+def load_packed_sharded(path: str, mesh, read_stats: Dict | None = None, device=None,
+                        **overrides) -> Tuple[LlamaParams, LlamaConfig]:
+    """This rank's slice of a packed checkpoint, read from the file slice
+    by slice (shard-on-read): each rank reads only what it serves
+    (``.safetensors`` by ``get_slice``; ``.npz`` one member at a time) and
+    holds no whole-model copy.  The counterpart of the JAX package's
+    ``load_packed_sharded``, which reads the same slices for each device.
+
+    ``mesh`` is the rank's :class:`~nf4_tpu_torch.parallel.mesh.Mesh`; the
+    checkpoint must be packed for its degree (``python -m
+    nf4_tpu_torch.quantize --tp N``, or ``repack_tp`` and
+    :func:`save_packed`: the fused interleave is a permutation of the whole
+    weight, which no slice can apply on its own).  Returns ``(params,
+    cfg)``: the params of ``parallel.tp.localize_params`` on ``device``
+    (default the mesh's), the config the whole model's, with
+    ``overrides``.  ``read_stats`` collects the indices read per key."""
+    from ..parallel.tp import local_meta, local_slice, shard_axis, shard_kinds, tp_local_config
+
+    if path.endswith(".safetensors"):
+        opened = _safetensors("safetensors").safe_open(path, framework="pt")
+    else:
+        import zipfile
+
+        opened = zipfile.ZipFile(path, "r")
+    with opened as handle:
+        entries, meta = _lazy_entries(handle, path, read_stats)
+        if "config" not in meta:
+            raise ValueError(f"{path} has no 'config' in its metadata: quantize and save it again")
+        cfg = dataclasses.replace(config_from_dict(meta["config"]), **overrides)
+        tp, rank = mesh.tp, mesh.tp_rank
+        if tp > 1:
+            tp_local_config(cfg, tp, rank)  # the degree must match the pack
+        kinds = dict(shard_kinds(cfg), lm_head="col", qkv_bias="col")
+        local = dict(meta, shapes=dict(meta["shapes"]), shards=dict(meta.get("shards", {})))
+        data = {}
+        for key, entry in entries.items():
+            base, _, part = key.removeprefix("layers.").rpartition(".")
+            name, packed = (base, True) if part in ("packed", "scales") else (key.removeprefix("layers."), False)
+            kind = kinds.get(name) if tp > 1 else None
+            if kind is None:
+                data[key] = entry[(slice(None),) * len(entry.shape)]
+                continue
+            axis = -1 if name == "qkv_bias" else shard_axis(kind, packed)
+            data[key] = local_slice(entry, axis, tp, rank)
+            if part == "packed":
+                rows, lanes = entry.shape[-2:]
+                whole = types.SimpleNamespace(shape=tuple(meta["shapes"][name]), padded_shape=(lanes, 2 * rows),
+                                              shards=int(meta.get("shards", {}).get(name, 1)))
+                fields = local_meta(whole, kind, tp)
+                local["shapes"][name] = list(fields.get("shape", whole.shape))
+                local["shards"][name] = fields.get("shards", whole.shards)
+    return _assemble(data, local, cfg, device if device is not None else mesh.device), cfg
 
 
 def _assemble(data: Dict[str, torch.Tensor], meta: dict, cfg: LlamaConfig, device) -> LlamaParams:

@@ -14,7 +14,11 @@ packed checkpoints and the NumPy oracle are shared:
   carries scale 0 and so dequantizes to exact 0.
 
 ``shards > 1`` packs the K dimension as ``shards`` independent chunks, each
-padded and pair-packed on its own (the row-parallel layout).
+padded and pair-packed on its own (the row-parallel layout of tensor
+parallelism: chunk s is rank s's K slice).  :func:`interleave_perm`,
+:func:`permute_out_features` and :func:`rechunk_shards` move a packed
+weight between tensor-parallel degrees by indexing alone (no dequant, no
+requant), byte for byte what packing for the new degree gives.
 
 :class:`QDense` is the host-side intermediate between a flat
 (bitsandbytes-layout) :class:`QuantState` and the packed layout: per-element
@@ -48,6 +52,9 @@ __all__ = [
     "qdense_from_state",
     "quantize_for_tpu",
     "chunk_views",
+    "interleave_perm",
+    "permute_out_features",
+    "rechunk_shards",
     "to_quant_state",
     "pad_to",
 ]
@@ -205,12 +212,14 @@ def quantize_for_tpu(
     ``nf4.fast_quant`` on ``device``; ``"auto"`` the card quantizer for a
     weight of at least 2^22 elements bound for a card, else ``"native"``
     where it is available, else ``"device"`` on whatever device the weight
-    goes to.  All give the same bytes.  ``shards > 1`` (tensor-parallel
-    packing) is not ported yet."""
+    goes to.  All give the same bytes.  ``shards > 1`` packs K as that many
+    chunks (the row-parallel layout): the statistics are the whole
+    weight's, as the JAX package's, and the chunking is
+    :func:`rechunk_shards` of the ``shards=1`` bytes, which is exact."""
     if method not in _METHODS:
         raise ValueError(f"method={method!r}; expected {'|'.join(_METHODS)}")
     if shards != 1:
-        raise NotImplementedError("not ported yet: shards > 1 (tensor-parallel packing)")
+        return rechunk_shards(quantize_for_tpu(w, dtype, 1, method, quant_type, device), shards)
     get_code(quant_type)  # raises for an unknown quant_type
     dev = resolve_device(device)
     from . import native
@@ -255,6 +264,68 @@ def chunk_views(pw: PackedNF4) -> list:
         )
         for s in range(pw.shards)
     ]
+
+
+def interleave_perm(sizes, groups: int) -> np.ndarray:
+    """The out-feature permutation from the ``groups=1`` fused row order
+    (``[w0; w1; ...]``) to the per-shard interleave of
+    ``models.llama.fuse_rows(..., groups)``: position ``p`` of the result
+    holds the ``groups=1`` index of interleaved row ``p``."""
+    offs = np.concatenate([[0], np.cumsum(sizes)])
+    out = []
+    for s in range(groups):
+        for i, mi in enumerate(sizes):
+            if mi % groups:
+                raise ValueError(f"fused size {mi} does not split into {groups} groups")
+            mg = mi // groups
+            out.append(np.arange(offs[i] + s * mg, offs[i] + (s + 1) * mg))
+    return np.concatenate(out)
+
+
+def permute_out_features(pw: PackedNF4, perm) -> PackedNF4:
+    """Reorder the logical out-features of a packed weight: ``perm[p]`` is
+    the source out-feature of new position ``p``.  Out-features are the
+    lane (last) axis of ``packed`` and ``scales`` and each lane column is
+    self-contained (blocks run along K), so this is exact; the padding
+    lanes stay in place.  Stacked (``[L, ...]`` or ``[E, ...]``) weights
+    too."""
+    m, _ = pw.shape
+    m_pad, _ = pw.padded_shape
+    perm = np.asarray(perm)
+    if perm.shape != (m,) or sorted(perm.tolist()) != list(range(m)):
+        raise ValueError(f"perm must be a permutation of range({m})")
+    idx = torch.as_tensor(np.concatenate([perm, np.arange(m, m_pad)]), device=pw.packed.device)
+    return dataclasses.replace(pw, packed=pw.packed.index_select(-1, idx).contiguous(),
+                               scales=pw.scales.index_select(-1, idx).contiguous())
+
+
+def rechunk_shards(pw: PackedNF4, shards: int) -> PackedNF4:
+    """Re-pack the K dimension of a packed weight as ``shards`` independent
+    chunks by row indexing alone: the real byte and scale rows are taken
+    out of the old chunks' padding and padded again per new chunk.  Bit
+    for bit what packing with ``shards`` gives (packing is per row and
+    chunk bounds fall on whole 64-blocks).  Stacked weights too."""
+    if pw.shards == shards:
+        return pw
+    m, n = pw.shape
+    m_pad, n_pad = pw.padded_shape
+    if n % (shards * NF4_BLOCK):
+        raise ValueError(f"in_features {n} must split into {shards} chunks of whole {NF4_BLOCK}-blocks")
+    g0 = pw.shards
+    n_c0, n_c0_pad = n // g0, n_pad // g0
+    n_c1 = n // shards
+    n_c1_pad = pad_to(n_c1, 1024)
+
+    def rechunk(a: torch.Tensor, unit: int) -> torch.Tensor:
+        stride, real = n_c0_pad // unit, n_c0 // unit
+        rows = torch.cat([a[..., s * stride : s * stride + real, :] for s in range(g0)], dim=-2)
+        real, padded = n_c1 // unit, n_c1_pad // unit
+        pad = (0, 0, 0, padded - real)
+        return torch.cat([torch.nn.functional.pad(rows[..., s * real : (s + 1) * real, :], pad)
+                          for s in range(shards)], dim=-2).contiguous()
+
+    return dataclasses.replace(pw, packed=rechunk(pw.packed, 2), scales=rechunk(pw.scales, NF4_BLOCK),
+                               padded_shape=(m_pad, n_c1_pad * shards), shards=shards)
 
 
 def to_quant_state(pw: PackedNF4, dtype=torch.float16) -> QuantState:

@@ -1,0 +1,179 @@
+"""Start one process per rank on this host and run functions on all of them.
+
+JAX drives every device from one program and needs no launcher; a
+``torch.distributed`` job is one process per rank.  :class:`Ranks` starts
+``world`` processes (``python -m nf4_tpu_torch.parallel.launch``, so a
+rank imports the package and the module of the function it runs, never
+the caller's script), joins them into one job (``initialize_distributed``
+over a TCP store on ``localhost``) and then runs, on every rank,
+``fn(mesh, *args, **kwargs)`` for each :meth:`Ranks.run`, ``mesh`` that
+rank's :class:`~nf4_tpu_torch.parallel.mesh.Mesh` of the asked ``tp`` and
+``dp`` (None on a rank outside it).  ``fn`` must be importable by name (a
+module-level function) and its arguments and result picklable.  The
+result of rank 0 comes back; an error on any rank stops every rank and is
+raised in the caller with each failed rank's traceback.  Build the kernels
+in the caller first (``ops._cuda.build()``): ranks load the built
+libraries, where each rank would otherwise build what it lacks, the same
+work once per rank.
+
+    with Ranks(2, backend="gloo", device="cpu") as ranks:
+        out = ranks.run(my_module.serve, prompts, tp=2)
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import pickle
+import socket
+import subprocess
+import sys
+import time
+import traceback
+from multiprocessing.connection import Connection, wait
+from typing import Optional
+
+__all__ = ["Ranks", "RankError"]
+
+# The most seconds one Ranks.run may take.
+RUN_TIMEOUT_S = 1800.0
+
+
+class RankError(RuntimeError):
+    """A function failed on one or more ranks; the message holds each
+    failed rank's traceback."""
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+class Ranks:
+    """``world`` rank processes of one job on this host, kept until
+    :meth:`close` (a context manager): ``backend`` and ``device`` as
+    :func:`~nf4_tpu_torch.parallel.mesh.make_mesh` takes them, ``threads``
+    the intra-op threads of each rank (default torch's).  Each rank talks
+    to the caller over a socket pair of its own, so a rank that dies shows
+    as a closed connection."""
+
+    def __init__(self, world: int, backend: str = "nccl", device: Optional[str] = None,
+                 threads: Optional[int] = None):
+        self.world = world
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(p or os.getcwd() for p in sys.path))
+        cmd = [sys.executable, "-m", "nf4_tpu_torch.parallel.launch", "--world", str(world),
+               "--store", f"localhost:{_free_port()}", "--backend", backend, "--device", device or "cuda",
+               "--threads", str(threads or 0)]
+        self._procs, self._conns = [], []
+        for r in range(world):
+            ours, theirs = socket.socketpair()
+            self._procs.append(subprocess.Popen(cmd + ["--rank", str(r), "--fd", str(theirs.fileno())], env=env,
+                                                pass_fds=(theirs.fileno(),)))
+            theirs.close()
+            self._conns.append(Connection(ours.detach()))
+
+    def run(self, fn, *args, tp: Optional[int] = None, dp: int = 1, **kwargs):
+        """``fn(mesh, *args, **kwargs)`` on every rank, ``mesh`` of ``tp`` x
+        ``dp`` (tp defaults to ``world / dp``); rank 0's result."""
+        if self._conns is None:
+            raise RuntimeError("the ranks are closed")
+        msg = pickle.dumps((fn, tp or self.world // dp, dp, args, kwargs))
+        for conn in self._conns:
+            conn.send_bytes(msg)
+        results, errors = {}, {}
+        pending = {conn: r for r, conn in enumerate(self._conns)}
+        end = time.monotonic() + RUN_TIMEOUT_S
+        while pending:
+            # After a failure the others get a short while to report theirs.
+            limit = end if not errors else min(end, time.monotonic() + 10.0)
+            ready = wait(list(pending), timeout=max(0.0, limit - time.monotonic()))
+            if not ready:
+                for r in pending.values():
+                    errors[r] = "stopped after another rank failed" if errors else "no answer in time"
+                break
+            for conn in ready:
+                r = pending.pop(conn)
+                try:
+                    status, value = conn.recv()
+                except (EOFError, OSError):
+                    status, value = "error", f"the rank exited (code {self._procs[r].wait()})"
+                (results if status == "ok" else errors)[r] = value
+        if errors:
+            self.close(kill=True)
+            raise RankError("\n".join(f"rank {r}: {e}" for r, e in sorted(errors.items())))
+        return results[0]
+
+    def close(self, kill: bool = False) -> None:
+        """Stop every rank: a clean exit, or at once with ``kill``."""
+        if self._conns is None:
+            return
+        for conn in self._conns:
+            try:
+                if not kill:
+                    conn.send_bytes(pickle.dumps(None))
+                conn.close()
+            except OSError:
+                pass
+        self._conns = None
+        for p in self._procs:
+            if kill:
+                p.kill()
+            try:
+                p.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+
+    def __enter__(self) -> "Ranks":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close(kill=exc[0] is not None)
+
+
+def _serve(argv=None) -> int:
+    """A rank's process: join the job, then run what the caller sends."""
+    ap = argparse.ArgumentParser()
+    for name in ("store", "backend", "device"):
+        ap.add_argument(f"--{name}", required=True)
+    for name in ("world", "rank", "threads", "fd"):
+        ap.add_argument(f"--{name}", type=int, required=True)
+    args = ap.parse_args(argv)
+    conn = Connection(args.fd)
+
+    import torch
+    import torch.distributed as dist
+
+    from .mesh import initialize_distributed, make_mesh
+
+    if args.threads:
+        torch.set_num_threads(args.threads)
+    initialize_distributed(args.store, args.world, args.rank, backend=args.backend)
+    meshes = {}
+    while True:
+        try:
+            msg = conn.recv_bytes()
+        except (EOFError, OSError):
+            break
+        try:
+            job = pickle.loads(msg)
+            if job is None:
+                break
+            fn, tp, dp, a, kw = job
+            if (tp, dp) not in meshes:  # every rank makes every mesh: new_group is collective
+                meshes[tp, dp] = make_mesh(tp, dp, backend=args.backend, device=args.device)
+            mesh = meshes[tp, dp]
+            reply = ("ok", None if mesh is None else fn(mesh, *a, **kw))
+        except BaseException:
+            reply = ("error", traceback.format_exc())
+        conn.send(reply)
+        if reply[0] == "error":
+            break
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(_serve())

@@ -1,7 +1,7 @@
 """One-shot checkpoint quantization CLI.
 
     python -m nf4_tpu_torch.quantize --hf-dir /path/to/llama --out llama-nf4.npz \
-        [--model llama3-8b] [--quant-type nf4|fp4] [--force-cpu]
+        [--model llama3-8b] [--quant-type nf4|fp4] [--tp N] [--force-cpu]
 
 Loads an HF safetensors checkpoint (dense: quantized on the card as it
 loads, one layer at a time; or a pre-quantized "*-bnb-4bit" one: repacked
@@ -9,8 +9,9 @@ without requantization) and writes the packed format
 (``models.loader.save_packed``: ``.npz`` or ``.safetensors`` by extension),
 which either package reloads in seconds (``load_packed_auto``).
 ``--force-cpu`` quantizes on the CPU, with the C++ host quantizer
-(``nf4/native.py``) where it builds (the same bytes).  ``--tp > 1``
-(re-packing for tensor parallelism) is not ported yet.
+(``nf4/native.py``) where it builds (the same bytes).  ``--tp N`` packs
+for tensor parallelism over N ranks (``parallel.tp.repack_tp``, index
+work only), the file ``load_packed_sharded`` reads slice by slice.
 """
 
 from __future__ import annotations
@@ -30,11 +31,11 @@ def main(argv=None) -> int:
     ap.add_argument("--model", default=None, help="config name (models/configs.py); default: from config.json")
     ap.add_argument("--quant-type", default=None, choices=("nf4", "fp4"),
                     help="4-bit codebook (default: config.json's quantization_config, else nf4)")
-    ap.add_argument("--tp", type=int, default=1, help="tensor-parallel degree to pack for (not ported yet)")
+    ap.add_argument("--tp", type=int, default=1, help="tensor-parallel degree to pack for")
     ap.add_argument("--force-cpu", action="store_true", help="quantize on the CPU even when a card is present")
     args = ap.parse_args(argv)
-    if args.tp > 1:
-        raise SystemExit("--tp > 1 (packing for tensor parallelism) is not ported yet")
+    if args.tp < 1:
+        raise SystemExit("--tp must be >= 1")
 
     from .models import configs
     from .models.loader import hf_config_to_llama, load_hf_llama, save_packed
@@ -50,6 +51,10 @@ def main(argv=None) -> int:
     stats = {}
     params, cfg = load_hf_llama(args.hf_dir, cfg, stats=stats, device=device)
     t_load = time.monotonic() - t0
+    if args.tp > 1:
+        from .parallel.tp import repack_tp
+
+        params, cfg = repack_tp(params, cfg, args.tp)
     t1 = time.monotonic()
     save_packed(args.out, params, cfg)
     t_save = time.monotonic() - t1

@@ -46,7 +46,9 @@ def build_engine(args):
     from .sampling import SamplingParams
 
     if args.tp > 1 or args.dp > 1:
-        raise SystemExit("--tp / --dp > 1 (multi-GPU serving) is not ported yet")
+        raise SystemExit("--tp / --dp > 1 is not ported yet: the serving CLI over several ranks (one process per "
+                         "rank, rank 0 holding the HTTP front and sending each wave to the others); serve tensor "
+                         "parallel from Python with Engine(mesh=) (nf4_tpu_torch.parallel)")
     if sum(map(bool, (args.packed, args.hf_dir, args.synthetic))) != 1:
         raise SystemExit("pick exactly one weight source: --packed PATH, --hf-dir DIR, or --model NAME --synthetic")
 
@@ -151,8 +153,8 @@ def main(argv=None, block=True):
     ap.add_argument("--int8", action="store_true",
                     help="int8-recode serving mode (2x weight bytes; values stay on the NF4 grid)")
     ap.add_argument("--kv8", action="store_true", help="int8 KV cache (halves KV memory)")
-    ap.add_argument("--tp", type=int, default=1, help="tensor-parallel degree (not ported yet)")
-    ap.add_argument("--dp", type=int, default=1, help="data-parallel degree (not ported yet)")
+    ap.add_argument("--tp", type=int, default=1, help="tensor-parallel degree (not ported yet in the CLI)")
+    ap.add_argument("--dp", type=int, default=1, help="data-parallel degree (not ported yet in the CLI)")
     ap.add_argument("--decode-chunk", type=int, default=8, help="decode steps per host sync (one CUDA graph)")
     ap.add_argument("--spec-k", type=int, default=0,
                     help="speculative decoding: draft length (prompt-lookup n-gram drafts unless --draft-* gives a "

@@ -62,7 +62,19 @@ held for an earlier call stay in the cache, and they are invisible for
 the reason a dropped chunk's are: a new request's prefill writes
 positions 0 to its bucket's end, each decode step writes its position
 before attending, and no query sees a slot past its own position.  One
-call runs at a time.  Tensor parallelism is not ported yet.
+call runs at a time.
+
+Tensor parallelism (``mesh=``, the JAX package's Engine over a mesh): one
+Engine per rank, each built from the same params (the whole model's,
+localized here, or the rank's slice from ``models.loader.
+load_packed_sharded``) and driven with the same requests: every rank runs
+the same scheduler over its slice of the weights and its heads of the
+cache (``parallel.tp``), each forward summing the row-parallel products
+over the ranks and gathering the vocabulary slices of the logits to full
+rows, so every rank samples the same tokens from the same bits and
+decides the same way.  Decode runs eagerly there (``cuda_graphs=False``):
+gloo's collectives cannot be captured.  Data parallelism, the draft model,
+a LoRA bank and :meth:`Engine.score` are single-rank only.
 
 Multi-LoRA serving (``lora_bank=``, the JAX package's): a bank of
 adapters (``train.lora.stack_adapters``) over one frozen base, each
@@ -216,9 +228,10 @@ class SpecKind:
     greedy: bool
 
 
-def _verify_forward(params, tokens, cache, positions, seq_lens, *, cfg, kv_len):
-    """The verify forward (``spec_verify``'s ``fwd``): decode rows."""
-    return forward(params, cfg, tokens, cache, positions, seq_lens, kv_len=kv_len, decode=True)
+def _verify_forward(params, tokens, cache, positions, seq_lens, *, cfg, kv_len, **tp):
+    """The verify forward (``spec_verify``'s ``fwd``): decode rows; ``tp``
+    the tensor-parallel hooks of ``forward``."""
+    return forward(params, cfg, tokens, cache, positions, seq_lens, kv_len=kv_len, decode=True, **tp)
 
 
 def _draft_step(params, token, cache, positions, *, cfg, kv_len):
@@ -237,14 +250,15 @@ def _spec_ok(p: SamplingParams) -> bool:
 
 def prefill_rows(params, cfg: LlamaConfig, cache: KVCache, tokens: np.ndarray, lengths: np.ndarray,
                  slots: np.ndarray, device, start: Optional[np.ndarray] = None, segment: int = 2048, lora=None,
-                 adapter_ids: Optional[np.ndarray] = None):
+                 adapter_ids: Optional[np.ndarray] = None, **tp):
     """Prefill a group of token rows (each padded to the same bucket) into
     cache slots ``slots``; returns the last-token logits [G, V].  ``start``
     [G] is each row's first position (default 0: a prompt); a continuation
     from ``start`` sees the slot's cache below it, and its padding's
     positions are cut at the cache's last slot, which no valid query
     reads.  ``lora`` / ``adapter_ids`` [G] (a bank and each row's adapter)
-    as in ``models.llama.forward``.
+    and ``tp`` (``reduce_fn`` / ``gather_fn``) as in ``models.llama.
+    forward``.
 
     The slots' cache rows (the int8 scale planes' too) are gathered, run
     through the model and scattered back (the JAX package's
@@ -270,7 +284,7 @@ def prefill_rows(params, cfg: LlamaConfig, cache: KVCache, tokens: np.ndarray, l
             positions = torch.clamp(start_t[:, None] + positions, max=t_max - 1)
             seq_lens = start_t + seq_lens
         logits, _ = forward(params, cfg, toks[:, t0 : t0 + width], slot_cache, positions, seq_lens,
-                            last_only=True, kv_len=min(first + t0 + width, t_max), lora=lora, adapter_ids=ids)
+                            last_only=True, kv_len=min(first + t0 + width, t_max), lora=lora, adapter_ids=ids, **tp)
         here = torch.as_tensor((lengths - 1) // segment == t0 // segment, device=dev)
         last = logits if last is None else torch.where(here[:, None], logits, last)
     for name, t in slot_cache.planes().items():
@@ -340,6 +354,13 @@ class Engine:
     ``prefix_len``, ``tokens_saved`` and whether its prefix was ``reused``
     from an earlier call.
 
+    ``mesh`` (a rank's ``parallel.mesh.Mesh``) serves the model tensor
+    parallel (module docstring): the whole model's ``params`` and ``cfg``
+    (localized here) or the rank's slice of them
+    (``load_packed_sharded``) with the whole model's ``cfg``;
+    ``cuda_graphs=False`` is required, a ``dp`` axis, ``draft`` and
+    ``lora_bank`` raise.
+
     ``lora_bank`` serves several adapters over the one base (module
     docstring): a stacked bank (``train.lora.stack_adapters``) or a list
     of adapters to stack, on ``device``; ``num_adapters`` is its size.  It
@@ -380,9 +401,25 @@ class Engine:
     ):
         if lora_bank is not None and (spec_k or prefix_cache):
             raise ValueError("lora_bank is not composable with speculative decoding or prefix caching")
-        if mesh is not None:
-            raise NotImplementedError("not ported yet: mesh")
         check_supported(cfg)
+        self.mesh, self._tp = mesh, {}
+        if mesh is not None:
+            if mesh.dp > 1:
+                raise NotImplementedError("not ported yet: data parallelism (an Engine over a dp mesh axis)")
+            if cuda_graphs:
+                raise NotImplementedError("not ported yet: CUDA graphs over a process group; pass "
+                                          "cuda_graphs=False")
+            if draft is not None:
+                raise ValueError("draft-model speculation is single-device")
+            if lora_bank is not None:
+                raise ValueError("multi-LoRA serving is single-device; merge_lora an adapter into the packed "
+                                 "weights to serve it over a mesh")
+            from ..parallel.tp import is_local, localize_params, tp_hooks, tp_local_config
+
+            if not is_local(params, cfg, mesh.tp):
+                params = localize_params(params, cfg, mesh.tp, mesh.tp_rank)
+            cfg = tp_local_config(cfg, mesh.tp, mesh.tp_rank)
+            self._tp = tp_hooks(mesh)
         self._bank, self.num_adapters = None, 0
         if lora_bank is not None:
             if isinstance(lora_bank, (list, tuple)):
@@ -413,7 +450,7 @@ class Engine:
         self.eos_token = eos_token
         self.sampling = sampling
         self.decode_chunk = decode_chunk
-        self.device = resolve_device(device)
+        self.device = resolve_device(mesh.device if device is None and mesh is not None else device)
         self.pipeline_decode = pipeline_decode
         self.pipeline_stats = {"launched": 0, "discarded": 0}
         self.graph_stats = {"captured": 0, "capture_s": 0.0, "replayed": 0, "pool_bytes": 0}
@@ -592,6 +629,8 @@ class Engine:
         completions' ``echo``.  ``adapter`` (an Engine with ``lora_bank``):
         one bank index or None per prompt, the adapter that would serve
         the request; a call with none scores without the bank."""
+        if self.mesh is not None:
+            raise ValueError("score() is single-device; score a tensor-parallel model through eval.ppl")
         bs = batch_size or self.batch_size
         if self._bank is None:
             if adapter is not None:
@@ -619,7 +658,7 @@ class Engine:
             adapter_ids = None  # no adapter in the group: deltas of exact zeros, left out
         return prefill_rows(self.params, self.cfg, cache, tokens, lengths, slots, self.device, start,
                             segment=self.PREFILL_SEGMENT, lora=None if adapter_ids is None else self._bank,
-                            adapter_ids=adapter_ids)
+                            adapter_ids=adapter_ids, **self._tp)
 
     def prefill_draft(self, cache: KVCache, tokens: np.ndarray, lengths: np.ndarray, slots: np.ndarray,
                       start: Optional[np.ndarray] = None):
@@ -671,7 +710,7 @@ class Decoder:
         self.stats, self.stream = engine.graph_stats, engine.graph_stream
         self.cache, self.dcache, self.draft = cache, dcache, engine._draft
         self.spec_k, self.ngram = engine.spec_k, engine.spec_ngram
-        self.lora = engine._bank
+        self.lora, self.tp = engine._bank, engine._tp
         self.ids = torch.full((b,), -1, dtype=torch.int32, device=dev) if self.lora is not None else None
         self.inputs = torch.zeros((4, b), dtype=torch.int32, device=dev)
         self.toks = torch.zeros((n, b), dtype=torch.int32, device=dev)
@@ -829,7 +868,7 @@ class Decoder:
         act = active != 0
         out = []
         bank = {} if self.lora is None else dict(lora=self.lora, adapter_ids=self.ids)
-        step = functools.partial(decode_step, self.params, self.cfg, **bank)
+        step = functools.partial(decode_step, self.params, self.cfg, **bank, **self.tp)
         if kind is None:  # plain greedy: fp32 argmax only
             for _ in range(n):
                 logits, _ = step(tok, self.cache, pos, kv_len=kv_len)
@@ -917,7 +956,7 @@ class Decoder:
         the next tokens and positions back into ``inputs``.  Nothing here
         touches the host."""
         tok, pos, active = self.inputs[0], self.inputs[1], self.inputs[2] != 0
-        fwd = functools.partial(_verify_forward, cfg=self.cfg, kv_len=kv_len)
+        fwd = functools.partial(_verify_forward, cfg=self.cfg, kv_len=kv_len, **self.tp)
         common = dict(fwd=fwd, k=kind.k, n_steps=n)
         if kind.draft:
             dparams, dcfg = self.draft
@@ -1586,7 +1625,7 @@ class _Scheduler:
             for s in idx:
                 host[s] = propose_ngram(self.prompts[self.slot_req[s]] + self.generated[s], k, eng.spec_ngram)
             drafts = torch.from_numpy(host).to(dev)
-        fwd = functools.partial(_verify_forward, cfg=self.cfg, kv_len=kv_len)
+        fwd = functools.partial(_verify_forward, cfg=self.cfg, kv_len=kv_len, **self.eng._tp)
         if kind.greedy:
             targets, acc, lps, _ = spec_verify(eng.params, tok, drafts, self.cache, pos, fwd=fwd, k=k)
         else:

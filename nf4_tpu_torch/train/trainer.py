@@ -79,7 +79,8 @@ def make_train_step(
     evenly; a masked loss averages per-microbatch means, as the JAX
     package's does."""
     if mesh is not None or cfg.tp_shards > 1:
-        raise NotImplementedError("not ported yet: data- and tensor-parallel training (multi-GPU)")
+        raise NotImplementedError("not ported yet: data- and tensor-parallel training (a dp x tp mesh, "
+                                  "lora.tp_basis); tensor-parallel serving is Engine(mesh=)")
     check_supported(cfg)
 
     def step(params, lora, tokens, loss_mask=None, positions=None, segment_ids=None):

@@ -1472,3 +1472,37 @@ def test_matmul_kernel_llama3_70b_w_gateup(dev, b):
     torch.cuda.synchronize()
     assert got.shape == (b_pad, 57344)
     assert ((got.float() - want).abs().max() / want.abs().max()).item() < 2e-2
+
+
+@pytest.mark.parametrize("b,prefill", [(1, False), (4, False), (16, False), (4, True), (37, True), (1024, True)])
+@pytest.mark.parametrize("int8", [False, True])
+def test_tp4_w_down_local_shape_close(dev, b, prefill, int8):
+    """Llama-3-8B's w_down on one rank of tp = 4: K 3584, its chunk padded
+    to 4096 with zero scales (the local weight of a ``shards=4`` pack), at
+    decode and prefill row counts through the wrappers (x padded to the
+    local K, the K split chosen from the local weight), one launch each,
+    kernels B and D within 2e-2 of their plain versions."""
+    import torch.nn.functional as F
+
+    from nf4_tpu_torch.nf4.format import pack_codes_for_tpu
+    from nf4_tpu_torch.ops import _cuda
+    from nf4_tpu_torch.ops.int8_serve import _int8_matmul_plain, int8_matmul, recode_int8_weight
+    from nf4_tpu_torch.ops.matmul import _matmul_bf16_plain, nf4_matmul
+
+    rng = np.random.default_rng(3)
+    pw = pack_codes_for_tpu(rng.integers(0, 16, (4096, 3584), dtype=np.uint8),
+                            rng.random((4096, 3584 // 64), dtype=np.float32) * 0.02 + 1e-3, device=dev)
+    assert pw.shape == (4096, 3584) and pw.padded_shape == (4096, 4096)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((b, 3584), generator=gen, device=dev).to(torch.bfloat16)
+    _cuda.reset_launch_counts()
+    if int8:
+        p8 = recode_int8_weight(pw)
+        got, name = int8_matmul(x, p8, out_dtype=torch.float32, prefill=prefill), "int8_matmul"
+        want = _int8_matmul_plain(F.pad(x, (0, 512)), p8.values, p8.scales, torch.float32)
+    else:
+        got, name = nf4_matmul(x, pw, out_dtype=torch.float32, prefill=prefill), "matmul_bf16"
+        want = _matmul_bf16_plain(F.pad(x, (0, 512)), pw.packed, pw.scales, torch.float32, pw.quant_type)
+    torch.cuda.synchronize()
+    assert _cuda.launch_counts()[name] == 1 and got.shape == (b, 4096)
+    assert ((got - want[:b]).abs().max() / want.abs().max()).item() < 2e-2

@@ -190,19 +190,14 @@ _FIELD_COMPANIONS = {
      ("sliding_window_pattern", 2)],
 )
 def test_unported_config_fields_raise(models, field, value):
-    """Every field of the JAX package's config: ``tp_shards > 1`` (multi-GPU)
-    still raises; each other one serves, its prefill logits held to
-    nf4_tpu's on TINY_TEST with that field (and what it needs beside it)
-    set, the norms redrawn, within LOGIT_TOL."""
+    """Every field of the JAX package's config serves (``tp_shards > 1``
+    too: a checkpoint packed for tensor parallelism, on one device), its
+    prefill logits held to nf4_tpu's on TINY_TEST with that field (and what
+    it needs beside it) set, the norms redrawn, within LOGIT_TOL."""
     import dataclasses
 
     from test_torch_variants import _redraw
 
-    _, _, tcfg, tparams = models
-    if field == "tp_shards":
-        with pytest.raises(NotImplementedError, match="not ported yet: tp_shards"):
-            _forward_with(tcfg, tparams, **{field: value})
-        return
     cfg = dataclasses.replace(jconfigs.TINY_TEST, **{field: value}, **_FIELD_COMPANIONS.get(field, {}))
     params = _redraw(jllama.init_params(cfg, seed=0), cfg, np.random.default_rng(100))
     fcfg = config_from_dict(config_to_dict(cfg))

@@ -49,6 +49,7 @@ from nf4_tpu_torch.models import llama
 from nf4_tpu_torch.models.convert import config_from_dict, lora_from_numpy, params_from_numpy
 from nf4_tpu_torch.nf4.format import PackedNF4
 from nf4_tpu_torch.ops.dequant import dequantize
+from nf4_tpu_torch.parallel.mesh import Mesh
 from nf4_tpu_torch.serve.api import CompletionServer
 from nf4_tpu_torch.serve.engine import Engine
 from nf4_tpu_torch.serve.sampling import SamplingParams
@@ -321,8 +322,10 @@ def test_guards(models):
             Engine(tparams, tcfg, lora_bank=tbank, **kw, **extra)
     with pytest.raises(ValueError, match="stacked bank"):
         Engine(tparams, tcfg, lora_bank=tls[0], **kw)
-    with pytest.raises(NotImplementedError, match="not ported yet: mesh"):
-        Engine(tparams, tcfg, lora_bank=tbank, mesh=object(), **kw)
+    mesh = Mesh(tp=1, dp=1, rank=0, tp_rank=0, dp_rank=0, tp_group=None, dp_group=None,
+                device=torch.device("cpu"), backend="gloo")
+    with pytest.raises(ValueError, match="multi-LoRA serving is single-device"):
+        Engine(tparams, tcfg, lora_bank=tbank, mesh=mesh, cuda_graphs=False, **kw)
 
 
 def test_score_and_token_logprobs_match_jax(models):

@@ -101,7 +101,7 @@ def test_llama3_70b_config():
     assert cfg == config_from_dict(jloader.config_to_dict(jconfigs.LLAMA3_70B))
     assert (cfg.num_layers, cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads, cfg.tp_shards) == (80, 8192, 64, 8, 1)
     check_supported(cfg)
-    assert "tiny-tp" not in configs._REGISTRY  # waits for multi-GPU
+    assert configs.get_config("tiny-tp") == config_from_dict(jloader.config_to_dict(jconfigs.TINY_TP))
 
 
 def test_llama3_70b_hf_config(tmp_path):

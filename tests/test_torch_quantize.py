@@ -156,8 +156,11 @@ def test_quantize_for_tpu_refuses(monkeypatch):
     with pytest.raises(RuntimeError, match="native quantizer is unavailable"):
         tformat.quantize_for_tpu(w, method="native", device="cpu")
     monkeypatch.delenv("NF4TPU_NATIVE")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tformat.quantize_for_tpu(w, shards=2, device="cpu")
+    sharded = tformat.quantize_for_tpu(w, shards=2, method="oracle", device="cpu")  # ported: the JAX bytes
+    want = jformat.quantize_for_tpu(w, shards=2, method="oracle")
+    assert sharded.shards == 2 and sharded.padded_shape == want.padded_shape
+    np.testing.assert_array_equal(sharded.packed.numpy(), np.asarray(want.packed))
+    np.testing.assert_array_equal(sharded.scales.numpy(), np.asarray(want.scales))
     with pytest.raises(ValueError, match="method="):
         tformat.quantize_for_tpu(w, method="fast", device="cpu")
     with pytest.raises(ValueError, match="quant_type"):

@@ -51,8 +51,10 @@ def test_quantize_cli_writes_the_jax_clis_file(tmp_path, capsys, bnb):
 
 def test_quantize_cli_refuses(tmp_path):
     src = write_checkpoint(tmp_path / "hf", "llama3")
-    with pytest.raises(SystemExit, match="not ported yet"):
-        main(["--hf-dir", src, "--out", str(tmp_path / "x.npz"), "--tp", "2"])
+    with pytest.raises(SystemExit, match="--tp must be"):
+        main(["--hf-dir", src, "--out", str(tmp_path / "x.npz"), "--tp", "0"])
+    with pytest.raises(ValueError, match="split"):  # wo's 128 in-features make no 3 chunks of 64-blocks
+        main(["--hf-dir", src, "--out", str(tmp_path / "x.npz"), "--tp", "3", "--force-cpu"])
     if not torch.cuda.is_available():  # the card by default, never a quiet CPU run
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main(["--hf-dir", src, "--out", str(tmp_path / "x.npz")])

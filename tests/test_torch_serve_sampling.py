@@ -20,6 +20,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from nf4_tpu.models import configs as jconfigs
 from nf4_tpu.models import llama as jllama
@@ -27,6 +28,7 @@ from nf4_tpu.models.loader import config_to_dict
 from nf4_tpu.serve import sampling as jsampling
 from nf4_tpu.serve.engine import Engine as JaxEngine
 from nf4_tpu_torch.models.convert import config_from_dict, params_from_numpy
+from nf4_tpu_torch.parallel.mesh import Mesh
 from nf4_tpu_torch.serve.engine import Engine
 from nf4_tpu_torch.serve.sampling import SamplingParams
 from _torch_threads import _one_thread  # noqa: F401
@@ -474,8 +476,10 @@ def test_sampling_argument_checks_and_unported_options(models):
         eng.score([[1, 2]], adapter=[0])
     assert len(eng.score([[1, 2, 3]])[0]) == 2  # scoring and the prefix cache are ported
     assert _engine(models, prefix_cache=True).prefix_cache
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        _engine(models, mesh=object())
+    dp_mesh = Mesh(tp=1, dp=2, rank=0, tp_rank=0, dp_rank=0, tp_group=None, dp_group=None,
+                   device=torch.device("cpu"), backend="gloo")
+    with pytest.raises(NotImplementedError, match="not ported yet: data parallelism"):
+        _engine(models, mesh=dp_mesh, cuda_graphs=False)
     with pytest.raises(ValueError, match="stacked bank"):
         _engine(models, lora_bank=object())
     with pytest.raises(ValueError, match="lora_bank is not composable"):
