@@ -68,6 +68,17 @@ Phases, each of which fails the run on any error:
    capturing nothing with the same tokens and launches, one eager verify round of each spec_k
    with every kernel call held to its plain version and its rows counted, and a graphed verify
    round timed at kv_len 1536 against 5b's step; the same in the int8 mode of (d) at spec_k 3;
+   (u) tensor-parallel serving of Llama-3-8B at full width and 4 of its
+   32 layers on 4 gloo ranks sharing this card (tp = 2 4-bit and int8, tp
+   = 4), each rank's launches exact, tokens held to one process's; (v)
+   data-parallel serving on the same ranks, 5b's requests at batch 4
+   over dp = 2 x tp = 2 (4-bit) and dp = 4 x tp = 1 (int8): every rank's
+   tokens equal and held to one process's, each rank's cache holding its
+   dp group's slots, its launches exact against the forwards it ran; (w)
+   the sequence-parallel ring prefill of a 4096-token prompt at sp = 2
+   and 4 (and 4 with an int8 KV cache), held to the one-process prefill
+   (layer 0's K/V bit for bit, cache, logits, next token, 8 decode steps
+   from the ring-built cache);
    (c) a small model on the card against the same model on the
    CPU, also with every field of the Llama-family variants on; (d) the
    same serving in the int8 mode: weights recoded to int8 and an int8 KV
@@ -155,7 +166,11 @@ Phases, each of which fails the run on any error:
    rank-16 QLoRA on Gemma-2-9B, Gemma-3-4B and Mixtral-8x7B (attention
    only) at full width and 2 layers, launches exact, the step-0 loss held
    to the inference forward's, ms per step and peak memory; then the
-   Gemma-2 adapter served from a bank; (s) a small model's train step on
+   Gemma-2 adapter served from a bank; (p) on the ranks of 5u, 3 bf16
+   AdamW steps of rank-16 QLoRA on 2 of those layers over dp = 2, tp = 2
+   and dp = 2 x tp = 2 with accum_steps 2, step 0's loss and adapter
+   gradients (gathered whole) held to one process's, launches exact (this
+   phase runs right after (w)); (s) a small model's train step on
    the card against the CPU (loss, adapter gradients, adapters after one
    SGD step); (e) a run saved with ``save_train_state`` and resumed
    against the uninterrupted run;
@@ -1354,7 +1369,7 @@ def forward_tally(eng):
         return run
 
     dec.launch, dec.launch_spec = on_launch, on_launch_spec
-    eng.prefill_group = counted("target", eng.prefill_group, eng.cfg)
+    eng.prefill_local = counted("target", eng.prefill_local, eng.cfg)  # every prefill of the target's rows
     if eng._draft is not None:
         eng.prefill_draft = counted("draft", eng.prefill_draft, eng._draft[1])
     engine_mod._Scheduler.spec_single = on_single
@@ -1362,7 +1377,7 @@ def forward_tally(eng):
         yield tally
     finally:
         engine_mod._Scheduler.spec_single = single
-        del dec.launch, dec.launch_spec, eng.prefill_group
+        del dec.launch, dec.launch_spec, eng.prefill_local
         if eng._draft is not None:
             del eng.prefill_draft
 
@@ -2516,7 +2531,9 @@ def phase_mixtral_serving(prompts, profile):
     return counts, dict(serving, weight_gb=packed / 1e9)
 
 
-TP_LAYERS = 8  # phase 5u's depth: Llama-3-8B at full width, 8 of its 32 layers
+TP_LAYERS = 4  # phases 5u, 5v and 5w's depth: Llama-3-8B at full width, 4 of its 32 layers
+TRAIN_RANK_LAYERS = 2  # phase 6p's depth: the first 2 of those layers (6d's depth)
+SP_PROMPT = 4096  # phase 5w's prompt
 
 
 def tp_dense_layer(cfg, gen):
@@ -2532,13 +2549,19 @@ def tp_dense_layer(cfg, gen):
     return lw
 
 
-def phase_tp_serving(prompts):
-    """Main path (u): tensor-parallel serving of Llama-3-8B at full width
-    and TP_LAYERS of its 32 layers, its ranks processes sharing this card
-    over gloo (``nf4_tpu_torch.parallel``).  The weights: dense layers drawn
+def phase_ranks(prompts, examples, lap):
+    """Main paths (u), (v), (w) and 6(p) on one group of 4 ranks, processes
+    sharing this card over gloo (``nf4_tpu_torch.parallel``), on
+    Llama-3-8B at full width and TP_LAYERS of its 32 layers: (u)
+    tensor-parallel serving, (v) data-parallel serving, (w) the
+    sequence-parallel ring prefill, 6(p) QLoRA training over dp, tp and
+    dp x tp.  ``lap(name)`` prints each group's seconds.
+
+    (u): the weights: dense layers drawn
     on the card from a seed, quantized once with tp_shards = 4 (and with
     tp_shards = 1, which ``repack_tp`` to 1 must give byte for byte), saved
-    with ``save_packed``, ``repack_tp`` to 2 saved too.  The yardstick: the
+    with ``save_packed``, ``repack_tp`` to 2 and the tp_shards = 1 pack
+    saved too.  The yardstick: the
     same weights at tp = 1 on one Engine, eager, 5b's six requests x 32
     tokens, 4-bit and int8.  Then on 4 gloo ranks (``Ranks``): tp = 2 in
     4-bit and in int8, tp = 4 in 4-bit, each rank loading its slices
@@ -2549,7 +2572,9 @@ def phase_tp_serving(prompts):
     kernel C at least once per rank at tp = 2; every kernel B, C and D call
     of a 2-token run held to its plain version; eager ms per decode step at
     batch 4 from position 1024 and the share in the collectives; a
-    1024-token prefill; peak memory per rank."""
+    1024-token prefill; peak memory per rank.  Then (v), (w) and 6(p)
+    (``phase_dp_serving``, ``phase_sp_prefill``, ``phase_train_ranks``) on
+    the same ranks and checkpoints."""
     import tempfile
 
     import torch
@@ -2587,16 +2612,17 @@ def phase_tp_serving(prompts):
     del direct1
     params2, cfg2 = repack_tp(params4, cfg4, 2)
     with tempfile.TemporaryDirectory() as tmp:
-        paths = {4: f"{tmp}/tp4.safetensors", 2: f"{tmp}/tp2.safetensors"}
+        paths = {4: f"{tmp}/tp4.safetensors", 2: f"{tmp}/tp2.safetensors", 1: f"{tmp}/tp1.safetensors"}
         t0 = time.perf_counter()
         save_packed(paths[4], params4, cfg4)
         save_packed(paths[2], params2, cfg2)
+        save_packed(paths[1], params1, cfg1)
         save_s = time.perf_counter() - t0
         del params4, params2, layers4
         free_memory()
         print(f"phase 5u Llama-3-8B at {TP_LAYERS} layers: dense layers drawn and quantized for tp_shards 4 and 1 in "
-              f"{quant_s:.1f} s, repack_tp to 1 byte for byte the tp_shards = 1 quantization; tp_shards 4 and 2 saved "
-              f"in {save_s:.1f} s")
+              f"{quant_s:.1f} s, repack_tp to 1 byte for byte the tp_shards = 1 quantization; tp_shards 4, 2 and 1 "
+              f"saved in {save_s:.1f} s")
 
         # The yardstick: tp = 1 on one Engine, eager, 4-bit and int8.
         base, want, base_ms = {}, {}, {}
@@ -2618,9 +2644,234 @@ def phase_tp_serving(prompts):
                 every = ranks.run(drive.serve_rank, paths[tp], prompts, 32, int8=int8, label=label, tp=tp)
                 runs[label] = tp_run_checks(label, every, tp, int8, dataclasses.replace(cfg4, tp_shards=tp),
                                             base[int8], want[int8], base_ms[int8])
-    del base, params1
+            lap("5u")
+            dp_runs = phase_dp_serving(ranks, paths, prompts, cfg4, base, want, base_ms)
+            lap("5v")
+            del base
+            free_memory()
+            sp_runs = phase_sp_prefill(ranks, paths[1])
+            lap("5w")
+            train_runs = phase_train_ranks(ranks, paths, params1, cfg1, examples)
+            lap("6p")
+    del params1
     free_memory()
-    return runs, dict(quantize_s=quant_s, save_s=save_s, ranks_start_s=start_s, tp1_decode_ms_step=base_ms)
+    return runs, dict(quantize_s=quant_s, save_s=save_s, ranks_start_s=start_s, tp1_decode_ms_step=base_ms), \
+        dp_runs, sp_runs, train_runs
+
+
+def phase_dp_serving(ranks, paths, prompts, cfg4, base, want, base_ms) -> dict:
+    """Main path (v): data-parallel serving on the ranks of 5u
+    (``parallel.drive.dp_serve_rank``): 5b's six requests x 32 tokens at
+    batch 4 over dp = 2 x tp = 2 in 4-bit (kernels B, C) and dp = 4 x tp =
+    1 in int8 (kernels D, C-int8), each rank's cache holding its dp group's
+    4 / dp slots.  Checks: every rank's tokens equal, and equal to 5u's tp =
+    1 yardstick's under the near-tie rule; each rank's cache rows; each
+    rank's launches exact against the forwards it ran (the decode steps
+    and its own prefill groups, counted on the rank: ``serve_expected`` of
+    its ``tp_local_config``); every kernel call of a 2-token run held to
+    its plain version.  Records eager ms per decode step per rank, the
+    collectives per step and their bytes, and peak memory per rank."""
+    from nf4_tpu_torch.parallel import drive
+    from nf4_tpu_torch.parallel.tp import tp_local_config
+
+    runs, card = {}, card_line()
+    for dp, tp, int8 in ((2, 2, False), (4, 1, True)):
+        label = f"5v dp={dp} x tp={tp}" + (" int8" if int8 else "")
+        every = ranks.run(drive.dp_serve_rank, paths[tp], prompts, 32, int8=int8, label=label, tp=tp, dp=dp)
+        names = ("int8_matmul", "flash_attention_int8") if int8 else ("matmul_bf16", "flash_attention")
+        others = ("matmul_bf16", "flash_attention") if int8 else ("int8_matmul", "flash_attention_int8")
+        check(len(every) == dp * tp and [r["rank"] for r in every] == list(range(dp * tp)),
+              f"{label}: rank reports {len(every)}")
+        cfg = dataclasses.replace(cfg4, tp_shards=tp, kv_quant=int8)
+        for r in every:
+            check(r["tokens"] == every[0]["tokens"], f"{label}: rank {r['rank']}'s tokens differ from rank 0's")
+            lo = r["dp_rank"] * 4 // dp
+            check(r["rows"] == [lo, lo + 4 // dp] and r["cache_rows"] == 4 // dp,
+                  f"{label} rank {r['rank']}: rows {r['rows']}, cache rows {r['cache_rows']}")
+            local = tp_local_config(cfg, tp, r["tp_rank"])
+            groups = [tuple(g) for g in r["tally"]["groups"]]
+            proj, flash = serve_expected(local, r["tally"]["decode"] + len(groups), groups)
+            c = r["counts"]
+            check(c[names[0]] == proj and c[names[1]] == flash and c[others[0]] == c[others[1]] == 0,
+                  f"{label} rank {r['rank']}: launched {c}, not {names[0]} {proj} and {names[1]} {flash} (decode "
+                  f"forwards {r['tally']['decode']}, prefill groups {groups})")
+            held = r["held"]
+            check(held["D" if int8 else "B"][0] > 0 and (held["C"][0] > 0) == (flash > 0),
+                  f"{label} rank {r['rank']}: kernel calls held {held}")
+            check(r["backend"] == "gloo" and r["device"] == "cuda:0", f"{label}: rank {r['rank']} on {r['device']}")
+        check(any(r["counts"][names[1]] > 0 for r in every), f"{label}: kernel C never launched")
+        got = [types.SimpleNamespace(prompt=w.prompt, tokens=t) for w, t in zip(want[int8], every[0]["tokens"])]
+        diffs = tokens_held(f"{label} against tp = 1", base[int8], got, want[int8])
+        for r in every:
+            print(f"phase {label} rank {r['rank']} (dp {r['dp_rank']}, tp {r['tp_rank']}): slots {r['rows']} "
+                  f"({r['cache_rows']} cache rows), {r['local_heads']} heads over {r['local_kv_heads']} KV heads; "
+                  f"decode forwards {r['tally']['decode']}, prefill groups (rows, bucket) {r['tally']['groups']}; "
+                  f"launches {r['counts']}; held {r['held']}; collectives per decode step {r['comm_step']['calls']:.2f} "
+                  f"({r['comm_step']['bytes'] / 1e3:.1f} kB); generate {r['generate_s']:.2f} s; eager decode B=4 at "
+                  f"1024 {r['decode_ms_step']:.2f} ms/step ({r['comm_ms_step']:.2f} of {r['decode_timed_ms_step']:.2f} "
+                  f"ms in collectives when timed); peak {r['peak_gb']:.2f} GB; on {card}")
+        mean = lambda key: sum(r[key] for r in every) / len(every)  # noqa: E731
+        print(f"phase {label}: every rank's tokens equal, {len(want[int8]) - len(diffs)} of {len(want[int8])} "
+              f"requests equal tp = 1's; eager decode {mean('decode_ms_step'):.2f} ms/step against one process's "
+              f"{base_ms[int8]:.2f} (ranks share one card over gloo; no scaling measured); on {card}")
+        runs[label] = dict(launches={k: sum(r["counts"][k] for r in every) for k in every[0]["counts"]}, diffs=diffs,
+                           decode_ms_step=[r["decode_ms_step"] for r in every],
+                           comm_ms_step=[r["comm_ms_step"] for r in every], comm_step=every[0]["comm_step"],
+                           peak_gb=[r["peak_gb"] for r in every], held=[r["held"] for r in every],
+                           generate_s=mean("generate_s"), decode_ms_step_one_process=base_ms[int8])
+    return runs
+
+
+def phase_sp_prefill(ranks, path) -> dict:
+    """Main path (w): the sequence-parallel ring prefill of one
+    SP_PROMPT-token prompt (seeded) on the tp_shards = 1 checkpoint
+    (``parallel.drive.sp_rank``), at sp = 2 and 4 in 4-bit and at sp = 4
+    with an int8 KV cache, each rank holding the whole weights.  Held to
+    the same prompt prefilled in one process on the plain attention path
+    in fp32 (kernel C's plain version on fp32 q, k and v: the streaming
+    softmax with fp32 probabilities that the ring runs, as
+    ``tests/test_sp.py`` holds the ring to ``prefill_chunked``): layer 0's
+    K and V bit-identical, the cache within 5e-2 (bf16: ``|a - b| <= 5e-2
+    (1 + |b|)``), the logits within 2e-2 of their largest value, the next
+    token and 8 greedy decode steps from the ring-built cache equal under
+    the near-tie rule; the same numbers against the one-process prefill on
+    kernel C (the serving path) printed.  Kernel B's launches per rank
+    exact (one forward over the rank's slice: 4 per layer), every kernel
+    call of one more ring prefill held to its plain version; ms per ring
+    prefill against the one-process prefill on kernel C, the ring's
+    collectives and peak memory per rank."""
+    import numpy as np
+
+    from nf4_tpu_torch.models import configs
+    from nf4_tpu_torch.parallel import drive
+
+    prompt = [int(t) for t in np.random.default_rng(5).integers(0, configs.LLAMA3_8B.vocab_size, SP_PROMPT)]
+    runs, card = {}, card_line()
+    for sp, int8 in ((2, False), (4, False), (4, True)):
+        label = f"5w sp={sp}" + (" kv8" if int8 else "")
+        every = ranks.run(drive.sp_rank, path, prompt, int8=int8, label=label, tp=1, dp=sp)
+        for r in every:
+            for ref in ("plain", "kernel_c"):
+                h = r[ref]
+                print(f"phase {label} rank {r['rank']} against one process on {ref}: layer 0 bit-identical "
+                      f"{h['layer0_identical']}; largest |diff| per plane and layer {h['max_diff']}; cache excess over "
+                      f"5e-2 (1 + |b|) {h['cache_excess']}; logit err {h['logit_err']:.2e} of max; next token "
+                      f"{h['next_token_ok']}, decode steps {h['decode_ok']}")
+            print(f"phase {label} rank {r['rank']}: ring prefill of {r['prompt_len']} tokens {r['ring_ms']:.1f} ms "
+                  f"(runs {[round(v, 1) for v in r['ring_runs_ms']]}) against {r['one_process_ms']:.1f} ms in one "
+                  f"process (kernel C); collectives {r['comm']['calls']} ({r['comm']['bytes'] / 1e6:.1f} MB); "
+                  f"launches {r['counts']}; held {r['held']}; peak {r['peak_gb']:.2f} GB; on {card}")
+        check(len(every) == sp, f"{label}: rank reports {len(every)}")
+        for r in every:
+            c, h = r["counts"], r["plain"]
+            check(c["matmul_bf16"] == 4 * TP_LAYERS and all(v == 0 for k, v in c.items() if k != "matmul_bf16"),
+                  f"{label} rank {r['rank']}: launched {c}, not matmul_bf16 {4 * TP_LAYERS} only")
+            check(r["held"]["B"][0] > 0, f"{label} rank {r['rank']}: kernel calls held {r['held']}")
+            check(r["finite"] and h["layer0_identical"], f"{label} rank {r['rank']}: layer 0's K/V differ or the "
+                                                          f"logits are not finite")
+            check(h["cache_excess"] is None or h["cache_excess"] <= 0,
+                  f"{label} rank {r['rank']}: cache past 5e-2 by {h['cache_excess']}")
+            check(h["logit_err"] <= 2e-2, f"{label} rank {r['rank']}: logits off by {h['logit_err']}")
+            check(h["next_token_ok"] and all(h["decode_ok"]), f"{label} rank {r['rank']}: next token "
+                                                                f"{h['next_token_ok']}, decode steps {h['decode_ok']}")
+            check(h["decode_tokens"] == every[0]["plain"]["decode_tokens"], f"{label}: ranks decoded differently")
+        print(f"phase {label}: ring prefill {sum(r['ring_ms'] for r in every) / sp:.1f} ms per rank against "
+              f"{sum(r['one_process_ms'] for r in every) / sp:.1f} ms in one process (ranks share one card over gloo, "
+              f"the ring's hops through the host; no scaling measured); on {card}")
+        runs[label] = dict(launches={k: sum(r["counts"][k] for r in every) for k in every[0]["counts"]},
+                           ring_ms=[r["ring_ms"] for r in every], one_process_ms=[r["one_process_ms"] for r in every],
+                           plain={k: every[0]["plain"][k] for k in ("max_diff", "cache_excess", "logit_err")},
+                           kernel_c={k: every[0]["kernel_c"][k] for k in ("max_diff", "cache_excess", "logit_err",
+                                                                           "next_token_ok", "decode_ok")},
+                           comm=every[0]["comm"], peak_gb=[r["peak_gb"] for r in every],
+                           held=[r["held"] for r in every], decode_tokens=every[0]["plain"]["decode_tokens"])
+    return runs
+
+
+TRAIN_GRAD_TOL = 2e-2  # phase 6p: each gradient leaf within this x its largest |value| (bf16 activations)
+
+
+def train_reference(params, cfg, batch, groups, b_seed):
+    """Step 0 of phase 6p in one process: the mean over ``groups`` (row
+    slices: the dp shards of each microbatch) of ``lm_loss`` of each
+    group's rows, the JAX package's definition of a loss over a mesh, and
+    the adapters' gradients of it (``drive.seeded_lora``'s adapters)."""
+    import torch
+
+    from nf4_tpu_torch.parallel import drive
+    from nf4_tpu_torch.train import LoraConfig, lm_loss
+
+    lora = drive.seeded_lora(cfg, LoraConfig(rank=16, alpha=32.0), b_seed, "cuda")
+    tok, mask, pos, seg = (torch.as_tensor(a, device="cuda") for a in batch)
+    loss = sum(lm_loss(params, lora, cfg, tok[g], mask[g], True, pos[g], seg[g]) for g in groups) / len(groups)
+    loss.backward()
+    return loss.item(), {n: p.grad.float().cpu().numpy() for n, p in lora.named_parameters()}
+
+
+def phase_train_ranks(ranks, paths, params1, cfg1, examples) -> dict:
+    """Main path 6(p): QLoRA training over ranks (``parallel.drive.
+    train_rank``) on the first TRAIN_RANK_LAYERS layers of 5u's
+    checkpoints at full width, 6b's ``pack_sft`` batch (2 x 512), bf16,
+    AdamW, rank 16, remat, 3 steps: dp = 2 (tp_shards 1), tp = 2 (tp_shards
+    2), dp = 2 x tp = 2 with accum_steps 2 on the batch doubled (each
+    microbatch of 2 rows gives each dp group one).  Checks: step 0's loss
+    within 1e-3 (relative) of the one-process loss of the same quantity
+    (``train_reference``); step 0's adapter gradients, gathered whole,
+    within TRAIN_GRAD_TOL of each leaf's largest value of the one-process
+    gradients; every rank's losses equal; each rank's launches of B and A
+    per step exact; every kernel A and B call of one more step held to its
+    plain version.  Records ms per step per rank and peak memory."""
+    import numpy as np
+
+    from nf4_tpu_torch.parallel import drive
+    from nf4_tpu_torch.parallel.tp import repack_tp
+    from nf4_tpu_torch.train import pack_sft
+
+    packed = pack_sft(examples, 512)
+    batch = [np.asarray(a) for a in (packed.tokens, packed.loss_mask, packed.positions, packed.segment_ids)]
+    doubled = [np.concatenate([a, a]) for a in batch]
+    cut = dataclasses.replace(params1, layers=params1.layers[:TRAIN_RANK_LAYERS])
+    cfg_cut = dataclasses.replace(cfg1, num_layers=TRAIN_RANK_LAYERS)
+    models = {1: (cut, cfg_cut), 2: repack_tp(cut, cfg_cut, 2)}
+    runs, card, b_seed = {}, card_line(), 7
+    for dp, tp, accum in ((2, 1, 1), (1, 2, 1), (2, 2, 2)):
+        label = f"6p dp={dp} x tp={tp}" + (f" accum {accum}" if accum > 1 else "")
+        data = doubled if accum > 1 else batch
+        b = data[0].shape[0]
+        mb = b // accum
+        groups = [slice(i * mb + d * (mb // dp), i * mb + (d + 1) * (mb // dp)) for i in range(accum) for d in range(dp)]
+        ref_loss, ref = train_reference(*models[tp], data, groups, b_seed)
+        every = ranks.run(drive.train_rank, paths[tp], data, TRAIN_RANK_LAYERS, b_seed, 3, accum, label=label,
+                          tp=tp, dp=dp)
+        check(len(every) == dp * tp, f"{label}: rank reports {len(every)}")
+        losses = every[0]["losses"]
+        check(all(math.isfinite(v) for v in losses) and all(r["losses"] == losses for r in every),
+              f"{label}: losses {[r['losses'] for r in every]}")
+        check(abs(losses[0] - ref_loss) <= 1e-3 * abs(ref_loss), f"{label}: step-0 loss {losses[0]} against "
+                                                                   f"{ref_loss} in one process")
+        grads = every[0]["grads"]
+        check(set(grads) == set(ref), f"{label}: gradient names differ")
+        errs = {n: float(np.abs(grads[n] - ref[n]).max() / np.abs(ref[n]).max()) for n in ref}
+        worst = max(errs, key=errs.get)
+        check(errs[worst] <= TRAIN_GRAD_TOL, f"{label}: gradient {worst} off by {errs[worst]:.3e} of its largest value")
+        want = {"matmul_bf16": 4 * TRAIN_RANK_LAYERS * 2 * accum, "dequant_t": (4 * TRAIN_RANK_LAYERS - 1) * accum}
+        for r in every:
+            for c in r["counts"]:
+                check({k: v for k, v in c.items() if v} == want, f"{label} rank {r['rank']}: launches per step {c}, "
+                                                                  f"expected {want}")
+            check(r["held"]["A"][0] > 0 and r["held"]["B"][0] > 0, f"{label} rank {r['rank']}: held {r['held']}")
+            print(f"phase {label} rank {r['rank']}: losses {r['losses']}; step times "
+                  f"{[round(v, 1) for v in r['step_ms']]} ms; launches per step {want}; held {r['held']}; peak "
+                  f"{r['peak_gb']:.2f} GB; on {card}")
+        step_ms = [sum(r["step_ms"][1:]) / 2 for r in every]
+        print(f"phase {label}: step-0 loss {losses[0]:.6f} against {ref_loss:.6f} in one process (|diff| "
+              f"{abs(losses[0] - ref_loss):.2e}); step-0 gradients gathered whole within {errs[worst]:.2e} of each "
+              f"leaf's largest value (worst {worst}; tol {TRAIN_GRAD_TOL}); {sum(step_ms) / len(step_ms):.1f} ms/step "
+              f"per rank (ranks share one card over gloo; no scaling measured); on {card}")
+        runs[label] = dict(losses=losses, ref_loss=ref_loss, grad_err=errs[worst], worst_leaf=worst, step_ms=step_ms,
+                           peak_gb=[r["peak_gb"] for r in every], launches_per_step=want,
+                           launches={k: 3 * v * dp * tp for k, v in want.items()}, held=[r["held"] for r in every])
+    return runs
 
 
 def tp_run_checks(label, every, tp, int8, cfg, base, want, base_ms) -> dict:
@@ -3461,9 +3712,10 @@ def main() -> int:
     lap("5c")
     int8_counts, serving8, spec8_counts, score8_counts, lora8_counts = phase_int8_serving(prompts, args.profile)
     lap("5d (with 5n, 5p and 5r int8)")
-    tp_runs, tp_serving = phase_tp_serving(prompts)
+    # 7 examples of 60-200 tokens that pack into 2 x 512 slots (97.8% full).
+    examples = sft_examples(np.random.default_rng(0), LLAMA3_8B.vocab_size, 7, 60, 200)
+    tp_runs, tp_serving, dp_runs, sp_runs, train_runs = phase_ranks(prompts, examples, lap)
     free_memory()
-    lap("5u")
     phase_checkpoint(dev, rng)
     qwen_counts, serving_qwen = phase_qwen2_serving(prompts, args.profile)
     free_memory()
@@ -3487,8 +3739,6 @@ def main() -> int:
     free_memory()
     lap("5m")
     phase_backward(gen, dev)
-    # 7 examples of 60-200 tokens that pack into 2 x 512 slots (97.8% full).
-    examples = sft_examples(np.random.default_rng(0), LLAMA3_8B.vocab_size, 7, 60, 200)
     train16 = phase_training("6b", "bf16", examples, args.profile)
     train32 = phase_training("6c", "fp32", examples, args.profile)
     check(train32["launches_per_step"]["matmul_bf16"] == 0 and train16["launches_per_step"]["matmul_exact"] == 0,
@@ -3504,6 +3754,9 @@ def main() -> int:
 
     def tp_launches(name):  # phase 5u's launches of a kernel, summed over its runs and ranks
         return sum(run["launches"][name] for run in tp_runs.values())
+
+    def rank_launches(runs, name):  # a multi-rank phase's launches of a kernel, over its runs and ranks
+        return sum(run["launches"].get(name, 0) for run in runs.values())
 
     def decode_layer(res):  # one decode layer's four projections at B=4
         return [res[(name, 4)] for name in LLAMA3_8B_PROJ]
@@ -3539,6 +3792,7 @@ def main() -> int:
         dict(name="dequant_t", route="cuda", source="nf4_tpu_torch/csrc/dequant.cu",
              replaces="nf4_tpu/ops/dequant.py:86", launches=dequant_counts["dequant_t"],
              multi_lora_launches=lora_counts["dequant_t"], train_families_launches=family_counts["dequant_t"],
+             rank_training_launches=rank_launches(train_runs, "dequant_t"),
              max_abs_err=deq["max_abs_err"], ms=deq["w_down"]["ms"], plain_ms=deq["w_down"]["plain_ms"],
              bound_ms=deq["w_down"]["bound_ms"], bound_by="bytes", library_ms=None),
         matmul_row("matmul_bf16", "nf4_tpu_torch/csrc/matmul.cu", "nf4_tpu/ops/matmul.py:148", mm,
@@ -3551,7 +3805,10 @@ def main() -> int:
                    hf_checkpoint_launches=hf_counts["4-bit"]["matmul_bf16"],
                    multi_lora_launches=lora_counts["matmul_bf16"],
                    train_families_launches=family_counts["matmul_bf16"],
-                   tensor_parallel_launches=tp_launches("matmul_bf16")),
+                   tensor_parallel_launches=tp_launches("matmul_bf16"),
+                   data_parallel_launches=rank_launches(dp_runs, "matmul_bf16"),
+                   sequence_parallel_launches=rank_launches(sp_runs, "matmul_bf16"),
+                   rank_training_launches=rank_launches(train_runs, "matmul_bf16")),
         flash_row("flash_attention", fl, serve_counts["flash_attention"],
                   qwen2_7b_launches=qwen_counts["flash_attention"], gemma_7b_launches=gemma_counts["flash_attention"],
                   http_launches=http_counts["flash_attention"], gemma2_9b_launches=gemma2_counts["flash_attention"],
@@ -3563,14 +3820,16 @@ def main() -> int:
                   qwen3_30b_a3b_launches=moe_counts["4-bit"]["flash_attention"],
                   multi_lora_launches=lora_counts["flash_attention"],
                   train_families_launches=family_counts["flash_attention"],
-                  tensor_parallel_launches=tp_launches("flash_attention")),
+                  tensor_parallel_launches=tp_launches("flash_attention"),
+                  data_parallel_launches=rank_launches(dp_runs, "flash_attention")),
         flash_row("flash_attention_int8", fl8, int8_counts["flash_attention_int8"], int8=True,
                   spec_launches=spec8_counts["flash_attention_int8"],
                   score_prefix_launches=score8_counts["flash_attention_int8"],
                   qwen3_30b_a3b_launches=moe_counts["int8"]["flash_attention_int8"],
                   multi_lora_launches=lora8_counts["flash_attention_int8"],
                   train_families_launches=family_counts["flash_attention_int8"],
-                  tensor_parallel_launches=tp_launches("flash_attention_int8")),
+                  tensor_parallel_launches=tp_launches("flash_attention_int8"),
+                  data_parallel_launches=rank_launches(dp_runs, "flash_attention_int8")),
         matmul_row("int8_matmul", "nf4_tpu_torch/csrc/int8_matmul.cu", "nf4_tpu/ops/int8_serve.py:151", mm8,
                    int8_counts["int8_matmul"], prefill=True, spec_launches=spec8_counts["int8_matmul"],
                    score_prefix_launches=score8_counts["int8_matmul"],
@@ -3578,7 +3837,8 @@ def main() -> int:
                    hf_checkpoint_launches=hf_counts["int8"]["int8_matmul"],
                    multi_lora_launches=lora8_counts["int8_matmul"],
                    train_families_launches=family_counts["int8_matmul"],
-                   tensor_parallel_launches=tp_launches("int8_matmul")),
+                   tensor_parallel_launches=tp_launches("int8_matmul"),
+                   data_parallel_launches=rank_launches(dp_runs, "int8_matmul")),
         dict(name="dequant_t_fast", route="cuda", source="nf4_tpu_torch/csrc/dequant.cu",
              replaces="nf4_tpu/ops/dequant.py:147", launches=fast_counts["dequant_t_fast"],
              max_abs_err=fast["max_abs_err"], ms=fast["w_down"]["ms"], plain_ms=fast["w_down"]["plain_ms"],
@@ -3610,7 +3870,8 @@ def main() -> int:
                            serving_llama3_70b=llama70b,
                            qwen3_30b_a3b=qwen3_moe, hf_checkpoint=hf_ckpt, score_prefix=score_prefix,
                            quality_gate=gate, multi_lora=multi_lora, train_families=families, phase_seconds=laps,
-                           tensor_parallel=dict(tp_serving, runs=tp_runs),
+                           tensor_parallel=dict(tp_serving, runs=tp_runs), data_parallel=dp_runs,
+                           sequence_parallel=sp_runs, rank_training=train_runs,
                            training_bf16=train16, training_fp32=train32, kernels=kernels), f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card_line())

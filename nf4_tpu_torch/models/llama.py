@@ -29,7 +29,11 @@ product (``wo``, ``w_down``, an MoE layer's expert sum), in fp32 before
 the cast, as the JAX package applies its ``psum``; ``gather_fn`` turns the
 rank's vocabulary slice of the logits into full rows.  Checkpoints packed
 for ``tp_shards > 1`` (fused rows interleaved per shard, row-parallel K in
-chunks) also serve on one device.
+chunks) also serve and train on one device.  :func:`train_forward` takes
+the same ``reduce_fn``, differentiable, and ``copy_fn`` on each
+column-parallel product's input (``parallel.tp.train_hooks``).  Sequence
+parallelism (``parallel/sp.py``): :func:`forward` with ``ring_axis`` runs
+a rank's slice of a prompt, its attention around the ring.
 
 Where the dispatch differs from the JAX package's: there a layer's window
 is a traced value of the layer scan, which keeps every windowed
@@ -839,7 +843,7 @@ def _post(cfg: LlamaConfig, t: torch.Tensor, w: Optional[torch.Tensor]) -> torch
 
 def _layer_forward(cfg, x, lp: LayerParams, layer_cache: Optional[KVCache], positions, seq_lens, cos, sin,
                    kv_len=None, ll=None, train: bool = False, segment_ids=None, cache_index=None, window=None,
-                   decode: bool = False, sel=None, reduce_fn=None):
+                   decode: bool = False, sel=None, reduce_fn=None, copy_fn=None, ring=None):
     """One decoder layer; x [B, S, hidden]; writes this call's K/V into the
     layer's cache views in place at ``cache_index`` (the positions'
     :func:`_cache_index`).  ``window`` is the layer's sliding window
@@ -849,14 +853,20 @@ def _layer_forward(cfg, x, lp: LayerParams, layer_cache: Optional[KVCache], posi
     :func:`_adapter_mask`) or None; ``train=True`` uses no cache
     (attention over this call's own K/V, differentiable paths only, with
     ``segment_ids`` for packed rows).  ``reduce_fn`` sums a row-parallel
-    product over the tensor-parallel ranks (see :func:`forward`)."""
+    product over the tensor-parallel ranks (see :func:`forward`);
+    ``copy_fn`` (training) marks each sublayer's normed input as the input
+    of column-parallel products (see :func:`train_forward`).  ``ring``
+    ((the ring, the host's (min, max) query position), sequence
+    parallelism; see :func:`forward`) sends attention around the ring over
+    this call's fresh K/V, after they are written into the rank's cache."""
     b, s, _ = x.shape
+    copy_fn = copy_fn or (lambda t: t)
 
     def delta(t, name):
         return None if ll is None else _lora_delta(t, getattr(ll, name), sel=sel)
 
     one_plus = cfg.rmsnorm_one_plus
-    attn_in = rms_norm(x, lp.input_norm, cfg.rms_norm_eps, one_plus)
+    attn_in = copy_fn(rms_norm(x, lp.input_norm, cfg.rms_norm_eps, one_plus))
     qkv = _add_delta(_matmul(attn_in, lp.wqkv, decode=decode), delta(attn_in, "qkv"))  # one kernel for q+k+v
     if lp.qkv_bias is not None:
         qkv = qkv + lp.qkv_bias.to(qkv.dtype)
@@ -889,6 +899,19 @@ def _layer_forward(cfg, x, lp: LayerParams, layer_cache: Optional[KVCache], posi
             _write_kv(layer_cache.v_scale, kv_scale[1], cache_index)
         _write_kv(layer_cache.k, k, cache_index)
         _write_kv(layer_cache.v, v, cache_index)
+    if ring is not None:
+        from ..parallel.sp import ring_attention
+
+        k, v = k.to(layer_cache.k.dtype), v.to(layer_cache.v.dtype)  # the representation the cache stores
+        attn = ring_attention(
+            q, k, v, positions, seq_lens, ring=ring[0], q_pos_range=ring[1],
+            scale=cfg.attn_scale,
+            sliding_window=window,
+            k_scale=None if not cfg.kv_quant else kv_scale[0],
+            v_scale=None if not cfg.kv_quant else kv_scale[1],
+            logit_softcap=cfg.attn_logit_softcapping,
+        )
+    elif not train:
         attn = attention(
             q, layer_cache.k, layer_cache.v, positions, seq_lens,
             scale=cfg.attn_scale,
@@ -909,7 +932,7 @@ def _layer_forward(cfg, x, lp: LayerParams, layer_cache: Optional[KVCache], posi
         o_proj = o_proj if reduce_fn is None else reduce_fn(o_proj)
     x = x + _post(cfg, o_proj, lp.post_attn_out_norm).to(x.dtype)
 
-    mlp_in = rms_norm(x, lp.post_attn_norm, cfg.rms_norm_eps, one_plus)
+    mlp_in = copy_fn(rms_norm(x, lp.post_attn_norm, cfg.rms_norm_eps, one_plus))
     if lp.router is not None:
         if ll is not None and (ll.gateup is not None or ll.down is not None):
             raise ValueError("LoRA on MoE expert MLPs is not supported; adapt the attention projections "
@@ -985,6 +1008,8 @@ def forward(
     adapter_ids: Optional[torch.Tensor] = None,  # [B] int32: each row's adapter of a banked `lora`, -1 none
     reduce_fn=None,
     gather_fn=None,
+    ring_axis=None,  # parallel.sp.Ring: sequence-parallel ring attention
+    cache_positions: Optional[torch.Tensor] = None,  # [B, S] the rank's cache slots, when not `positions`
 ) -> Tuple[torch.Tensor, KVCache]:
     """Embed, run every layer, return fp32 logits ([B, S, V], or [B, V] for
     each row's last valid token with ``last_only``) and the cache, written
@@ -1008,14 +1033,23 @@ def forward(
     ``reduce_fn(t)`` sums an fp32 partial product over the ranks, and
     ``gather_fn(logits)`` makes the rank's vocabulary slice of the logits
     full rows (without it the slice is returned, as the JAX package's
-    ``forward`` returns it)."""
+    ``forward`` returns it).
+
+    Sequence parallelism (``parallel/sp.py``): ``ring_axis`` is the ring
+    (a ``parallel.sp.Ring``; the JAX package's keyword, which names its
+    mesh axis) and ``tokens`` the rank's slice of the prompt at its global
+    ``positions``; the rank's cache holds its slice only, written at
+    ``cache_positions`` (local slots), and attention goes around the ring
+    (``parallel.sp.ring_attention``).  ``last_only`` then picks, on each
+    rank, the row of its slice nearest each row's last token."""
     check_supported(cfg)
     if lora is not None and reduce_fn is not None:
         raise ValueError("unmerged LoRA adapters cannot run under tensor parallelism; merge_lora them first")
     b, s = tokens.shape
     x = _embed(params, cfg, tokens)
     tables = _layer_tables(cfg, positions)
-    index = _cache_index(positions)
+    index = _cache_index(positions if cache_positions is None else cache_positions)
+    ring = None if ring_axis is None else (ring_axis, (int(positions.min()), int(positions.max())))
     num = _bank_size(lora)
     sel = None
     if num:
@@ -1026,7 +1060,7 @@ def forward(
         ll = None if lora is None else lora.layers[i]
         x = _layer_forward(cfg, x, lp, cache.layer(i), positions, seq_lens, *tables[i], kv_len, ll=ll,
                            cache_index=index, window=_layer_window(cfg, i), decode=decode, sel=sel,
-                           reduce_fn=reduce_fn)
+                           reduce_fn=reduce_fn, ring=ring)
     if last_only:
         last_idx = torch.clamp(seq_lens - 1 - positions[:, 0], 0, s - 1).long()
         x = x[torch.arange(b, device=x.device), last_idx]
@@ -1065,6 +1099,8 @@ def train_forward(
     remat: bool = False,
     positions: Optional[torch.Tensor] = None,  # [B, S] segment-relative (packed rows); default arange
     segment_ids: Optional[torch.Tensor] = None,  # [B, S] example id per slot, -1 = padding
+    reduce_fn=None,
+    copy_fn=None,
 ) -> torch.Tensor:
     """Full-sequence fp32 logits [B, S, V] for fine-tuning.
 
@@ -1082,7 +1118,17 @@ def train_forward(
     and its RoPE tables (Gemma-2/3's local layers), attention its logit
     softcap, the head the final one; an MoE layer's experts stay frozen
     (LoRA on the attention projections only), their gradient to the
-    activations through ``nf4_matmul``'s backward."""
+    activations through ``nf4_matmul``'s backward.
+
+    Tensor parallelism (``parallel.tp.train_hooks``): ``params`` and
+    ``lora`` are the rank's slices (``train.lora.shard_lora``), ``cfg``
+    its ``tp_local_config``; ``reduce_fn`` sums a row-parallel product
+    over the ranks and passes its gradient through unchanged; ``copy_fn``
+    is the identity on each column-parallel product's input (a sublayer's
+    normed input, the head's input), whose backward sums the gradient over
+    the ranks, each rank holding only its columns' part of it; the logits
+    are the rank's vocabulary slice (the loss, ``train.trainer.
+    _tp_lm_loss``, works on the slices, as the JAX package's does)."""
     check_supported(cfg)
     b, s = tokens.shape
     x = _embed(params, cfg, tokens)
@@ -1093,11 +1139,13 @@ def train_forward(
         ll = None if lora is None else lora.layers[i]
 
         def layer(x, lp=lp, ll=ll, cos=tables[i][0], sin=tables[i][1], window=_layer_window(cfg, i)):
-            return _layer_forward(cfg, x, lp, None, slot_ids, seq_lens, cos, sin,
-                                  ll=ll, train=True, segment_ids=segment_ids, window=window)
+            return _layer_forward(cfg, x, lp, None, slot_ids, seq_lens, cos, sin, ll=ll, train=True,
+                                  segment_ids=segment_ids, window=window, reduce_fn=reduce_fn, copy_fn=copy_fn)
 
+        # Under remat each rank recomputes the same layers in the same
+        # order (the backward's), so a recompute's collectives meet.
         x = checkpoint(layer, x, use_reentrant=False) if remat else layer(x)
-    return lm_head(params, cfg, x)
+    return lm_head(params, cfg, x if copy_fn is None else copy_fn(x))
 
 
 def prefill(params, cfg: LlamaConfig, tokens: torch.Tensor, cache: Optional[KVCache] = None):

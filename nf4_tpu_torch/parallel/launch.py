@@ -54,13 +54,15 @@ class Ranks:
     """``world`` rank processes of one job on this host, kept until
     :meth:`close` (a context manager): ``backend`` and ``device`` as
     :func:`~nf4_tpu_torch.parallel.mesh.make_mesh` takes them, ``threads``
-    the intra-op threads of each rank (default torch's).  Each rank talks
-    to the caller over a socket pair of its own, so a rank that dies shows
-    as a closed connection."""
+    the intra-op threads of each rank (default torch's), ``timeout`` the
+    most seconds one :meth:`run` may take (default RUN_TIMEOUT_S; a run
+    past it, such as ranks stuck in collectives that do not meet, raises
+    and kills the ranks).  Each rank talks to the caller over a socket pair
+    of its own, so a rank that dies shows as a closed connection."""
 
     def __init__(self, world: int, backend: str = "nccl", device: Optional[str] = None,
-                 threads: Optional[int] = None):
-        self.world = world
+                 threads: Optional[int] = None, timeout: float = RUN_TIMEOUT_S):
+        self.world, self.timeout = world, timeout
         env = dict(os.environ, PYTHONPATH=os.pathsep.join(p or os.getcwd() for p in sys.path))
         cmd = [sys.executable, "-m", "nf4_tpu_torch.parallel.launch", "--world", str(world),
                "--store", f"localhost:{_free_port()}", "--backend", backend, "--device", device or "cuda",
@@ -83,7 +85,7 @@ class Ranks:
             conn.send_bytes(msg)
         results, errors = {}, {}
         pending = {conn: r for r, conn in enumerate(self._conns)}
-        end = time.monotonic() + RUN_TIMEOUT_S
+        end = time.monotonic() + self.timeout
         while pending:
             # After a failure the others get a short while to report theirs.
             limit = end if not errors else min(end, time.monotonic() + 10.0)

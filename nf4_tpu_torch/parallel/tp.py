@@ -15,6 +15,14 @@ The counterpart of the JAX package's ``parallel/tp.py`` (Megatron-style):
 * MoE: "tensor" mode shards each expert as the dense MLP; "expert" mode
   gives each rank ``num_experts / tp`` whole experts.  Norms, the router
   and the embedding are whole on every rank.
+* Data parallelism (the mesh's ``dp`` axis, the JAX package's
+  ``data_axis``): the batch splits contiguously over the dp groups, dp
+  group d holding rows ``[d B / dp, (d + 1) B / dp)`` (:func:`dp_rows`)
+  and their cache rows only (:func:`init_sharded_kv_cache`); the weights
+  are whole on each dp group.  The entry points take and return the whole
+  batch, as the JAX package's global arrays: each rank runs its rows and
+  the rows' logits are gathered over ``mesh.dp_group``
+  (:func:`gather_rows`).
 
 Where the JAX package keeps every leaf global and lets ``shard_map`` hand
 each device its slice, here :func:`localize_params` cuts this rank's slice
@@ -30,7 +38,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import time
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -50,8 +58,13 @@ __all__ = [
     "shard_kinds",
     "is_local",
     "all_reduce",
+    "dp_sum",
+    "dp_rows",
+    "gather_rows",
     "gather_vocab",
     "tp_hooks",
+    "sum_over_tp",
+    "train_hooks",
     "init_sharded_kv_cache",
     "repack_tp",
     "tp_forward",
@@ -188,18 +201,56 @@ def _sync(t: torch.Tensor) -> float:
     return time.perf_counter()
 
 
-def all_reduce(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """The sum of ``t`` over the ranks of the mesh's tensor-parallel axis:
-    ``torch.distributed.all_reduce`` over ``mesh.tp_group``, every rank
-    receiving the same bits.  In place on ``t`` when it is contiguous."""
+def _sum(t: torch.Tensor, mesh: Mesh, group) -> torch.Tensor:
+    """``torch.distributed.all_reduce`` of ``t`` over ``group``, counted in
+    ``mesh.stats``; in place on ``t`` when it is contiguous."""
     t = t.contiguous()
     t0 = _sync(t) if mesh.timed else None
-    dist.all_reduce(t, group=mesh.tp_group)
+    dist.all_reduce(t, group=group)
     mesh.stats["calls"] += 1
     mesh.stats["bytes"] += t.numel() * t.element_size()
     if t0 is not None:
         mesh.stats["seconds"] += _sync(t) - t0
     return t
+
+
+def all_reduce(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The sum of ``t`` over the ranks of the mesh's tensor-parallel axis:
+    ``torch.distributed.all_reduce`` over ``mesh.tp_group``, every rank
+    receiving the same bits.  In place on ``t`` when it is contiguous."""
+    return _sum(t, mesh, mesh.tp_group)
+
+
+def dp_sum(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The sum of ``t`` over the mesh's data-parallel axis
+    (``mesh.dp_group``), the same bits on every rank; in place on ``t``
+    when it is contiguous."""
+    return _sum(t, mesh, mesh.dp_group)
+
+
+def dp_rows(batch_size: int, mesh: Mesh) -> Tuple[int, int]:
+    """The rows ``[lo, hi)`` of a batch of ``batch_size`` that this rank's
+    data-parallel group holds: the batch split contiguously over ``dp``, as
+    the JAX package shards it (``P(data_axis)``).  Raises where ``dp`` does
+    not divide the batch."""
+    if batch_size % mesh.dp:
+        raise ValueError(f"batch_size {batch_size} must be a multiple of the data-parallel degree {mesh.dp}")
+    n = batch_size // mesh.dp
+    return mesh.dp_rank * n, (mesh.dp_rank + 1) * n
+
+
+def gather_rows(t: torch.Tensor, mesh: Mesh, batch_size: int) -> torch.Tensor:
+    """The whole batch [batch_size, ...] from each data-parallel group's
+    rows (:func:`dp_rows`), the same bits on every rank: each rank writes
+    its rows into a zero-filled buffer and the buffers are summed over
+    ``mesh.dp_group`` (:func:`gather_vocab`'s route, which gloo takes for
+    CUDA tensors).  ``t`` itself at dp = 1."""
+    if mesh.dp == 1:
+        return t
+    lo, hi = dp_rows(batch_size, mesh)
+    full = t.new_zeros((batch_size, *t.shape[1:]))
+    full[lo:hi] = t
+    return dp_sum(full, mesh)
 
 
 def gather_vocab(logits: torch.Tensor, mesh: Mesh) -> torch.Tensor:
@@ -217,15 +268,68 @@ def gather_vocab(logits: torch.Tensor, mesh: Mesh) -> torch.Tensor:
 
 def tp_hooks(mesh: Mesh) -> dict:
     """``forward``'s tensor-parallel keywords for this rank: ``reduce_fn``
-    (:func:`all_reduce`) and ``gather_fn`` (:func:`gather_vocab`)."""
+    (:func:`all_reduce`) and ``gather_fn`` (:func:`gather_vocab`); none at
+    tp = 1 (a data-parallel mesh), where the rank holds the whole model."""
+    if mesh.tp == 1:
+        return {}
     return dict(reduce_fn=functools.partial(all_reduce, mesh=mesh),
                 gather_fn=functools.partial(gather_vocab, mesh=mesh))
 
 
+class _SumOverRanks(torch.autograd.Function):
+    """The sum of ``t`` over ``group`` (a row-parallel product's partial
+    sums, a loss's partial sums); its gradient passes through unchanged:
+    every rank's output is the same sum, and every rank's loss gradient is
+    the whole gradient of that sum, which is each partial's gradient."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, group):
+        return _sum(t.clone(), mesh, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _CopyToRanks(torch.autograd.Function):
+    """``t`` itself, an input every rank holds whole that feeds its
+    column-parallel product; its gradient summed over ``group``: each rank
+    computes only its own columns' part of it."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, group):
+        ctx.mesh, ctx.group = mesh, group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum(g.clone(), ctx.mesh, ctx.group), None, None
+
+
+def sum_over_tp(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """:func:`all_reduce` over the tensor-parallel group, differentiable
+    (the gradient passes through unchanged)."""
+    return _SumOverRanks.apply(t, mesh, mesh.tp_group)
+
+
+def train_hooks(mesh: Mesh) -> dict:
+    """``train_forward``'s tensor-parallel keywords for this rank, each a
+    differentiable collective over ``mesh.tp_group``: ``reduce_fn``
+    (:func:`sum_over_tp`) and ``copy_fn`` (the identity whose backward sums
+    the gradient); none at tp = 1.  The logits stay vocabulary slices
+    (``train.trainer``'s loss works on them)."""
+    if mesh.tp == 1:
+        return {}
+    return dict(reduce_fn=functools.partial(sum_over_tp, mesh=mesh),
+                copy_fn=lambda t: _CopyToRanks.apply(t, mesh, mesh.tp_group))
+
+
 def init_sharded_kv_cache(cfg: LlamaConfig, batch_size: int, mesh: Mesh) -> KVCache:
-    """This rank's zeroed KV cache, over its ``num_kv_heads / tp`` heads, on
-    the mesh's device."""
-    return init_kv_cache(tp_local_config(cfg, mesh.tp, mesh.tp_rank), batch_size, device=mesh.device)
+    """This rank's zeroed KV cache: its data-parallel group's
+    ``batch_size / dp`` rows (:func:`dp_rows`) over its ``num_kv_heads /
+    tp`` heads, on the mesh's device."""
+    lo, hi = dp_rows(batch_size, mesh)
+    return init_kv_cache(tp_local_config(cfg, mesh.tp, mesh.tp_rank), hi - lo, device=mesh.device)
 
 
 def repack_tp(params: LlamaParams, cfg: LlamaConfig, tp: int):
@@ -274,14 +378,20 @@ def tp_forward(params_local: LlamaParams, cfg: LlamaConfig, mesh: Mesh, tokens, 
                last_only: bool = False, kv_len: Optional[int] = None):
     """One rank's forward over its slice: ``params_local`` from
     :func:`localize_params` (or ``load_packed_sharded``), ``cache`` its
-    heads (:func:`init_sharded_kv_cache`), ``cfg`` the whole model's.
-    Reaches one ``all_reduce`` over the tensor-parallel group per
-    row-parallel product and one for the logits.  Returns (full fp32
-    logits [B, S, V], or [B, V] with ``last_only``, the same on every
-    rank; the cache, written in place)."""
+    rows and heads (:func:`init_sharded_kv_cache`), ``cfg`` the whole
+    model's; ``tokens``, ``positions`` and ``seq_lens`` are the whole
+    batch, of which the rank runs its data-parallel group's rows
+    (:func:`dp_rows`).  Reaches one ``all_reduce`` over the
+    tensor-parallel group per row-parallel product and one for the logits,
+    and at dp > 1 one over the data-parallel group for the rows.  Returns
+    (full fp32 logits of the whole batch [B, S, V], or [B, V] with
+    ``last_only``, the same on every rank; the cache, written in place)."""
     cfg_local = tp_local_config(cfg, mesh.tp, mesh.tp_rank)
-    return forward(params_local, cfg_local, tokens, cache, positions, seq_lens, last_only=last_only, kv_len=kv_len,
-                   **tp_hooks(mesh))
+    b = tokens.shape[0]
+    lo, hi = dp_rows(b, mesh)
+    logits, cache = forward(params_local, cfg_local, tokens[lo:hi], cache, positions[lo:hi], seq_lens[lo:hi],
+                            last_only=last_only, kv_len=kv_len, **tp_hooks(mesh))
+    return gather_rows(logits, mesh, b), cache
 
 
 def tp_prefill(params_local: LlamaParams, cfg: LlamaConfig, mesh: Mesh, tokens, cache: Optional[KVCache] = None):

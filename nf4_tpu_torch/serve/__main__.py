@@ -48,7 +48,7 @@ def build_engine(args):
     if args.tp > 1 or args.dp > 1:
         raise SystemExit("--tp / --dp > 1 is not ported yet: the serving CLI over several ranks (one process per "
                          "rank, rank 0 holding the HTTP front and sending each wave to the others); serve tensor "
-                         "parallel from Python with Engine(mesh=) (nf4_tpu_torch.parallel)")
+                         "and data parallel from Python with Engine(mesh=) (nf4_tpu_torch.parallel)")
     if sum(map(bool, (args.packed, args.hf_dir, args.synthetic))) != 1:
         raise SystemExit("pick exactly one weight source: --packed PATH, --hf-dir DIR, or --model NAME --synthetic")
 

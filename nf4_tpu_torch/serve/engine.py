@@ -73,8 +73,21 @@ cache (``parallel.tp``), each forward summing the row-parallel products
 over the ranks and gathering the vocabulary slices of the logits to full
 rows, so every rank samples the same tokens from the same bits and
 decides the same way.  Decode runs eagerly there (``cuda_graphs=False``):
-gloo's collectives cannot be captured.  Data parallelism, the draft model,
-a LoRA bank and :meth:`Engine.score` are single-rank only.
+gloo's collectives cannot be captured.  The draft model, a LoRA bank and
+:meth:`Engine.score` are single-rank only.
+
+Data parallelism (a mesh with ``dp > 1``, the JAX package's Engine over a
+``dp`` axis): the slots split contiguously over the dp groups
+(``parallel.tp.dp_rows``), and each rank keeps the cache rows of its
+group's slots only and decodes only those rows; each decode step's (and
+verify's) logits rows are gathered over ``mesh.dp_group``, so every rank
+holds the whole batch's logits and runs the same sampler over them, each
+slot at its global row, and the same scheduler.  A prefill group runs on
+the ranks whose dp group owns some of its slots, over those rows only,
+and its logits rows are summed over the dp groups (zeros elsewhere), so
+every rank takes the same first tokens; the JAX package runs each group
+replicated over dp instead, with the same result.  A prefix-cached call
+prefills the shared prefix on every rank, into its local row 0.
 
 Multi-LoRA serving (``lora_bank=``, the JAX package's): a bank of
 adapters (``train.lora.stack_adapters``) over one frozen base, each
@@ -145,7 +158,7 @@ import collections
 import dataclasses
 import functools
 import time
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -228,10 +241,26 @@ class SpecKind:
     greedy: bool
 
 
-def _verify_forward(params, tokens, cache, positions, seq_lens, *, cfg, kv_len, **tp):
+def _verify_forward(params, tokens, cache, positions, seq_lens, *, cfg, kv_len, rows=None, **tp):
     """The verify forward (``spec_verify``'s ``fwd``): decode rows; ``tp``
-    the tensor-parallel hooks of ``forward``."""
-    return forward(params, cfg, tokens, cache, positions, seq_lens, kv_len=kv_len, decode=True, **tp)
+    the tensor-parallel hooks of ``forward``; ``rows`` the Engine's
+    data-parallel rows (``Engine.rows``)."""
+    if rows is None:
+        return forward(params, cfg, tokens, cache, positions, seq_lens, kv_len=kv_len, decode=True, **tp)
+    lo, hi, gather = rows
+    logits, cache = forward(params, cfg, tokens[lo:hi], cache, positions[lo:hi], seq_lens[lo:hi], kv_len=kv_len,
+                            decode=True, **tp)
+    return gather(logits), cache
+
+
+def _decode_rows(params, cfg, token, cache, positions, *, kv_len, rows=None, **kw):
+    """One decode step's logits [B, V] (``decode_step``; ``kw`` its bank and
+    tensor-parallel keywords); with the Engine's data-parallel ``rows``,
+    of this rank's rows, gathered to the whole batch."""
+    if rows is None:
+        return decode_step(params, cfg, token, cache, positions, kv_len=kv_len, **kw)[0]
+    lo, hi, gather = rows
+    return gather(decode_step(params, cfg, token[lo:hi], cache, positions[lo:hi], kv_len=kv_len, **kw)[0])
 
 
 def _draft_step(params, token, cache, positions, *, cfg, kv_len):
@@ -355,11 +384,11 @@ class Engine:
     from an earlier call.
 
     ``mesh`` (a rank's ``parallel.mesh.Mesh``) serves the model tensor
-    parallel (module docstring): the whole model's ``params`` and ``cfg``
-    (localized here) or the rank's slice of them
+    and data parallel (module docstring): the whole model's ``params`` and
+    ``cfg`` (localized here) or the rank's slice of them
     (``load_packed_sharded``) with the whole model's ``cfg``;
-    ``cuda_graphs=False`` is required, a ``dp`` axis, ``draft`` and
-    ``lora_bank`` raise.
+    ``batch_size`` a multiple of ``mesh.dp``; ``cuda_graphs=False`` is
+    required, ``draft`` and ``lora_bank`` raise.
 
     ``lora_bank`` serves several adapters over the one base (module
     docstring): a stacked bank (``train.lora.stack_adapters``) or a list
@@ -402,10 +431,15 @@ class Engine:
         if lora_bank is not None and (spec_k or prefix_cache):
             raise ValueError("lora_bank is not composable with speculative decoding or prefix caching")
         check_supported(cfg)
-        self.mesh, self._tp = mesh, {}
+        self.mesh, self._tp, self.rows = mesh, {}, None
         if mesh is not None:
+            from ..parallel.tp import dp_rows, gather_rows, is_local, localize_params, tp_hooks, tp_local_config
+
+            lo, hi = dp_rows(batch_size, mesh)
             if mesh.dp > 1:
-                raise NotImplementedError("not ported yet: data parallelism (an Engine over a dp mesh axis)")
+                # (lo, hi, gather): this rank's slots and the gather of
+                # their logits rows to the whole batch.
+                self.rows = (lo, hi, functools.partial(gather_rows, mesh=mesh, batch_size=batch_size))
             if cuda_graphs:
                 raise NotImplementedError("not ported yet: CUDA graphs over a process group; pass "
                                           "cuda_graphs=False")
@@ -414,9 +448,7 @@ class Engine:
             if lora_bank is not None:
                 raise ValueError("multi-LoRA serving is single-device; merge_lora an adapter into the packed "
                                  "weights to serve it over a mesh")
-            from ..parallel.tp import is_local, localize_params, tp_hooks, tp_local_config
-
-            if not is_local(params, cfg, mesh.tp):
+            if mesh.tp > 1 and not is_local(params, cfg, mesh.tp):
                 params = localize_params(params, cfg, mesh.tp, mesh.tp_rank)
             cfg = tp_local_config(cfg, mesh.tp, mesh.tp_rank)
             self._tp = tp_hooks(mesh)
@@ -515,12 +547,27 @@ class Engine:
         kept: every :meth:`generate` call decodes through them, so each
         graph is captured once per Engine."""
         if self._decoder is None:
-            self._cache = init_kv_cache(self.cfg, self.batch_size, device=self.device)
+            self._cache = init_kv_cache(self.cfg, self.local_batch, device=self.device)
             dcache = None
             if self._draft is not None:
                 dcache = init_kv_cache(self._draft[1], self.batch_size, device=self.device)
             self._decoder = Decoder(self, self._cache, dcache)
         return self._cache, self._decoder
+
+    @property
+    def local_batch(self) -> int:
+        """The slots whose cache rows this rank holds: all of them, or its
+        data-parallel group's."""
+        return self.batch_size if self.rows is None else self.rows[1] - self.rows[0]
+
+    def local_slots(self, slots) -> Tuple[np.ndarray, np.ndarray]:
+        """(which of the global ``slots`` this rank holds, their rows in its
+        cache)."""
+        slots = np.asarray(slots, dtype=np.int64)
+        if self.rows is None:
+            return np.ones(len(slots), bool), slots
+        own = (slots >= self.rows[0]) & (slots < self.rows[1])
+        return own, slots[own] - self.rows[0]
 
     @staticmethod
     def admissible(features, prompt, sp: SamplingParams, *, logprobs: bool = False, adapter=None) -> bool:
@@ -656,7 +703,24 @@ class Engine:
         ``PREFILL_SEGMENT``)."""
         if self._bank is None or adapter_ids is None or not (np.asarray(adapter_ids) >= 0).any():
             adapter_ids = None  # no adapter in the group: deltas of exact zeros, left out
-        return prefill_rows(self.params, self.cfg, cache, tokens, lengths, slots, self.device, start,
+        if self.rows is None:
+            return self.prefill_local(cache, tokens, lengths, slots, start, adapter_ids)
+        # Data parallel: the rows of this rank's slots only, their logits
+        # summed over the dp groups into the whole group's (module docstring).
+        own, local = self.local_slots(slots)
+        full = torch.zeros((len(slots), self.cfg.vocab_size), dtype=torch.float32, device=self.device)
+        if own.any():
+            full[torch.as_tensor(np.nonzero(own)[0], device=self.device)] = self.prefill_local(
+                cache, tokens[own], lengths[own], local, None if start is None else start[own])
+        from ..parallel.tp import dp_sum
+
+        return dp_sum(full, self.mesh)
+
+    def prefill_local(self, cache: KVCache, tokens: np.ndarray, lengths: np.ndarray, rows: np.ndarray,
+                      start: Optional[np.ndarray] = None, adapter_ids: Optional[np.ndarray] = None):
+        """:func:`prefill_rows` of this Engine into rows ``rows`` of this
+        rank's ``cache`` (its slots at dp = 1)."""
+        return prefill_rows(self.params, self.cfg, cache, tokens, lengths, rows, self.device, start,
                             segment=self.PREFILL_SEGMENT, lora=None if adapter_ids is None else self._bank,
                             adapter_ids=adapter_ids, **self._tp)
 
@@ -703,10 +767,10 @@ class Decoder:
 
     def __init__(self, engine: Engine, cache: KVCache, dcache: Optional[KVCache] = None):
         dev = engine.device
-        b = cache.k.shape[1]
+        b = cache.k.shape[1] if engine.rows is None else engine.batch_size  # every slot, whatever rows it holds
         n = max(engine.decode_chunk, 1)
         # The engine's parts, not the engine: it holds this Decoder.
-        self.params, self.cfg, self.keys = engine.params, engine.cfg, engine.keys
+        self.params, self.cfg, self.keys, self.rows = engine.params, engine.cfg, engine.keys, engine.rows
         self.stats, self.stream = engine.graph_stats, engine.graph_stream
         self.cache, self.dcache, self.draft = cache, dcache, engine._draft
         self.spec_k, self.ngram = engine.spec_k, engine.spec_ngram
@@ -868,10 +932,10 @@ class Decoder:
         act = active != 0
         out = []
         bank = {} if self.lora is None else dict(lora=self.lora, adapter_ids=self.ids)
-        step = functools.partial(decode_step, self.params, self.cfg, **bank, **self.tp)
+        step = functools.partial(_decode_rows, self.params, self.cfg, rows=self.rows, **bank, **self.tp)
         if kind is None:  # plain greedy: fp32 argmax only
             for _ in range(n):
-                logits, _ = step(tok, self.cache, pos, kv_len=kv_len)
+                logits = step(tok, self.cache, pos, kv_len=kv_len)
                 tok = torch.where(act, sample(logits, GREEDY), tok)
                 out.append(tok)
                 pos = pos + active
@@ -880,7 +944,7 @@ class Decoder:
             return logits
         lps, tops = [], []
         for _ in range(n):
-            logits, _ = step(tok, self.cache, pos, kv_len=kv_len)
+            logits = step(tok, self.cache, pos, kv_len=kv_len)
             tok, lp, top = self.sample_step(logits, tok, act, steps, kind)
             out.append(tok)
             lps.append(lp)
@@ -956,7 +1020,7 @@ class Decoder:
         the next tokens and positions back into ``inputs``.  Nothing here
         touches the host."""
         tok, pos, active = self.inputs[0], self.inputs[1], self.inputs[2] != 0
-        fwd = functools.partial(_verify_forward, cfg=self.cfg, kv_len=kv_len, **self.tp)
+        fwd = functools.partial(_verify_forward, cfg=self.cfg, kv_len=kv_len, rows=self.rows, **self.tp)
         common = dict(fwd=fwd, k=kind.k, n_steps=n)
         if kind.draft:
             dparams, dcfg = self.draft
@@ -1074,7 +1138,8 @@ class _Scheduler:
         if not reused:
             toks = np.zeros((1, min(bucket_len(lp), cfg.max_seq_len)), dtype=np.int32)
             toks[0, :lp] = ptoks
-            eng.prefill_group(self.cache, toks, np.asarray([lp], np.int32), np.zeros(1, np.int64))
+            # Into this rank's row 0 (every rank's, under data parallelism).
+            eng.prefill_local(self.cache, toks, np.asarray([lp], np.int32), np.zeros(1, np.int64))
             eng._prefix_saved = (ptoks, {name: t[:, :1, :, :lp].clone() for name, t in self.cache.planes().items()})
         eng.prefix_stats = {"prefix_len": lp, "tokens_saved": lp * (len(prompts) - 1), "reused": reused}
         return lp
@@ -1195,7 +1260,7 @@ class _Scheduler:
             slots[j] = s
         start = None
         if lp:
-            idx = torch.as_tensor(slots, device=self.eng.device)
+            idx = torch.as_tensor(self.eng.local_slots(slots)[1], device=self.eng.device)
             for name, rows in self.eng._prefix_saved[1].items():
                 getattr(self.cache, name)[:, idx, :, :lp] = rows
             start = np.full(g, lp, dtype=np.int32)
@@ -1625,7 +1690,7 @@ class _Scheduler:
             for s in idx:
                 host[s] = propose_ngram(self.prompts[self.slot_req[s]] + self.generated[s], k, eng.spec_ngram)
             drafts = torch.from_numpy(host).to(dev)
-        fwd = functools.partial(_verify_forward, cfg=self.cfg, kv_len=kv_len, **self.eng._tp)
+        fwd = functools.partial(_verify_forward, cfg=self.cfg, kv_len=kv_len, rows=eng.rows, **eng._tp)
         if kind.greedy:
             targets, acc, lps, _ = spec_verify(eng.params, tok, drafts, self.cache, pos, fwd=fwd, k=k)
         else:

@@ -15,6 +15,13 @@ to the adapted projections' outputs.
 * Files are the JAX package's ``.npz`` schema (``__rank__``, ``__alpha__``,
   ``__tp_basis__``, ``__targets__``, ``{name}.a`` [L, r, in], ``{name}.b``
   [L, out, r]): adapters written by either package load in the other.
+* Tensor parallelism (the JAX trainer's ``lora_partition_specs``): a
+  column target (``qkv``, ``gateup``) shards B on its out-features, a row
+  target (``o``, ``down``) A on its in-features, each rank holding the
+  slice that meets its slice of the packed weight; the other side is
+  whole on every rank.  :func:`shard_lora` cuts a rank's slice out,
+  :func:`gather_lora` puts the slices back together on every rank (saving
+  and merging take the whole set).
 * :func:`stack_adapters` stacks adapters into a multi-LoRA bank, served
   per request (``serve.engine.Engine(lora_bank=)``); :func:`merge_lora`
   folds one adapter into the base weights (``W + scaling * B @ A``),
@@ -50,6 +57,9 @@ __all__ = [
     "merge_lora",
     "save_lora",
     "load_lora",
+    "lora_partition_specs",
+    "shard_lora",
+    "gather_lora",
 ]
 
 _TARGETS = ("wqkv", "wo", "w_gateup", "w_down")
@@ -99,7 +109,7 @@ class LoraParams(nn.Module):
 
     ``tp_basis`` records the ``cfg.tp_shards`` the adapters were
     initialized against (the fused projections' row order depends on it);
-    the port trains on one device, so it is 1 for adapters it makes."""
+    a rank's slice (:func:`shard_lora`) keeps its whole set's."""
 
     def __init__(self, layers: List[LoraLayer], tp_basis: int = 1):
         super().__init__()
@@ -199,6 +209,87 @@ def stack_adapters(loras) -> LoraParams:
     return LoraParams(layers, tp_basis=loras[0].tp_basis)
 
 
+# The side each target shards under tensor parallelism, as an axis from
+# the end of a and b (a [r, in], b [out, r]); None: whole on every rank.
+_TP_AXES = {"qkv": (None, -2), "gateup": (None, -2), "o": (-1, None), "down": (-1, None)}
+
+
+def lora_partition_specs(lora: LoraParams) -> dict:
+    """``{parameter name: axis}`` of every adapter parameter (its name in
+    ``lora.named_parameters()``): the axis from the end that tensor
+    parallelism shards, or None where every rank holds it whole (the JAX
+    trainer's ``lora_partition_specs`` and, by None, its
+    ``_lora_replicated_mask``)."""
+    out = {}
+    for i, ll in enumerate(lora.layers):
+        for field, (a_ax, b_ax) in _TP_AXES.items():
+            if getattr(ll, field) is not None:
+                out[f"layers.{i}.{field}.a"], out[f"layers.{i}.{field}.b"] = a_ax, b_ax
+    return out
+
+
+def check_basis(lora: LoraParams, cfg: LlamaConfig) -> None:
+    """Raise unless the adapters were made for ``cfg.tp_shards``'s fused-row
+    layout (``lora.tp_basis``)."""
+    if lora.tp_basis != cfg.tp_shards:
+        raise ValueError(f"adapter tp_basis={lora.tp_basis} != cfg.tp_shards={cfg.tp_shards}: the adapters' fused "
+                         "rows follow another interleave and would meet the wrong channels; use the checkpoint "
+                         "(and config) they were made for, or init_lora against this one")
+
+
+def shard_lora(lora: LoraParams, cfg: LlamaConfig, mesh) -> LoraParams:
+    """This rank's slice of the whole adapter set ``lora`` for the mesh's
+    tensor-parallel degree (:func:`lora_partition_specs`), new parameters
+    (contiguous copies) for an optimizer of the rank's own.  ``cfg`` is
+    the whole model's; ``lora.tp_basis`` must be its ``tp_shards``."""
+    check_basis(lora, cfg)
+    if mesh.tp == 1:
+        return lora
+    from ..parallel.tp import local_slice
+
+    layers = []
+    for ll in lora.layers:
+        fields = {}
+        for field, (a_ax, b_ax) in _TP_AXES.items():
+            ab = getattr(ll, field)
+            if ab is None:
+                continue
+            a, b = (t.detach() if ax is None else local_slice(t.detach(), ax, mesh.tp, mesh.tp_rank)
+                    for t, ax in ((ab.a, a_ax), (ab.b, b_ax)))
+            fields[field] = LoraAB(a.clone(), b.clone(), ab.scaling)
+        layers.append(LoraLayer(**fields))
+    return LoraParams(layers, tp_basis=lora.tp_basis)
+
+
+def gather_lora(lora_local: LoraParams, mesh) -> LoraParams:
+    """The whole adapter set on every rank from each rank's slice
+    (:func:`shard_lora`), through the zero-filled sum over
+    ``mesh.tp_group`` that gloo takes for CUDA tensors; detached fp32
+    parameters.  ``lora_local`` itself at tp = 1."""
+    if mesh.tp == 1:
+        return lora_local
+    from ..parallel.tp import all_reduce
+
+    def whole(t, axis):
+        t = t.detach()
+        if axis is None:
+            return t.clone()
+        n = t.shape[axis]
+        full = t.new_zeros((*t.shape[: t.dim() + axis], n * mesh.tp, *t.shape[t.dim() + axis + 1 :]))
+        full.narrow(axis, mesh.tp_rank * n, n).copy_(t)
+        return all_reduce(full, mesh)
+
+    layers = []
+    for ll in lora_local.layers:
+        fields = {}
+        for field, (a_ax, b_ax) in _TP_AXES.items():
+            ab = getattr(ll, field)
+            if ab is not None:
+                fields[field] = LoraAB(whole(ab.a, a_ax), whole(ab.b, b_ax), ab.scaling)
+        layers.append(LoraLayer(**fields))
+    return LoraParams(layers, tp_basis=lora_local.tp_basis)
+
+
 def merge_lora(params: LlamaParams, lora: LoraParams, cfg: LlamaConfig, quantize: bool = True,
                method: str = "auto") -> LlamaParams:
     """Fold one adapter into the base weights: ``W' = W + scaling * B @ A``
@@ -210,12 +301,12 @@ def merge_lora(params: LlamaParams, lora: LoraParams, cfg: LlamaConfig, quantize
     (``method``; the weight's ``quant_type`` kept; on the card the device
     quantizer): the merged values move to the nearest point of the new
     grid, as a fine-tuned dense checkpoint's do when it is quantized.
-    ``quantize=False`` returns dense ``cfg.dtype`` weights.  The merged
-    model serves with no adapter, on every path.  Not ported yet:
-    tensor-parallel packing (``quantize_for_tpu`` raises)."""
-    if lora.tp_basis != cfg.tp_shards:
-        raise ValueError(f"adapter tp_basis={lora.tp_basis} but cfg.tp_shards={cfg.tp_shards}: the fused-row "
-                         "layouts differ; merge with the config the adapter was trained against")
+    ``quantize=False`` returns dense ``cfg.dtype`` weights.  Each weight
+    keeps its shard count (``shards``; 1 for a dense weight): a
+    row-parallel weight of a ``tp_shards > 1`` checkpoint is packed in K
+    chunks again, so the merged checkpoint slices per rank as the one it
+    came from.  The merged model serves with no adapter, on every path."""
+    check_basis(lora, cfg)
     if len(lora.layers) != len(params.layers):
         raise ValueError(f"{len(lora.layers)} adapter layers for {len(params.layers)} model layers")
     layers = []
@@ -237,7 +328,8 @@ def merge_lora(params: LlamaParams, lora: LoraParams, cfg: LlamaConfig, quantize
                 merged = w + ab.scaling * delta
             if quantize:
                 qt = pw.quant_type if packed else cfg.quant_type
-                new[name] = quantize_for_tpu(merged, dtype=cfg.dtype, method=method, quant_type=qt, device=w.device)
+                new[name] = quantize_for_tpu(merged, dtype=cfg.dtype, shards=pw.shards if packed else 1,
+                                             method=method, quant_type=qt, device=w.device)
             else:
                 new[name] = merged.to(cfg.dtype)
         layers.append(dataclasses.replace(lp, **new))

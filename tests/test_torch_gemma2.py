@@ -282,13 +282,18 @@ def test_gemma_checkpoint_round_trip(tmp_path, ext):
 
 def test_training_gemma_raises():
     """Training on Gemma-2/3 is ported (the name is the slice's that refused
-    it): ``make_train_step`` builds for both; only tensor parallelism
-    raises.  Their loss and gradients against the JAX package's are in
-    ``test_torch_train_families.py``."""
+    it): ``make_train_step`` builds for both, also on a checkpoint packed
+    for tp_shards 2 (tensor-parallel training is ported too); only a mesh
+    whose tp is not the checkpoint's raises.  Their loss and gradients
+    against the JAX package's are in ``test_torch_train_families.py``."""
+    from nf4_tpu_torch.parallel.mesh import Mesh
     from nf4_tpu_torch.train import make_train_step
 
     opt = torch.optim.SGD([torch.zeros(1, requires_grad=True)], lr=1.0)
+    mesh = Mesh(tp=4, dp=1, rank=0, tp_rank=0, dp_rank=0, tp_group=None, dp_group=None,
+                device=torch.device("cpu"), backend="gloo")
     for name in ("tiny-gemma2", "gemma3-4b"):
         assert callable(make_train_step(configs.get_config(name), opt))
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            make_train_step(dataclasses.replace(configs.get_config(name), tp_shards=2), opt)
+        assert callable(make_train_step(dataclasses.replace(configs.get_config(name), tp_shards=2), opt))
+        with pytest.raises(ValueError, match="checkpoint tp_shards=2 but the mesh has tp=4"):
+            make_train_step(dataclasses.replace(configs.get_config(name), tp_shards=2), opt, mesh=mesh)

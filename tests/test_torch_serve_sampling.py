@@ -478,8 +478,10 @@ def test_sampling_argument_checks_and_unported_options(models):
     assert _engine(models, prefix_cache=True).prefix_cache
     dp_mesh = Mesh(tp=1, dp=2, rank=0, tp_rank=0, dp_rank=0, tp_group=None, dp_group=None,
                    device=torch.device("cpu"), backend="gloo")
-    with pytest.raises(NotImplementedError, match="not ported yet: data parallelism"):
-        _engine(models, mesh=dp_mesh, cuda_graphs=False)
+    # Data parallelism is ported (test_torch_dp_serve.py); dp must divide the slots.
+    assert _engine(models, mesh=dp_mesh, cuda_graphs=False).local_batch == 1
+    with pytest.raises(ValueError, match="multiple of the data-parallel degree"):
+        _engine(models, mesh=dp_mesh, cuda_graphs=False, batch_size=3)
     with pytest.raises(ValueError, match="stacked bank"):
         _engine(models, lora_bank=object())
     with pytest.raises(ValueError, match="lora_bank is not composable"):

@@ -3,7 +3,8 @@
 are the same on every rank and agree with the JAX package's Engine on the
 same weights under the near-tie rule; prompt-lookup speculation
 (``spec_k=3``) and the prefix cache give the plain Engine's tokens over
-the mesh too; what the JAX Engine refuses over a mesh, the port refuses."""
+the mesh too; what the JAX Engine refuses over a mesh, the port refuses
+(a data-parallel axis serves: ``tests/test_torch_dp_serve.py``)."""
 
 import dataclasses
 
@@ -100,8 +101,8 @@ def test_refusals():
     cfg = dataclasses.replace(configs.TINY_TP, tp_shards=1, num_layers=1)
     params = llama.init_params(cfg, 0, device="cpu")
     kw = dict(batch_size=2, eos_token=-1, device="cpu", cuda_graphs=False)
-    with pytest.raises(NotImplementedError, match="not ported yet: data parallelism"):
-        Engine(params, cfg, mesh=_mesh(dp=2), **kw)
+    with pytest.raises(ValueError, match="must be a multiple of the data-parallel degree"):
+        Engine(params, cfg, mesh=_mesh(dp=4), **kw)  # 2 slots over dp = 4 (dp itself: test_torch_dp_serve.py)
     with pytest.raises(NotImplementedError, match="not ported yet: CUDA graphs over a process group"):
         Engine(params, cfg, mesh=_mesh(), **dict(kw, cuda_graphs=True))
     with pytest.raises(ValueError, match="draft-model speculation is single-device"):

@@ -310,12 +310,32 @@ def test_accum_steps_equal_the_full_batch(fp32_models):
 
 
 def test_mesh_and_tp_wait_for_multi_gpu(fp32_models):
-    _, _, tcfg, _ = fp32_models
+    """The multi-GPU slice has come (the name is the slice's that waited for
+    it; the runs are ``tests/test_torch_dp_train.py``'s): a tp_shards = 2
+    checkpoint builds a step on one device, the JAX package's asserts over
+    a mesh are errors, and an adapter of another basis is refused."""
+    from nf4_tpu_torch.parallel.mesh import Mesh
+
+    _, _, tcfg, tparams = fp32_models
     opt = torch.optim.SGD([torch.zeros(1, requires_grad=True)], lr=1.0)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        make_train_step(tcfg, opt, mesh=object())
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        make_train_step(dataclasses.replace(tcfg, tp_shards=2), opt)
+
+    def mesh(tp):
+        return Mesh(tp=tp, dp=1, rank=0, tp_rank=0, dp_rank=0, tp_group=None, dp_group=None,
+                    device=torch.device("cpu"), backend="gloo")
+
+    cfg2 = dataclasses.replace(tcfg, tp_shards=2)
+    assert callable(make_train_step(cfg2, opt))
+    assert callable(make_train_step(tcfg, opt, mesh=mesh(2)))  # tp_shards 1: data parallelism only
+    with pytest.raises(ValueError, match="tp_shards=2 but the mesh has tp=4"):
+        make_train_step(cfg2, opt, mesh=mesh(4))
+    with pytest.raises(ValueError, match="vocab 255 % tp 2"):
+        make_train_step(dataclasses.replace(cfg2, vocab_size=255), opt, mesh=mesh(2))
+    with pytest.raises(ValueError, match="quantize_lm_head under tp=2 needs vocab_size % 256"):
+        make_train_step(dataclasses.replace(cfg2, vocab_size=384, quantize_lm_head=True), opt, mesh=mesh(2))
+    tl = init_lora(tcfg, LCFG, seed=0, device="cpu")
+    toks = torch.zeros((2, 8), dtype=torch.int32)
+    with pytest.raises(ValueError, match="tp_basis=1 != cfg.tp_shards=2"):
+        make_train_step(cfg2, opt)(tparams, tl, toks)
 
 
 def test_fp16_train_forward_runs_and_matches(rng):
