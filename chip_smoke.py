@@ -27,6 +27,13 @@ Phases, each of which fails the run on any error:
    1024 also the largest error of kernel E and of cuBLAS's fp32 product
    against a float64 product, E's at most 4x cuBLAS's; a profile of one
    decode call per projection holds E's decode to one device launch each;
+   (3f, run after 5a) the backend flags: ``NF4TPU_BACKEND=jnp`` on an
+   eager Engine over 2 of Llama-3-8B's layers launches no kernel and
+   gives ``auto``'s tokens under the near-tie rule, ``pallas`` launches
+   what ``auto`` does, an invalid value raises; every
+   ``NF4TPU_MATMUL_TILE`` triple kernels B, D and E take, at the four
+   projections and 4 and 1024 rows, held to the plain version and timed
+   beside the default tiles;
 4. kernel C (prefill flash attention), bf16 and int8 KV, against its plain
    version at B=1, H=32, KV=8, D=128, S=1024, T=8192, with and without a
    window, and at a ragged S=700 from position 0 and from 37; the int8
@@ -68,7 +75,7 @@ Phases, each of which fails the run on any error:
    capturing nothing with the same tokens and launches, one eager verify round of each spec_k
    with every kernel call held to its plain version and its rows counted, and a graphed verify
    round timed at kv_len 1536 against 5b's step; the same in the int8 mode of (d) at spec_k 3;
-   (u) tensor-parallel serving of Llama-3-8B at full width and 4 of its
+   (u) tensor-parallel serving of Llama-3-8B at full width and 2 of its
    32 layers on 4 gloo ranks sharing this card (tp = 2 4-bit and int8, tp
    = 4), each rank's launches exact, tokens held to one process's; (v)
    data-parallel serving on the same ranks, 5b's requests at batch 4
@@ -78,7 +85,13 @@ Phases, each of which fails the run on any error:
    the sequence-parallel ring prefill of a 4096-token prompt at sp = 2
    and 4 (and 4 with an int8 KV cache), held to the one-process prefill
    (layer 0's K/V bit for bit, cache, logits, next token, 8 decode steps
-   from the ring-built cache);
+   from the ring-built cache); (x) once those ranks are closed, the
+   serving CLI over ranks: ``python -m nf4_tpu_torch.serve --tp 2 --dp 2
+   --dist-backend gloo`` on 5u's tp_shards = 4 checkpoint (each rank
+   ``repack_tp``s it to 2), 5b's requests in one wave held to 5u's tp = 1
+   yardstick, a seeded stream, a request admitted mid-call, a closed
+   stream cancelled, a request after them, one request's round trip and
+   the control channel's share; SIGTERM leaves no rank process;
    (c) a small model on the card against the same model on the
    CPU, also with every field of the Llama-family variants on; (d) the
    same serving in the int8 mode: weights recoded to int8 and an int8 KV
@@ -767,6 +780,126 @@ def flash_shape_rows(res, int8) -> dict:
             for k, r in res.items()}
 
 
+BACKEND_LAYERS = 2  # phase 3f's depth: Llama-3-8B at full width, 2 of its 32 layers
+
+
+@contextlib.contextmanager
+def env_set(name, value):
+    """Within it the environment variable ``name`` is ``value``."""
+    import os
+
+    prev = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if prev is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = prev
+
+
+def tile_triples(kernel, dev, n_pad, m_pad) -> list:
+    """The ``NF4TPU_MATMUL_TILE`` triples kernel B, D or E takes for a weight
+    (``ops/matmul.py:_tile_plan``): each block layout, at K split 1 and at
+    512-row splits."""
+    from nf4_tpu_torch.ops import matmul as tm
+    from nf4_tpu_torch.ops.int8_serve import _D_DECODE
+
+    query = {"B": tm._B_DECODE, "D": _D_DECODE, "E": tm._E_DECODE}[kernel]
+    layouts = {16: tm._decode_shape(dev, query)[0]}
+    layouts.update({tm._EXACT_ROWS: 128} if kernel == "E" else tm._prefill_layouts(m_pad))
+    return [f"{bm},{bks},{bo}" for bm, bo in layouts.items() for bks in (n_pad, 512)]
+
+
+def phase_backend_flags(gen, dev, prompts) -> dict:
+    """Phase 3f: the backend flags (``nf4_tpu_torch/utils/env.py``).
+    ``NF4TPU_BACKEND``: an eager Engine over BACKEND_LAYERS of Llama-3-8B's
+    layers at full width (synthetic weights) generates 4 tokens for two of
+    5b's prompts (37 and 1024 tokens) under ``auto``, ``jnp`` and
+    ``pallas``: ``jnp`` launches no kernel and its tokens equal ``auto``'s
+    under the near-tie rule, ``pallas`` launches what ``auto`` does, an
+    invalid value raises.  ``NF4TPU_MATMUL_TILE``: every triple kernels B,
+    D and E take, at Llama-3-8B's four projections at 4 and 1024 rows,
+    through ``nf4_matmul`` / ``int8_matmul``: held to the plain version
+    (B, D within 2e-2 x max; E within 1e-5 x max) and timed beside the
+    default tiles (one weight, graph replays; the smaller weights stay in
+    L2 for both)."""
+    import torch
+
+    from nf4_tpu_torch.models.configs import LLAMA3_8B
+    from nf4_tpu_torch.models.synthetic import synthetic_params
+    from nf4_tpu_torch.ops import _cuda
+    from nf4_tpu_torch.ops.int8_serve import _int8_matmul_plain, int8_matmul
+    from nf4_tpu_torch.ops.matmul import _matmul_bf16_plain, _matmul_exact_plain, nf4_matmul
+    from nf4_tpu_torch.serve.engine import Engine
+    from nf4_tpu_torch.utils import env
+
+    cfg = dataclasses.replace(LLAMA3_8B, num_layers=BACKEND_LAYERS)
+    params = synthetic_params(cfg, seed=3, device=dev)
+    eng = Engine(params, cfg, batch_size=4, eos_token=-1, decode_chunk=4, cuda_graphs=False)
+    two = [prompts[1], prompts[0]]
+    runs = {}
+    for name in ("auto", "jnp", "pallas"):
+        with env_set("NF4TPU_BACKEND", name):
+            _cuda.reset_launch_counts()
+            runs[name] = (eng.generate(two, max_new_tokens=4), _cuda.launch_counts())
+    (auto, auto_counts), (plain, plain_counts), (pallas, pallas_counts) = runs["auto"], runs["jnp"], runs["pallas"]
+    check(not any(plain_counts.values()), f"3f: NF4TPU_BACKEND=jnp launched {plain_counts}")
+    check(pallas_counts == auto_counts and auto_counts["matmul_bf16"] > 0 and auto_counts["flash_attention"] > 0,
+          f"3f: NF4TPU_BACKEND=pallas launched {pallas_counts}, auto {auto_counts}")
+    check([r.tokens for r in pallas] == [r.tokens for r in auto], "3f: pallas tokens differ from auto's")
+    diffs = tokens_held("3f NF4TPU_BACKEND=jnp against auto", eng, plain, auto)
+    with env_set("NF4TPU_BACKEND", "bogus"):
+        for what, fn in (("env.backend()", env.backend), ("generate", lambda: eng.generate(two, max_new_tokens=1))):
+            try:
+                fn()
+                check(False, f"3f: an invalid NF4TPU_BACKEND was not rejected by {what}")
+            except ValueError as e:
+                check("NF4TPU_BACKEND='bogus' invalid" in str(e), f"3f: {what} raised {e}")
+    del eng, params
+    free_memory()
+    print(f"phase 3f NF4TPU_BACKEND on Llama-3-8B at {BACKEND_LAYERS} layers, 2 requests x 4 tokens: jnp launched "
+          f"nothing, its tokens equal auto's but for {len(diffs)} near-tie(s); pallas launched what auto did "
+          f"({auto_counts}); an invalid value raised")
+
+    tiles = {}
+    for kernel in ("B", "D", "E"):
+        for pname, (m, n, od) in LLAMA3_8B_PROJ.items():
+            pw = random_int8(gen, m, n, dev) if kernel == "D" else random_packed(gen, m, n, dev)
+            for b in (4, 1024):
+                x = torch.randn((b, n), generator=gen, device=dev)
+                pad = torch.zeros((-(-b // 64) * 64, n), device=dev)
+                pad[:b] = x
+                if kernel == "E":
+                    tol, call = 1e-5, lambda: nf4_matmul(x, pw)
+                    want = _matmul_exact_plain(pad, pw.packed, pw.scales, torch.float32)[:b]
+                elif kernel == "B":
+                    x = x.to(torch.bfloat16)
+                    tol, call = 2e-2, lambda: nf4_matmul(x, pw, out_dtype=torch.float32)
+                    want = _matmul_bf16_plain(pad.to(torch.bfloat16), pw.packed, pw.scales, torch.float32)[:b]
+                else:
+                    x = x.to(torch.bfloat16)
+                    tol, call = 2e-2, lambda: int8_matmul(x, pw, out_dtype=torch.float32)
+                    want = _int8_matmul_plain(pad.to(torch.bfloat16), pw.values, pw.scales, torch.float32)[:b]
+                default_ms = time_ms([call])
+                scale = want.abs().max().item()
+                for tile in tile_triples(kernel, dev, pw.padded_shape[1], pw.padded_shape[0]):
+                    with env_set("NF4TPU_MATMUL_TILE", tile):
+                        got = call()
+                        torch.cuda.synchronize()
+                        rel = (got - want).abs().max().item() / scale
+                        check(rel < tol, f"3f kernel {kernel} tile {tile} {pname} B={b}: rel err {rel:.3g}")
+                        ms = time_ms([call])
+                    tiles[f"{kernel} {pname} B={b} {tile}"] = dict(ms=ms, default_ms=default_ms, rel=rel)
+                    print(f"phase 3f kernel {kernel} {pname} B={b} NF4TPU_MATMUL_TILE={tile}: rel err {rel:.2e}, "
+                          f"{ms:.4f} ms (default tiles {default_ms:.4f} ms)")
+            del pw
+    print(f"phase 3f NF4TPU_MATMUL_TILE: {len(tiles)} (kernel, projection, rows, triple) cases held to the plain "
+          f"versions; on {card_line()}")
+    return dict(backend_launches={k: v[1] for k, v in runs.items()}, backend_diffs=diffs, tiles=tiles)
+
+
 def bnb_module(rng, m, n):
     """A duck-typed bitsandbytes Linear4bit with random contents."""
     import numpy as np
@@ -1082,10 +1215,11 @@ def http_post(port, body, timeout=600):
         return e.code, json.loads(e.read())
 
 
-def stream_and_hang_up(port, body, before_close, timeout=600):
+def stream_and_hang_up(port, body, before_close, timeout=600, close=True):
     """Send a streamed request on a raw socket, read its first SSE event and
     close the connection; returns what ``before_close()`` returned just
-    before the close."""
+    before the close.  With ``close=False``, read the stream to its end
+    instead and return its tokens."""
     import socket
 
     data = json.dumps(body).encode()
@@ -1098,7 +1232,14 @@ def stream_and_hang_up(port, body, before_close, timeout=600):
             check(chunk, "the server closed the stream before its first event")
             buf += chunk
         seen = before_close()
-    return seen
+        if close:
+            return seen
+        while b"data: [DONE]" not in buf:
+            chunk = sock.recv(4096)
+            check(chunk, "the stream ended without [DONE]")
+            buf += chunk
+    events = [line[6:] for line in buf.decode().split("\n") if line.startswith("data: ")]
+    return [json.loads(e)["token"] for e in events[:-1]]
 
 
 # Phase 5h's requests, in the order they reach the server (one wave of 9
@@ -2531,7 +2672,7 @@ def phase_mixtral_serving(prompts, profile):
     return counts, dict(serving, weight_gb=packed / 1e9)
 
 
-TP_LAYERS = 4  # phases 5u, 5v and 5w's depth: Llama-3-8B at full width, 4 of its 32 layers
+TP_LAYERS = 2  # phases 5u, 5v, 5w and 5x's depth: Llama-3-8B at full width, 2 of its 32 layers
 TRAIN_RANK_LAYERS = 2  # phase 6p's depth: the first 2 of those layers (6d's depth)
 SP_PROMPT = 4096  # phase 5w's prompt
 
@@ -2647,16 +2788,18 @@ def phase_ranks(prompts, examples, lap):
             lap("5u")
             dp_runs = phase_dp_serving(ranks, paths, prompts, cfg4, base, want, base_ms)
             lap("5v")
-            del base
+            del base[True]  # 5x holds its answers to the 4-bit yardstick
             free_memory()
             sp_runs = phase_sp_prefill(ranks, paths[1])
             lap("5w")
             train_runs = phase_train_ranks(ranks, paths, params1, cfg1, examples)
             lap("6p")
-    del params1
+        cli = phase_cli_ranks(paths[4], prompts, base[False], want[False], dp_runs)
+        lap("5x")
+    del params1, base
     free_memory()
     return runs, dict(quantize_s=quant_s, save_s=save_s, ranks_start_s=start_s, tp1_decode_ms_step=base_ms), \
-        dp_runs, sp_runs, train_runs
+        dp_runs, sp_runs, train_runs, cli
 
 
 def phase_dp_serving(ranks, paths, prompts, cfg4, base, want, base_ms) -> dict:
@@ -2720,6 +2863,148 @@ def phase_dp_serving(ranks, paths, prompts, cfg4, base, want, base_ms) -> dict:
                            peak_gb=[r["peak_gb"] for r in every], held=[r["held"] for r in every],
                            generate_s=mean("generate_s"), decode_ms_step_one_process=base_ms[int8])
     return runs
+
+
+CLI_WINDOW = 0.5  # phase 5x's batch window (s): the six greedy requests, sent 0.05 s apart, make one wave
+
+
+def metrics(port) -> dict:
+    """The server's ``/metrics`` counters by name."""
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=60) as r:
+        rows = [ln.split() for ln in r.read().decode().splitlines() if not ln.startswith("#")]
+    return {name.removeprefix("nf4tpu_"): float(v) for name, v in rows}
+
+
+def phase_cli_ranks(path, prompts, base, want, dp_runs) -> dict:
+    """Main path (x): the serving CLI over ranks, ``python -m
+    nf4_tpu_torch.serve --packed <5u's tp_shards = 4 checkpoint> --tp 2
+    --dp 2 --dist-backend gloo --batch-size 4`` as a subprocess: rank 0 (the
+    CLI) holds the HTTP front and starts 3 ranks sharing this card; each
+    loads the whole checkpoint and ``repack_tp``s it to 2 (the JAX CLI's
+    route for a checkpoint packed for another degree).  5b's six greedy
+    requests x 32 tokens in one wave, held to 5u's tp = 1 yardstick
+    (``base``, its tokens ``want``) under the near-tie rule; then a seeded
+    sampled streamed request (equal to its unstreamed run), a request
+    admitted while a streamed one runs (both held to the yardstick), a
+    stream closed after its first event (``/metrics`` ``cancelled``), one
+    request after those; one 32-token request's round trip (median of 3)
+    beside 5v's dp = 2 x tp = 2 ``generate`` of the six, with the control
+    channel's polls and its share of the round trip's waves.  Then SIGTERM:
+    the CLI exits 0 and no rank process is left."""
+    import os
+    import re
+    import signal
+    import threading
+
+    argv = [sys.executable, "-m", "nf4_tpu_torch.serve", "--packed", path, "--tp", "2", "--dp", "2",
+            "--dist-backend", "gloo", "--batch-size", "4", "--port", "0", "--eos", "-1",
+            "--batch-window", str(CLI_WINDOW)]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(argv, stderr=subprocess.PIPE, text=True, start_new_session=True)
+    log = []
+    try:
+        port = None
+        while port is None:
+            line = proc.stderr.readline()
+            if not line:
+                raise RuntimeError(f"5x: the CLI exited ({proc.wait()}) before serving: {''.join(log)[-3000:]}")
+            log.append(line)
+            m = re.search(r"serving on http://[^:]+:(\d+)", line)
+            port = int(m.group(1)) if m else None
+        threading.Thread(target=lambda: log.extend(proc.stderr), daemon=True).start()
+        start_s = time.perf_counter() - t0
+        children = [int(p) for p in subprocess.run(["pgrep", "-P", str(proc.pid)], capture_output=True,
+                                                   text=True).stdout.split()]
+        check(len(children) == 3, f"5x: {len(children)} rank processes")
+        check(any("repacked tp_shards -> 2" in ln for ln in log), f"5x: no repack: {log}")
+        results = {}
+
+        def send(i, **fields):
+            results[i] = http_post(port, dict(prompt=prompts[i], max_tokens=32, **fields))
+
+        t1 = time.perf_counter()
+        threads = [threading.Thread(target=send, args=(i,)) for i in range(len(prompts))]
+        for t in threads:  # arrival order = queue order = the yardstick's prompt order
+            t.start()
+            time.sleep(0.05)
+        for t in threads:
+            t.join(timeout=600)
+        wave_s = time.perf_counter() - t1
+        check(all(results[i][0] == 200 for i in range(len(prompts))), f"5x: {results}")
+        got = [types.SimpleNamespace(prompt=w.prompt, tokens=results[i][1]["choices"][0]["tokens"])
+               for i, w in enumerate(want)]
+        diffs = tokens_held("5x CLI dp = 2 x tp = 2 against tp = 1", base, got, want)
+        check(metrics(port)["waves_total"] == 1, "5x: the six requests were not one wave")
+
+        seeded = dict(prompt=prompts[2], max_tokens=32, temperature=0.8, top_p=0.95, top_k=50, seed=7)
+        code, streamed = http_post(port, dict(seeded, stream=True))
+        code2, again = http_post(port, seeded)
+        check(code == code2 == 200 and streamed == again["choices"][0]["tokens"] and len(streamed) == 32,
+              f"5x: the seeded streamed request differs from its unstreamed run: {streamed} / {again}")
+
+        admitted0 = metrics(port)["admitted_total"]
+        late = threading.Thread(target=send, args=(3,))
+        a_tokens = stream_and_hang_up(port, dict(prompt=prompts[1], max_tokens=32, stream=True), late.start,
+                                      close=False)
+        late.join(timeout=600)
+        check(metrics(port)["admitted_total"] == admitted0 + 1, "5x: the second request was not admitted mid-call")
+        mid = [types.SimpleNamespace(prompt=prompts[1], tokens=a_tokens),
+               types.SimpleNamespace(prompt=prompts[3], tokens=results[3][1]["choices"][0]["tokens"])]
+        diffs_mid = tokens_held("5x admitted mid-call against tp = 1", base, mid, [want[1], want[3]])
+
+        stream_and_hang_up(port, dict(prompt=prompts[4], max_tokens=32, stream=True), lambda: None)
+        end = time.monotonic() + 120
+        while metrics(port)["cancelled_total"] < 1 and time.monotonic() < end:
+            time.sleep(0.05)
+        check(metrics(port)["cancelled_total"] == 1, "5x: the closed stream was not cancelled")
+        send(5)
+        check(results[5][0] == 200, f"5x: the request after the cancel: {results[5]}")
+        tokens_held("5x after the cancel against tp = 1", base,
+                    [types.SimpleNamespace(prompt=prompts[5], tokens=results[5][1]["choices"][0]["tokens"])],
+                    [want[5]])
+
+        one = dict(prompt=prompts[1], max_tokens=32)
+        before, runs = metrics(port), []
+        for _ in range(3):
+            t1 = time.perf_counter()
+            code, _ = http_post(port, one)
+            runs.append(time.perf_counter() - t1)
+            check(code == 200, "5x round trip")
+        after = metrics(port)
+        delta = {k: after[k] - before[k] for k in ("channel_waves_total", "channel_polls_total",
+                                                   "channel_seconds_total", "channel_generate_seconds_total")}
+        check(after["channel_waves_total"] == after["waves_total"] and delta["channel_waves_total"] == 3,
+              f"5x: channel {after}")
+        share = delta["channel_seconds_total"] / delta["channel_generate_seconds_total"]
+        polls_per_step = delta["channel_polls_total"] / (3 * 31)  # 31 decode steps after each prefill
+    except BaseException:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+        raise
+    proc.send_signal(signal.SIGTERM)
+    rc = proc.wait(timeout=300)
+    check(rc == 0, f"5x: the CLI exited {rc}: {''.join(log)[-3000:]}")
+    end = time.monotonic() + 60
+    while any(os.path.exists(f"/proc/{c}") for c in children) and time.monotonic() < end:
+        time.sleep(0.2)
+    left = [c for c in children if os.path.exists(f"/proc/{c}")]
+    if left:
+        os.killpg(proc.pid, signal.SIGKILL)
+    check(not left, f"5x: rank processes {left} outlived the CLI")
+    rt = sorted(runs)[1]
+    dp_gen = dp_runs["5v dp=2 x tp=2"]["generate_s"]
+    print(f"phase 5x the serving CLI over ranks (dp 2 x tp 2, gloo on this card, eager): serving {start_s:.1f} s after "
+          f"its start; 5b's six requests x 32 tokens in one wave in {wave_s:.2f} s, {len(want) - len(diffs)} of "
+          f"{len(want)} equal tp = 1's (the rest at near-ties); seeded streamed = unstreamed; admitted mid-call "
+          f"and its stream held ({len(diffs_mid)} near-ties); closed stream cancelled; one 32-token request's "
+          f"round trip {rt * 1e3:.1f} ms (median of {[round(t * 1e3, 1) for t in runs]}), 5v's dp 2 x tp 2 generate "
+          f"of the six {dp_gen * 1e3:.1f} ms; control channel {delta['channel_polls_total'] / 3:.0f} polls and 1 wave "
+          f"per request ({polls_per_step:.2f} per decode step), {delta['channel_seconds_total'] / 3 * 1e3:.2f} "
+          f"ms per request = {share:.2%} of its waves' time; SIGTERM: exit 0, no rank left; on {card_line()}")
+    return dict(start_s=start_s, wave_s=wave_s, diffs=diffs, round_trip_s=rt, round_trips_s=runs,
+                dp_generate_s=dp_gen, channel=delta, channel_share=share, polls_per_step=polls_per_step)
 
 
 def phase_sp_prefill(ranks, path) -> dict:
@@ -3692,6 +3977,8 @@ def main() -> int:
 
     prompts = [list(map(int, rng.integers(0, LLAMA3_8B.vocab_size, n))) for n in (1024, 37, 300, 64, 700, 9)]
     lap("5a")
+    flags = phase_backend_flags(gen, dev, prompts)
+    lap("3f")
     l70_counts, llama70b = phase_llama70b_serving(prompts, args.profile)
     free_memory()
     lap("5t")
@@ -3714,7 +4001,7 @@ def main() -> int:
     lap("5d (with 5n, 5p and 5r int8)")
     # 7 examples of 60-200 tokens that pack into 2 x 512 slots (97.8% full).
     examples = sft_examples(np.random.default_rng(0), LLAMA3_8B.vocab_size, 7, 60, 200)
-    tp_runs, tp_serving, dp_runs, sp_runs, train_runs = phase_ranks(prompts, examples, lap)
+    tp_runs, tp_serving, dp_runs, sp_runs, train_runs, cli_ranks = phase_ranks(prompts, examples, lap)
     free_memory()
     phase_checkpoint(dev, rng)
     qwen_counts, serving_qwen = phase_qwen2_serving(prompts, args.profile)
@@ -3871,7 +4158,8 @@ def main() -> int:
                            qwen3_30b_a3b=qwen3_moe, hf_checkpoint=hf_ckpt, score_prefix=score_prefix,
                            quality_gate=gate, multi_lora=multi_lora, train_families=families, phase_seconds=laps,
                            tensor_parallel=dict(tp_serving, runs=tp_runs), data_parallel=dp_runs,
-                           sequence_parallel=sp_runs, rank_training=train_runs,
+                           sequence_parallel=sp_runs, rank_training=train_runs, cli_ranks=cli_ranks,
+                           backend_flags=flags,
                            training_bf16=train16, training_fp32=train32, kernels=kernels), f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -6,7 +6,8 @@ The sections, in order:
 
 1. Environment: Python, torch, CUDA, ``nvcc`` and ``g++`` versions; the
    card's name and power limit (``nvidia-smi``); free and total memory; the
-   port's environment flag (``NF4TPU_NATIVE``).
+   port's environment flags (``NF4TPU_BACKEND``, ``NF4TPU_MATMUL_TILE``,
+   ``NF4TPU_COLLECTIVE_MATMUL``, ``NF4TPU_NATIVE``; ``utils/env.py``).
 2. Kernel build smoke: ``ops._cuda.build()`` (one ``nvcc`` per source, in
    parallel), its first call's time against a cached call's, and kernel A's
    first launch against a steady-state launch.
@@ -14,11 +15,18 @@ The sections, in order:
    version and the NumPy oracle, bit for bit, NF4 and FP4; kernel F
    (``dequantize_fast``) bit for bit against its plain version and within
    1.1e-2 of the oracle; each kernel's time beside its plain version's
-   (CUDA events).
+   (CUDA events); then ``dequantize`` under ``NF4TPU_BACKEND=jnp`` and
+   ``pallas``, each bit for bit against the oracle and timed by
+   ``utils.timing.measure_chained_s`` (``run_diagnostics.py``'s backend
+   comparison).
 4. Routes: the ``device="cpu"`` route gives the oracle's bytes (and the
    card's, where there is one), the C++ host quantizer too; an entry
    point that defaults to CUDA raises when no card is present rather than
-   running on the CPU; an invalid ``NF4TPU_NATIVE`` is rejected.
+   running on the CPU; an invalid ``NF4TPU_NATIVE`` is rejected.  The
+   backend fallback: ``NF4TPU_BACKEND=jnp`` is honoured (the identity
+   dequantizes through the plain path, on the card where there is one,
+   launching no kernel), an invalid value is rejected, and ``pallas`` on
+   a CPU tensor raises.
 5. Triage: exit code 0 only if every check passed.
 
 A kernel that fails to build or launch raises: nothing here catches it and
@@ -90,7 +98,8 @@ def env_report():
         print(f"  memory:  {free / 2**30:.2f} GiB free of {total / 2**30:.2f} GiB")
     else:
         print("  card:    none (torch.cuda.is_available() is False)")
-    print(f"  NF4TPU_NATIVE = {os.environ.get('NF4TPU_NATIVE', '<unset>')}")
+    for var in ("NF4TPU_BACKEND", "NF4TPU_MATMUL_TILE", "NF4TPU_COLLECTIVE_MATMUL", "NF4TPU_NATIVE"):
+        print(f"  {var} = {os.environ.get(var, '<unset>')}")
     check(True, "environment readable")
 
 
@@ -177,6 +186,29 @@ def dequant_check():
             fast_plain_ms = _event_ms(lambda: _bf16_weight_t(pw.packed, pw.scales, qt))
             print(f"  kernel A {ms:.4f} ms, plain {plain_ms:.4f} ms; kernel F {fast_ms:.4f} ms, plain "
                   f"{fast_plain_ms:.4f} ms (eager calls, CUDA events)")
+            backend_timing(pw, oracle)
+
+
+def backend_timing(pw, oracle):
+    """``dequantize`` of the same weight under ``NF4TPU_BACKEND=jnp`` (the
+    plain version on the card) and ``pallas`` (kernel A): bit for bit
+    against the oracle, each timed by ``measure_chained_s`` (chained calls
+    folded into a scalar carry, the marginal of 25 over 5 calls)."""
+    from . import dequantize
+    from .utils.timing import measure_chained_s
+
+    medians = {}
+    for name in ("jnp", "pallas"):
+        with _env("NF4TPU_BACKEND", name):
+            got = dequantize(pw)
+            check(torch.equal(got.cpu().view(torch.int16), oracle.view(torch.int16)),
+                  f"NF4TPU_BACKEND={name}: bit-exact vs the oracle")
+            stats = measure_chained_s(lambda c: c + dequantize(pw)[0, 0].float() * 1e-30,
+                                      torch.zeros((), device=pw.packed.device), n1=5, n2=25, repeats=3)
+        medians[name] = stats.median
+        print(f"  NF4TPU_BACKEND={name}: {stats}")
+    ratio = medians["jnp"] / max(medians["pallas"], 1e-12)
+    check(ratio > 0.1, f"kernel A within 10x of the plain version ({ratio:.2f}x speedup)")
 
 
 @contextlib.contextmanager
@@ -204,7 +236,7 @@ def _no_card():
 
 
 def backend_check():
-    section("Routes: device='cpu', the C++ host quantizer, no card, NF4TPU_NATIVE")
+    section("Routes: device='cpu', the C++ host quantizer, no card, NF4TPU_NATIVE, NF4TPU_BACKEND")
     from . import dequantize, quantize_for_tpu
     from .nf4 import native
     from .nf4.reference import dequantize_nf4, quantize_nf4
@@ -235,6 +267,38 @@ def backend_check():
             check(False, "invalid NF4TPU_NATIVE rejected")
         except ValueError:
             check(True, "invalid NF4TPU_NATIVE rejected")
+    fallback_check()
+
+
+def fallback_check():
+    """``NF4TPU_BACKEND``: ``jnp`` honoured, an invalid value rejected,
+    ``pallas`` on a CPU tensor refused (``run_diagnostics.py``'s fallback
+    check)."""
+    from . import dequantize, quantize_for_tpu
+    from .ops import _cuda
+    from .utils import env
+
+    dev = "cuda" if torch.cuda.is_available() else "cpu"
+    w = np.eye(128, 128, dtype=np.float32)
+    with _env("NF4TPU_BACKEND", "jnp"):
+        check(env.backend() == "jnp", "env.backend() honours NF4TPU_BACKEND=jnp")
+        pw = quantize_for_tpu(w, method="oracle", device=dev)
+        _cuda.reset_launch_counts()
+        out = dequantize(pw, torch.float32).cpu().numpy()
+        check(bool(np.allclose(out, np.eye(128), atol=1e-6)) and not any(_cuda.launch_counts().values()),
+              f"NF4TPU_BACKEND=jnp dequantizes the identity through the plain path on {dev}, no kernel launched")
+    with _env("NF4TPU_BACKEND", "bogus"):
+        try:
+            env.backend()
+            check(False, "invalid NF4TPU_BACKEND rejected")
+        except ValueError:
+            check(True, "invalid NF4TPU_BACKEND rejected")
+    with _env("NF4TPU_BACKEND", "pallas"):
+        try:
+            dequantize(quantize_for_tpu(w, method="oracle", device="cpu"))
+            check(False, "NF4TPU_BACKEND=pallas on a CPU tensor raises")
+        except RuntimeError as e:
+            check("NF4TPU_BACKEND=pallas" in str(e), "NF4TPU_BACKEND=pallas on a CPU tensor raises")
 
 
 def triage():

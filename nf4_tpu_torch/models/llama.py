@@ -53,7 +53,6 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-import os
 from typing import List, Optional, Tuple, Union
 
 import numpy as np
@@ -66,6 +65,7 @@ from ..ops.attention import _softcap, attention
 from ..ops.int8_serve import PackedInt8, int8_matmul, recode_int8_weight
 from ..ops.matmul import _ieee_fp32, nf4_matmul
 from ..utils.device import resolve_device
+from ..utils.env import collective_chunks
 
 __all__ = [
     "LlamaConfig",
@@ -800,22 +800,6 @@ def _col_chunks(w: Weight, nchunks: int) -> Optional[list]:
     if m % nchunks:
         return None
     return [w[..., c * (m // nchunks) : (c + 1) * (m // nchunks), :] for c in range(nchunks)]
-
-
-def collective_chunks() -> int:
-    """``NF4TPU_COLLECTIVE_MATMUL`` (the JAX package's flag): compute each
-    row-parallel projection in this many chunks of output columns, each
-    reduced on its own as soon as it is computed (a collective matmul, so
-    chunk c's reduction can overlap chunk c+1's product); 0 or unset is one
-    reduction.  It changes no value: each element sees the same sum."""
-    raw = os.environ.get("NF4TPU_COLLECTIVE_MATMUL", "0")
-    try:
-        n = int(raw)
-    except ValueError:
-        raise ValueError(f"NF4TPU_COLLECTIVE_MATMUL={raw!r}; expected an integer chunk count") from None
-    if n < 0:
-        raise ValueError(f"NF4TPU_COLLECTIVE_MATMUL={n} must be >= 0")
-    return n
 
 
 def _reduced_matmul(x: torch.Tensor, w: Weight, reduce_fn, out_dtype=None, decode: bool = False) -> torch.Tensor:

@@ -11,9 +11,12 @@ weights: q/k/v biases (``attn_bias``) normal with std 0.02, as the JAX
 package's ``init_params`` draws them; q/k head norms (``qk_norm``) and
 Gemma-2/3's output norms 1 + normal with std 0.1; the MoE router normal
 with std hidden^-0.5, as ``init_params`` draws it.  The final norm is 1 +
-normal with std 0.1 too, drawn last, so an ignored field shows.  The
-outputs are not a language model's; use them to drive and time the
-serving path.
+normal with std 0.1 too, drawn last, so an ignored field shows.  With
+``tp_shards > 1`` the row-parallel weights (``wo``, ``w_down``; an expert
+``w_down`` in "tensor" mode) are packed in that many K chunks, each padded
+on its own, so the params serve over a mesh of that tensor-parallel
+degree (random bytes need no interleave).  The outputs are not a language
+model's; use them to drive and time the serving path.
 """
 
 from __future__ import annotations
@@ -42,18 +45,20 @@ def synthetic_params(cfg: LlamaConfig, seed: int = 0, device=None) -> LlamaParam
     gen.manual_seed(seed)
     experts = cfg.num_experts if cfg.num_experts > 1 else None
 
-    def weight(m, n, e: Optional[int] = None):
-        """A projection [m, n]; with ``e``, ``e`` of them stacked."""
+    def weight(m, n, e: Optional[int] = None, shards: int = 1):
+        """A projection [m, n]; with ``e``, ``e`` of them stacked; its K in
+        ``shards`` chunks."""
         lead = () if e is None else (e,)
         if not cfg.quantize:
             return (torch.randn(lead + (m, n), generator=gen, device=dev) * n**-0.5).to(cfg.dtype)
-        m_pad, n_pad = pad_to(m, 128), pad_to(n, 1024)
+        m_pad, n_pad = pad_to(m, 128), shards * pad_to(n // shards, 1024)
         return PackedNF4(
             packed=torch.randint(0, 256, lead + (n_pad // 2, m_pad), generator=gen, device=dev, dtype=torch.uint8),
             scales=torch.empty(lead + (n_pad // NF4_BLOCK, m_pad), device=dev).uniform_(0.001, 0.02, generator=gen),
             shape=(m, n),
             padded_shape=(m_pad, n_pad),
             dtype=cfg.dtype,
+            shards=shards,
             quant_type=cfg.quant_type,
         )
 
@@ -82,9 +87,9 @@ def synthetic_params(cfg: LlamaConfig, seed: int = 0, device=None) -> LlamaParam
     layers = [
         LayerParams(
             wqkv=weight(cfg.q_dim + 2 * cfg.kv_dim, h),
-            wo=weight(h, cfg.q_dim),
+            wo=weight(h, cfg.q_dim, shards=cfg.tp_shards),
             w_gateup=weight(2 * inter, h, experts),
-            w_down=weight(h, inter, experts),
+            w_down=weight(h, inter, experts, cfg.moe_groups if experts else cfg.tp_shards),
             input_norm=torch.ones(h, device=dev),
             post_attn_norm=torch.ones(h, device=dev),
             **vectors(),

@@ -18,7 +18,9 @@ in serving), and probabilities round to it before the P.V product.
   skips key chunks a query chunk cannot see (bounded memory for long
   prefills where the kernel does not apply).
 * ``flash_attention`` runs the hand-written kernel ``csrc/flash_attn.cu``
-  on CUDA tensors and its plain version :func:`_flash_plain` on CPU ones.
+  on CUDA tensors and its plain version :func:`_flash_plain` on CPU ones
+  (``NF4TPU_BACKEND``, ``utils/env.py``: under ``jnp`` the dispatcher
+  takes the plain paths on the card too, as the JAX package's does).
   Its shape contract is the TPU kernel's: head size D = 64 or any multiple
   of 128, any GQA group G = H / KV, any S and T (ragged edges masked in
   the kernel).  A 64-row query tile packs sc = floor(64 / G) positions of
@@ -56,6 +58,7 @@ from typing import Optional
 
 import torch
 
+from ..utils import env
 from ._cuda import Kernel
 
 __all__ = ["attention", "naive_attention", "decode_attention", "chunked_attention", "flash_attention"]
@@ -323,7 +326,7 @@ def flash_attention(
     """Prefill flash attention; ``positions[b]`` MUST be ``pos0_b + arange(S)``."""
     if (k_scale is None) != (v_scale is None):
         raise ValueError("int8 KV needs both k_scale and v_scale")
-    fn = _flash_kernel if q.is_cuda else _flash_plain
+    fn = _flash_kernel if env.use_kernel(q) else _flash_plain
     return fn(q, k, v, positions[:, 0], seq_lens, scale, sliding_window, k_scale, v_scale)
 
 
@@ -334,10 +337,11 @@ _CHUNKED_MIN_SCORE_ELEMS = 1 << 27
 
 
 def _flash_eligible(q, s: int, d: int) -> bool:
-    """Kernel C applies: a CUDA bf16 tensor, a head size the kernel takes
-    (D = 64 or any multiple of 128, the TPU kernel's condition; any GQA
-    group) and enough rows."""
-    return q.is_cuda and q.dtype == torch.bfloat16 and _flash_head_dim(d) and s >= 256
+    """Kernel C applies: the kernel backend for ``q``'s device (``auto``: a
+    CUDA tensor; ``utils/env.py``), a bf16 tensor, a head size the kernel
+    takes (D = 64 or any multiple of 128, the TPU kernel's condition; any
+    GQA group) and enough rows."""
+    return env.backend(q.device) == "pallas" and q.dtype == torch.bfloat16 and _flash_head_dim(d) and s >= 256
 
 
 def attention(

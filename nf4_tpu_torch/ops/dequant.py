@@ -8,7 +8,9 @@ are bit-exact against the NumPy oracle for NF4 and FP4 and for bf16, fp16
 and fp32 outputs.
 
 On a CUDA tensor the hand-written kernel ``csrc/dequant.cu`` runs; on a CPU
-tensor its plain PyTorch version, :func:`_dequant_t_plain`.
+tensor its plain PyTorch version, :func:`_dequant_t_plain`
+(``NF4TPU_BACKEND``, ``utils/env.py``: ``jnp`` the plain versions on the
+card too, ``pallas`` the kernels, raising on a CPU tensor).
 
 ``dequantize_fast`` / ``dequantize_t_fast`` decode through kernel B's byte
 table into bf16 (``csrc/dequant.cu``'s second entry point): each value is
@@ -25,6 +27,7 @@ import torch
 
 from ..nf4.format import PackedNF4, chunk_views
 from ..nf4.reference import NF4_BLOCK
+from ..utils import env
 from ._cuda import Kernel
 from .lut_eval import byte_word_table, code_tensor, nf4_lookup
 
@@ -109,12 +112,12 @@ def _logical_t(pw: PackedNF4, padded_fn) -> torch.Tensor:
 
 
 def _exact_padded(pw: PackedNF4, dtype) -> torch.Tensor:
-    fn = _dequant_t_kernel if pw.packed.is_cuda else _dequant_t_plain
+    fn = _dequant_t_kernel if env.use_kernel(pw.packed) else _dequant_t_plain
     return fn(pw.packed, pw.scales, dtype, pw.quant_type)
 
 
 def _fast_padded(pw: PackedNF4) -> torch.Tensor:
-    fn = _dequant_t_fast_kernel if pw.packed.is_cuda else _bf16_weight_t
+    fn = _dequant_t_fast_kernel if env.use_kernel(pw.packed) else _bf16_weight_t
     return fn(pw.packed, pw.scales, pw.quant_type)
 
 

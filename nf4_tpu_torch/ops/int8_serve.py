@@ -14,7 +14,9 @@ values ``bf16(int8 * bf16(scale))``, a bf16 product with fp32
 accumulation.  On a CPU tensor the plain version
 :func:`_int8_matmul_plain` computes the same values.  fp32 and fp16
 activations take the JAX package's XLA path (fp32 weights, fp32 product;
-TF32 off), on either device.
+TF32 off), on either device.  ``NF4TPU_BACKEND`` and
+``NF4TPU_MATMUL_TILE`` (``utils/env.py``) act on kernel D as on kernel B
+(``ops/matmul.py``).
 """
 
 from __future__ import annotations
@@ -29,10 +31,12 @@ import torch
 from ..nf4.format import PackedNF4, pad_to
 from ..nf4.lut import get_code
 from ..nf4.reference import NF4_BLOCK
+from ..utils import env
 from ._cuda import Kernel
 from .dequant import _OUT_KIND
 from .matmul import (
-    _DECODE_ROWS, _decode_ksplit, _decode_tiles, _pick_bm, _prefill_ksplit, _prefill_rows, _tile_counters,
+    _DECODE_ROWS, _decode_ksplit, _decode_tiles, _prefill_ksplit, _prefill_layouts, _prefill_rows, _row_unit,
+    _tile_counters, _tile_plan,
 )
 
 __all__ = ["PackedInt8", "recode_int8_weight", "int8_matmul"]
@@ -151,7 +155,7 @@ def _int8_matmul_kernel(x_pad, values, scales, out_dtype, rows=None) -> torch.Te
     if out_dtype not in _OUT_KIND:
         raise TypeError(f"output dtype {out_dtype} not in {list(_OUT_KIND)}")
     m_pad = values.shape[1]
-    bm = _pick_bm(b_pad)
+    bm = _row_unit(b_pad)
     if values.shape[0] != n_pad or n_pad % NF4_BLOCK or m_pad % 128 or b_pad % bm:
         raise ValueError(f"bad shapes: x {tuple(x_pad.shape)}, values {tuple(values.shape)}")
     if scales.shape != (n_pad // NF4_BLOCK, m_pad):
@@ -161,11 +165,15 @@ def _int8_matmul_kernel(x_pad, values, scales, out_dtype, rows=None) -> torch.Te
     if not (x_pad.device == values.device == scales.device):
         raise ValueError("operands on different devices")
     dev = x_pad.device
+    tile = env.matmul_tile_override()
+    if tile is not None:
+        bm, ksplit = _tile_plan("kernel D", tile, n_pad, m_pad, dev, _D_DECODE, _prefill_layouts(m_pad), NF4_BLOCK)
     counters = None
     if bm == _DECODE_ROWS:
-        ksplit = _decode_ksplit(b_pad, m_pad, n_pad // NF4_BLOCK, dev, _D_DECODE)
+        if tile is None:
+            ksplit = _decode_ksplit(b_pad, m_pad, n_pad // NF4_BLOCK, dev, _D_DECODE)
         counters = _tile_counters(dev, _decode_tiles(b_pad, m_pad, dev, _D_DECODE)).data_ptr()
-    else:
+    elif tile is None:
         bm = rows or _prefill_rows(b_pad, m_pad)
         ksplit = _prefill_ksplit(m_pad, n_pad // NF4_BLOCK, dev)
     return _launch_d(x_pad, values, scales, out_dtype, bm, counters, ksplit)
@@ -198,7 +206,8 @@ def int8_matmul(x: torch.Tensor, p8: PackedInt8, out_dtype=None, prefill: bool =
     for d in batch:
         B *= d
     x2 = x.reshape(B, n)
-    b_pad = pad_to(max(B, 1), _pick_bm(B, prefill) if x2.is_cuda else 16)
+    kernel = x2.dtype == torch.bfloat16 and env.use_kernel(x2)
+    b_pad = pad_to(max(B, 1), _row_unit(B, prefill) if kernel else 16)
     if n_pad != n:
         # Pad per K chunk: each chunk's rows are padded on their own.
         s = p8.shards
@@ -208,6 +217,6 @@ def int8_matmul(x: torch.Tensor, p8: PackedInt8, out_dtype=None, prefill: bool =
     if x2.dtype != torch.bfloat16:
         fn = _int8_matmul_exact
     else:
-        fn = _int8_matmul_kernel if x2.is_cuda else _int8_matmul_plain
+        fn = _int8_matmul_kernel if kernel else _int8_matmul_plain
     y = fn(x2.contiguous(), p8.values, p8.scales, out_dtype)
     return y[:B, :m].reshape(*batch, m)

@@ -18,6 +18,13 @@ packed weight is frozen (the QLoRA contract), so only ``x`` gets a
 gradient, ``dx = g @ W`` with W dequantized exactly to fp32 (kernel A on
 CUDA) and a true fp32 product, cast to ``x``'s dtype.  Nothing but the
 packed weight is kept for the backward.
+
+``NF4TPU_BACKEND`` (``utils/env.py``, read at every call) may force the
+plain versions on the card (``jnp``) or the kernels everywhere
+(``pallas``, which raises on a CPU tensor); a CUDA graph keeps the choice
+in force when it was captured.  ``NF4TPU_MATMUL_TILE=bm,bks,bo`` sets the
+block layout and the K split of kernels B and E (and D's, in
+``ops/int8_serve.py``): :func:`_tile_plan`.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import torch
 
 from ..nf4.format import PackedNF4, chunk_views, pad_to
 from ..nf4.reference import NF4_BLOCK
+from ..utils import env
 from . import _cuda
 from ._cuda import Kernel
 from .dequant import _OUT_KIND, _bf16_weight_t, _dequant_t_plain, dequantize_t
@@ -82,6 +90,43 @@ def _pick_bm(b: int, prefill: bool = False) -> int:
     rows (``prefill``) always take the prefill kernel, so a prompt of 16
     tokens alone is summed as it is beside others."""
     return 16 if b <= 16 and not prefill else 64
+
+
+def _row_unit(b: int, prefill: bool = False) -> int:
+    """The multiple a kernel's batch rows are padded to: :func:`_pick_bm`'s,
+    or under ``NF4TPU_MATMUL_TILE`` its decode kernel's 16 rows or its
+    prefill kernel's 64 (the prefill blocks mask their ragged last tile)."""
+    tile = env.matmul_tile_override()
+    if tile is None:
+        return _pick_bm(b, prefill)
+    return _DECODE_ROWS if tile[0] == _DECODE_ROWS else 64
+
+
+def _prefill_layouts(m_pad: int) -> dict:
+    """Kernel B's and D's prefill layouts for ``m_pad`` output columns: block
+    rows -> block columns (128 x 256 needs m_pad a multiple of 256)."""
+    return {r: c for r, c in _PREFILL_COLS.items() if m_pad % c == 0}
+
+
+def _tile_plan(label: str, tile, n_pad: int, m_pad: int, device, query, layouts: dict, prefill_step: int) -> tuple:
+    """``NF4TPU_MATMUL_TILE``'s ``(bm, bks, bo)`` mapped onto what a kernel's
+    built code takes: ``(block rows, K split)``.  ``bm`` 16 is the decode
+    kernel, whose ``bo`` is its columns (``query``'s shape query); a
+    prefill ``bm`` is one of ``layouts`` (block rows -> columns), ``bo``
+    its columns.  ``bks`` K rows per split: a multiple of the layout's K
+    step (64 rows at decode, ``prefill_step`` at prefill) that divides
+    ``n_pad``, the K split ``n_pad / bks`` (a function of the weight only,
+    as the default split is).  Any other triple raises, naming those the
+    kernel takes."""
+    bm, bks, bo = tile
+    cols = {_DECODE_ROWS: _decode_shape(device, query)[0], **layouts}
+    step = NF4_BLOCK if bm == _DECODE_ROWS else prefill_step
+    if cols.get(bm) != bo or bks < step or bks % step or n_pad % bks:
+        have = ", ".join(f"{r},bks,{c}" for r, c in cols.items())
+        raise ValueError(f"NF4TPU_MATMUL_TILE={bm},{bks},{bo}: {label} at n_pad {n_pad}, m_pad {m_pad} takes {have} "
+                         f"with bks a multiple of {NF4_BLOCK} (bm {_DECODE_ROWS}) or {prefill_step} (the prefill "
+                         f"layouts) that divides n_pad")
+    return bm, n_pad // bks
 
 
 def _even_splits(nkb: int, ksplit: int) -> int:
@@ -191,12 +236,12 @@ _EXACT_ROWS, _EXACT_KS = 128, 32
 
 def _check_operands(label, x_pad, packed, scales, out_dtype) -> int:
     """The shape, layout and device checks kernels B and E share; returns
-    the batch rows per block."""
+    the batch rows per block (the multiple the rows are padded to)."""
     b_pad, n_pad = x_pad.shape
     khalf, m_pad = packed.shape
     if out_dtype not in _OUT_KIND:
         raise TypeError(f"output dtype {out_dtype} not in {list(_OUT_KIND)}")
-    bm = _pick_bm(b_pad)
+    bm = _row_unit(b_pad)
     if n_pad != 2 * khalf or n_pad % NF4_BLOCK or m_pad % 128 or b_pad % bm:
         raise ValueError(f"bad shapes: x {tuple(x_pad.shape)}, packed {tuple(packed.shape)}")
     if scales.shape != (n_pad // NF4_BLOCK, m_pad):
@@ -237,13 +282,18 @@ def _matmul_bf16_kernel(x_pad, packed, scales, out_dtype, quant_type="nf4", rows
     bm = _check_operands("kernel B", x_pad, packed, scales, out_dtype)
     table = byte_word_table(quant_type, x_pad.device)
     (b_pad, n_pad), m_pad = x_pad.shape, packed.shape[1]
+    tile = env.matmul_tile_override()
+    if tile is not None:
+        bm, ksplit = _tile_plan("kernel B", tile, n_pad, m_pad, x_pad.device, _B_DECODE,
+                                _prefill_layouts(m_pad), NF4_BLOCK)
+    counters = None
     if bm == _DECODE_ROWS:
-        ksplit = _decode_ksplit(b_pad, m_pad, n_pad // NF4_BLOCK, x_pad.device)
+        if tile is None:
+            ksplit = _decode_ksplit(b_pad, m_pad, n_pad // NF4_BLOCK, x_pad.device)
         counters = _tile_counters(x_pad.device, _decode_tiles(b_pad, m_pad, x_pad.device)).data_ptr()
-    else:
+    elif tile is None:
         bm = rows or _prefill_rows(b_pad, m_pad)
         ksplit = _prefill_ksplit(m_pad, n_pad // NF4_BLOCK, x_pad.device)
-        counters = None
     return _launch(_KERNEL, x_pad, packed, scales, out_dtype, bm, table.data_ptr(), counters, ksplit=ksplit)
 
 
@@ -259,14 +309,20 @@ def _matmul_exact_kernel(x_pad, packed, scales, out_dtype, quant_type="nf4") -> 
         x_pad = x_pad.clone()
     code = code_tensor(quant_type, x_pad.device)
     (b_pad, n_pad), m_pad = x_pad.shape, packed.shape[1]
+    tile = env.matmul_tile_override()
+    if tile is not None:
+        bm, ksplit = _tile_plan("kernel E", tile, n_pad, m_pad, x_pad.device, _E_DECODE,
+                                {_EXACT_ROWS: 128}, _EXACT_KS)
     if bm == _DECODE_ROWS:
-        ksplit = _decode_ksplit(b_pad, m_pad, n_pad // NF4_BLOCK, x_pad.device, _E_DECODE)
+        if tile is None:
+            ksplit = _decode_ksplit(b_pad, m_pad, n_pad // NF4_BLOCK, x_pad.device, _E_DECODE)
         counters = _tile_counters(x_pad.device, _decode_tiles(b_pad, m_pad, x_pad.device, _E_DECODE)).data_ptr()
         return _launch(_EXACT_KERNEL, x_pad, packed, scales, out_dtype, bm, code.data_ptr(),
                        _X_KIND[x_pad.dtype], None, counters, ksplit=ksplit)
     halves = 2 if x_pad.dtype == torch.float32 else 1  # x_hi and x_lo; fp16 x is exact in tf32
     xsplit = torch.empty((halves, b_pad, n_pad), dtype=torch.float32, device=x_pad.device)
-    ksplit = _wave_ksplit(-(-b_pad // _EXACT_ROWS) * (m_pad // 128), n_pad // _EXACT_KS, x_pad.device)
+    if tile is None:
+        ksplit = _wave_ksplit(-(-b_pad // _EXACT_ROWS) * (m_pad // 128), n_pad // _EXACT_KS, x_pad.device)
     return _launch(_EXACT_KERNEL, x_pad, packed, scales, out_dtype, _EXACT_ROWS, code.data_ptr(),
                    _X_KIND[x_pad.dtype], xsplit.data_ptr(), None, ksplit=ksplit)
 
@@ -281,13 +337,14 @@ def _nf4_matmul_impl(x: torch.Tensor, pw: PackedNF4, out_dtype, prefill: bool = 
     for d in batch:
         B *= d
     x2 = x.reshape(B, n)
-    b_pad = pad_to(max(B, 1), _pick_bm(B, prefill) if x2.is_cuda else 16)
+    kernel = env.use_kernel(x2)
+    b_pad = pad_to(max(B, 1), _row_unit(B, prefill) if kernel else 16)
     if b_pad != B or n_pad != n:
         x2 = torch.nn.functional.pad(x2, (0, n_pad - n, 0, b_pad - B))
     if x2.dtype == torch.bfloat16:
-        fn = _matmul_bf16_kernel if x2.is_cuda else _matmul_bf16_plain
+        fn = _matmul_bf16_kernel if kernel else _matmul_bf16_plain
     else:
-        fn = _matmul_exact_kernel if x2.is_cuda else _matmul_exact_plain
+        fn = _matmul_exact_kernel if kernel else _matmul_exact_plain
     y = fn(x2.contiguous(), pw.packed, pw.scales, out_dtype, pw.quant_type)
     return y[:B, :m].reshape(*batch, m)
 

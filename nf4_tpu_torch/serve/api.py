@@ -478,6 +478,10 @@ class CompletionServer:
             ("prefix_tokens_saved_total", "counter", eng.prefix_stats.get("tokens_saved", 0)),
             ("batch_slots", "gauge", eng.batch_size),
         ]
+        # Over ranks (serve/ranks.py): the control channel's waves, polls
+        # and seconds, and the seconds its waves took.
+        rows += [(f"channel_{name}_total", "counter", value)
+                 for name, value in getattr(eng, "channel_stats", {}).items()]
         return "".join(f"# TYPE nf4tpu_{name} {kind}\nnf4tpu_{name} {value}\n" for name, kind, value in rows)
 
     # -- lifecycle ----------------------------------------------------------

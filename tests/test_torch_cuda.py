@@ -1506,3 +1506,100 @@ def test_tp4_w_down_local_shape_close(dev, b, prefill, int8):
     torch.cuda.synchronize()
     assert _cuda.launch_counts()[name] == 1 and got.shape == (b, 4096)
     assert ((got - want[:b]).abs().max() / want.abs().max()).item() < 2e-2
+
+
+def _tile_triples(kernel, dev, n_pad, m_pad):
+    """The ``NF4TPU_MATMUL_TILE`` triples kernel B, D or E takes for a weight:
+    each block layout, at K split 1 and at 512-row splits."""
+    from nf4_tpu_torch.ops import matmul as tm
+    from nf4_tpu_torch.ops.int8_serve import _D_DECODE
+
+    query = {"B": tm._B_DECODE, "D": _D_DECODE, "E": tm._E_DECODE}[kernel]
+    layouts = {16: tm._decode_shape(dev, query)[0]}
+    layouts.update({tm._EXACT_ROWS: 128} if kernel == "E" else tm._prefill_layouts(m_pad))
+    return [f"{bm},{bks},{bo}" for bm, bo in layouts.items() for bks in (n_pad, 512)]
+
+
+@pytest.mark.parametrize("kernel", ["B", "D", "E"])
+@pytest.mark.parametrize("b", [4, 300])
+def test_matmul_tile_override_close(dev, monkeypatch, kernel, b):
+    """Every triple kernels B, D and E take, through ``nf4_matmul`` /
+    ``int8_matmul`` at 4 and 300 rows: one launch each, B and D within
+    2e-2 of their plain versions, E within 1e-5 of the largest value."""
+    from nf4_tpu_torch.ops import _cuda
+    from nf4_tpu_torch.ops.int8_serve import _int8_matmul_plain, int8_matmul, recode_int8_weight
+    from nf4_tpu_torch.ops.matmul import _matmul_bf16_plain, _matmul_exact_plain, nf4_matmul
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    pw = _packed(gen, 1024, 4096, dev)
+    x = torch.randn((b, 4096), generator=gen, device=dev)
+    if kernel == "E":
+        name, tol, call = "matmul_exact", 1e-5, lambda: nf4_matmul(x, pw)
+        want = _matmul_exact_plain(x, pw.packed, pw.scales, torch.float32)
+    elif kernel == "B":
+        x = x.to(torch.bfloat16)
+        name, tol, call = "matmul_bf16", 2e-2, lambda: nf4_matmul(x, pw, out_dtype=torch.float32)
+        want = _matmul_bf16_plain(x, pw.packed, pw.scales, torch.float32)
+    else:
+        x, p8 = x.to(torch.bfloat16), recode_int8_weight(pw)
+        name, tol, call = "int8_matmul", 2e-2, lambda: int8_matmul(x, p8, out_dtype=torch.float32)
+        want = _int8_matmul_plain(x, p8.values, p8.scales, torch.float32)
+    for tile in _tile_triples(kernel, dev, 4096, 1024):
+        monkeypatch.setenv("NF4TPU_MATMUL_TILE", tile)
+        _cuda.reset_launch_counts()
+        got = call()
+        torch.cuda.synchronize()
+        assert _cuda.launch_counts()[name] == 1, tile
+        assert ((got - want).abs().max() / want.abs().max()).item() < tol, tile
+    monkeypatch.setenv("NF4TPU_MATMUL_TILE", "32,512,128")
+    with pytest.raises(ValueError, match="NF4TPU_MATMUL_TILE=32,512,128"):
+        call()
+
+
+def test_jnp_backend_launches_no_kernel(dev, monkeypatch):
+    """``NF4TPU_BACKEND=jnp`` on CUDA tensors: every op runs its plain version
+    (no launch), equal to it; ``pallas`` launches the kernels, as ``auto``."""
+    from nf4_tpu_torch import dequantize, dequantize_fast
+    from nf4_tpu_torch.ops import _cuda
+    from nf4_tpu_torch.ops.attention import attention
+    from nf4_tpu_torch.ops.dequant import _bf16_weight_t, _dequant_t_plain
+    from nf4_tpu_torch.ops.int8_serve import _int8_matmul_plain, int8_matmul, recode_int8_weight
+    from nf4_tpu_torch.ops.matmul import _matmul_bf16_plain, _matmul_exact_plain, nf4_matmul
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    pw = _packed(gen, 1024, 4096, dev)
+    p8 = recode_int8_weight(pw)
+    x = torch.randn((20, 4096), generator=gen, device=dev)
+    xb = x.to(torch.bfloat16)
+    # B*H*S*T = 2^27 fp32 scores: kernel C's branch of the dispatcher.
+    q = torch.randn((4, 32, 1024, 128), generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn((4, 8, 1024, 128), generator=gen, device=dev).to(torch.bfloat16)
+    pos, lens = torch.arange(1024, device=dev).expand(4, 1024), torch.full((4,), 1024, device=dev)
+    calls = [
+        lambda: dequantize(pw), lambda: dequantize_fast(pw), lambda: nf4_matmul(xb, pw, out_dtype=torch.float32),
+        lambda: nf4_matmul(x, pw), lambda: int8_matmul(xb, p8, out_dtype=torch.float32),
+        lambda: attention(q, k, k, pos, lens, scale=128**-0.5),
+    ]
+    pad = torch.zeros((32, 4096), device=dev)
+    pad[:20] = x
+    plain = [
+        _dequant_t_plain(pw.packed, pw.scales, torch.bfloat16, "nf4").T, _bf16_weight_t(pw.packed, pw.scales, "nf4").T,
+        _matmul_bf16_plain(pad.to(torch.bfloat16), pw.packed, pw.scales, torch.float32)[:20],
+        _matmul_exact_plain(pad, pw.packed, pw.scales, torch.float32)[:20],
+        _int8_matmul_plain(pad.to(torch.bfloat16), p8.values, p8.scales, torch.float32)[:20],
+    ]
+    monkeypatch.setenv("NF4TPU_BACKEND", "jnp")
+    _cuda.reset_launch_counts()
+    outs = [c() for c in calls]
+    torch.cuda.synchronize()
+    assert not any(_cuda.launch_counts().values()), _cuda.launch_counts()
+    for got, want in zip(outs, plain):
+        assert torch.equal(got, want)
+    for backend in ("auto", "pallas"):
+        monkeypatch.setenv("NF4TPU_BACKEND", backend)
+        _cuda.reset_launch_counts()
+        outs = [c() for c in calls]
+        torch.cuda.synchronize()
+        counts = _cuda.launch_counts()
+        assert all(counts[n] == 1 for n in ("dequant_t", "dequant_t_fast", "matmul_bf16", "matmul_exact",
+                                             "int8_matmul", "flash_attention")), (backend, counts)

@@ -252,9 +252,16 @@ def test_prefix_cache_flag_serves(checkpoint):
 
 @pytest.mark.parametrize("flags, what", [(["--tp", "2"], "--tp"), (["--dp", "2"], "--dp")])
 def test_unported_flags_exit(flags, what):
-    with pytest.raises(SystemExit, match="not ported yet") as e:
-        main(["--model", "tiny-test", "--synthetic", "--port", "0", "--device", "cpu", *flags], block=False)
-    assert what in str(e.value)
+    """What stays single-device over ranks, draft-model speculation, exits
+    with the JAX CLI's message before any rank starts (the CLI over ranks
+    itself: ``tests/test_torch_serve_ranks.py``)."""
+    with pytest.raises(SystemExit, match="draft-model speculation is single-device"):
+        main(["--model", "tiny-test", "--synthetic", "--port", "0", "--device", "cpu", "--spec-k", "3",
+              "--draft-model", "tiny-test", *flags], block=False)
+    with pytest.raises(SystemExit, match="gloo"):
+        main(["--model", "tiny-test", "--synthetic", "--port", "0", "--device", "cpu", "--dist-backend", "nccl",
+              *flags], block=False)
+    assert what in flags
 
 
 def test_weight_source_validation():

@@ -16,7 +16,11 @@ def test_diagnostics_cpu_checks(capsys):
     assert "[FAIL]" not in out
     assert diagnostics.failures == []
     for line in ("torch:", "nvcc:", "g++:", "card:", "NF4TPU_NATIVE", "method='native' gives the oracle's bytes",
-                 "without a card, quantize_for_tpu() (default device cuda) raises", "invalid NF4TPU_NATIVE rejected"):
+                 "without a card, quantize_for_tpu() (default device cuda) raises", "invalid NF4TPU_NATIVE rejected",
+                 "NF4TPU_BACKEND = ", "NF4TPU_MATMUL_TILE = ", "NF4TPU_COLLECTIVE_MATMUL = ",
+                 "env.backend() honours NF4TPU_BACKEND=jnp",
+                 "NF4TPU_BACKEND=jnp dequantizes the identity through the plain path on cpu, no kernel launched",
+                 "invalid NF4TPU_BACKEND rejected", "NF4TPU_BACKEND=pallas on a CPU tensor raises"):
         assert line in out, line
 
 
@@ -38,6 +42,20 @@ def test_diagnostics_reject_an_invalid_native_flag(monkeypatch, capsys):
     diagnostics.failures.clear()
     diagnostics.backend_check()
     assert diagnostics.failures == ["invalid NF4TPU_NATIVE rejected"]
+    capsys.readouterr()
+
+
+def test_diagnostics_reject_an_invalid_backend_flag(monkeypatch, capsys):
+    """The fallback check fails when an invalid NF4TPU_BACKEND is not
+    rejected (a ``backend_choice`` that does not validate)."""
+    import os
+
+    from nf4_tpu_torch.utils import env
+
+    monkeypatch.setattr(env, "backend_choice", lambda: os.environ.get("NF4TPU_BACKEND", "auto"))
+    diagnostics.failures.clear()
+    diagnostics.fallback_check()
+    assert diagnostics.failures == ["invalid NF4TPU_BACKEND rejected"]
     capsys.readouterr()
 
 

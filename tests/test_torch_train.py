@@ -68,12 +68,15 @@ def _pair(rng, shape, shards=1, quant_type="nf4"):
 @pytest.mark.parametrize("xdt", ["fp32", "fp16"])
 def test_exact_plain_matches_jax_exact_kernel(rng, monkeypatch, shape, quant_type, xdt):
     """Kernel E's plain version against ``_matmul_pallas_exact`` in
-    interpret mode (NF4TPU_BACKEND=pallas on the CPU)."""
-    monkeypatch.setenv("NF4TPU_BACKEND", "pallas")
+    interpret mode (NF4TPU_BACKEND=pallas on the CPU, set for the JAX call
+    alone: the port reads the same flag, and under ``pallas`` refuses a
+    CPU tensor)."""
     pj, pt = _pair(rng, shape, quant_type=quant_type)
     x = rng.standard_normal((37, shape[1])).astype(np.float32)
     jdt, tdt = (jnp.float32, torch.float32) if xdt == "fp32" else (jnp.float16, torch.float16)
-    want = np.asarray(nf4_tpu.nf4_matmul(jnp.asarray(x, jdt), pj), np.float32)
+    with monkeypatch.context() as m:
+        m.setenv("NF4TPU_BACKEND", "pallas")
+        want = np.asarray(nf4_tpu.nf4_matmul(jnp.asarray(x, jdt), pj), np.float32)
     got = nf4_tpu_torch.nf4_matmul(torch.from_numpy(x).to(tdt), pt)
     assert got.dtype == tdt and got.shape == (37, shape[0])
     if xdt == "fp32":
