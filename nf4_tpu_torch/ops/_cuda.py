@@ -34,7 +34,7 @@ __all__ = ["Kernel", "KERNELS", "CountedGraph", "build", "launch_counts", "reset
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("dequant", "matmul", "matmul_exact", "int8_matmul", "flash_attn")
+SOURCES = ("dequant", "matmul", "matmul_exact", "int8_matmul", "flash_attn", "mark")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

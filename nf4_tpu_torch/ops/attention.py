@@ -58,7 +58,7 @@ from typing import Optional
 
 import torch
 
-from ..utils import env
+from ..utils import env, trace
 from ._cuda import Kernel
 
 __all__ = ["attention", "naive_attention", "decode_attention", "chunked_attention", "flash_attention"]
@@ -177,11 +177,18 @@ def decode_attention(
     a function of its queries and the cache up to its own positions: it
     does not depend on ``kv_len``, and so not on its batchmates' positions
     or the decode chunk it runs in.  No host read.  The mask's bias is
-    added after the softcap: capped, a masked slot would be visible."""
+    added after the softcap: capped, a masked slot would be visible.
+
+    On CUDA tensors the layer's device markers (``utils/trace.py``) come
+    first and last on the stream, in eager steps and captured graphs
+    alike, so a profiler shows this layer's device time between them.  They
+    belong to the layer, not to its kernels: any later implementation of
+    decode attention (a fused kernel, say) keeps them around itself."""
     b, nh, s, d = q.shape
     nkv, t_max = k.shape[1], k.shape[2]
     if not 1 <= s <= DECODE_MAX_QUERIES:
         raise ValueError(f"decode_attention takes 1 to {DECODE_MAX_QUERIES} queries per row, got S={s}")
+    trace.mark_decode_attn("begin", q)
     kv_len = t_max if kv_len is None else min(kv_len, t_max)
     bk, g = b * nkv, nh // nkv
     qg = q.reshape(bk, g * s, d).float()  # rows (head of the group, position)
@@ -214,7 +221,9 @@ def decode_attention(
             p = p * (v_scale[:, :, t0:t1] * (1.0 / 127.0)).reshape(bk, 1, t1 - t0)
         pv = torch.bmm(p.to(q.dtype).float(), v[:, :, t0:t1].float().reshape(bk, t1 - t0, d))
         o = pv if o is None else o + pv
-    return (o / l).reshape(b, nh, s, d).to(q.dtype)
+    out = (o / l).reshape(b, nh, s, d).to(q.dtype)
+    trace.mark_decode_attn("end", q)
+    return out
 
 
 def chunked_attention(

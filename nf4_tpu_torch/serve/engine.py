@@ -169,6 +169,7 @@ from ..models.llama import (
 )
 from ..ops._cuda import CountedGraph
 from ..ops.attention import DECODE_KV_BLOCK, DECODE_MAX_QUERIES
+from ..utils import trace
 from ..utils.device import resolve_device
 from ..utils.shapes import bucket_len
 from .sampling import BatchedSampling, KeyStream, SamplingParams, sample, sample_batched
@@ -798,6 +799,7 @@ class Decoder:
                      for _ in range(2)]
         self.flip = 0
         self.graphs = {}  # (kv_len, n, ChunkKind | SpecKind | None) -> CountedGraph
+        self.graphed = False  # did a graph replay run the last launch?
         self.pool = torch.cuda.graph_pool_handle() if engine.graph_stream is not None else None
 
     # -- the per-request state -------------------------------------------------
@@ -859,7 +861,7 @@ class Decoder:
         graph replay."""
         self.prepare(kind)
         self._set_inputs(tokens, positions, active, steps)
-        self._execute((kv_len, n, kind), n > 1, lambda: self.run_eager(n, kv_len, kind))
+        self.graphed = self._execute((kv_len, n, kind), n > 1, lambda: self.run_eager(n, kv_len, kind))
         pairs = [("toks", self.toks[:n])]
         if kind is not None:
             pairs.append(("lps", self.lps[:n]))
@@ -878,15 +880,17 @@ class Decoder:
         # still runs a dropped chunk, which this one must follow.
         self.inputs.copy_(torch.from_numpy(host))
 
-    def _execute(self, key, graphed: bool, run) -> None:
+    def _execute(self, key, graphed: bool, run) -> bool:
         """Run a chunk body: on CUDA (``graphed``) the replay of its graph,
-        captured at first use, else ``run()`` eagerly."""
+        captured at first use, else ``run()`` eagerly.  Returns whether a
+        graph ran it."""
         if self.pool is not None and graphed:
             graph = self.graphs.get(key) or self._capture(key, run)
             graph.replay()
             self.stats["replayed"] += 1
-        else:
-            run()
+            return True
+        run()
+        return False
 
     def _hand_off(self, pairs, n: int, kind):
         """Enqueue the copies of a chunk's outputs (host buffer name, device
@@ -997,7 +1001,7 @@ class Decoder:
         (:meth:`run_spec`); inputs and chaining as :meth:`launch`.  On CUDA
         a graph replay.  Returns the handle :meth:`read_spec` takes."""
         self._set_inputs(tokens, positions, active, None)
-        self._execute((kv_len, n, kind), True, lambda: self.run_spec(n, kv_len, kind))
+        self.graphed = self._execute((kv_len, n, kind), True, lambda: self.run_spec(n, kv_len, kind))
         pairs = [("targets", self.s_targets[:n]), ("acc", self.s_acc[:n]), ("s_lps", self.s_lps[:n])]
         return self._hand_off(pairs, n, kind)
 
@@ -1400,13 +1404,18 @@ class _Scheduler:
 
     def launch(self, act, n: int, kind, ahead: int = 0):
         """Launch ``n`` steps: from the host state, or (``ahead=1``) from the
-        device outputs of the chunk launched just before."""
+        device outputs of the chunk launched just before.  Each launch
+        leaves its record (``utils/trace.py``)."""
+        t0 = time.perf_counter_ns()
         kv_len = kv_bucket(int(self.slot_pos[act].max()) + (ahead + 1) * n, self.eng.KV_BUCKET,
                            self.cfg.max_seq_len)
         if ahead:
-            return self.dec.launch(n, kv_len, kind=kind)
-        steps = [len(g) for g in self.generated]
-        return self.dec.launch(n, kv_len, self.cur, self.slot_pos, act, steps=steps, kind=kind)
+            handle = self.dec.launch(n, kv_len, kind=kind)
+        else:
+            steps = [len(g) for g in self.generated]
+            handle = self.dec.launch(n, kv_len, self.cur, self.slot_pos, act, steps=steps, kind=kind)
+        trace.record_decode(t0, n, ahead, self.dec.graphed, self.slot_pos[act] + ahead * n)
+        return handle
 
     def consume(self, handle, act, n: int) -> bool:
         """Read a launched chunk back into the host state; True when a slot
@@ -1599,12 +1608,16 @@ class _Scheduler:
         span = kind.k + 1
 
         def launch(ahead: int):
+            t0 = time.perf_counter_ns()
             kv_len = self.spec_kv_len(act, (ahead + 1) * n * span)
             if ahead:
-                return self.dec.launch_spec(n, kv_len, kind)
-            if not kind.draft:
-                self.sync_history(idx)
-            return self.dec.launch_spec(n, kv_len, kind, self.cur, self.spec_positions(act), act)
+                handle = self.dec.launch_spec(n, kv_len, kind)
+            else:
+                if not kind.draft:
+                    self.sync_history(idx)
+                handle = self.dec.launch_spec(n, kv_len, kind, self.cur, self.spec_positions(act), act)
+            trace.record_decode(t0, n, ahead, self.dec.graphed, self.slot_pos[act] + ahead * n, "spec")
+            return handle
 
         def low_acc() -> bool:
             return eng.spec_min_accept > 0.0 and len(samples) >= 2 and sum(samples) / len(samples) < eng.spec_min_accept
@@ -1678,6 +1691,7 @@ class _Scheduler:
         forward, the read-back."""
         eng, dec, k = self.eng, self.dec, kind.k
         dev = eng.device
+        t0 = time.perf_counter_ns()
         kv_len = self.spec_kv_len(act, k + 1)
         tok = torch.as_tensor(self.cur, dtype=torch.int32, device=dev)
         pos = torch.as_tensor(self.spec_positions(act), dtype=torch.int32, device=dev)
@@ -1696,6 +1710,7 @@ class _Scheduler:
         else:
             targets, acc, lps, _ = spec_verify_sampled(eng.params, tok, drafts, self.cache, pos, eng.keys.next(),
                                                        dec.bp, fwd=fwd, k=k)
+        trace.record_decode(t0, 1, 0, False, self.slot_pos[act].copy(), "spec")
         targets, acc, lps = targets.cpu().numpy(), acc.cpu().numpy(), lps.cpu().numpy()
         samples.append(float(acc[idx].mean()))
         eng.spec_stats["steps"] += 1
